@@ -6,8 +6,11 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc/`` (one nvcc per
 source, started together, into ``build/kernels/``), then:
 
-1. kernels vs plain versions on the card: ``group_quant`` on (2048, 2048)
-   f32 and bf16 and on the stacked attention weights (24·2048, 2048) f32,
+1. kernels vs plain versions on the card, held to exact equality (the
+   kernels run the plain versions' fp32 operations in the same order):
+   ``group_quant`` on (2048, 2048) f32 and bf16 and at every shape the main
+   path gives it (the stacked attention, up and down weights of opt-1.3b
+   flattened to (24·2048, 2048), (24·2048, 8192) and (24·8192, 2048) f32),
    ``transform_quant`` up (2048, 8192) and down (8192, 2048), bits 2/3/4,
    groups 32/128; times each with CUDA events beside its bound; then the
    main path at a small size (opt-tiny) on the card against the same path
@@ -16,7 +19,9 @@ source, started together, into ``build/kernels/``), then:
    steps on random-init opt-1.3b at full width and depth, with held-out
    perplexity for fp32 / RTN / RTN+search and the kernels' launch counts;
 3. fused lane vs unfused lane for 6 steps from the same seed;
-4. where one search step's time goes (candidate build vs forward).
+4. where one search step's time goes (candidate build vs forward), and
+   device time by kernel family under ``torch.profiler`` over a 4-step
+   fused search, its set-up included.
 
 Prints the ``nvidia-smi`` name/power-limit line, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -32,6 +37,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -48,6 +54,19 @@ BITS = (2, 3, 4)
 GROUPS = (32, 128)
 STEPS = 16
 LANE_STEPS = 6
+PROFILE_STEPS = 4
+
+# kernel-name fragments -> family for the profile (first match wins)
+FAMILIES = (
+    ("transform_quant", "transform_quant (port kernel)"),
+    ("group_quant", "group_quant (port kernel)"),
+    ("gemm", "matmul (cuBLAS)"),
+    ("cutlass", "matmul (cuBLAS)"),
+    ("softmax", "softmax / log_softmax"),
+    ("reduce", "reductions"),
+    ("copy", "copies"),
+    ("elementwise", "elementwise"),
+)
 
 
 def log(tag, **kw):
@@ -85,40 +104,46 @@ def bound_ms(nbytes, nops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def within_one_step(torch, fq, fqr, scale, group):
-    """The reference's kernel bar (tests/test_kernels.py
-    _assert_within_one_step): at most one quantization step anywhere, and
-    a full step on < 0.1 % of elements. Returns the max abs difference."""
-    diff = (fq.float() - fqr.float()).abs()
-    step = scale.repeat_interleave(group, dim=0)
-    if not bool((diff <= step * 1.001 + 1e-6).all()):
-        raise AssertionError("kernel differs from plain by more than one step")
-    frac = float((diff > step * 0.5).float().mean())
-    if frac >= 1e-3:
-        raise AssertionError(f"{frac:.3%} of elements off by a step")
-    return float(diff.max())
+def exact(torch, got, want, what):
+    """Kernel outputs vs the plain version's, which run the same fp32
+    operations in the same order: equal bit for bit, dtype and shape
+    included. Returns the max abs difference of the first output (0.0)."""
+    for name, g, w in zip(("fq", "scale", "zero"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{what}: {name} {g.dtype} {tuple(g.shape)} "
+                                 f"vs plain {w.dtype} {tuple(w.shape)}")
+        if not torch.equal(g, w):
+            err = float((g.float() - w.float()).abs().max())
+            raise AssertionError(f"{what}: {name} differs from the plain "
+                                 f"version (max abs {err})")
+    return float((got[0].float() - want[0].float()).abs().max())
 
 
-def phase_kernels(torch, ops, ref, gq, tq):
+def main_path_gq_shapes(cfg):
+    """The (K, N) shapes the main path gives ``group_quant``: ``fake_quant``
+    flattens each stacked (L, K, N) leaf to (L·K, N). One RTN pass of the
+    model is one launch per leaf: 4 attention weights, up, down."""
+    L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
+    return (("attn wq/wk/wv/wo", (L * D, D), 4), ("mlp up", (L * D, F), 1),
+            ("mlp down", (L * F, D), 1))
+
+
+def phase_kernels(torch, ops, ref, gq, tq, cfg):
     """Kernel vs plain version at every listed shape/dtype/bits/group;
     returns the per-kernel timing rows at the main path's shapes."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
     errs = {"group_quant": 0.0, "transform_quant": 0.0}
-    gq_cases = [((2048, 2048), torch.float32), ((2048, 2048), torch.bfloat16),
-                ((24 * 2048, 2048), torch.float32)]
+    main_shapes = main_path_gq_shapes(cfg)
+    gq_cases = [((2048, 2048), torch.float32), ((2048, 2048), torch.bfloat16)]
+    gq_cases += [(shape, torch.float32) for _, shape, _ in main_shapes]
     for shape, dt in gq_cases:
         w = (torch.randn(shape, generator=gen, device=dev) * 2.5).to(dt)
         for bits in BITS:
             for group in GROUPS:
-                fq, s, z = ops.group_quant(w, bits=bits, group=group)
-                fqr, sr, zr = ref.group_quant_ref(w, bits, group)
-                torch.cuda.synchronize()
-                if fq.dtype != w.dtype:
-                    raise AssertionError("group_quant output dtype")
-                torch.testing.assert_close(s, sr, rtol=1e-6, atol=0)
-                torch.testing.assert_close(z, zr, rtol=1e-6, atol=0)
-                err = within_one_step(torch, fq, fqr, sr, group)
+                err = exact(torch, ops.group_quant(w, bits=bits, group=group),
+                            ref.group_quant_ref(w, bits, group),
+                            f"group_quant {shape} {dt} b{bits} g{group}")
                 errs["group_quant"] = max(errs["group_quant"], err)
                 log("kernel_check", kernel="group_quant", shape=list(shape),
                     dtype=str(dt), bits=bits, group=group, max_abs_err=err)
@@ -131,14 +156,11 @@ def phase_kernels(torch, ops, ref, gq, tq):
     for mode, w in w_tq.items():
         for bits in BITS:
             for group in GROUPS:
-                fq, s, z = ops.transform_quant(w, pi, sv, phi, bits=bits,
-                                               group=group, mode=mode)
-                fqr, sr, zr = ref.transform_quant_ref(w, pi, sv, phi, bits=bits,
-                                                      group=group, mode=mode)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(s, sr, rtol=1e-6, atol=0)
-                torch.testing.assert_close(z, zr, rtol=1e-6, atol=0)
-                err = within_one_step(torch, fq, fqr, sr, group)
+                err = exact(torch, ops.transform_quant(
+                    w, pi, sv, phi, bits=bits, group=group, mode=mode),
+                    ref.transform_quant_ref(w, pi, sv, phi, bits=bits,
+                                            group=group, mode=mode),
+                    f"transform_quant {mode} b{bits} g{group}")
                 errs["transform_quant"] = max(errs["transform_quant"], err)
                 log("kernel_check", kernel="transform_quant", mode=mode,
                     shape=list(w.shape), bits=bits, group=group,
@@ -148,15 +170,30 @@ def phase_kernels(torch, ops, ref, gq, tq):
     # preallocated outputs for the kernel, the plain version for plain_ms
     bits, group = 2, 32
     rows = {}
-    w = torch.randn((24 * 2048, 2048), generator=gen, device=dev)
-    K, N = w.shape
-    fq, s, z = torch.empty_like(w), *(torch.empty((K // group, N), device=dev)
-                                       for _ in range(2))
-    ms = time_ms(torch, lambda: gq.launch(w, fq, s, z, bits=bits, group=group))
-    plain = time_ms(torch, lambda: ref.group_quant_ref(w, bits, group), reps=10)
-    bnd, by = bound_ms(2 * K * N * 4 + 2 * (K // group) * N * 4, GQ_OPS * K * N)
-    rows["group_quant"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
-                               bound_by=by, shape=[K, N], dtype="float32")
+    per_shape = []
+    for leaf, (K, N), n in main_shapes:
+        w = torch.randn((K, N), generator=gen, device=dev)
+        fq, s, z = torch.empty_like(w), *(
+            torch.empty((K // group, N), device=dev) for _ in range(2))
+        t = time_ms(torch, lambda: gq.launch(w, fq, s, z, bits=bits,
+                                             group=group))
+        p = time_ms(torch, lambda: ref.group_quant_ref(w, bits, group),
+                    reps=10)
+        b, by = bound_ms(2 * K * N * 4 + 2 * (K // group) * N * 4,
+                         GQ_OPS * K * N)
+        per_shape.append(dict(leaf=leaf, shape=[K, N], per_pass=n, ms=t,
+                              plain_ms=p, bound_ms=b, bound_by=by))
+        log("kernel_time", kernel="group_quant", leaf=leaf, shape=[K, N],
+            dtype="torch.float32", ms=t, plain_ms=p, bound_ms=b)
+        del w, fq, s, z
+    rows["group_quant"] = dict(
+        ms=sum(r["ms"] * r["per_pass"] for r in per_shape),
+        plain_ms=sum(r["plain_ms"] * r["per_pass"] for r in per_shape),
+        bound_ms=sum(r["bound_ms"] * r["per_pass"] for r in per_shape),
+        bound_by="bytes" if all(r["bound_by"] == "bytes" for r in per_shape)
+        else "operations",
+        per="one RTN pass of opt-1.3b: 6 launches, one per stacked leaf",
+        shapes=per_shape, dtype="float32")
     for shape, dt in gq_cases[:2]:
         w = torch.randn(shape, generator=gen, device=dev).to(dt)
         K, N = shape
@@ -188,7 +225,7 @@ def phase_kernels(torch, ops, ref, gq, tq):
         tq_bound += b
     rows["transform_quant"] = dict(
         ms=tq_ms, plain_ms=tq_plain, bound_ms=tq_bound, bound_by="bytes",
-        shape="up (2048, 8192) + down (8192, 2048): one candidate",
+        per="one candidate: up (2048, 8192) + down (8192, 2048)",
         dtype="float32")
     for name in rows:
         rows[name]["max_abs_err"] = errs[name]
@@ -225,7 +262,7 @@ def phase_small_reference(torch):
     from repro_torch.core import invariance as inv
     from repro_torch.core import rtn
     from repro_torch.core.pipeline import quantize_model
-    from repro_torch.core.quant import QuantConfig, compute_qparams, fake_quant
+    from repro_torch.core.quant import QuantConfig, fake_quant
     from repro_torch.core.search import SearchConfig
     from repro_torch.data.calib import calibration_tensor
     from repro_torch.models.model import init_params, quantizable_paths
@@ -261,20 +298,65 @@ def phase_small_reference(torch):
                   SearchConfig(steps=LANE_STEPS, fused_kernel=True,
                                log_every=0), proposals=Proposals(d))
         runs[d.type] = (rtn_q, res.history)
+    rtn_err = 0.0
     for path in quantizable_paths(cpu_params):
-        w = rtn.get_by_path(cpu_params, path)
-        for i in range(w.shape[0]):
-            scale, _ = compute_qparams(w[i], qcfg)
-            within_one_step(torch,
-                            rtn.get_by_path(runs["cuda"][0], path)[i].cpu(),
-                            rtn.get_by_path(runs["cpu"][0], path)[i],
-                            scale, qcfg.group_size)
+        card = rtn.get_by_path(runs["cuda"][0], path).cpu()
+        cpu = rtn.get_by_path(runs["cpu"][0], path)
+        if not torch.equal(card, cpu):   # same fp32 operations on both
+            raise AssertionError(f"RTN {path}: card differs from the CPU "
+                                 f"(max abs {float((card - cpu).abs().max())})")
+        rtn_err = max(rtn_err, float((card - cpu).abs().max()))
     compared, parted = histories_agree(runs["cuda"][1], runs["cpu"][1],
                                        "card vs CPU")
     log("small_reference", arch="opt-tiny (reduced)", steps=LANE_STEPS,
-        compared=compared, parted_at=parted,
+        rtn_max_abs_err=rtn_err, compared=compared, parted_at=parted,
         card_losses=[h[1] for h in runs["cuda"][1]],
         cpu_losses=[h[1] for h in runs["cpu"][1]])
+
+
+def profile_search(torch, params, cfg, qcfg, calib):
+    """Device time by kernel family (``torch.profiler``) over one call of
+    ``repro_torch.search.run`` with PROFILE_STEPS fused steps, its set-up
+    included (FP reference forward, initial fake-quant stack and its
+    evaluation), after a one-step warm-up. Attention weights are frozen at
+    their RTN values, as ``quantize_model`` does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import rtn
+    from repro_torch.core.quant import fake_quant
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.search import run
+
+    base = rtn.map_quantizable(params, lambda w, p: fake_quant(w, qcfg),
+                               only=lambda p: p[-1] not in ("up", "down"))
+
+    def search(steps):
+        return run(params, base, cfg, qcfg, calib,
+                   SearchConfig(steps=steps, fused_kernel=True, log_every=0))
+
+    search(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = search(PROFILE_STEPS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_family = defaultdict(float)
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        if t > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            low = ev.key.lower()
+            fam = next((f for frag, f in FAMILIES if frag in low), "other")
+            by_family[fam] += t / 1e3
+    device_ms = sum(by_family.values())
+    return dict(steps=PROFILE_STEPS,
+                proposals_per_sec=res.stats["proposals_per_sec"],
+                window_wall_ms=wall_ms, device_kernel_ms=device_ms,
+                device_busy_share=device_ms / wall_ms,
+                by_family_ms=dict(sorted(by_family.items(),
+                                         key=lambda kv: -kv[1])))
 
 
 def main() -> int:
@@ -324,12 +406,12 @@ def main() -> int:
                 print(f"ptxas[{name}]: {line.strip()}", flush=True)
 
     # ---- phase 1: kernels vs plain versions ------------------------------
-    rows = phase_kernels(torch, ops, ref, gq, tq)
+    cfg = get_config("opt-1.3b")
+    rows = phase_kernels(torch, ops, ref, gq, tq, cfg)
     phase_small_reference(torch)
 
     # ---- phase 2: main path on opt-1.3b ----------------------------------
     dev = torch.device("cuda")
-    cfg = get_config("opt-1.3b")
     qcfg = QuantConfig(bits=2, group_size=32)
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
@@ -428,6 +510,8 @@ def main() -> int:
             adapter.transform_unit(base, cand, 0), qcfg), reps=10),
         step_ms=1e3 / sr.stats["proposals_per_sec"])
     log("step_split", **split)
+    del base
+    log("profile", **profile_search(torch, params, cfg, qcfg, calib))
 
     kernels = []
     for name, source, replaces in (
@@ -444,7 +528,7 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": None,
             "library_note": "no PyTorch call computes group fake-quant with "
                             "these closed-form scale/zero",
-            "shape": row["shape"], "dtype": row["dtype"]})
+            **{k: row[k] for k in ("per", "shapes", "dtype") if k in row}})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,7 +46,6 @@ class SearchConfig:
     anneal: str = "geometric"      # schedule: constant | geometric | linear
     fused_kernel: bool = False     # kernels.transform_quant fused lane
     mapped: bool = False           # not ported yet (ROADMAP item 14)
-    install: str = "unit"          # only "unit" is ported (ROADMAP item 7)
     tabu: int = 0                  # not ported yet (ROADMAP item 7)
     shard_calib: bool = False      # not ported yet (ROADMAP item 7)
     measure_memory: bool = False   # not ported yet (ROADMAP item 7)

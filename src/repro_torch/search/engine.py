@@ -16,7 +16,7 @@ a pluggable source (``core.invariance.NativeProposals`` by default).
 Accepted moves install the winning unit into a FRESH stack
 (``adapter.install_unit``), so the elite snapshot never aliases state that
 a later step changes. Islands, tabu memory, sharded calibration, mapped
-execution, stack install and memory sampling are not ported yet and raise.
+execution and memory sampling are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -41,7 +41,6 @@ _NOT_PORTED = (
     ("shard_calib", bool, "ROADMAP Queue 1 item 7 (shard_calib)"),
     ("mapped", bool, "ROADMAP Queue 1 item 14 (mapped islands)"),
     ("measure_memory", bool, "ROADMAP Queue 1 item 7 (measure_memory)"),
-    ("install", lambda v: v != "unit", "ROADMAP Queue 1 item 7 (stack install)"),
 )
 
 

@@ -1,8 +1,10 @@
 """Guards of the PyTorch port's boundaries.
 
-- No module under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
-  ``jax`` or anything of the JAX package ``repro`` (checked on the AST, so a
-  lazy import inside a function counts too).
+- No module under ``src/repro_torch/``, not ``chip_smoke.py`` and not the
+  CUDA tests (``tests/test_torch_cuda.py`` and its helper, run where only
+  the port is installed) imports ``jax`` or anything of the JAX package
+  ``repro`` (checked on the AST, so a lazy import inside a function counts
+  too).
 - Importing the port loads no JAX.
 - Entry points that create tensors default to the card and raise on a
   machine without one unless the caller passes ``device="cpu"``.
@@ -22,7 +24,8 @@ import repro_torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
+    REPO / "tests" / "helpers" / "torch_parity.py"]
 
 
 def _imported_roots(path):

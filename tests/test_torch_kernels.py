@@ -5,15 +5,15 @@ versions; the JAX wrappers run the Pallas kernels in interpret mode, as the
 reference's own tests do. Same numpy inputs; scale/zero ``rtol=1e-5``, fake-
 quant weights within one quantization step (``tests/test_kernels.py`` bar).
 
-The tests that call ``needs_cuda()`` launch the CUDA kernels and skip
-without a card (the CUDA kernels have no interpret mode).
+The CUDA kernels themselves are held to these plain versions in
+``tests/test_torch_cuda.py``.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from helpers.torch_parity import assert_within_one_step, needs_cuda, to_np
+from helpers.torch_parity import assert_within_one_step, to_np
 from repro import kernels as jk
 from repro.kernels import ref as jref
 from repro_torch import kernels as tk
@@ -138,61 +138,3 @@ def test_wrappers_refuse_other_devices():
         tk.transform_quant(w, pi, s, phi, bits=2, group=32, mode="up")
     with pytest.raises(ValueError, match="mode"):
         tk.transform_quant(w, pi, s, phi, bits=2, group=32, mode="sideways")
-
-
-# ---------------------------------------------------------------------------
-# CUDA kernels (skip without a card)
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bits,group", [(2, 32), (3, 128), (8, 64)])
-def test_group_quant_cuda_matches_plain(dtype, bits, group):
-    dev = needs_cuda()
-    w = (torch.randn((512, 384), generator=torch.Generator().manual_seed(1))
-         * 2.5).to(dev, dtype)
-    before = tk.LAUNCHES["group_quant"]
-    fq, s, z = tk.group_quant(w, bits=bits, group=group)
-    assert tk.LAUNCHES["group_quant"] == before + 1
-    fqr, sr, zr = tref.group_quant_ref(w, bits, group)
-    torch.testing.assert_close(s, sr, rtol=1e-6, atol=0)
-    torch.testing.assert_close(z, zr, rtol=1e-6, atol=0)
-    assert fq.dtype == dtype
-    assert_within_one_step(fq, fqr, sr, group)
-
-
-@pytest.mark.parametrize("mode", ["up", "down"])
-@pytest.mark.parametrize("bits,group", [(2, 32), (4, 16)])
-def test_transform_quant_cuda_matches_plain(mode, bits, group):
-    dev = needs_cuda()
-    D, F = 96, 256
-    w = torch.randn((D, F) if mode == "up" else (F, D),
-                    generator=torch.Generator().manual_seed(2)).to(dev)
-    pi, s, phi = (x.to(dev) for x in _tq_args(*_transform(F, seed=3)))
-    before = tk.LAUNCHES["transform_quant"]
-    fq, sc, z = tk.transform_quant(w, pi, s, phi, bits=bits, group=group,
-                                   mode=mode)
-    assert tk.LAUNCHES["transform_quant"] == before + 1
-    fqr, scr, zr = tref.transform_quant_ref(w, pi, s, phi, bits=bits,
-                                            group=group, mode=mode)
-    torch.testing.assert_close(sc, scr, rtol=1e-6, atol=0)
-    torch.testing.assert_close(z, zr, rtol=1e-6, atol=0)
-    assert_within_one_step(fq, fqr, scr, group)
-
-
-def test_cuda_wrappers_raise_on_bad_inputs():
-    dev = needs_cuda()
-    w = torch.randn((64, 32), device=dev)
-    with pytest.raises(ValueError, match="contiguous"):
-        tk.group_quant(w.t(), bits=2, group=32)
-    with pytest.raises(ValueError, match="dtype"):
-        tk.group_quant(w.half(), bits=2, group=32)
-    with pytest.raises(ValueError, match="multiple"):
-        tk.group_quant(w, bits=2, group=24)
-    pi = torch.arange(32, device=dev)
-    s, phi = torch.ones(32, device=dev), torch.zeros(16, device=dev)
-    with pytest.raises(ValueError, match="index"):
-        tk.transform_quant(w, pi + 1, s, phi, bits=2, group=32, mode="up")
-    with pytest.raises(ValueError, match="dtype"):
-        tk.transform_quant(w, pi.int(), s, phi, bits=2, group=32, mode="up")
-    with pytest.raises(ValueError, match="is on"):
-        tk.transform_quant(w, pi.cpu(), s, phi, bits=2, group=32, mode="up")

@@ -293,7 +293,7 @@ def test_install_unit_returns_a_fresh_stack():
 
 @pytest.mark.parametrize("field,value", [
     ("islands", 2), ("tabu", 4), ("shard_calib", True), ("mapped", True),
-    ("measure_memory", True), ("install", "stack")])
+    ("measure_memory", True)])
 def test_unported_options_raise(opt_pair, field, value):
     _, tcfg, _, tparams, calib = opt_pair
     scfg = dataclasses.replace(tcs.SearchConfig(steps=1, log_every=0),
