@@ -21,10 +21,31 @@ source, started together, into ``build/kernels/``), then:
 3. fused lane vs unfused lane for 6 steps from the same seed;
 4. where one search step's time goes (candidate build vs forward), and
    device time by kernel family under ``torch.profiler`` over a 4-step
-   fused search, its set-up included.
+   fused search, its set-up included;
+5. paged serving: (a) the three paged-decode routes vs the plain version
+   at rtol = atol = 1e-5 — the reference's own bar (``tests/test_paged.py``):
+   the kernel sums scores and values in another order than
+   ``paged_decode_ref`` — at opt-1.3b's head layout, a full-width GQA one
+   and the small configs' layouts that (d) serves, on f32, bf16 and int8
+   pools, ragged lengths (0, 1, page-aligned, P·psz), ``normalize=False``
+   partials and NaN-poisoned dead slots; (b) each route's time at the main path's decode
+   shape and at B 8 × 1024 tokens beside its bound, its plain version and
+   ``scaled_dot_product_attention`` on K/V already gathered contiguous;
+   (c) ``PagedServer`` on 2-bit opt-1.3b (full width and depth) over the
+   reference bench's 8-tenant trace with prefix sharing off, then on:
+   outputs token-identical (or parting only at a printed near-tie), held
+   to a greedy oracle (the full forward over the dequantized weights),
+   0 leaked pages, saved_frac >= 0.5, obs counters equal to the stats,
+   paged-decode launches = 24 x decode steps; TTFT, tokens/s, bytes and
+   peak memory; then a third sharing-on run under ``torch.profiler``:
+   device time by kernel family in the decode steps and prefills, and the
+   decode step split into per-layer dequant, the paged-decode kernel, the
+   other device work and device idle time; (d) the serving CLI's small configs
+   (GQA 4/2, GQA with 2 pages per block, MHA) on the card and on the CPU:
+   identical greedy tokens and stats, all three routes launched.
 
 Prints the ``nvidia-smi`` name/power-limit line, a ``{"kernels": [...]}``
-line, and last ``{"ok": true, "device": {...}}``. Any failed check raises,
+line (all five ported kernels), and last ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero without that last line; it also exits
 non-zero when no CUDA card is present or the port's sources are missing.
 """
@@ -359,6 +380,472 @@ def profile_search(torch, params, cfg, qcfg, calib):
                                          key=lambda kv: -kv[1])))
 
 
+# ---------------------------------------------------------------------------
+# phase 5: paged serving
+# ---------------------------------------------------------------------------
+
+PD_TOL = dict(rtol=1e-5, atol=1e-5)
+PD_ROUTES = ("paged_decode", "paged_decode_gqa", "paged_decode_gqa_mp")
+PSZ = 16
+SERVE = dict(max_batch=8, page_size=PSZ, n_pages=96, max_len=128)
+TRACE = dict(n_tenants=8, per_tenant=3, page_size=PSZ, max_new=8)
+NEAR_TIE = 1e-4          # relative top-2 logit gap under which tokens may part
+
+
+def paged_case(torch, *, B, H, Hkv, Dh, P, lens, dtype, seed, psz=PSZ):
+    """Card tensors for one paged-decode call: random pools (f32, bf16, or
+    int8 + f32 scales), distinct block tables, lengths ``lens``."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = B * P + 1
+    q = torch.randn((B, H, Dh), generator=g, device=dev)
+    kp = torch.randn((n_pages, psz, Hkv, Dh), generator=g, device=dev)
+    vp = torch.randn((n_pages, psz, Hkv, Dh), generator=g, device=dev)
+    ks = vs = None
+    if dtype == torch.int8:
+        c127 = torch.tensor(127.0, device=dev)
+        ks = kp.abs().amax(-1) / c127 + 1e-8
+        vs = vp.abs().amax(-1) / c127 + 1e-8
+        kp = torch.round(kp / ks[..., None]).to(torch.int8)
+        vp = torch.round(vp / vs[..., None]).to(torch.int8)
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    bt = (torch.randperm(n_pages - 1, generator=g, device=dev)[: B * P]
+          + 1).reshape(B, P).int()
+    return [q, kp, vp, bt, torch.tensor(lens, dtype=torch.int32, device=dev),
+            ks, vs]
+
+
+def route_kw(route, mp=2):
+    return {"paged_decode": dict(fused_gqa=False),
+            "paged_decode_gqa": {},
+            "paged_decode_gqa_mp": dict(gqa_pages_per_block=mp)}[route]
+
+
+# 5a cases: (name, B, H, Hkv, Dh, psz, P, length sets, (route, MP) pairs).
+# The first two are opt-1.3b's decode layout (MHA) and a full-width GQA one;
+# the last two are the layouts 5d serves (opt-tiny reduced at max_batch 4,
+# page size 8, max_len 64).
+_GQA_ROUTES = (("paged_decode", 1), ("paged_decode_gqa", 1),
+               ("paged_decode_gqa_mp", 2))
+_LENS_8 = [0, 1, PSZ, 2 * PSZ + 5, 8 * PSZ, 37, 3 * PSZ, 100]
+_LENS_SMALL = ([0, 1, 16, 64], [37, 8, 5, 63])
+PD_LAYOUTS = (
+    ("mha", 8, 32, 32, 64, PSZ, 8, (_LENS_8,), (("paged_decode", 1),)),
+    ("gqa", 8, 32, 8, 128, PSZ, 8, (_LENS_8,),
+     _GQA_ROUTES + (("paged_decode_gqa_mp", 4),)),
+    ("small-gqa", 4, 4, 2, 16, 8, 8, _LENS_SMALL, _GQA_ROUTES),
+    ("small-mha", 4, 4, 4, 16, 8, 8, _LENS_SMALL, (("paged_decode", 1),)),
+)
+
+
+def phase_paged_kernels(torch, ops, ref):
+    """5a: every route vs the plain version on the card at each layout of
+    ``PD_LAYOUTS``. Returns the max abs error per route."""
+    errs = dict.fromkeys(PD_ROUTES, 0.0)
+    for name, B, H, Hkv, Dh, psz, P, lens_sets, routes in PD_LAYOUTS:
+        shape = dict(B=B, H=H, Hkv=Hkv, Dh=Dh, P=P, psz=psz)
+        for lens in lens_sets:
+            for dt in (torch.float32, torch.bfloat16, torch.int8):
+                args = paged_case(torch, lens=lens, dtype=dt, seed=5, **shape)
+                want = ref.paged_decode_ref(*args)
+                want_p = ref.paged_decode_ref(*args, normalize=False)
+                for route, mp in routes:
+                    kw = route_kw(route, mp)
+                    before = ops.LAUNCHES[route]
+                    got = ops.paged_decode(*args, **kw)
+                    got_p = ops.paged_decode(*args, normalize=False, **kw)
+                    torch.cuda.synchronize()
+                    if ops.LAUNCHES[route] != before + 2:
+                        raise AssertionError(f"{route} did not launch")
+                    err = 0.0
+                    for g_, w_ in zip((got,) + tuple(got_p), (want,) + want_p):
+                        torch.testing.assert_close(g_, w_, **PD_TOL)
+                        err = max(err, float((g_ - w_).abs().max()))
+                    if 0 in lens and got[lens.index(0)].any():
+                        raise AssertionError(f"{route}: empty sequence not 0")
+                    errs[route] = max(errs[route], err)
+                    log("kernel_check", kernel=route, layout=name,
+                        heads=[H, Hkv], head_dim=Dh, page_size=psz, batch=B,
+                        dtype=str(dt), pages_per_block=mp, lens=lens,
+                        max_abs_err=err)
+            # NaN in every slot past each length (and the null page)
+            args = paged_case(torch, lens=lens, dtype=torch.float32, seed=6,
+                              **shape)
+            want = ref.paged_decode_ref(*args)
+            q, kp, vp, bt, ln = args[:5]
+            pos = torch.arange(P * psz, device=q.device).reshape(P, psz)
+            for b in range(B):
+                dead = pos >= ln[b]
+                for p in range(P):
+                    kp[bt[b, p], dead[p]] = float("nan")
+                    vp[bt[b, p], dead[p]] = float("nan")
+            kp[0] = vp[0] = float("nan")
+            for route, mp in routes:
+                got = ops.paged_decode(*args, **route_kw(route, mp))
+                if torch.isnan(got).any():
+                    raise AssertionError(f"{route}: a poisoned slot was read")
+                torch.testing.assert_close(got, want, **PD_TOL)
+                err = float((got - want).abs().max())
+                errs[route] = max(errs[route], err)
+                log("kernel_check", kernel=route, layout=name,
+                    case="nan-poisoned dead slots", page_size=psz,
+                    pages_per_block=mp, lens=lens, max_abs_err=err)
+    return errs
+
+
+def paged_bytes(q, kp, ks, lens, H, Hkv):
+    """Bytes a paged decode must move: each live K/V row of each KV head
+    (and its scales) read once, q read once, out + (m, l) written once."""
+    Dh = q.shape[-1]
+    live = int(sum(int(n) for n in lens))
+    row = Hkv * Dh * kp.element_size() + (Hkv * 4 if ks is not None else 0)
+    return (2 * live * row + q.numel() * 4 + q.numel() * 4
+            + 2 * q.shape[0] * H * 4 + 4 * len(lens) * 2)
+
+
+def phase_paged_times(torch, ops, ref, pd, decode_lens):
+    """5b: CUDA-event medians of each route at the main path's decode shape
+    (B 8, psz 16, the trace's lengths; MHA 32 heads Dh 64 for the
+    per-query-head route, 32/8 heads Dh 128 for the GQA routes) and at a
+    long context (B 8 x 1024 tokens)."""
+    import torch.nn.functional as F
+    rows = {}
+    for route in PD_ROUTES:
+        H, Hkv, Dh = (32, 32, 64) if route == "paged_decode" else (32, 8, 128)
+        mp = 2 if route == "paged_decode_gqa_mp" else 1
+        per = {}
+        for ctx, lens in (("decode", decode_lens), ("long", [1024] * 8)):
+            P = -(-max(lens) // PSZ)
+            q, kp, vp, bt, ln, ks, vs = paged_case(
+                torch, B=8, H=H, Hkv=Hkv, Dh=Dh, P=P, lens=lens,
+                dtype=torch.float32, seed=7)
+            out = torch.empty((8, H, Dh), device=q.device)
+            m = torch.empty((8, H), device=q.device)
+            l_ = torch.empty_like(m)
+            t = time_ms(torch, lambda: pd.launch(
+                route, q, kp, vp, bt, ln, None, None, out, m, l_,
+                normalize=True, pages_per_block=mp), reps=50)
+            p = time_ms(torch, lambda: ref.paged_decode_ref(q, kp, vp, bt, ln),
+                        reps=20)
+            # yardstick: SDPA over K/V already gathered contiguous (B, H,
+            # S, Dh) with a boolean length mask; gather and head repeat
+            # excluded from the time
+            S = P * PSZ
+            kc = kp[bt.long()].reshape(8, S, Hkv, Dh).transpose(1, 2)
+            vc = vp[bt.long()].reshape(8, S, Hkv, Dh).transpose(1, 2)
+            kc = kc.repeat_interleave(H // Hkv, 1).contiguous()
+            vc = vc.repeat_interleave(H // Hkv, 1).contiguous()
+            mask = (torch.arange(S, device=q.device)[None, :]
+                    < ln[:, None])[:, None, None, :]
+            qs = q[:, :, None, :]
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, kc, vc, attn_mask=mask), reps=50)
+            b, by = bound_ms(paged_bytes(q, kp, ks, lens, H, Hkv),
+                             4 * H * Dh * sum(lens))
+            per[ctx] = dict(ms=t, plain_ms=p, library_ms=lib, bound_ms=b,
+                            bound_by=by, heads=[H, Hkv], head_dim=Dh,
+                            lens=lens, pages_per_block=mp)
+            log("kernel_time", kernel=route, context=ctx, **per[ctx])
+        rows[route] = per
+    return rows
+
+
+def to_device(tree, dev):
+    """A param tree (dict of tensors and QTensors) moved to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def check_greedy(torch, forward, dense, cfg, reqs, outs, what):
+    """Hold each request's tokens to the greedy oracle (one full forward
+    over prompt + generated tokens, dense weights): a token may differ from
+    the oracle's argmax only where the oracle's top-2 gap is < NEAR_TIE of
+    the top logit, and that request's comparison ends there. Returns the
+    near ties met as (request, position, relative gap)."""
+    ties = []
+    V = cfg.vocab_size
+    for i, (r, out) in enumerate(zip(reqs, outs)):
+        seq = torch.tensor([list(r.prompt) + out[:-1]], device="cuda")
+        logits = forward(dense, cfg, seq)[0, len(r.prompt) - 1:, :V]
+        top2 = torch.topk(logits, 2, dim=-1).values
+        gap = ((top2[:, 0] - top2[:, 1]) / top2[:, 0].abs()).tolist()
+        pred = torch.argmax(logits, dim=-1).tolist()
+        for j, (tok, want) in enumerate(zip(out, pred)):
+            if tok != want:
+                if gap[j] >= NEAR_TIE:
+                    raise AssertionError(
+                        f"{what}: request {i} token {j} = {tok}, oracle "
+                        f"{want}, top-2 gap {gap[j]:.3g} (not a near tie)")
+                ties.append((i, j, gap[j]))
+                break
+    return ties
+
+
+def compare_runs(outs_a, outs_b, ties_ok, what):
+    """Runs token-identical, or parting only at a near tie of the oracle
+    (positions listed in ``ties_ok``)."""
+    parts = []
+    for i, (a, b) in enumerate(zip(outs_a, outs_b)):
+        if a == b:
+            continue
+        j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+        if (i, j) not in ties_ok:
+            raise AssertionError(f"{what}: request {i} parts at token {j} "
+                                 f"without a near tie")
+        parts.append((i, j))
+    return parts
+
+
+# device-kernel name fragments -> family for the serving profile (first
+# match wins); cuBLAS takes GEMV kernels at B <= 8
+SERVE_FAMILIES = (("paged_decode", "paged_decode (port kernel)"),
+                  ("gemv", "matmul (cuBLAS)"),
+                  ("index", "indexing (gather, K/V write)"),
+                  ("memcpy", "copies"), ("memset", "copies")) + FAMILIES
+
+
+def _family(name, families):
+    low = name.lower()
+    return next((f for frag, f in families if frag in low), "other")
+
+
+def _inside(ev, name):
+    """Whether profiler event ``ev`` lies inside a range called ``name``."""
+    ev = ev.cpu_parent
+    while ev is not None:
+        if ev.name == name:
+            return True
+        ev = ev.cpu_parent
+    return False
+
+
+def profile_serving(torch, obs, server, reqs):
+    """Device time of one serving run (``server.generate(reqs)``) under
+    ``torch.profiler``, with the batcher's spans as profiler ranges. A
+    device kernel belongs to the decode step or prefill span whose
+    device-side range (the profiler's copy of the span on the GPU's clock,
+    from its first kernel to its last) holds its start; without those, to
+    the span's host range (each decode step ends in a host sync, so its
+    kernels run inside it). The per-layer dequant is the device time of the
+    kernels launched inside the ``serve.dequant`` ranges of the decode
+    steps. Returns (report, the run's outputs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spans = ("serve.decode_step", "serve.prefill")
+    torch.cuda.synchronize()
+    obs.enable_profiler(True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            outs = server.generate(reqs)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        obs.enable_profiler(False)
+    host = {n: [] for n in spans}
+    device = {n: [] for n in spans}
+    kernels = []
+    dequant_us = 0.0
+    for ev in prof.events():
+        rng = (ev.time_range.start, ev.time_range.end)
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if ev.name in device:
+                device[ev.name].append(rng)
+            elif not ev.name.startswith("serve."):
+                kernels.append((rng[0], rng[1] - rng[0], ev.name))
+        elif ev.name in host:
+            host[ev.name].append(rng)
+        elif ev.name == "serve.dequant" and _inside(ev, spans[0]):
+            dequant_us += ev.device_time_total
+    out = {}
+    for n in spans:
+        ws = device[n] or host[n]
+        by_family = defaultdict(float)
+        n_kernels = 0
+        for start, dur, name in kernels:
+            if any(a <= start <= b for a, b in ws):
+                by_family[_family(name, SERVE_FAMILIES)] += dur / 1e3
+                n_kernels += 1
+        out[n] = dict(spans=len(host[n]),
+                      windows="device" if device[n] else "host",
+                      host_ms=sum(b - a for a, b in host[n]) / 1e3,
+                      device_ms=sum(by_family.values()), kernels=n_kernels,
+                      by_family_ms=dict(sorted(by_family.items(),
+                                               key=lambda kv: -kv[1])))
+    out["serve.decode_step"]["dequant_device_ms"] = dequant_us / 1e3
+    return dict(wall_ms=wall_ms,
+                device_ms=sum(d for _, d, _ in kernels) / 1e3, **out), outs
+
+
+def phase_serving(torch, ops, kernel_rows):
+    """5c: PagedServer on 2-bit opt-1.3b over the 8-tenant trace, prefix
+    sharing off then on."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.launch.serve import PagedServer, Request
+    from repro_torch.models.model import dequant_tree, forward, init_params
+    from repro_torch.quantized.qmodel import (dense_bytes, pack_model,
+                                              packed_bytes)
+    from repro_torch.serving import build_trace
+
+    cfg = get_config("opt-1.3b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    params_q = pack_model(params, QuantConfig(bits=2, group_size=32))
+    del params
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    trace = build_trace(cfg.vocab_size, **TRACE)
+    reqs = [Request(**t) for t in trace]
+    reg = obs.get_registry()
+    runs = {}
+    for sharing in (False, True):
+        server = PagedServer(params_q, cfg, prefix_cache=sharing,
+                             device="cuda", **SERVE)
+        reg.reset()
+        torch.cuda.synchronize()
+        live_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = server.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        st = dict(server.batcher.stats)
+        alloc = server.cache.allocator
+        if alloc.num_free != alloc.n_pages - alloc.reserved:
+            raise AssertionError(f"sharing={sharing}: leaked pages")
+        if counts["paged_decode"] != cfg.n_layers * st["steps"] or \
+                counts["paged_decode_gqa"] or counts["paged_decode_gqa_mp"]:
+            raise AssertionError(f"paged-decode launches {counts} != "
+                                 f"{cfg.n_layers} x {st['steps']} steps")
+        snap = reg.snapshot()
+
+        def total(name):
+            return sum(s.get("value", s.get("count", 0))
+                       for s in snap[name]["series"])
+
+        obs_vs_stats = {
+            "serving_prefill_tokens_total": st["prefill_tokens"],
+            "serving_prefill_tokens_saved_total": st["prefill_tokens_saved"],
+            "serving_aliased_pages_total": st["aliased_pages"],
+            "serving_dedup_admits_total": st["dedup_admits"],
+            "serving_cow_forks_total": st["cow_forks"],
+            "serving_decode_steps_total": st["steps"],
+            "serving_preemptions_total": st["evictions"],
+            "serving_ttft_seconds": len(reqs)}
+        for name, want in obs_vs_stats.items():
+            got = total(name) if name in snap else 0
+            if got != want:
+                raise AssertionError(f"obs {name} = {got} != {want}")
+        tpot = snap["serving_tpot_seconds"]["series"][0]
+        rep = server.sharing_report()
+        runs[sharing] = dict(outs=outs, wall=wall, counts=counts, stats=st,
+                             report=rep, step_ms=1e3 * tpot["sum"] / tpot["count"],
+                             peak=torch.cuda.max_memory_allocated(),
+                             live_before=live_before,
+                             pool=server.cache.pool_bytes(),
+                             tokens=sum(len(o) for o in outs))
+        del server
+    dense = dequant_tree(params_q)             # the oracle's weights
+    ties = {s: check_greedy(torch, forward, dense, cfg, reqs, runs[s]["outs"],
+                            f"sharing={s} vs oracle") for s in runs}
+    parted = compare_runs(runs[False]["outs"], runs[True]["outs"],
+                          {(i, j) for t in ties.values() for i, j, _ in t},
+                          "sharing off vs on")
+    if runs[True]["report"]["saved_frac"] < 0.5:
+        raise AssertionError(f"saved_frac {runs[True]['report']['saved_frac']}")
+    del dense
+    # where one decode step's time goes: a third sharing-on run of the
+    # trace under torch.profiler, read against the unprofiled run's steps
+    on = runs[True]
+    prof, prof_outs = profile_serving(torch, obs, PagedServer(
+        params_q, cfg, prefix_cache=True, device="cuda", **SERVE), reqs)
+    prof["outputs_as_sharing_on"] = prof_outs == on["outs"]
+    dec = prof["serve.decode_step"]
+    n = dec["spans"]
+    pd_ms = dec["by_family_ms"].get("paged_decode (port kernel)", 0.0) / n
+    deq_ms = dec["dequant_device_ms"] / n
+    dev_ms = dec["device_ms"] / n
+    split = dict(
+        step_ms=on["step_ms"], profiled_step_ms=dec["host_ms"] / n,
+        device_ms=dev_ms, dequant_ms=deq_ms,
+        dequant_per_layer_ms=deq_ms / cfg.n_layers, paged_decode_ms=pd_ms,
+        other_device_ms=dev_ms - deq_ms - pd_ms,
+        device_idle_ms=on["step_ms"] - dev_ms,
+        device_busy_share=dev_ms / on["step_ms"],
+        by_family_ms={k: v / n for k, v in dec["by_family_ms"].items()},
+        steps=n, kernel_5b_ms=kernel_rows["paged_decode"]["decode"]["ms"])
+    log("serving_profile", **prof)
+    for s, r in runs.items():
+        log("serving", arch=cfg.name, prefix_cache=s, requests=len(reqs),
+            tokens=r["tokens"], wall_s=r["wall"],
+            tokens_per_s=r["tokens"] / r["wall"],
+            ttft_p50_s=r["report"]["ttft_p50_s"],
+            ttft_p99_s=r["report"]["ttft_p99_s"],
+            saved_frac=r["report"]["saved_frac"], stats=r["stats"],
+            launches=r["counts"], step_ms=r["step_ms"], peak_bytes=r["peak"],
+            live_bytes_at_start=r["live_before"],
+            pool_bytes=r["pool"], near_ties=ties[s])
+    log("serving_check", parted_at=parted, packed_bytes=packed_bytes(params_q),
+        dense_bytes=dense_bytes(params_q), setup_s=setup_s,
+        outputs_identical=not parted)
+    log("decode_step_split", **split)
+    return on["counts"], split
+
+
+def phase_small_serving(torch, ops):
+    """5d: the serving CLI's default config (opt-tiny reduced: GQA 4/2),
+    the same with 2 pages per update, and an MHA variant, on the card and
+    on the CPU with the same packed weights and requests."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.launch.serve import PagedServer, Request
+    from repro_torch.models.model import init_params
+    from repro_torch.quantized.qmodel import pack_model
+    from repro_torch.serving import build_trace
+
+    launches = {}
+    for name, over, mp, route in (
+            ("gqa", {}, 1, "paged_decode_gqa"),
+            ("gqa-mp2", {}, 2, "paged_decode_gqa_mp"),
+            ("mha", dict(n_kv_heads=4), 1, "paged_decode")):
+        cfg = get_config("opt-tiny").reduced(**over)
+        params_q = pack_model(init_params(
+            cfg, torch.Generator().manual_seed(3), device="cpu"),
+            QuantConfig(bits=2, group_size=32))
+        trace = build_trace(cfg.vocab_size, n_tenants=4, per_tenant=2,
+                            page_size=8, max_new=6)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            server = PagedServer(to_device(params_q, dev), cfg, max_batch=4,
+                                 page_size=8, n_pages=64, max_len=64,
+                                 gqa_pages_per_block=mp, device=dev)
+            ops.reset_launch_counts()
+            outs = server.generate([Request(**t) for t in trace])
+            res[dev] = (outs, dict(server.batcher.stats), dict(ops.LAUNCHES))
+        if res["cuda"][0] != res["cpu"][0]:
+            raise AssertionError(f"{name}: card tokens differ from the CPU's")
+        if res["cuda"][1] != res["cpu"][1]:
+            raise AssertionError(f"{name}: batcher stats differ")
+        counts = res["cuda"][2]
+        if counts[route] != cfg.n_layers * res["cuda"][1]["steps"] or \
+                any(counts[r] for r in PD_ROUTES if r != route) or \
+                any(res["cpu"][2].values()):
+            raise AssertionError(f"{name}: launches {counts}")
+        launches[route] = counts[route]
+        log("small_serving", config=name, heads=[cfg.n_heads, cfg.n_kv_heads],
+            pages_per_block=mp, stats=res["cuda"][1], launches=counts,
+            tokens_identical=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -512,6 +999,18 @@ def main() -> int:
     log("step_split", **split)
     del base
     log("profile", **profile_search(torch, params, cfg, qcfg, calib))
+    del params, res, sr, t, calib, held, adapter   # sr and t hold model leaves
+    torch.cuda.empty_cache()
+
+    # ---- phase 5: paged serving ------------------------------------------
+    from repro_torch.serving import build_trace
+    pd = importlib.import_module("repro_torch.kernels.paged_decode")
+    pd_errs = phase_paged_kernels(torch, ops, ref)
+    decode_lens = [len(t["prompt"]) + TRACE["max_new"] // 2
+                   for t in build_trace(cfg.vocab_size, **TRACE)[:8]]
+    pd_rows = phase_paged_times(torch, ops, ref, pd, decode_lens)
+    serve_counts, split = phase_serving(torch, ops, pd_rows)
+    small_counts = phase_small_serving(torch, ops)
 
     kernels = []
     for name, source, replaces in (
@@ -529,6 +1028,32 @@ def main() -> int:
             "library_note": "no PyTorch call computes group fake-quant with "
                             "these closed-form scale/zero",
             **{k: row[k] for k in ("per", "shapes", "dtype") if k in row}})
+    for route in PD_ROUTES:
+        main_row, long_row = pd_rows[route]["decode"], pd_rows[route]["long"]
+        kernels.append({
+            "name": route, "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_decode.cu",
+            "replaces": {"paged_decode": "src/repro/kernels/paged_decode.py:111",
+                         "paged_decode_gqa":
+                             "src/repro/kernels/paged_decode.py:289",
+                         "paged_decode_gqa_mp":
+                             "src/repro/kernels/paged_decode.py:369"}[route],
+            "launches": (serve_counts if route == "paged_decode"
+                         else small_counts)[route],
+            "launches_on": ("opt-1.3b serving, sharing on" if route ==
+                            "paged_decode" else "opt-tiny reduced serving"),
+            "max_abs_err": pd_errs[route],
+            **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+            "library_note": "torch scaled_dot_product_attention on K/V "
+                            "already gathered contiguous (B, H, S, Dh), "
+                            "boolean length mask; gather and GQA head repeat "
+                            "not timed",
+            "shape": {k: main_row[k] for k in ("heads", "head_dim", "lens",
+                                               "pages_per_block")},
+            "long_context": {k: long_row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms")},
+            "dtype": "float32"})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

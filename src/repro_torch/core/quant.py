@@ -11,17 +11,24 @@ the input (K) axis of a ``(K, N)`` weight used as ``x @ W``:
 ``torch.round`` rounds half to even like ``jnp.round``. ``fake_quant`` is
 the quant→dequant roundtrip used by RTN and the discrete search: it goes
 through ``kernels.group_quant``, which launches the hand-written CUDA kernel
-for a CUDA tensor and runs the plain version below for a CPU tensor. Packed
-storage (``pack_codes``, ``QTensor``) waits for the serving slice.
+for a CUDA tensor and runs the plain version below for a CPU tensor.
+
+Packed storage for serving (``pack_codes``, ``QTensor``, ``quantize_tensor``)
+keeps the reference's uint32 words bit for bit, stored as ``torch.int32``:
+PyTorch has few shift kernels for ``uint32``, and the masked arithmetic
+shift ``(w >> (i * bits)) & mask`` reads the same codes from the signed
+view because ``i * bits + bits <= 32``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 __all__ = ["QuantConfig", "compute_qparams", "quantize_codes",
-           "dequantize_codes", "fake_quant"]
+           "dequantize_codes", "fake_quant", "vals_per_word", "pack_codes",
+           "unpack_codes", "QTensor", "quantize_tensor", "bits_per_param"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,3 +125,159 @@ def fake_quant(w: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
     g = cfg.resolve_group(w.shape[-2])
     flat = w.reshape(-1, w.shape[-1]).contiguous()
     return group_quant(flat, bits=cfg.bits, group=g)[0].reshape(w.shape)
+
+
+# ---------------------------------------------------------------------------
+# Bit packing (32-bit words along K, stored as int32)
+# ---------------------------------------------------------------------------
+
+def vals_per_word(bits: int) -> int:
+    return 32 // bits  # 3-bit -> 10 codes/word (2 bits/word wasted)
+
+
+def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack int codes in [0, 2^bits) into 32-bit words along axis 0.
+
+    codes: (K, ...) with K % vals_per_word == 0 -> (K // vpw, ...) int32
+    holding the reference's uint32 words bit for bit.
+    """
+    vpw = vals_per_word(bits)
+    k = codes.shape[0]
+    if k % vpw != 0:
+        raise ValueError(f"K={k} must be divisible by vals_per_word={vpw}")
+    c = codes.reshape((k // vpw, vpw) + tuple(codes.shape[1:])).to(torch.int64)
+    shifts = (torch.arange(vpw, device=codes.device) * bits).reshape(
+        (1, vpw) + (1,) * (codes.ndim - 1))
+    words = torch.sum(c << shifts, dim=1)           # < 2^32: no carries
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def unpack_codes(packed: torch.Tensor, bits: int, k: int) -> torch.Tensor:
+    """Inverse of pack_codes on the word axis -2 of (..., W, N) or axis 0 of
+    (W,) -> codes (..., K, N) int32 (the first ``k`` rows)."""
+    vpw = vals_per_word(bits)
+    mask = (1 << bits) - 1
+    shifts = torch.arange(vpw, device=packed.device, dtype=torch.int32) * bits
+    if packed.ndim == 1:
+        c = (packed[:, None] >> shifts) & mask             # (W, vpw)
+        return c.reshape(-1)[:k]
+    c = (packed.unsqueeze(-2) >> shifts[:, None]) & mask   # (..., W, vpw, N)
+    c = c.reshape(packed.shape[:-2] + (-1, packed.shape[-1]))
+    return c[..., :k, :]
+
+
+# ---------------------------------------------------------------------------
+# QTensor: packed storage for the serving path
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class QTensor:
+    """Packed, group-quantized tensor (the reference's ``QTensor``).
+
+    ``shape`` is the LOGICAL trailing shape, (K, N) or (K,), and never
+    includes stacking dims: a stacked leaf ``packed (L, K_pad//vpw, N)``
+    indexed with ``[i]`` gives layer ``i``'s QTensor with the same metadata.
+
+    packed: (..., K_pad // vals_per_word, N) int32 (the uint32 words)
+    scale / zero: (..., K_pad // G, N)
+    """
+
+    packed: torch.Tensor
+    scale: torch.Tensor
+    zero: torch.Tensor
+    bits: int
+    group_size: int
+    shape: tuple  # logical (un-padded, un-stacked) shape
+
+    @property
+    def dtype(self):
+        return torch.float32
+
+    @property
+    def ndim(self):
+        return len(self.shape)
+
+    @property
+    def device(self):
+        return self.packed.device
+
+    def __getitem__(self, i):
+        """Slice of the stacking dims (e.g. one layer of a stacked leaf)."""
+        return QTensor(self.packed[i], self.scale[i], self.zero[i], self.bits,
+                       self.group_size, self.shape)
+
+    def to(self, device):
+        return QTensor(self.packed.to(device), self.scale.to(device),
+                       self.zero.to(device), self.bits, self.group_size,
+                       self.shape)
+
+    def dequantize(self, out_dtype=torch.float32) -> torch.Tensor:
+        """Dense weights (..., K, N) (or (..., K)); every stacked index is
+        dequantized at once, with the reference's per-group arithmetic."""
+        k = self.shape[0]
+        k_pad = self.packed.shape[-2] * vals_per_word(self.bits)
+        codes = unpack_codes(self.packed, self.bits, k_pad)  # (..., K_pad, N)
+        lead, n = codes.shape[:-2], codes.shape[-1]
+        g = self.group_size
+        qg = codes.float().reshape(lead + (k_pad // g, g, n))
+        w = (qg - self.zero.unsqueeze(-2)) * self.scale.unsqueeze(-2).float()
+        w = w.reshape(lead + (k_pad, n))[..., :k, :].to(out_dtype)
+        if len(self.shape) == 1:
+            w = w[..., 0]
+        return w
+
+    def memory_bytes(self) -> int:
+        return int(self.packed.numel() * 4
+                   + self.scale.numel() * self.scale.element_size()
+                   + self.zero.numel() * self.zero.element_size())
+
+
+def _quantize_stack(w3: torch.Tensor, cfg: QuantConfig):
+    """w3 (L, K, N) -> (packed (L, K_pad/vpw, N), scale, zero (L, K_pad/G,
+    N), G): each of the L matrices zero-padded along K to a multiple of
+    lcm(G, vpw) and quantized on its own (groups and words never straddle
+    two matrices, so one flattened (L·K_pad, N) pass is the per-matrix
+    result)."""
+    lyr, k, n = w3.shape
+    g = cfg.resolve_group(k)
+    vpw = vals_per_word(cfg.bits)
+    lcm = math.lcm(g, vpw)
+    k_pad = lcm * -(-k // lcm)
+    if k_pad != k:
+        w3 = torch.cat([w3, torch.zeros((lyr, k_pad - k, n), dtype=w3.dtype,
+                                        device=w3.device)], dim=1)
+    cfg_p = dataclasses.replace(cfg, group_size=g)
+    flat = w3.reshape(lyr * k_pad, n).float()
+    scale, zero = compute_qparams(flat, cfg_p)
+    codes = quantize_codes(flat, scale, zero, cfg_p)
+    packed = pack_codes(codes, cfg.bits)
+    return (packed.reshape(lyr, k_pad // vpw, n),
+            scale.reshape(lyr, k_pad // g, n),
+            zero.reshape(lyr, k_pad // g, n), g)
+
+
+def quantize_tensor(w: torch.Tensor, cfg: QuantConfig) -> QTensor:
+    """Quantize + pack a weight into a QTensor.
+
+    (K, N) / (K,) quantize directly; higher-rank (..., K, N) inputs (stacked
+    layer weights) are quantized independently per leading index.
+    """
+    if w.ndim <= 2:
+        w2 = w if w.ndim == 2 else w[:, None]
+        packed, scale, zero, g = _quantize_stack(w2[None], cfg)
+        return QTensor(packed[0], scale[0], zero[0], cfg.bits, g,
+                       tuple(w.shape))
+    lead, logical = tuple(w.shape[:-2]), tuple(w.shape[-2:])
+    packed, scale, zero, g = _quantize_stack(w.reshape((-1,) + logical), cfg)
+    return QTensor(packed.reshape(lead + packed.shape[1:]),
+                   scale.reshape(lead + scale.shape[1:]),
+                   zero.reshape(lead + zero.shape[1:]), cfg.bits, g, logical)
+
+
+def bits_per_param(cfg: QuantConfig, scale_bits: int = 16,
+                   zero_bits: int = 4) -> float:
+    """Effective storage cost (paper Table 3 'Bits/Param' column)."""
+    vpw = vals_per_word(cfg.bits)
+    code_bits = 32.0 / vpw  # 3-bit stores at 3.2 bits/code
+    g = cfg.group_size if cfg.group_size not in (-1, None) else 1 << 30
+    return code_bits + (scale_bits + zero_bits) / g

@@ -19,11 +19,14 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def check_on_device(tree, device: torch.device, what: str = "params") -> None:
-    """Raise if any tensor leaf of a nested dict is not on ``device``."""
+    """Raise if any tensor leaf of a nested dict (a packed QTensor leaf by
+    its words) is not on ``device``."""
     def walk(x, path):
         if isinstance(x, dict):
             for k, v in x.items():
                 walk(v, path + (k,))
+        elif hasattr(x, "packed"):
+            walk(x.packed, path)
         elif isinstance(x, torch.Tensor) and x.device.type != device.type:
             raise ValueError(
                 f"{what} leaf {'/'.join(path)} is on {x.device}, expected "

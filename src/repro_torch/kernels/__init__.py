@@ -5,13 +5,18 @@
 - ``transform_quant``: fused (π, s, φ) transform + group fake-quant (the
   TPU kernel ``repro/kernels/transform_quant.py``); the search's fused
   candidate build.
+- ``paged_decode``: one-token decode attention over a block-table page pool,
+  three routes (per query head, per KV head, multi-page per KV head) as the
+  TPU kernels of ``repro/kernels/paged_decode.py``; the serving decode
+  step's attention.
 
 CUDA C++ sources live in ``repro_torch/csrc/`` and are built with nvcc for
 ``sm_90a`` on first use (``build.py``); ``ops.py`` holds the wrappers and
 their launch counts, ``ref.py`` the plain PyTorch versions.
 """
-from repro_torch.kernels.ops import (LAUNCHES, group_quant,
-                                     reset_launch_counts, transform_quant)
+from repro_torch.kernels.ops import (LAUNCHES, group_quant, paged_decode,
+                                     paged_decode_route, reset_launch_counts,
+                                     transform_quant)
 
-__all__ = ["group_quant", "transform_quant", "LAUNCHES",
-           "reset_launch_counts"]
+__all__ = ["group_quant", "transform_quant", "paged_decode",
+           "paged_decode_route", "LAUNCHES", "reset_launch_counts"]

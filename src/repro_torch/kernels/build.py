@@ -20,7 +20,7 @@ from pathlib import Path
 __all__ = ["KERNELS", "build_dir", "build_all", "load", "build_log"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("group_quant", "transform_quant")
+KERNELS = ("group_quant", "transform_quant", "paged_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")

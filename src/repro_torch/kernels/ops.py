@@ -19,12 +19,15 @@ from repro_torch.kernels import ref
 # wrappers below under the same names as these submodules
 _gq = importlib.import_module("repro_torch.kernels.group_quant")
 _tq = importlib.import_module("repro_torch.kernels.transform_quant")
+_pd = importlib.import_module("repro_torch.kernels.paged_decode")
 
-__all__ = ["group_quant", "transform_quant", "LAUNCHES",
-           "reset_launch_counts"]
+__all__ = ["group_quant", "transform_quant", "paged_decode",
+           "paged_decode_route", "LAUNCHES", "reset_launch_counts"]
 
-# kernel launches per wrapper since the last reset (plain integers)
-LAUNCHES = {"group_quant": 0, "transform_quant": 0}
+# kernel launches per wrapper (per route for paged_decode) since the last
+# reset (plain integers)
+LAUNCHES = {"group_quant": 0, "transform_quant": 0, "paged_decode": 0,
+            "paged_decode_gqa": 0, "paged_decode_gqa_mp": 0}
 
 _MAX_GRID_Y = 65535 * 256   # columns: gridDim.y blocks of 256 threads
 
@@ -109,3 +112,71 @@ def transform_quant(w: torch.Tensor, pi: torch.Tensor, s: torch.Tensor,
                group=group, mode=mode)
     LAUNCHES["transform_quant"] += 1
     return fq, scale, zero
+
+
+def paged_decode_route(H: int, Hkv: int, *, fused_gqa: bool = True,
+                       gqa_pages_per_block: int = 1) -> str:
+    """Which paged-decode kernel a call takes (``repro.kernels.ops``'s
+    routing): GQA shapes with ``fused_gqa`` take the per-KV-head kernel, in
+    its multi-page form when ``gqa_pages_per_block > 1``; MHA, or
+    ``fused_gqa=False``, takes the per-query-head kernel."""
+    if fused_gqa and H > Hkv and H % Hkv == 0:
+        return "paged_decode_gqa_mp" if gqa_pages_per_block > 1 \
+            else "paged_decode_gqa"
+    return "paged_decode"
+
+
+def paged_decode(q, k_pages, v_pages, block_tables, seq_lens, k_scale=None,
+                 v_scale=None, *, normalize: bool = True,
+                 fused_gqa: bool = True, gqa_pages_per_block: int = 1):
+    """Paged one-token decode attention over a block-table page pool.
+
+    q (B, H, Dh) f32/bf16 attends over the pages named by ``block_tables``
+    (B, P) int32 in the (N, page_size, Hkv, Dh) pools (f32, bf16, or int8
+    with f32 (N, page_size, Hkv) scales), masked to ``seq_lens`` (B,) int32.
+    Returns (B, H, Dh) f32, or the (acc, m, l) partials when
+    ``normalize=False``. A CPU call runs ``ref.paged_decode_ref``; a CUDA
+    call launches the kernel of :func:`paged_decode_route` or raises.
+    """
+    if q.device.type == "cpu":
+        return ref.paged_decode_ref(q, k_pages, v_pages, block_tables,
+                                    seq_lens, k_scale, v_scale,
+                                    normalize=normalize)
+    _require(q.device.type == "cuda",
+             f"paged_decode runs on CUDA or CPU tensors, got {q.device}")
+    _require(q.ndim == 3 and k_pages.ndim == 4,
+             f"q must be (B, H, Dh) and pools (N, psz, Hkv, Dh), got "
+             f"{tuple(q.shape)} and {tuple(k_pages.shape)}")
+    B, H, Dh = q.shape
+    N, psz, Hkv, _ = k_pages.shape
+    P = block_tables.shape[-1]
+    _require(H % Hkv == 0, f"H={H} not a multiple of Hkv={Hkv}")
+    _require(Dh % 4 == 0, f"head dim {Dh} must be a multiple of 4 (the "
+             f"kernel loads 4 values at a time)")
+    route = paged_decode_route(H, Hkv, fused_gqa=fused_gqa,
+                               gqa_pages_per_block=gqa_pages_per_block)
+    mp = gqa_pages_per_block if route == "paged_decode_gqa_mp" else 1
+    dev = q.device
+    q = q if q.dtype == torch.float32 else q.float()
+    _check_cuda("q", q, dev, (torch.float32,), (B, H, Dh))
+    kv_types = (torch.float32, torch.bfloat16, torch.int8)
+    _check_cuda("k_pages", k_pages, dev, kv_types, (N, psz, Hkv, Dh))
+    _check_cuda("v_pages", v_pages, dev, (k_pages.dtype,), (N, psz, Hkv, Dh))
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        _require(t.data_ptr() % (4 * t.element_size()) == 0,
+                 f"{name} must start on a {4 * t.element_size()}-byte "
+                 f"boundary (the kernel loads 4 values at a time)")
+    _check_cuda("block_tables", block_tables, dev, (torch.int32,), (B, P))
+    _check_cuda("seq_lens", seq_lens, dev, (torch.int32,), (B,))
+    _require((k_scale is None) == (v_scale is None),
+             "k_scale and v_scale come together")
+    if k_scale is not None:
+        _check_cuda("k_scale", k_scale, dev, (torch.float32,), (N, psz, Hkv))
+        _check_cuda("v_scale", v_scale, dev, (torch.float32,), (N, psz, Hkv))
+    out = torch.empty((B, H, Dh), dtype=torch.float32, device=dev)
+    m = torch.empty((B, H), dtype=torch.float32, device=dev)
+    l = torch.empty_like(m)  # noqa: E741 — softmax (m, l)
+    _pd.launch(route, q, k_pages, v_pages, block_tables, seq_lens, k_scale,
+               v_scale, out, m, l, normalize=normalize, pages_per_block=mp)
+    LAUNCHES[route] += 1
+    return out if normalize else (out, m, l)

@@ -4,11 +4,15 @@ tensors; ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.invariance import apply_rotation_cols, apply_rotation_rows
 from repro_torch.core.quant import (QuantConfig, compute_qparams,
                                     dequantize_codes, quantize_codes)
 
-__all__ = ["group_quant_ref", "transform_quant_ref"]
+__all__ = ["group_quant_ref", "transform_quant_ref", "paged_decode_ref"]
+
+NEG = -1e30
 
 
 def group_quant_ref(w, bits: int, group_size: int):
@@ -35,3 +39,49 @@ def transform_quant_ref(w, pi, s, phi, *, bits: int, group: int, mode: str):
     else:
         raise ValueError(f"mode must be 'up' or 'down', got {mode!r}")
     return group_quant_ref(t, bits, group)
+
+
+def paged_decode_ref(q, k_pages, v_pages, block_tables, seq_lens,
+                     k_scale=None, v_scale=None, normalize=True):
+    """Dense paged-attention oracle: gather pages, then a masked softmax —
+    the plain version of all three paged-decode kernels.
+
+    q (B, H, Dh); k/v_pages (N, page_size, Hkv, Dh) [+ scales
+    (N, page_size, Hkv)]; block_tables (B, P) int; seq_lens (B,) int.
+    Query head h reads KV head h // (H // Hkv). Returns (B, H, Dh) f32, or
+    the (acc, m, l) log-sum-exp partials when ``normalize=False``.
+
+    Masked positions are removed by selection — scores to -1e30, values and
+    probabilities to 0 — so whatever a dead page holds (NaN included) never
+    reaches the arithmetic. For every non-empty sequence this is the
+    reference's ``paged_decode_ref``; an empty sequence gives the TPU
+    kernels' output, exactly 0 with (m, l) = (-1e30, 0) (the reference
+    oracle's plain softmax would average V over the masked positions).
+    """
+    B, H, Dh = q.shape
+    _, page_size, Hkv, _ = k_pages.shape
+    P = block_tables.shape[1]
+    bt = block_tables.long()
+    kf = k_pages[bt].float()                     # (B, P, psz, Hkv, Dh)
+    vf = v_pages[bt].float()
+    if k_scale is not None:
+        kf = kf * k_scale[bt][..., None].float()
+        vf = vf * v_scale[bt][..., None].float()
+    # (B, Hkv, S, Dh); query head h reads KV head h // rep
+    kf = kf.reshape(B, P * page_size, Hkv, Dh).transpose(1, 2)
+    vf = vf.reshape(B, P * page_size, Hkv, Dh).transpose(1, 2)
+    if Hkv < H:  # GQA: repeat KV heads to the query head count
+        kf = kf.repeat_interleave(H // Hkv, dim=1)
+        vf = vf.repeat_interleave(H // Hkv, dim=1)
+    pos = torch.arange(P * page_size, device=q.device)
+    mask = (pos[None, :] < seq_lens.to(q.device)[:, None])[:, None]  # (B,1,S)
+    vf = torch.where(mask[..., None], vf, 0.0)
+    s = (kf @ q.float()[..., None])[..., 0] * Dh ** -0.5          # (B, H, S)
+    s = torch.where(mask, s, NEG)
+    m = torch.amax(s, dim=-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    l = torch.sum(p, dim=-1)  # noqa: E741 — softmax (m, l)
+    acc = (p[:, :, None, :] @ vf)[:, :, 0]                        # (B, H, Dh)
+    if not normalize:
+        return acc, m, l
+    return acc / torch.clamp_min(l, 1e-30)[..., None]

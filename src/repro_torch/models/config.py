@@ -36,6 +36,7 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     vocab_pad_multiple: int = 256
+    kv_cache_dtype: str = "compute"   # compute | int8 (absmax-scaled KV cache)
 
     @property
     def resolved_head_dim(self) -> int:

@@ -14,7 +14,7 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = ["NEG_INF", "rmsnorm", "layernorm", "apply_norm", "init_norm",
            "activation_fn", "attn_qkv", "attn_out", "causal_attention",
-           "self_attention", "mlp"]
+           "self_attention", "mlp", "quantize_kv"]
 
 NEG_INF = -1e30
 
@@ -54,6 +54,20 @@ def _gelu_tanh(x):
 def activation_fn(name):
     return {"relu": torch.relu, "silu": torch.nn.functional.silu,
             "gelu": _gelu_tanh}[name]
+
+
+def quantize_kv(k, v):
+    """int8 KV quantize-on-write: absmax scale per (..., head) over head_dim
+    (the reference's ``quantize_kv``). Divisions are by same-device tensors,
+    so they round as the reference's do (see ``core.quant``); ``torch.round``
+    is half to even like ``jnp.round``. Returns (k_int8, v_int8, k_scale,
+    v_scale)."""
+    c127 = torch.tensor(127.0, dtype=k.dtype, device=k.device)
+    ks = torch.amax(torch.abs(k), dim=-1) / c127 + 1e-8
+    vs = torch.amax(torch.abs(v), dim=-1) / c127 + 1e-8
+    kq = torch.round(k / ks[..., None]).to(torch.int8)
+    vq = torch.round(v / vs[..., None]).to(torch.int8)
+    return kq, vq, ks, vs
 
 
 def attn_qkv(p, cfg: ModelConfig, x):

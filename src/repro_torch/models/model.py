@@ -4,18 +4,21 @@ Params are plain nested dicts of tensors: stacked ``(L, ...)`` block leaves
 under ``params["blocks"]`` and ``x @ W`` orientation, exactly the JAX tree
 (``repro_torch.convert.params_from_numpy`` carries a reference tree across
 leaf for leaf). The forward is a Python loop over the stacked layers; each
-layer reads views ``leaf[i]`` of the stack, so nothing is copied.
+layer reads views ``leaf[i]`` of the stack, so nothing is copied. Any weight
+leaf may be a packed ``QTensor``: it is dequantized per layer inside the
+loop (``dequant_tree``), so only one layer's dense weights exist at a time.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quant import QTensor
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig, check_supported
 
 __all__ = ["init_params", "embed_tokens", "lm_head_logits", "forward",
-           "lm_loss", "quantizable_paths", "layer_slice"]
+           "lm_loss", "quantizable_paths", "layer_slice", "dequant_tree"]
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -77,10 +80,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
 
 
 def layer_slice(tree, i: int):
-    """Layer ``i`` of a stacked block tree (views, no copies)."""
+    """Layer ``i`` of a stacked block tree (views, no copies; a stacked
+    QTensor gives layer ``i``'s QTensor)."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def dequant_tree(tree, dtype=None):
+    """Materialise any QTensor leaves (applied to one layer's slice)."""
+    if isinstance(tree, dict):
+        return {k: dequant_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return tree.dequantize(dtype or torch.float32)
+    return tree
 
 
 def _merge(tree, override):
@@ -91,6 +104,7 @@ def _merge(tree, override):
 
 
 def _dense_body(pl, cfg: ModelConfig, h):
+    pl = dequant_tree(pl, _dtype(cfg.compute_dtype))
     a_in = L.apply_norm(h, pl["ln1"], cfg.norm)
     h = h + L.self_attention(pl["attn"], cfg, a_in)
     m_in = L.apply_norm(h, pl["ln2"], cfg.norm)
@@ -98,17 +112,28 @@ def _dense_body(pl, cfg: ModelConfig, h):
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens, positions):
+    """Token (+ learned position) embeddings; ``positions`` is (S,) or, for
+    per-sequence depths, (B, S)."""
     h = params["embed"]["tok"][tokens]
     if cfg.pos_emb == "learned":
         h = h + params["embed"]["pos"][positions]
     return h.to(_dtype(cfg.compute_dtype))
 
 
-def lm_head_logits(params, cfg: ModelConfig, h):
-    """Final norm + (tied or dedicated) LM head."""
+def lm_head_logits(params, cfg: ModelConfig, h, *, mask_vocab: bool = False):
+    """Final norm + (tied or dedicated, possibly QTensor) LM head.
+    ``mask_vocab=True`` sets padded-vocab columns to -inf (the serving
+    steps' convention before argmax/sampling)."""
     h = L.apply_norm(h, params["final_norm"], cfg.norm)
     head = params["embed"]["tok"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ head.to(h.dtype)
+    if isinstance(head, QTensor):
+        head = head.dequantize(h.dtype)
+    logits = h @ head.to(h.dtype)
+    V = logits.shape[-1]
+    if mask_vocab and V > cfg.vocab_size:
+        keep = torch.arange(V, device=logits.device) < cfg.vocab_size
+        logits = torch.where(keep, logits, -torch.inf)
+    return logits
 
 
 def forward(params, cfg: ModelConfig, tokens, *, collect_hidden=False,

@@ -37,3 +37,15 @@ def needs_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.fixture(scope="module", autouse=False)
+def one_torch_thread():
+    """Run a module's tests on one intra-op thread and restore the count
+    after: at the tiny test shapes, PyTorch's CPU thread pool costs far
+    more than the work (a 4 x 16 x 256 matmul takes ~100x longer on 8
+    threads in a loaded container)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

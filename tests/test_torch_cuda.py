@@ -75,3 +75,123 @@ def test_cuda_wrappers_raise_on_bad_inputs():
         tk.transform_quant(w, pi.int(), s, phi, bits=2, group=32, mode="up")
     with pytest.raises(ValueError, match="is on"):
         tk.transform_quant(w, pi.cpu(), s, phi, bits=2, group=32, mode="up")
+
+
+def _paged_case(dev, *, B, H, Hkv, Dh, psz, P, lens, dtype, seed):
+    """Random pools (f32, bf16 or int8 + scales) and distinct block tables
+    on the card; lens (B,) may hold 0 and P * psz."""
+    g = torch.Generator().manual_seed(seed)
+    n_pages = B * P + 1
+    q = torch.randn((B, H, Dh), generator=g)
+    kp = torch.randn((n_pages, psz, Hkv, Dh), generator=g)
+    vp = torch.randn((n_pages, psz, Hkv, Dh), generator=g)
+    ks = vs = None
+    if dtype == torch.int8:
+        ks = kp.abs().amax(-1) / 127.0 + 1e-8
+        vs = vp.abs().amax(-1) / 127.0 + 1e-8
+        kp = torch.round(kp / ks[..., None]).to(torch.int8)
+        vp = torch.round(vp / vs[..., None]).to(torch.int8)
+        ks, vs = ks.to(dev), vs.to(dev)
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    bt = (torch.randperm(n_pages - 1, generator=g)[: B * P] + 1).reshape(B, P)
+    return (q.to(dev), kp.to(dev), vp.to(dev), bt.int().to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev), ks, vs)
+
+
+PAGED_ROUTES = [  # (H, Hkv, fused_gqa, pages_per_block) -> route
+    ((4, 4, True, 1), "paged_decode"),
+    ((8, 2, False, 1), "paged_decode"),
+    ((8, 2, True, 1), "paged_decode_gqa"),
+    ((8, 2, True, 2), "paged_decode_gqa_mp"),
+    ((8, 2, True, 4), "paged_decode_gqa_mp"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("layout,route", PAGED_ROUTES,
+                         ids=[f"{r}-{'x'.join(map(str, lay))}"
+                              for lay, r in PAGED_ROUTES])
+def test_paged_decode_cuda_matches_plain(dtype, layout, route):
+    """Each route against the plain version on the same card tensors, at
+    the reference's 1e-5 (the kernel sums in another order), outputs and
+    (acc, m, l) partials; ragged lengths 0, 1, page-aligned and P·psz."""
+    dev = needs_cuda()
+    H, Hkv, fused, mp = layout
+    psz, P = 8, 5
+    args = _paged_case(dev, B=5, H=H, Hkv=Hkv, Dh=32, psz=psz, P=P,
+                       lens=[0, 1, psz, 2 * psz + 3, P * psz], dtype=dtype,
+                       seed=11)
+    kw = dict(fused_gqa=fused, gqa_pages_per_block=mp)
+    before = tk.LAUNCHES[route]
+    out = tk.paged_decode(*args, **kw)
+    assert tk.LAUNCHES[route] == before + 1
+    torch.testing.assert_close(out, tref.paged_decode_ref(*args),
+                               rtol=1e-5, atol=1e-5)
+    assert not out[0].any(), "an empty sequence gives exactly 0"
+    for got, want in zip(tk.paged_decode(*args, normalize=False, **kw),
+                         tref.paged_decode_ref(*args, normalize=False)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("layout,route", PAGED_ROUTES[1:4],
+                         ids=[r for _, r in PAGED_ROUTES[1:4]])
+def test_paged_decode_cuda_never_reads_dead_slots(layout, route):
+    """NaN in every slot past each length (dead pages, the last live
+    page's tail, the null page) never reaches the output."""
+    dev = needs_cuda()
+    H, Hkv, fused, mp = layout
+    psz, P = 4, 8
+    q, kp, vp, bt, lens, _, _ = _paged_case(
+        dev, B=3, H=H, Hkv=Hkv, Dh=16, psz=psz, P=P, lens=[3, 2 * psz, 0],
+        dtype=torch.float32, seed=13)
+    want = tref.paged_decode_ref(q, kp, vp, bt, lens)
+    pos = torch.arange(P * psz, device=dev).reshape(P, psz)
+    for b in range(3):
+        dead = pos >= lens[b]                     # (P, psz) per table slot
+        for p in range(P):
+            kp[bt[b, p], dead[p]] = float("nan")
+            vp[bt[b, p], dead[p]] = float("nan")
+    kp[0] = vp[0] = float("nan")
+    got = tk.paged_decode(q, kp, vp, bt, lens, fused_gqa=fused,
+                          gqa_pages_per_block=mp)
+    assert not torch.isnan(got).any()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_paged_decode_wrapper_raises_on_bad_inputs():
+    dev = needs_cuda()
+    q, kp, vp, bt, lens, _, _ = _paged_case(
+        dev, B=2, H=4, Hkv=2, Dh=16, psz=4, P=3, lens=[3, 5],
+        dtype=torch.float32, seed=1)
+    with pytest.raises(ValueError, match="seq_lens"):
+        tk.paged_decode(q, kp, vp, bt, lens.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.paged_decode(q, kp, vp, bt.t().contiguous().t(), lens)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.paged_decode(q, kp, vp, bt, lens, gqa_pages_per_block=4096)
+    shifted = torch.empty(kp.numel() + 1, device=dev)[1:].view(kp.shape)
+    with pytest.raises(ValueError, match="boundary"):
+        tk.paged_decode(q, shifted, shifted, bt, lens)
+
+
+def test_sampling_draws_its_noise_on_the_card():
+    """Sampled tokens on the card: the Gumbel noise comes from a generator
+    on the logits' device, is fixed by (seed, token index) alone and keeps
+    to the top-k set."""
+    dev = needs_cuda()
+    from repro_torch.serving import decode as tdec
+    logits = torch.randn((4, 64), generator=torch.Generator().manual_seed(2))
+    logits = logits.to(dev)
+
+    def draw(seeds, index=3):
+        keys = [tdec.request_key(s, index, dev) for s in seeds]
+        return tdec.sample_logits_per_seq(logits, keys, [2.0] * 4, [5] * 4)
+
+    toks = draw(range(4))
+    assert toks.device.type == "cuda"
+    assert torch.equal(toks, draw(range(4)))
+    kth = torch.topk(logits, 5).values[:, -1:]
+    assert bool((logits.gather(1, toks[:, None]) >= kth).all())
+    streams = torch.stack([draw(range(4), index=i) for i in range(16)])
+    assert len(torch.unique(streams)) > 1     # the index moves the stream

@@ -54,13 +54,15 @@ def test_every_port_module_imports():
     names = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, prefix="repro_torch."))
     assert "repro_torch.search.engine" in names
+    assert "repro_torch.serving.batcher" in names
     for name in names:
         importlib.import_module(name)
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch, repro_torch.core.pipeline, "
-            "repro_torch.search, repro_torch.kernels, repro_torch.convert; "
+            "repro_torch.search, repro_torch.kernels, repro_torch.convert, "
+            "repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' or "
             "m.startswith(('jax.', 'repro.'))]; "
             "assert not bad, bad; print('ok')")
@@ -99,6 +101,28 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(no_gpu):
     assert quantize_model(params, cfg, QuantConfig(bits=2, group_size=32),
                           device="cpu").method == "rtn"
     assert calibration_tensor(cfg.vocab_size, 1, 8, device="cpu").shape == (1, 8)
+
+
+def test_serving_entry_points_default_to_cuda_and_raise_without_a_gpu(no_gpu):
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QTensor, QuantConfig
+    from repro_torch.launch.serve import PagedServer
+    from repro_torch.models.model import init_params
+    from repro_torch.quantized.qmodel import pack_model
+    from repro_torch.serving import PagedKVCache
+
+    cfg = get_config("opt-tiny").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedKVCache(cfg, n_pages=8, page_size=8, max_pages_per_seq=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params_q = pack_model(params, QuantConfig(bits=2, group_size=32))
+    up = params_q["blocks"]["mlp"]["up"]
+    assert isinstance(up, QTensor) and up.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedServer(params_q, cfg, max_batch=2, max_len=32)
+    server = PagedServer(params_q, cfg, max_batch=2, max_len=32,
+                         device="cpu")
+    assert server.cache.pools["k"].device.type == "cpu"
 
 
 def test_quantize_model_refuses_params_on_another_device():

@@ -123,7 +123,9 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
             tref.transform_quant_ref(w, pi, s, phi, bits=2, group=32,
                                      mode="up")):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert tk.LAUNCHES == {"group_quant": 0, "transform_quant": 0}
+    assert tk.LAUNCHES == {"group_quant": 0, "transform_quant": 0,
+                           "paged_decode": 0, "paged_decode_gqa": 0,
+                           "paged_decode_gqa_mp": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -138,3 +140,9 @@ def test_wrappers_refuse_other_devices():
         tk.transform_quant(w, pi, s, phi, bits=2, group=32, mode="up")
     with pytest.raises(ValueError, match="mode"):
         tk.transform_quant(w, pi, s, phi, bits=2, group=32, mode="sideways")
+    q = torch.empty((2, 4, 8), device="meta")
+    pool = torch.empty((3, 4, 4, 8), device="meta")
+    bt = torch.empty((2, 2), dtype=torch.int32, device="meta")
+    lens = torch.empty(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tk.paged_decode(q, pool, pool, bt, lens)
