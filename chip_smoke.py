@@ -42,10 +42,30 @@ source, started together, into ``build/kernels/``), then:
    decode step split into per-layer dequant, the paged-decode kernel, the
    other device work and device idle time; (d) the serving CLI's small configs
    (GQA 4/2, GQA with 2 pages per block, MHA) on the card and on the CPU:
-   identical greedy tokens and stats, all three routes launched.
+   identical greedy tokens and stats, all three routes launched;
+6. contiguous-cache serving and the dequant-matmul: (a) ``flash_decode`` vs
+   its plain version at rtol = atol = 2e-4, the reference's bar
+   (``tests/test_kernels.py``), at opt-1.3b's head layout, a full-width GQA
+   one and the small configs', on f32, bf16 and int8 caches, kv_len 0, 1, a
+   tile boundary, ragged and S, and NaN in every slot past kv_len; (b) its
+   time at 6c's decode shape and at B 8 x 2048 rows beside its bound, its
+   plain version and ``scaled_dot_product_attention`` with a length mask;
+   (c) ``BatchedServer`` on 2-bit opt-1.3b (full width and depth, batch 8,
+   max_len 128) over phase 5's trace with ``use_flash_decode`` off, then
+   on: tokens identical (or parting only at a printed near tie), held to
+   the greedy oracle on the left-padded prompts, flash_decode launched 24
+   layers x 7 steps x 3 batches = 504 times with the flag on and never
+   with it off; tokens/s, step ms, cache bytes, peak memory and device time
+   by kernel family over batch 0's steps; (d) opt-tiny reduced (GQA 4/2
+   and MHA 4/4, compute and int8 KV, flag on) on the card and on the CPU:
+   identical greedy tokens; (e) ``quant_matmul`` vs its plain version at
+   5e-4 (the reference's bar) at kernel_bench's three shapes, opt-1.3b's
+   projections at M 8 and a 3-bit case with K padding, x in f32 and bf16,
+   with times beside the bound, the plain version and ``torch.matmul`` on
+   the dequantised weights, then the public op once per case.
 
 Prints the ``nvidia-smi`` name/power-limit line, a ``{"kernels": [...]}``
-line (all five ported kernels), and last ``{"ok": true, "device": {...}}``. Any failed check raises,
+line (all seven ported kernels), and last ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero without that last line; it also exits
 non-zero when no CUDA card is present or the port's sources are missing.
 """
@@ -599,8 +619,10 @@ def compare_runs(outs_a, outs_b, ties_ok, what):
 
 
 # device-kernel name fragments -> family for the serving profile (first
-# match wins); cuBLAS takes GEMV kernels at B <= 8
-SERVE_FAMILIES = (("paged_decode", "paged_decode (port kernel)"),
+# match wins); the paged routes run the kernel body of
+# csrc/decode_attention.cuh; cuBLAS takes GEMV kernels at B <= 8
+SERVE_FAMILIES = (("decode_attention", "paged_decode (port kernel)"),
+                  ("paged_decode", "paged_decode (port kernel)"),
                   ("gemv", "matmul (cuBLAS)"),
                   ("index", "indexing (gather, K/V write)"),
                   ("memcpy", "copies"), ("memset", "copies")) + FAMILIES
@@ -680,26 +702,31 @@ def profile_serving(torch, obs, server, reqs):
                 device_ms=sum(d for _, d, _ in kernels) / 1e3, **out), outs
 
 
-def phase_serving(torch, ops, kernel_rows):
-    """5c: PagedServer on 2-bit opt-1.3b over the 8-tenant trace, prefix
-    sharing off then on."""
-    from repro_torch import obs
-    from repro_torch.configs import get_config
+def packed_opt(torch, cfg):
+    """Random-init ``cfg`` packed at 2 bits / group 32 on the card (the
+    weights phases 5c and 6c serve), and the seconds it took."""
     from repro_torch.core.quant import QuantConfig
-    from repro_torch.launch.serve import PagedServer, Request
-    from repro_torch.models.model import dequant_tree, forward, init_params
-    from repro_torch.quantized.qmodel import (dense_bytes, pack_model,
-                                              packed_bytes)
-    from repro_torch.serving import build_trace
+    from repro_torch.models.model import init_params
+    from repro_torch.quantized.qmodel import pack_model
 
-    cfg = get_config("opt-1.3b")
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
     params_q = pack_model(params, QuantConfig(bits=2, group_size=32))
     del params
     torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
+    return params_q, time.perf_counter() - t0
+
+
+def phase_serving(torch, ops, kernel_rows, cfg, params_q, setup_s):
+    """5c: PagedServer on 2-bit opt-1.3b over the 8-tenant trace, prefix
+    sharing off then on."""
+    from repro_torch import obs
+    from repro_torch.launch.serve import PagedServer, Request
+    from repro_torch.models.model import dequant_tree, forward
+    from repro_torch.quantized.qmodel import dense_bytes, packed_bytes
+    from repro_torch.serving import build_trace
+
     trace = build_trace(cfg.vocab_size, **TRACE)
     reqs = [Request(**t) for t in trace]
     reg = obs.get_registry()
@@ -844,6 +871,353 @@ def phase_small_serving(torch, ops):
             pages_per_block=mp, stats=res["cuda"][1], launches=counts,
             tokens_identical=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: contiguous-cache serving (BatchedServer) and quant_matmul
+# ---------------------------------------------------------------------------
+
+FD_TOL = dict(rtol=2e-4, atol=2e-4)   # tests/test_kernels.py flash_decode bar
+QM_TOL = dict(rtol=5e-4, atol=5e-4)   # tests/test_kernels.py quant_matmul bar
+LEGACY = dict(batch_size=8, max_len=128)
+FD_TILE = 64                          # csrc/flash_decode.cu kTile
+# 6a layouts: (name, B, H, Hkv, Dh, S): opt-1.3b's decode layout in 6c's
+# 128-row cache, a full-width GQA one, and the layouts 6d serves
+FD_LAYOUTS = (("mha", 8, 32, 32, 64, 128), ("gqa", 8, 32, 8, 128, 128),
+              ("small-gqa", 4, 4, 2, 16, 64), ("small-mha", 4, 4, 4, 16, 64))
+
+
+def flash_case(torch, *, B, S, H, Hkv, Dh, dtype, seed):
+    """Card tensors for one flash-decode call: q and a random contiguous
+    cache (f32, bf16, or int8 + f32 scales)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, H, Dh), generator=g, device=dev)
+    k = torch.randn((B, S, Hkv, Dh), generator=g, device=dev)
+    v = torch.randn((B, S, Hkv, Dh), generator=g, device=dev)
+    ks = vs = None
+    if dtype == torch.int8:
+        c127 = torch.tensor(127.0, device=dev)
+        ks = k.abs().amax(-1) / c127 + 1e-8
+        vs = v.abs().amax(-1) / c127 + 1e-8
+        k = torch.round(k / ks[..., None]).to(torch.int8)
+        v = torch.round(v / vs[..., None]).to(torch.int8)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    return [q, k, v, ks, vs]
+
+
+def phase_flash_kernels(torch, ops, ref):
+    """6a: flash_decode vs its plain version at every layout of
+    ``FD_LAYOUTS``, f32 / bf16 / int8 caches, kv_len 0, 1, a tile boundary,
+    a ragged value and S, then NaN in every slot at or past kv_len (in the
+    scales for int8). Returns the max abs error."""
+    worst = 0.0
+    for name, B, H, Hkv, Dh, S in FD_LAYOUTS:
+        shape = dict(B=B, S=S, H=H, Hkv=Hkv, Dh=Dh)
+        lens = (0, 1, FD_TILE, S // 2 + 7, S)
+        for dt in (torch.float32, torch.bfloat16, torch.int8):
+            args = flash_case(torch, dtype=dt, seed=8, **shape)
+            err = 0.0
+            for n in lens:
+                want = ref.flash_decode_ref(*args, kv_len=n)
+                before = ops.LAUNCHES["flash_decode"]
+                got = ops.flash_decode(*args, kv_len=n)
+                torch.cuda.synchronize()
+                if ops.LAUNCHES["flash_decode"] != before + 1:
+                    raise AssertionError("flash_decode did not launch")
+                torch.testing.assert_close(got, want, **FD_TOL)
+                if n == 0 and got.any():
+                    raise AssertionError("flash_decode: kv_len 0 not 0")
+                err = max(err, float((got - want).abs().max()))
+            worst = max(worst, err)
+            log("kernel_check", kernel="flash_decode", layout=name,
+                heads=[H, Hkv], head_dim=Dh, batch=B, cache_rows=S,
+                dtype=str(dt), kv_lens=list(lens), max_abs_err=err)
+        for n in (1, S // 2 + 7):
+            for dt in (torch.float32, torch.int8):
+                args = flash_case(torch, dtype=dt, seed=9, **shape)
+                want = ref.flash_decode_ref(*args, kv_len=n)
+                poison = (3, 4) if dt == torch.int8 else (1, 2)
+                for i in poison:       # int8 holds no NaN: poison the scales
+                    args[i][:, n:] = float("nan")
+                got = ops.flash_decode(*args, kv_len=n)
+                if torch.isnan(got).any():
+                    raise AssertionError("flash_decode read a slot past "
+                                         "kv_len")
+                torch.testing.assert_close(got, want, **FD_TOL)
+                err = float((got - want).abs().max())
+                worst = max(worst, err)
+                log("kernel_check", kernel="flash_decode", layout=name,
+                    case="nan past kv_len", dtype=str(dt), kv_len=n,
+                    max_abs_err=err)
+    return worst
+
+
+def phase_flash_times(torch, ref, fd, decode_len):
+    """6b: CUDA-event medians of the kernel (raw launches into a
+    preallocated output) at 6c's decode shape (B 8, MHA 32 heads, Dh 64,
+    f32, ``decode_len`` live rows of a 128-row cache) and at B 8 x 2048
+    rows (opt-1.3b's max_seq_len), beside its bound, its plain version and
+    ``scaled_dot_product_attention`` over the same cache (a transposed
+    view, no copy) with a boolean length mask."""
+    import torch.nn.functional as F
+    rows = {}
+    B, H, Hkv, Dh = 8, 32, 32, 64
+    for ctx, S, n in (("decode", LEGACY["max_len"], decode_len),
+                      ("long", 2048, 2048)):
+        q, k, v, _, _ = flash_case(torch, B=B, S=S, H=H, Hkv=Hkv, Dh=Dh,
+                                   dtype=torch.float32, seed=10)
+        out = torch.empty((B, H, Dh), device=q.device)
+        t = time_ms(torch, lambda: fd.launch(q, k, v, None, None, out,
+                                             kv_len=n), reps=50)
+        p = time_ms(torch, lambda: ref.flash_decode_ref(q, k, v, kv_len=n),
+                    reps=20)
+        mask = (torch.arange(S, device=q.device) < n)[None, None, None, :]
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kt, vt, attn_mask=mask), reps=50)
+        nbytes = 2 * B * n * Hkv * Dh * 4 + 2 * q.numel() * 4
+        b, by = bound_ms(nbytes, 4 * B * H * Dh * n)
+        rows[ctx] = dict(ms=t, plain_ms=p, library_ms=lib, bound_ms=b,
+                         bound_by=by, batch=B, heads=[H, Hkv], head_dim=Dh,
+                         cache_rows=S, kv_len=n)
+        log("kernel_time", kernel="flash_decode", context=ctx, **rows[ctx])
+    return rows
+
+
+def padded_requests(Request, reqs, B):
+    """What ``BatchedServer.generate`` feeds the model for ``reqs``: each
+    batch of B left-padded with token 0 to its longest prompt."""
+    import numpy as np
+    out = []
+    for i in range(0, len(reqs), B):
+        chunk = reqs[i:i + B]
+        plen = max(len(r.prompt) for r in chunk)
+        out += [Request(prompt=np.pad(r.prompt, (plen - len(r.prompt), 0)),
+                        max_new=r.max_new) for r in chunk]
+    return out
+
+
+LEGACY_FAMILIES = (("decode_attention", "flash_decode (port kernel)"),
+                   ) + SERVE_FAMILIES
+
+
+def legacy_step_profile(torch, server, params_q, padded, steps):
+    """Host ms per decode step of ``server`` on its first batch (prefill,
+    then ``steps`` steps ending in one synchronize), then the same window
+    under ``torch.profiler``: device ms by kernel family over the prefill
+    and the steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B = server.B
+    plen = len(padded[0].prompt)
+    toks = torch.tensor([list(r.prompt) for r in padded[:B]], device="cuda")
+
+    def run():
+        logits, cache = server.prefill_fn(params_q, {"tokens": toks})
+        tok = torch.argmax(logits[:, -1, :server.cfg.vocab_size],
+                           dim=-1)[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(steps):
+            tok, cache = server.step_fn(params_q, tok, cache, plen + t)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    step_ms = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    by_family = defaultdict(float)
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        if t > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_family[_family(ev.key, LEGACY_FAMILIES)] += t / 1e3
+    return step_ms, dict(sorted(by_family.items(), key=lambda kv: -kv[1]))
+
+
+def phase_legacy_serving(torch, ops, cfg, params_q):
+    """6c: BatchedServer on 2-bit opt-1.3b (full width and depth) over
+    phase 5's 24-request trace, use_flash_decode off then on. Returns the
+    flag-on run's flash_decode launches."""
+    import dataclasses
+
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models.model import dequant_tree, forward, init_cache
+    from repro_torch.quantized.qmodel import cache_bytes
+    from repro_torch.serving import build_trace
+
+    reqs = [Request(**t) for t in build_trace(cfg.vocab_size, **TRACE)]
+    B = LEGACY["batch_size"]
+    padded = padded_requests(Request, reqs, B)
+    n_batches = -(-len(reqs) // B)
+    steps = n_batches * (TRACE["max_new"] - 1)
+    cache = init_cache(cfg, B, LEGACY["max_len"], device="cuda")
+    kv_bytes = cache_bytes(cache)
+    del cache
+    runs = {}
+    for flash in (False, True):
+        server = BatchedServer(params_q, dataclasses.replace(
+            cfg, use_flash_decode=flash), device="cuda", **LEGACY)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live_before = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = server.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        want = cfg.n_layers * steps if flash else 0
+        if counts["flash_decode"] != want or \
+                any(v for k, v in counts.items() if k != "flash_decode"):
+            raise AssertionError(f"use_flash_decode={flash}: launches "
+                                 f"{counts}, expected flash_decode {want}")
+        peak = torch.cuda.max_memory_allocated()
+        step_ms, family = legacy_step_profile(torch, server, params_q,
+                                              padded, TRACE["max_new"] - 1)
+        runs[flash] = dict(outs=outs, wall=wall, counts=counts, peak=peak,
+                           live_before=live_before, step_ms=step_ms,
+                           family=family, tokens=sum(len(o) for o in outs))
+        del server
+    dense = dequant_tree(params_q)
+    ties = {f: check_greedy(torch, forward, dense, cfg, padded,
+                            runs[f]["outs"], f"use_flash_decode={f} vs "
+                            f"oracle") for f in runs}
+    del dense
+    parted = compare_runs(runs[False]["outs"], runs[True]["outs"],
+                          {(i, j) for t in ties.values() for i, j, _ in t},
+                          "flash off vs on")
+    for f, r in runs.items():
+        log("serving_legacy", arch=cfg.name, use_flash_decode=f,
+            requests=len(reqs), batches=n_batches, decode_steps=steps,
+            tokens=r["tokens"], wall_s=r["wall"],
+            tokens_per_s=r["tokens"] / r["wall"], step_ms=r["step_ms"],
+            launches=r["counts"], cache_bytes=kv_bytes, peak_bytes=r["peak"],
+            live_bytes_at_start=r["live_before"], near_ties=ties[f],
+            profile_ms_by_family=r["family"],
+            profile_window=f"prefill + {TRACE['max_new'] - 1} decode steps "
+                           f"of batch 0")
+    log("serving_legacy_check", parted_at=parted, outputs_identical=not parted,
+        oracle="full forward over the dequantized weights on the "
+               "left-padded prompts")
+    return runs[True]["counts"]["flash_decode"]
+
+
+def phase_small_legacy(torch, ops):
+    """6d: BatchedServer on opt-tiny reduced (GQA 4/2 and MHA 4/4), compute
+    and int8 KV, use_flash_decode on, on the card and on the CPU with the
+    same packed weights and requests."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models.model import init_params
+    from repro_torch.quantized.qmodel import pack_model
+    from repro_torch.serving import build_trace
+
+    for n_kv in (2, 4):
+        for kv_dtype in ("compute", "int8"):
+            cfg = dataclasses.replace(
+                get_config("opt-tiny").reduced(n_kv_heads=n_kv),
+                kv_cache_dtype=kv_dtype, use_flash_decode=True)
+            params_q = pack_model(init_params(
+                cfg, torch.Generator().manual_seed(3), device="cpu"),
+                QuantConfig(bits=2, group_size=32))
+            trace = build_trace(cfg.vocab_size, n_tenants=4, per_tenant=2,
+                                page_size=8, max_new=6)
+            res = {}
+            for dev in ("cpu", "cuda"):
+                server = BatchedServer(to_device(params_q, dev), cfg,
+                                       batch_size=4, max_len=64, device=dev)
+                ops.reset_launch_counts()
+                outs = server.generate([Request(**t) for t in trace])
+                res[dev] = (outs, dict(ops.LAUNCHES))
+            if res["cuda"][0] != res["cpu"][0]:
+                raise AssertionError(f"opt-tiny {n_kv} KV heads {kv_dtype}: "
+                                     f"card tokens differ from the CPU's")
+            want = cfg.n_layers * 2 * (6 - 1)     # 2 batches of 5 steps
+            counts = res["cuda"][1]
+            if counts["flash_decode"] != want or \
+                    any(v for k, v in counts.items() if k != "flash_decode") \
+                    or any(res["cpu"][1].values()):
+                raise AssertionError(f"small legacy launches {counts}")
+            log("small_legacy", heads=[cfg.n_heads, n_kv], kv_cache=kv_dtype,
+                launches=counts, tokens_identical=True)
+
+
+# 6e cases: (name, M, K, N, bits, group)
+QM_SHAPES = (
+    ("kernel_bench 8x2048x2048 b2 g128", 8, 2048, 2048, 2, 128),
+    ("kernel_bench 8x2048x2048 b4 g128", 8, 2048, 2048, 4, 128),
+    ("kernel_bench 128x1024x1024 b2 g64", 128, 1024, 1024, 2, 64),
+    ("opt-1.3b attn 2048->2048 b2 g32", 8, 2048, 2048, 2, 32),
+    ("opt-1.3b up 2048->8192 b2 g32", 8, 2048, 8192, 2, 32),
+    ("opt-1.3b down 8192->2048 b2 g32", 8, 8192, 2048, 2, 32),
+    ("3-bit, K padded 2048->2080, b3 g32", 8, 2048, 2048, 3, 32),
+)
+QM_MAIN = "opt-1.3b up 2048->8192 b2 g32"
+
+
+def phase_quant_matmul(torch, ops, ref, qm):
+    """6e: quant_matmul vs its plain version at every ``QM_SHAPES`` case,
+    x in f32 and bf16; times (f32 x, raw launches) beside the bound, the
+    plain version and ``torch.matmul`` with W already dequantised to dense
+    f32; then the public op once per case, counts set to 0 just before.
+    Returns (rows, max abs error, public-op launches)."""
+    from repro_torch.core.quant import QuantConfig, quantize_tensor
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    worst = 0.0
+    rows = {}
+    cases = []
+    for name, M, K, N, bits, group in QM_SHAPES:
+        qt = quantize_tensor(torch.randn((K, N), generator=gen, device=dev),
+                             QuantConfig(bits=bits, group_size=group))
+        x = torch.randn((M, K), generator=gen, device=dev)
+        w = (qt.packed, qt.scale, qt.zero)
+        k_pad = qt.packed.shape[0] * (32 // bits)
+        cases.append((name, x, w, bits, group))
+        for dt in (torch.float32, torch.bfloat16):
+            xd = x.to(dt)
+            got = ops.quant_matmul(xd, *w, bits=bits, group=group)
+            want = ref.quant_matmul_ref(xd, *w, bits, group)
+            torch.testing.assert_close(got, want, **QM_TOL)
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            log("kernel_check", kernel="quant_matmul", case=name,
+                shape=[M, K, N], k_pad=k_pad, bits=bits, group=group,
+                dtype=str(dt), max_abs_err=err)
+        out = torch.empty((M, N), device=dev)
+        t = time_ms(torch, lambda: qm.launch(x, *w, out, bits=bits,
+                                             group=group), reps=50)
+        p = time_ms(torch, lambda: ref.quant_matmul_ref(x, *w, bits, group),
+                    reps=20)
+        dense = ref.dequant_ref(*w, bits, group, K)
+        lib = time_ms(torch, lambda: torch.matmul(x, dense), reps=50)
+        nbytes = (x.numel() * 4 + qt.packed.numel() * 4
+                  + 2 * qt.scale.numel() * 4 + M * N * 4)
+        b, by = bound_ms(nbytes, 2 * M * K * N + 2 * k_pad * N)
+        rows[name] = dict(ms=t, plain_ms=p, library_ms=lib, bound_ms=b,
+                          bound_by=by, shape=[M, K, N], bits=bits,
+                          group=group, dense_weight_bytes=K * N * 4)
+        log("kernel_time", kernel="quant_matmul", case=name, **rows[name])
+        del dense
+    ops.reset_launch_counts()
+    for name, x, w, bits, group in cases:
+        out = ops.quant_matmul(x, *w, bits=bits, group=group)
+        if tuple(out.shape) != (x.shape[0], w[0].shape[1]) or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"quant_matmul {name}: bad output")
+    launches = ops.LAUNCHES["quant_matmul"]
+    if launches != len(cases):
+        raise AssertionError(f"quant_matmul public op launched {launches} "
+                             f"times for {len(cases)} calls")
+    return rows, worst, launches
 
 
 def main() -> int:
@@ -1009,8 +1383,23 @@ def main() -> int:
     decode_lens = [len(t["prompt"]) + TRACE["max_new"] // 2
                    for t in build_trace(cfg.vocab_size, **TRACE)[:8]]
     pd_rows = phase_paged_times(torch, ops, ref, pd, decode_lens)
-    serve_counts, split = phase_serving(torch, ops, pd_rows)
+    params_q, setup_s = packed_opt(torch, cfg)
+    serve_counts, split = phase_serving(torch, ops, pd_rows, cfg, params_q,
+                                        setup_s)
     small_counts = phase_small_serving(torch, ops)
+
+    # ---- phase 6: contiguous-cache serving, quant_matmul -----------------
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+    qm = importlib.import_module("repro_torch.kernels.quant_matmul")
+    fd_err = phase_flash_kernels(torch, ops, ref)
+    trace0 = build_trace(cfg.vocab_size, **TRACE)[:LEGACY["batch_size"]]
+    fd_rows = phase_flash_times(torch, ref, fd, max(
+        len(t["prompt"]) for t in trace0) + TRACE["max_new"] // 2)
+    fd_launches = phase_legacy_serving(torch, ops, cfg, params_q)
+    del params_q
+    torch.cuda.empty_cache()
+    phase_small_legacy(torch, ops)
+    qm_rows, qm_err, qm_launches = phase_quant_matmul(torch, ops, ref, qm)
 
     kernels = []
     for name, source, replaces in (
@@ -1054,6 +1443,46 @@ def main() -> int:
             "long_context": {k: long_row[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms")},
             "dtype": "float32"})
+    main_row, long_row = fd_rows["decode"], fd_rows["long"]
+    kernels.append({
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:64",
+        "launches": fd_launches,
+        "launches_on": "opt-1.3b BatchedServer, use_flash_decode on",
+        "max_abs_err": fd_err,
+        **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+        "library_note": "torch scaled_dot_product_attention over the same "
+                        "contiguous cache (a transposed view) with a boolean "
+                        "length mask",
+        "shape": {k: main_row[k] for k in ("batch", "heads", "head_dim",
+                                           "cache_rows", "kv_len")},
+        "long_context": {k: long_row[k] for k in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "cache_rows",
+            "kv_len")},
+        "dtype": "float32"})
+    qrow = qm_rows[QM_MAIN]
+    kernels.append({
+        "name": "quant_matmul", "route": "cuda",
+        "source": "src/repro_torch/csrc/quant_matmul.cu",
+        "replaces": "src/repro/kernels/quant_matmul.py:49",
+        "launches": qm_launches,
+        "launches_on": "the public op kernels.quant_matmul, once per 6e "
+                       "case; no serving path calls it (the reference "
+                       "dequantises each layer)",
+        "max_abs_err": qm_err,
+        **{k: qrow[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")},
+        "library_note": "torch.matmul(x, W) with W already dequantised to "
+                        "dense f32: no single PyTorch call computes "
+                        "dequant + matmul",
+        "shape": {"case": QM_MAIN, "mkn": qrow["shape"], "bits": qrow["bits"],
+                  "group": qrow["group"]},
+        "cases": {n: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}
+                  for n, r in qm_rows.items()},
+        "dtype": "float32"})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

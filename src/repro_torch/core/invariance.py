@@ -22,6 +22,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.device import resolve_device
+
 __all__ = [
     "FFNTransform",
     "identity_transform",
@@ -43,7 +45,10 @@ class FFNTransform(NamedTuple):
     phi: torch.Tensor
 
 
-def identity_transform(f_dim: int, device="cpu") -> FFNTransform:
+def identity_transform(f_dim: int, device="cuda") -> FFNTransform:
+    """The identity (π, s, φ) of width ``f_dim`` on ``device`` (the card
+    unless ``device="cpu"``)."""
+    device = resolve_device(device)
     return FFNTransform(
         pi=torch.arange(f_dim, dtype=torch.int64, device=device),
         s=torch.ones((f_dim,), dtype=torch.float32, device=device),

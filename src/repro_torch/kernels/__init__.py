@@ -9,14 +9,22 @@
   three routes (per query head, per KV head, multi-page per KV head) as the
   TPU kernels of ``repro/kernels/paged_decode.py``; the serving decode
   step's attention.
+- ``flash_decode``: one-token decode attention over a contiguous KV cache
+  (the TPU kernel ``repro/kernels/flash_decode.py``); the contiguous decode
+  step's attention when ``cfg.use_flash_decode`` is set.
+- ``quant_matmul``: x @ dequant(packed W) (the TPU kernel
+  ``repro/kernels/quant_matmul.py``); a public op, on no serving path (as
+  in the reference, which dequantises each layer instead).
 
 CUDA C++ sources live in ``repro_torch/csrc/`` and are built with nvcc for
 ``sm_90a`` on first use (``build.py``); ``ops.py`` holds the wrappers and
 their launch counts, ``ref.py`` the plain PyTorch versions.
 """
-from repro_torch.kernels.ops import (LAUNCHES, group_quant, paged_decode,
-                                     paged_decode_route, reset_launch_counts,
+from repro_torch.kernels.ops import (LAUNCHES, flash_decode, group_quant,
+                                     paged_decode, paged_decode_route,
+                                     quant_matmul, reset_launch_counts,
                                      transform_quant)
 
 __all__ = ["group_quant", "transform_quant", "paged_decode",
-           "paged_decode_route", "LAUNCHES", "reset_launch_counts"]
+           "paged_decode_route", "flash_decode", "quant_matmul", "LAUNCHES",
+           "reset_launch_counts"]

@@ -20,10 +20,16 @@ from pathlib import Path
 __all__ = ["KERNELS", "build_dir", "build_all", "load", "build_log"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("group_quant", "transform_quant", "paged_decode")
+KERNELS = ("group_quant", "transform_quant", "paged_decode", "flash_decode",
+           "quant_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Every source is built with -fmad=false (the quant kernels must round
+# exactly as their plain versions do) except these, which keep nvcc's
+# default fused multiply-add: quant_matmul's plain version is a matmul whose
+# sums run in another order anyway, and separate multiplies and adds would
+# double its instruction count.
+FUSED_MAD = ("quant_matmul",)
 
 _LIBS: dict = {}
 
@@ -42,8 +48,12 @@ def _nvcc() -> str:
                        "the CUDA kernels are built on the machine with the GPU")
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + (() if name in FUSED_MAD else ("-fmad=false",))
+
+
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -66,7 +76,7 @@ def build_all(names=KERNELS) -> None:
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         jobs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     errors = []

@@ -20,14 +20,18 @@ from repro_torch.kernels import ref
 _gq = importlib.import_module("repro_torch.kernels.group_quant")
 _tq = importlib.import_module("repro_torch.kernels.transform_quant")
 _pd = importlib.import_module("repro_torch.kernels.paged_decode")
+_fd = importlib.import_module("repro_torch.kernels.flash_decode")
+_qm = importlib.import_module("repro_torch.kernels.quant_matmul")
 
 __all__ = ["group_quant", "transform_quant", "paged_decode",
-           "paged_decode_route", "LAUNCHES", "reset_launch_counts"]
+           "paged_decode_route", "flash_decode", "quant_matmul", "LAUNCHES",
+           "reset_launch_counts"]
 
 # kernel launches per wrapper (per route for paged_decode) since the last
 # reset (plain integers)
 LAUNCHES = {"group_quant": 0, "transform_quant": 0, "paged_decode": 0,
-            "paged_decode_gqa": 0, "paged_decode_gqa_mp": 0}
+            "paged_decode_gqa": 0, "paged_decode_gqa_mp": 0,
+            "flash_decode": 0, "quant_matmul": 0}
 
 _MAX_GRID_Y = 65535 * 256   # columns: gridDim.y blocks of 256 threads
 
@@ -114,6 +118,14 @@ def transform_quant(w: torch.Tensor, pi: torch.Tensor, s: torch.Tensor,
     return fq, scale, zero
 
 
+def _check_kv_loads(**pools) -> None:
+    """The decode kernels load K/V 4 values at a time."""
+    for name, t in pools.items():
+        _require(t.data_ptr() % (4 * t.element_size()) == 0,
+                 f"{name} must start on a {4 * t.element_size()}-byte "
+                 f"boundary (the kernel loads 4 values at a time)")
+
+
 def paged_decode_route(H: int, Hkv: int, *, fused_gqa: bool = True,
                        gqa_pages_per_block: int = 1) -> str:
     """Which paged-decode kernel a call takes (``repro.kernels.ops``'s
@@ -162,10 +174,7 @@ def paged_decode(q, k_pages, v_pages, block_tables, seq_lens, k_scale=None,
     kv_types = (torch.float32, torch.bfloat16, torch.int8)
     _check_cuda("k_pages", k_pages, dev, kv_types, (N, psz, Hkv, Dh))
     _check_cuda("v_pages", v_pages, dev, (k_pages.dtype,), (N, psz, Hkv, Dh))
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        _require(t.data_ptr() % (4 * t.element_size()) == 0,
-                 f"{name} must start on a {4 * t.element_size()}-byte "
-                 f"boundary (the kernel loads 4 values at a time)")
+    _check_kv_loads(k_pages=k_pages, v_pages=v_pages)
     _check_cuda("block_tables", block_tables, dev, (torch.int32,), (B, P))
     _check_cuda("seq_lens", seq_lens, dev, (torch.int32,), (B,))
     _require((k_scale is None) == (v_scale is None),
@@ -180,3 +189,83 @@ def paged_decode(q, k_pages, v_pages, block_tables, seq_lens, k_scale=None,
                v_scale, out, m, l, normalize=normalize, pages_per_block=mp)
     LAUNCHES[route] += 1
     return out if normalize else (out, m, l)
+
+
+def flash_decode(q, k, v, k_scale=None, v_scale=None, *, kv_len=None):
+    """One-token decode attention over a contiguous KV cache.
+
+    q (B, H, Dh) f32/bf16 attends over the first ``kv_len`` (None: S) rows
+    of k/v (B, S, Hkv, Dh) — f32, bf16, or int8 with f32 (B, S, Hkv)
+    scales; query head h reads KV head h // (H // Hkv), so GQA caches are
+    not repeated. Returns (B, H, Dh) f32; ``kv_len = 0`` gives exactly 0. A
+    CPU call runs ``ref.flash_decode_ref``; a CUDA call launches the kernel
+    or raises.
+    """
+    if q.device.type == "cpu":
+        return ref.flash_decode_ref(q, k, v, k_scale, v_scale, kv_len)
+    _require(q.device.type == "cuda",
+             f"flash_decode runs on CUDA or CPU tensors, got {q.device}")
+    _require(q.ndim == 3 and k.ndim == 4,
+             f"q must be (B, H, Dh) and k/v (B, S, Hkv, Dh), got "
+             f"{tuple(q.shape)} and {tuple(k.shape)}")
+    B, H, Dh = q.shape
+    _, S, Hkv, _ = k.shape
+    _require(S > 0 and Hkv > 0 and H % Hkv == 0,
+             f"H={H} not a multiple of Hkv={Hkv}, or an empty cache")
+    _require(Dh % 4 == 0, f"head dim {Dh} must be a multiple of 4 (the "
+             f"kernel loads 4 values at a time)")
+    n = S if kv_len is None else int(kv_len)
+    _require(n >= 0, f"kv_len must be >= 0, got {kv_len}")
+    dev = q.device
+    q = q if q.dtype == torch.float32 else q.float()
+    _check_cuda("q", q, dev, (torch.float32,), (B, H, Dh))
+    _check_cuda("k", k, dev, (torch.float32, torch.bfloat16, torch.int8),
+                (B, S, Hkv, Dh))
+    _check_cuda("v", v, dev, (k.dtype,), (B, S, Hkv, Dh))
+    _check_kv_loads(k=k, v=v)
+    _require((k_scale is None) == (v_scale is None),
+             "k_scale and v_scale come together")
+    if k_scale is not None:
+        _check_cuda("k_scale", k_scale, dev, (torch.float32,), (B, S, Hkv))
+        _check_cuda("v_scale", v_scale, dev, (torch.float32,), (B, S, Hkv))
+    out = torch.empty((B, H, Dh), dtype=torch.float32, device=dev)
+    _fd.launch(q, k, v, k_scale, v_scale, out, kv_len=min(n, S))
+    LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def quant_matmul(x, packed, scale, zero, *, bits: int, group: int):
+    """x (M, K) f32/bf16 @ dequant(packed (K_pad/vpw, N)) -> (M, N) f32.
+
+    ``packed`` holds the 32-bit words as int32 (slot i of word w is row
+    w·vpw + i at bit offset i·bits, vpw = 32 // bits); scale / zero are
+    (K_pad/G, N) f32 and rows K..K_pad-1 are padding. Every shape takes the
+    kernel (the reference's wrapper falls back to jnp off its tiling). A
+    CPU call runs ``ref.quant_matmul_ref``; a CUDA call launches the kernel
+    or raises.
+    """
+    if x.device.type == "cpu":
+        return ref.quant_matmul_ref(x, packed, scale, zero, bits, group)
+    _require(x.device.type == "cuda",
+             f"quant_matmul runs on CUDA or CPU tensors, got {x.device}")
+    _require(1 <= bits <= 8, f"bits must be in [1, 8], got {bits}")
+    _require(x.ndim == 2 and packed.ndim == 2,
+             f"x must be (M, K) and packed (W, N), got {tuple(x.shape)} and "
+             f"{tuple(packed.shape)}")
+    M, K = x.shape
+    W, N = packed.shape
+    k_pad = W * (32 // bits)
+    _require(group > 0 and k_pad % group == 0 and K <= k_pad,
+             f"packed rows cover K_pad={k_pad}, which must hold K={K} and be "
+             f"a multiple of group={group}")
+    _require(0 < M <= 65535 * 8 and 0 < N, f"M={M}, N={N} out of the "
+             f"kernel's range")
+    dev = x.device
+    _check_cuda("x", x, dev, (torch.float32, torch.bfloat16), (M, K))
+    _check_cuda("packed", packed, dev, (torch.int32,), (W, N))
+    _check_cuda("scale", scale, dev, (torch.float32,), (k_pad // group, N))
+    _check_cuda("zero", zero, dev, (torch.float32,), (k_pad // group, N))
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    _qm.launch(x, packed, scale, zero, out, bits=bits, group=group)
+    LAUNCHES["quant_matmul"] += 1
+    return out

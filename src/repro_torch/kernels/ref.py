@@ -8,9 +8,11 @@ import torch
 
 from repro_torch.core.invariance import apply_rotation_cols, apply_rotation_rows
 from repro_torch.core.quant import (QuantConfig, compute_qparams,
-                                    dequantize_codes, quantize_codes)
+                                    dequantize_codes, quantize_codes,
+                                    unpack_codes, vals_per_word)
 
-__all__ = ["group_quant_ref", "transform_quant_ref", "paged_decode_ref"]
+__all__ = ["group_quant_ref", "transform_quant_ref", "paged_decode_ref",
+           "flash_decode_ref", "dequant_ref", "quant_matmul_ref"]
 
 NEG = -1e30
 
@@ -85,3 +87,43 @@ def paged_decode_ref(q, k_pages, v_pages, block_tables, seq_lens,
     if not normalize:
         return acc, m, l
     return acc / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def flash_decode_ref(q, k, v, k_scale=None, v_scale=None, kv_len=None):
+    """Dense one-token attention oracle over a contiguous cache — the plain
+    version of the ``flash_decode`` kernel. q (B, H, Dh); k/v (B, S, Hkv,
+    Dh) [+ scales (B, S, Hkv)]; query head h reads KV head h // (H // Hkv);
+    positions at or past ``kv_len`` (None: S) are masked. Returns (B, H, Dh)
+    f32.
+
+    The cache of sequence b is page b of a B-page pool with page size S, so
+    this is ``paged_decode_ref`` with block table ``[[0], ..., [B-1]]`` and
+    every length ``kv_len``: masked positions are removed by selection
+    (NaN past ``kv_len`` never reaches the arithmetic) and ``kv_len = 0``
+    gives exactly 0. For 0 < kv_len it is the reference's
+    ``flash_decode_ref``.
+    """
+    B, S = k.shape[:2]
+    n = S if kv_len is None else int(kv_len)
+    bt = torch.arange(B, dtype=torch.int32, device=q.device)[:, None]
+    lens = torch.full((B,), n, dtype=torch.int32, device=q.device)
+    return paged_decode_ref(q, k, v, bt, lens, k_scale, v_scale)
+
+
+def dequant_ref(packed, scale, zero, bits: int, group_size: int, k: int):
+    """packed (K_pad // vpw, N) words -> dense weights (K, N) f32.
+
+    Dequantizes at the PADDED length (scale/zero rows cover K_pad when
+    lcm(group, vals_per_word) padding was applied, e.g. 3-bit), then slices.
+    """
+    cfg = QuantConfig(bits=bits, group_size=group_size)
+    k_pad = packed.shape[0] * vals_per_word(bits)
+    codes = unpack_codes(packed, bits, k_pad)
+    return dequantize_codes(codes, scale, zero, cfg)[:k]
+
+
+def quant_matmul_ref(x, packed, scale, zero, bits: int, group_size: int):
+    """x (M, K) @ dequant(packed) -> (M, N) f32 — the plain version of the
+    ``quant_matmul`` kernel."""
+    w = dequant_ref(packed, scale, zero, bits, group_size, x.shape[1])
+    return x.float() @ w

@@ -13,8 +13,11 @@ victim. Shared prompt prefixes are aliased from the prefix cache at admit
 admission with per-tenant page quotas. Weights stay packed QTensors and are
 dequantized one layer at a time inside each step.
 
-The reference's fixed-slot ``BatchedServer`` (``--legacy``) waits for the
-contiguous-cache decode path and is not in the port.
+``BatchedServer`` (``--legacy``) keeps the reference's fixed-slot loop for
+comparison: it left-pads every batch to its longest prompt and holds
+max_len-deep contiguous cache slots whether used or not; with
+``cfg.use_flash_decode`` each decode step's attention takes the CUDA
+``flash_decode`` kernel.
 """
 from __future__ import annotations
 
@@ -29,12 +32,14 @@ import torch
 from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.core.quant import QuantConfig
+from repro_torch.device import check_on_device, resolve_device
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models.model import init_params
 from repro_torch.quantized.qmodel import dense_bytes, pack_model, packed_bytes
 from repro_torch.serving import (ContinuousBatcher, PagedKVCache,
                                  PagedRequest, make_scheduler)
 
-__all__ = ["Request", "PagedServer", "main"]
+__all__ = ["Request", "BatchedServer", "PagedServer", "main"]
 
 
 @dataclasses.dataclass
@@ -47,6 +52,60 @@ class Request:
     seed: int = 0                   # per-request sample stream
     tenant: str = "default"         # quota bucket (SLO scheduler)
     priority: int = 0               # admission order (SLO scheduler)
+
+
+class BatchedServer:
+    """Fixed-batch greedy decoding server with slot recycling over a
+    contiguous KV cache (the reference's ``BatchedServer``).
+
+    Each batch of up to ``batch_size`` requests is left-padded with token 0
+    to its longest prompt and padded to ``batch_size`` rows with copies of
+    its last request; the prefill's last logits give the first token, then
+    ``max_new - 1`` decode steps follow. The cache (``batch_size`` x
+    ``max_len``) lives on ``device`` (the card unless ``device="cpu"``),
+    where ``params_q`` must already be.
+    """
+
+    def __init__(self, params_q, cfg, batch_size: int = 4, max_len: int = 512,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        check_on_device(params_q, self.device)
+        self.cfg = cfg
+        self.params = params_q
+        self.B = batch_size
+        self.max_len = max_len
+        self.step_fn = make_serve_step(cfg)
+        self.prefill_fn = make_prefill_step(cfg, max_len)
+
+    def generate(self, requests: List[Request]):
+        """Serve all requests; returns list of generated-token lists."""
+        queue = list(requests)
+        results = {id(r): [] for r in requests}
+        while queue:
+            chunk = queue[: self.B]
+            queue = queue[self.B:]
+            # pad the batch to B with copies (masked out of results)
+            live = len(chunk)
+            while len(chunk) < self.B:
+                chunk.append(chunk[-1])
+            plen = max(len(r.prompt) for r in chunk)
+            toks = np.stack([np.pad(r.prompt, (plen - len(r.prompt), 0),
+                                    constant_values=0) for r in chunk])
+            logits, cache = self.prefill_fn(self.params, {
+                "tokens": torch.from_numpy(toks.astype(np.int64)).to(
+                    self.device)})
+            last = torch.argmax(logits[:, -1, : self.cfg.vocab_size],
+                                dim=-1)[:, None]
+            max_new = max(r.max_new for r in chunk[:live])
+            outs = [last]
+            tok = last
+            for t in range(max_new - 1):
+                tok, cache = self.step_fn(self.params, tok, cache, plen + t)
+                outs.append(tok)
+            gen = torch.cat(outs, dim=1).cpu().numpy()
+            for i, r in enumerate(chunk[:live]):
+                results[id(r)] = gen[i, : r.max_new].tolist()
+        return [results[id(r)] for r in requests]
 
 
 class PagedServer:
@@ -113,7 +172,7 @@ class PagedServer:
 
 
 def main(argv=None, device="cuda"):
-    """The reference's flags (``--legacy`` aside); runs on ``device``."""
+    """The reference's flags; runs on ``device``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="opt-tiny")
     ap.add_argument("--bits", type=int, default=2)
@@ -141,6 +200,8 @@ def main(argv=None, device="cuda"):
     ap.add_argument("--tenants", type=int, default=1,
                     help="spread requests round-robin over N tenants, each "
                          "sharing one system-prompt prefix")
+    ap.add_argument("--legacy", action="store_true",
+                    help="fixed-slot BatchedServer instead of the paged path")
     ap.add_argument("--metrics-out", default=obs.DEFAULT_METRICS_PATH,
                     help="metrics snapshot path ('' disables)")
     ap.add_argument("--trace-out", default="",
@@ -175,34 +236,40 @@ def main(argv=None, device="cuda"):
             max_new=args.max_new, temperature=args.temperature,
             top_k=args.top_k, seed=i, tenant=f"tenant{t}",
             priority=t % 3))
-    server = PagedServer(params_q, cfg, max_batch=args.batch,
-                         page_size=args.page_size, n_pages=args.pages,
-                         max_len=args.max_len,
-                         prefill_chunk_pages=args.prefill_chunk_pages,
-                         prefix_cache=not args.no_prefix_cache,
-                         scheduler=args.scheduler,
-                         tenant_quota=args.tenant_quota,
-                         gqa_pages_per_block=args.gqa_pages_per_block,
-                         device=dev)
-    pool = server.cache.pool_bytes()
-    dense = server.cache.dense_equiv_bytes(args.batch, args.max_len)
-    print(f"[serve] page pool: {server.cache.n_pages} x "
-          f"{args.page_size}-token pages = {pool/1e6:.2f}MB "
-          f"(contiguous {args.batch}x{args.max_len} cache: {dense/1e6:.2f}MB)")
+    if args.legacy:
+        server = BatchedServer(params_q, cfg, batch_size=args.batch,
+                               max_len=args.max_len, device=dev)
+    else:
+        server = PagedServer(params_q, cfg, max_batch=args.batch,
+                             page_size=args.page_size, n_pages=args.pages,
+                             max_len=args.max_len,
+                             prefill_chunk_pages=args.prefill_chunk_pages,
+                             prefix_cache=not args.no_prefix_cache,
+                             scheduler=args.scheduler,
+                             tenant_quota=args.tenant_quota,
+                             gqa_pages_per_block=args.gqa_pages_per_block,
+                             device=dev)
+        pool = server.cache.pool_bytes()
+        dense = server.cache.dense_equiv_bytes(args.batch, args.max_len)
+        print(f"[serve] page pool: {server.cache.n_pages} x "
+              f"{args.page_size}-token pages = {pool/1e6:.2f}MB "
+              f"(contiguous {args.batch}x{args.max_len} cache: "
+              f"{dense/1e6:.2f}MB)")
     t0 = time.monotonic()
     outs = server.generate(reqs)
     dt = time.monotonic() - t0
     n_tok = sum(len(o) for o in outs)
     print(f"[serve] {len(reqs)} requests, {n_tok} tokens in {dt:.2f}s "
           f"({n_tok/dt:.1f} tok/s)")
-    print(f"[serve] batcher stats: {server.batcher.stats}")
-    rep = server.sharing_report()
-    print(f"[serve] sharing: {rep['prefill_tokens_saved']} prompt tokens "
-          f"aliased ({rep['saved_frac']:.0%} of prefill), "
-          f"{rep['dedup_admits']} duplicate admits, "
-          f"{rep['cow_forks']} COW forks; "
-          f"TTFT p50={rep['ttft_p50_s']*1e3:.1f}ms "
-          f"p99={rep['ttft_p99_s']*1e3:.1f}ms")
+    if not args.legacy:
+        print(f"[serve] batcher stats: {server.batcher.stats}")
+        rep = server.sharing_report()
+        print(f"[serve] sharing: {rep['prefill_tokens_saved']} prompt tokens "
+              f"aliased ({rep['saved_frac']:.0%} of prefill), "
+              f"{rep['dedup_admits']} duplicate admits, "
+              f"{rep['cow_forks']} COW forks; "
+              f"TTFT p50={rep['ttft_p50_s']*1e3:.1f}ms "
+              f"p99={rep['ttft_p99_s']*1e3:.1f}ms")
     for i, o in enumerate(outs[:3]):
         print(f"  req{i}: {o[:10]}...")
     if args.metrics_out:

@@ -35,8 +35,12 @@ class ModelConfig:
     block_pattern: str = "dense"
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    attn_chunk: int = 1024            # kv-chunk for blocked online-softmax attention
     vocab_pad_multiple: int = 256
     kv_cache_dtype: str = "compute"   # compute | int8 (absmax-scaled KV cache)
+    use_flash_decode: bool = False    # route 1-token decode attention over the
+                                      # contiguous cache through the CUDA
+                                      # flash_decode kernel
 
     @property
     def resolved_head_dim(self) -> int:
@@ -58,6 +62,7 @@ class ModelConfig:
             vocab_size=512,
             head_dim=16 if self.head_dim else 0,
             max_seq_len=256,
+            attn_chunk=64,
             param_dtype="float32",
             compute_dtype="float32",
         )

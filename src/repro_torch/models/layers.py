@@ -1,10 +1,10 @@
-"""Dense building blocks: norms, activation, causal self-attention, MLP.
+"""Dense building blocks: norms, activation, self-attention, MLP.
 
 Plain functions on tensors with the reference's layout (``x @ W``
-orientation, (B, S, H, Dh) heads). Attention is plain tensor ops — scores,
-masked softmax in fp32, then ``@ v`` — the single-chunk case of the
-reference's ``blocked_attention`` online softmax, which is jnp there and not
-a Pallas kernel.
+orientation, (B, S, H, Dh) heads). Attention is the reference's
+``blocked_attention`` online softmax in plain PyTorch (jnp there, not a
+Pallas kernel), except one-token decode over a contiguous cache with
+``cfg.use_flash_decode``, which takes the ``flash_decode`` kernel.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import torch
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["NEG_INF", "rmsnorm", "layernorm", "apply_norm", "init_norm",
-           "activation_fn", "attn_qkv", "attn_out", "causal_attention",
+           "activation_fn", "attn_qkv", "attn_out", "blocked_attention",
            "self_attention", "mlp", "quantize_kv"]
 
 NEG_INF = -1e30
@@ -92,36 +92,109 @@ def attn_out(p, x_attn):
     return out
 
 
-def causal_attention(q, k, v):
-    """q: (B, S, Hq, Dh); k/v: (B, S, Hkv, Dh) -> (B, S, Hq, Dh).
+def blocked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                      kv_len=None, chunk: int = 1024, k_scale=None,
+                      v_scale=None):
+    """q: (B, Sq, Hq, Dh); k/v: (B, Sk, Hkv, Dh) -> (B, Sq, Hq, Dh).
 
-    Query head h reads KV head h // (Hq // Hkv), the reference's grouping.
-    Softmax in fp32 with the reference's order: scores of the pre-scaled q,
-    masked max, exp, masked sum, ``(p @ v) / l``.
+    The reference's online-softmax (flash-attention recurrence) over KV
+    chunks of ``chunk`` positions, in fp32: ``q_offset`` is the absolute
+    position of q[0] (decode), keys at or past ``kv_len`` are masked, and
+    int8 caches come with (B, Sk, Hkv) ``k_scale``/``v_scale``, dequantised
+    per chunk. Query head h reads KV head h // (Hq // Hkv). The port's
+    ``kv_len`` is a host integer, so the keys past it are sliced off before
+    the chunking (the reference masks whole chunks of them; a fully masked
+    chunk leaves (m, l, acc) unchanged, so the result is the same).
     """
-    B, S, Hq, Dh = q.shape
-    rep = Hq // k.shape[2]
-    if rep > 1:
-        k = k.repeat_interleave(rep, dim=2)
-        v = v.repeat_interleave(rep, dim=2)
-    qh = (q.float() * Dh ** -0.5).transpose(1, 2)        # (B, H, S, Dh)
-    kh = k.float().transpose(1, 2)
-    vh = v.float().transpose(1, 2)
-    s = qh @ kh.transpose(-1, -2)                        # (B, H, S, S)
-    pos = torch.arange(S, device=q.device)
-    mask = pos[:, None] >= pos[None, :]
-    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
-    m = torch.amax(s, dim=-1, keepdim=True)
-    p = torch.where(mask, torch.exp(s - m), torch.zeros((), device=q.device))
-    l = torch.sum(p, dim=-1, keepdim=True)  # noqa: E741 — softmax (m, l)
-    out = (p @ vh) / torch.clamp_min(l, 1e-30)
-    return out.transpose(1, 2).to(q.dtype)
+    B, Sq, Hq, Dh = q.shape
+    if kv_len is not None and kv_len < k.shape[1]:
+        k, v = k[:, :kv_len], v[:, :kv_len]
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[:, :kv_len], v_scale[:, :kv_len]
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    dev = q.device
+    # (B, Hkv, rep, Sq, Dh), pre-scaled as the reference does
+    qg = (q.float() * Dh ** -0.5).reshape(B, Sq, Hkv, rep, Dh).permute(
+        0, 2, 3, 1, 4)
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    m = torch.full((B, Hkv, rep, Sq), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((B, Hkv, rep, Sq), dtype=torch.float32,  # noqa: E741
+                    device=dev)
+    acc = torch.zeros((B, Hkv, rep, Sq, Dh), dtype=torch.float32, device=dev)
+    chunk = max(min(chunk, Sk), 1)
+    for start in range(0, Sk, chunk):
+        kb = k[:, start:start + chunk].float()              # (B, C, Hkv, Dh)
+        vb = v[:, start:start + chunk].float()
+        if k_scale is not None:
+            kb = kb * k_scale[:, start:start + chunk, :, None].float()
+            vb = vb * v_scale[:, start:start + chunk, :, None].float()
+        kb = kb.permute(0, 2, 1, 3)[:, :, None]             # (B, Hkv, 1, C, Dh)
+        vb = vb.permute(0, 2, 1, 3)[:, :, None]
+        s = qg @ kb.transpose(-1, -2)                       # (B, Hkv, rep, Sq, C)
+        if causal:
+            k_pos = start + torch.arange(kb.shape[3], device=dev)
+            mask = q_pos[:, None] >= k_pos[None, :]         # (Sq, C)
+            s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        if causal:
+            p = torch.where(mask, p, 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)  # noqa: E741
+        acc = acc * corr[..., None] + p @ vb
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dh).to(q.dtype)
 
 
-def self_attention(p, cfg: ModelConfig, x):
-    """Causal self-attention block body (no norm / residual)."""
+def self_attention(p, cfg: ModelConfig, x, *, causal: bool = True,
+                   cache=None, cache_index: int = 0):
+    """Self-attention block body (no norm / residual). Returns (out, cache).
+
+    ``cache``: optional one-layer dict {"k", "v": (B, Smax, Hkv, Dh)[,
+    "k_scale", "v_scale": (B, Smax, Hkv)]}: this call's K/V are written at
+    positions ``cache_index ..`` IN PLACE (quantized to int8 first when
+    ``cfg.kv_cache_dtype == "int8"``; the reference returns a new cache) and
+    the queries attend over the first ``cache_index + S`` positions. A
+    one-token call with ``cfg.use_flash_decode`` takes the ``flash_decode``
+    kernel; every other call ``blocked_attention``. Positions only feed
+    RoPE, which the port does not carry (``check_supported``).
+    """
     q, k, v = attn_qkv(p, cfg, x)
-    return attn_out(p, causal_attention(q, k, v))
+    if cache is None:
+        out = blocked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+        return attn_out(p, out), None
+    S = x.shape[1]
+    rows = slice(cache_index, cache_index + S)
+    if cfg.kv_cache_dtype == "int8":
+        kq, vq, ks, vs = quantize_kv(k, v)
+        writes = (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs))
+    else:
+        writes = (("k", k), ("v", v))
+    for key, val in writes:
+        cache[key][:, rows] = val.to(cache[key].dtype)
+    kv_len = cache_index + S
+    if cfg.use_flash_decode and S == 1:
+        out = _flash_decode_attention(q, cache, kv_len)
+    else:
+        out = blocked_attention(q, cache["k"], cache["v"], causal=causal,
+                                q_offset=cache_index, kv_len=kv_len,
+                                chunk=cfg.attn_chunk,
+                                k_scale=cache.get("k_scale"),
+                                v_scale=cache.get("v_scale"))
+    return attn_out(p, out), cache
+
+
+def _flash_decode_attention(q, cache, kv_len: int):
+    """A single decode token through ``kernels.flash_decode`` (the CUDA
+    kernel for a CUDA tensor): GQA query heads read their KV head in the
+    kernel (no repeated cache), int8 caches are dequantised there."""
+    from repro_torch.kernels import flash_decode
+    out = flash_decode(q[:, 0], cache["k"], cache["v"], cache.get("k_scale"),
+                       cache.get("v_scale"), kv_len=kv_len)
+    return out[:, None].to(q.dtype)
 
 
 def mlp(p, cfg: ModelConfig, x):

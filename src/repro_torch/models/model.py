@@ -1,4 +1,5 @@
-"""Dense model: init / forward / loss with the reference's param layout.
+"""Dense model: init / forward / loss / contiguous-cache decode with the
+reference's param layout.
 
 Params are plain nested dicts of tensors: stacked ``(L, ...)`` block leaves
 under ``params["blocks"]`` and ``x @ W`` orientation, exactly the JAX tree
@@ -18,7 +19,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig, check_supported
 
 __all__ = ["init_params", "embed_tokens", "lm_head_logits", "forward",
-           "lm_loss", "quantizable_paths", "layer_slice", "dequant_tree"]
+           "lm_loss", "quantizable_paths", "layer_slice", "dequant_tree",
+           "init_cache", "decode_step", "prefill"]
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -103,12 +105,14 @@ def _merge(tree, override):
     return out
 
 
-def _dense_body(pl, cfg: ModelConfig, h):
+def _dense_body(pl, cfg: ModelConfig, h, cache=None, cache_index: int = 0):
     pl = dequant_tree(pl, _dtype(cfg.compute_dtype))
     a_in = L.apply_norm(h, pl["ln1"], cfg.norm)
-    h = h + L.self_attention(pl["attn"], cfg, a_in)
+    a, cache = L.self_attention(pl["attn"], cfg, a_in, cache=cache,
+                                cache_index=cache_index)
+    h = h + a
     m_in = L.apply_norm(h, pl["ln2"], cfg.norm)
-    return h + L.mlp(pl["mlp"], cfg, m_in)
+    return h + L.mlp(pl["mlp"], cfg, m_in), cache
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens, positions):
@@ -155,7 +159,7 @@ def forward(params, cfg: ModelConfig, tokens, *, collect_hidden=False,
         pl = layer_slice(blocks, i)
         if layer_override is not None and layer_override[0] == i:
             pl = _merge(pl, layer_override[1])
-        h = _dense_body(pl, cfg, h)
+        h, _ = _dense_body(pl, cfg, h)
         if collect_hidden:
             hidden.append(h)
     logits = lm_head_logits(params, cfg, h)
@@ -176,6 +180,74 @@ def lm_loss(logits, labels, vocab_size: int, ignore_id: int = -1):
     safe = torch.where(valid, labels, 0).long()
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     return torch.sum(nll * valid) / torch.clamp_min(torch.sum(valid), 1)
+
+
+# ---------------------------------------------------------------------------
+# Decode over a contiguous KV cache
+# ---------------------------------------------------------------------------
+
+def _single_kv(cfg: ModelConfig, batch: int, max_len: int, dt, device):
+    """One block's empty KV cache (the ``init_cache`` leaf layout without the
+    layer axis): (B, max_len, Hkv, hd) K/V in ``dt``, or int8 codes with
+    (B, max_len, Hkv) scales in ``dt``."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], dtype=dt, device=device),
+                "v_scale": torch.zeros(shape[:-1], dtype=dt, device=device)}
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device="cuda"):
+    """Empty contiguous KV cache for every layer: the ``_single_kv`` leaves
+    with a leading n_layers axis, on ``device`` (the card unless
+    ``device="cpu"``). ``dtype`` defaults to the compute dtype."""
+    check_supported(cfg)
+    dt = dtype or _dtype(cfg.compute_dtype)
+    one = _single_kv(cfg, batch, max_len, dt, resolve_device(device))
+    return {k: v[None].repeat((cfg.n_layers,) + (1,) * v.ndim)
+            for k, v in one.items()}
+
+
+def _cached_blocks(params, cfg: ModelConfig, h, cache, index: int):
+    for i in range(cfg.n_layers):
+        h, _ = _dense_body(layer_slice(params["blocks"], i), cfg, h,
+                           cache={k: v[i] for k, v in cache.items()},
+                           cache_index=index)
+    return h
+
+
+def decode_step(params, cfg: ModelConfig, tokens, cache, index: int):
+    """One decode step. tokens (B, 1) at position ``index`` (a host int);
+    returns (logits (B, 1, V), cache).
+
+    Each layer's K/V are written into ``cache`` (the ``init_cache`` tree) IN
+    PLACE at ``index`` — the reference returns a new cache; the returned
+    cache is the same object. Packed QTensor leaves are dequantized one
+    layer at a time, as in the paged step.
+    """
+    check_supported(cfg)
+    index = int(index)
+    positions = index + torch.arange(1, device=tokens.device)
+    h = embed_tokens(params, cfg, tokens, positions)
+    h = _cached_blocks(params, cfg, h, cache, index)
+    return lm_head_logits(params, cfg, h), cache
+
+
+def prefill(params, cfg: ModelConfig, tokens, max_len: int):
+    """Process a prompt (B, S) into a fresh ``init_cache(cfg, B, max_len)``
+    on the tokens' device, written at positions 0..S-1. Returns (logits
+    (B, S, V), cache)."""
+    check_supported(cfg)
+    B, S = tokens.shape
+    cache = init_cache(cfg, B, max_len, device=tokens.device)
+    h = embed_tokens(params, cfg, tokens,
+                     torch.arange(S, device=tokens.device))
+    h = _cached_blocks(params, cfg, h, cache, 0)
+    return lm_head_logits(params, cfg, h), cache
 
 
 _QUANT_KEYS = ("wq", "wk", "wv", "wo", "up", "gate", "down", "w_z", "w_x", "out_proj")

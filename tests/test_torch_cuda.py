@@ -195,3 +195,94 @@ def test_sampling_draws_its_noise_on_the_card():
     assert bool((logits.gather(1, toks[:, None]) >= kth).all())
     streams = torch.stack([draw(range(4), index=i) for i in range(16)])
     assert len(torch.unique(streams)) > 1     # the index moves the stream
+
+
+def _flash_case(dev, *, B, S, H, Hkv, Dh, dtype, seed):
+    """Random contiguous caches (f32, bf16 or int8 + scales) on the card."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, H, Dh), generator=g)
+    k = torch.randn((B, S, Hkv, Dh), generator=g)
+    v = torch.randn((B, S, Hkv, Dh), generator=g)
+    ks = vs = None
+    if dtype == torch.int8:
+        ks = k.abs().amax(-1) / 127.0 + 1e-8
+        vs = v.abs().amax(-1) / 127.0 + 1e-8
+        k = torch.round(k / ks[..., None]).to(torch.int8)
+        v = torch.round(v / vs[..., None]).to(torch.int8)
+        ks, vs = ks.to(dev), vs.to(dev)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    return q.to(dev), k.to(dev), v.to(dev), ks, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (8, 2)], ids=["mha", "gqa"])
+def test_flash_decode_cuda_matches_plain(dtype, H, Hkv):
+    """The kernel against the plain version on the same card tensors at
+    the reference's 2e-4, kv_len 0 (exactly 0), 1, a tile boundary, ragged
+    and S; S = 150 is no multiple of the kernel's 64-row tile."""
+    dev = needs_cuda()
+    S = 150
+    args = _flash_case(dev, B=3, S=S, H=H, Hkv=Hkv, Dh=32, dtype=dtype,
+                       seed=21)
+    for kv_len in (0, 1, 64, 97, S):
+        before = tk.LAUNCHES["flash_decode"]
+        out = tk.flash_decode(*args, kv_len=kv_len)
+        assert tk.LAUNCHES["flash_decode"] == before + 1
+        torch.testing.assert_close(out, tref.flash_decode_ref(
+            *args, kv_len=kv_len), rtol=2e-4, atol=2e-4)
+        if kv_len == 0:
+            assert not out.any(), "an empty cache gives exactly 0"
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (8, 2)], ids=["mha", "gqa"])
+def test_flash_decode_cuda_never_reads_past_kv_len(H, Hkv):
+    dev = needs_cuda()
+    q, k, v, _, _ = _flash_case(dev, B=2, S=96, H=H, Hkv=Hkv, Dh=16,
+                                dtype=torch.float32, seed=23)
+    want = tref.flash_decode_ref(q, k, v, kv_len=70)
+    k[:, 70:] = float("nan")
+    v[:, 70:] = float("nan")
+    got = tk.flash_decode(q, k, v, kv_len=70)
+    assert not torch.isnan(got).any()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits,group,M,K,N", [
+    (2, 32, 8, 256, 160), (3, 32, 5, 96, 128), (4, 64, 16, 512, 96),
+    (8, 32, 9, 160, 64)])
+def test_quant_matmul_cuda_matches_plain(dtype, bits, group, M, K, N):
+    """The kernel against the plain version at the reference's 5e-4;
+    3-bit pads K (10 codes per word), M and N are off any tiling."""
+    dev = needs_cuda()
+    from repro_torch.core.quant import QuantConfig, quantize_tensor
+    g = torch.Generator().manual_seed(bits * 100 + M)
+    qt = quantize_tensor(torch.randn((K, N), generator=g),
+                         QuantConfig(bits=bits, group_size=group)).to(dev)
+    x = torch.randn((M, K), generator=g).to(dev, dtype)
+    before = tk.LAUNCHES["quant_matmul"]
+    out = tk.quant_matmul(x, qt.packed, qt.scale, qt.zero, bits=bits,
+                          group=group)
+    assert tk.LAUNCHES["quant_matmul"] == before + 1
+    assert out.dtype == torch.float32 and out.shape == (M, N)
+    torch.testing.assert_close(out, tref.quant_matmul_ref(
+        x, qt.packed, qt.scale, qt.zero, bits, group), rtol=5e-4, atol=5e-4)
+
+
+def test_flash_decode_and_quant_matmul_raise_on_bad_inputs():
+    dev = needs_cuda()
+    q, k, v, _, _ = _flash_case(dev, B=2, S=8, H=4, Hkv=2, Dh=16,
+                                dtype=torch.float32, seed=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.flash_decode(q, k.transpose(1, 2).contiguous().transpose(1, 2), v)
+    with pytest.raises(ValueError, match="kv_len"):
+        tk.flash_decode(q, k, v, kv_len=-1)
+    words = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    sz = torch.ones((2, 8), device=dev)
+    with pytest.raises(ValueError, match="K_pad"):
+        tk.quant_matmul(torch.ones((2, 80), device=dev), words, sz, sz,
+                        bits=2, group=32)
+    with pytest.raises(ValueError, match="dtype"):
+        tk.quant_matmul(torch.ones((2, 64), device=dev), words.float(), sz,
+                        sz, bits=2, group=32)

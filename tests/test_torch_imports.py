@@ -82,6 +82,7 @@ def no_gpu(monkeypatch):
 def test_entry_points_default_to_cuda_and_raise_without_a_gpu(no_gpu):
     from repro_torch.configs import get_config
     from repro_torch.convert import params_from_numpy
+    from repro_torch.core.invariance import identity_transform
     from repro_torch.core.pipeline import quantize_model
     from repro_torch.core.quant import QuantConfig
     from repro_torch.data.calib import calibration_tensor
@@ -90,6 +91,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(no_gpu):
     cfg = get_config("opt-tiny").reduced()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        identity_transform(cfg.d_ff)
+    assert identity_transform(cfg.d_ff, "cpu").pi.device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_numpy({"w": np.zeros((2, 2), np.float32)})
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -106,8 +110,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(no_gpu):
 def test_serving_entry_points_default_to_cuda_and_raise_without_a_gpu(no_gpu):
     from repro_torch.configs import get_config
     from repro_torch.core.quant import QTensor, QuantConfig
-    from repro_torch.launch.serve import PagedServer
-    from repro_torch.models.model import init_params
+    from repro_torch.launch.serve import BatchedServer, PagedServer
+    from repro_torch.models.model import init_cache, init_params
     from repro_torch.quantized.qmodel import pack_model
     from repro_torch.serving import PagedKVCache
 
@@ -123,6 +127,13 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_a_gpu(no_gpu):
     server = PagedServer(params_q, cfg, max_batch=2, max_len=32,
                          device="cpu")
     assert server.cache.pools["k"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(cfg, 2, 16)
+    assert init_cache(cfg, 2, 16, device="cpu")["k"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchedServer(params_q, cfg, batch_size=2, max_len=32)
+    assert BatchedServer(params_q, cfg, batch_size=2, max_len=32,
+                         device="cpu").generate([]) == []
 
 
 def test_quantize_model_refuses_params_on_another_device():

@@ -123,9 +123,14 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
             tref.transform_quant_ref(w, pi, s, phi, bits=2, group=32,
                                      mode="up")):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+    q, k = torch.randn(2, 4, 8), torch.randn(2, 6, 2, 8)
+    torch.testing.assert_close(tk.flash_decode(q, k, k, kv_len=3),
+                               tref.flash_decode_ref(q, k, k, kv_len=3),
+                               rtol=0, atol=0)
     assert tk.LAUNCHES == {"group_quant": 0, "transform_quant": 0,
                            "paged_decode": 0, "paged_decode_gqa": 0,
-                           "paged_decode_gqa_mp": 0}
+                           "paged_decode_gqa_mp": 0, "flash_decode": 0,
+                           "quant_matmul": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -146,3 +151,10 @@ def test_wrappers_refuse_other_devices():
     lens = torch.empty(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tk.paged_decode(q, pool, pool, bt, lens)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tk.flash_decode(q, pool, pool, kv_len=2)
+    words = torch.empty((4, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tk.quant_matmul(torch.empty((2, 64), device="meta"), words,
+                        s[:16].reshape(2, 8), s[:16].reshape(2, 8), bits=2,
+                        group=32)

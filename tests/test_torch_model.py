@@ -56,8 +56,10 @@ def test_config_fields_match_reference():
     jcfg, tcfg = jget_config("opt-1.3b"), tget_config("opt-1.3b")
     for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
               "vocab_size", "activation", "gated_mlp", "use_bias", "pos_emb",
-              "norm", "max_seq_len", "padded_vocab", "resolved_head_dim"):
+              "norm", "max_seq_len", "padded_vocab", "resolved_head_dim",
+              "attn_chunk", "use_flash_decode", "kv_cache_dtype"):
         assert getattr(tcfg, f) == getattr(jcfg, f), f
+    assert tcfg.reduced().attn_chunk == jcfg.reduced().attn_chunk == 64
     assert (tcfg.n_layers, tcfg.d_model, tcfg.d_ff) == (24, 2048, 8192)
 
 

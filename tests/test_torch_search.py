@@ -117,7 +117,7 @@ def test_native_propose_properties(f):
     slots; s >= 1e-3; only the masked entries of s and phi move."""
     pcfg = tinv.ProposalConfig()
     gen = torch.Generator().manual_seed(f)
-    t = tinv.identity_transform(f)
+    t = tinv.identity_transform(f, "cpu")
     t = t._replace(s=torch.full((f,), 5e-4))      # exercise the 1e-3 floor
     n_move = max(2, int(round(0.1 * f)))
     n_rot = max(1, int(round(0.1 * (f // 2))))
@@ -134,7 +134,7 @@ def test_native_propose_properties(f):
 
 
 def test_native_proposals_are_seeded():
-    t = tinv.identity_transform(64)
+    t = tinv.identity_transform(64, "cpu")
     a = tinv.NativeProposals(3, "cpu")(t, 2, tinv.ProposalConfig())
     b = tinv.NativeProposals(3, "cpu")(t, 2, tinv.ProposalConfig())
     for x, y in zip(a, b):
