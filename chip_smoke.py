@@ -25,12 +25,17 @@ source, started together, into ``build/kernels/``), then:
 5. paged serving: (a) the three paged-decode routes vs the plain version
    at rtol = atol = 1e-5 — the reference's own bar (``tests/test_paged.py``):
    the kernel sums scores and values in another order than
-   ``paged_decode_ref`` — at opt-1.3b's head layout, a full-width GQA one
-   and the small configs' layouts that (d) serves, on f32, bf16 and int8
-   pools, ragged lengths (0, 1, page-aligned, P·psz), ``normalize=False``
-   partials and NaN-poisoned dead slots; (b) each route's time at the main path's decode
-   shape and at B 8 × 1024 tokens beside its bound, its plain version and
-   ``scaled_dot_product_attention`` on K/V already gathered contiguous;
+   ``paged_decode_ref`` — at opt-1.3b's head layout, a full-width GQA one,
+   a long full-width GQA one (B 2 × 64 pages, lengths [1024, 333] and
+   [0, 1000]) where the fused-GQA planner splits the pages across CTAs
+   (each check logs n_split), and the small configs' layouts that (d)
+   serves, on f32, bf16 and int8 pools, ragged lengths (0, 1,
+   page-aligned, P·psz), ``normalize=False`` partials and NaN-poisoned
+   dead slots; (b) each route's time at the main path's decode shape, at
+   B 8 × 1024 tokens and (GQA routes) at B 1 × 8192, beside its bound, its
+   device time under the profiler, its plain version and
+   ``scaled_dot_product_attention`` on K/V already gathered contiguous
+   (repeated to H heads, and with ``enable_gqa`` on K/V as they are);
    (c) ``PagedServer`` on 2-bit opt-1.3b (full width and depth) over the
    reference bench's 8-tenant trace with prefix sharing off, then on:
    outputs token-identical (or parting only at a printed near-tie), held
@@ -124,6 +129,12 @@ def nvidia_smi_line() -> str:
 
 def time_ms(torch, fn, warmup=3, reps=25):
     """Median of ``reps`` CUDA-event timings of ``fn`` after ``warmup``."""
+    return time_stats(torch, fn, warmup, reps)[0]
+
+
+def time_stats(torch, fn, warmup=3, reps=25):
+    """(median, [min, max]) of ``reps`` CUDA-event timings of ``fn`` after
+    ``warmup``: the range is the run's own spread."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -136,7 +147,27 @@ def time_ms(torch, fn, warmup=3, reps=25):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(times), [min(times), max(times)]
+
+
+def device_ms(torch, fn, fragments, calls=20):
+    """Device time per call of ``fn``'s kernels whose names hold one of
+    ``fragments``, under ``torch.profiler`` over ``calls`` calls after a
+    warm-up: the kernels' own time, without the host's launch work that a
+    CUDA-event timing of one call also holds."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0)
+                for e in prof.key_averages()
+                if any(f in e.key for f in fragments))
+    if total <= 0:
+        raise AssertionError(f"the profiler saw no device time in {fragments}")
+    return total / calls / 1e3
 
 
 def bound_ms(nbytes, nops):
@@ -444,8 +475,11 @@ def route_kw(route, mp=2):
 
 # 5a cases: (name, B, H, Hkv, Dh, psz, P, length sets, (route, MP) pairs).
 # The first two are opt-1.3b's decode layout (MHA) and a full-width GQA one;
-# the last two are the layouts 5d serves (opt-tiny reduced at max_batch 4,
-# page size 8, max_len 64).
+# "long-gqa" is a full-width GQA layout long enough that the fused-GQA
+# planner splits the pages across CTAs (runs past the 333-token sequence's
+# end are empty, a zero-length sequence merges to exactly 0); the last two
+# are the layouts 5d serves (opt-tiny reduced at max_batch 4, page size 8,
+# max_len 64).
 _GQA_ROUTES = (("paged_decode", 1), ("paged_decode_gqa", 1),
                ("paged_decode_gqa_mp", 2))
 _LENS_8 = [0, 1, PSZ, 2 * PSZ + 5, 8 * PSZ, 37, 3 * PSZ, 100]
@@ -454,17 +488,33 @@ PD_LAYOUTS = (
     ("mha", 8, 32, 32, 64, PSZ, 8, (_LENS_8,), (("paged_decode", 1),)),
     ("gqa", 8, 32, 8, 128, PSZ, 8, (_LENS_8,),
      _GQA_ROUTES + (("paged_decode_gqa_mp", 4),)),
+    ("long-gqa", 2, 32, 8, 128, PSZ, 64, ([1024, 333], [0, 1000]),
+     (("paged_decode_gqa", 1), ("paged_decode_gqa_mp", 2),
+      ("paged_decode_gqa_mp", 4))),
     ("small-gqa", 4, 4, 2, 16, 8, 8, _LENS_SMALL, _GQA_ROUTES),
     ("small-mha", 4, 4, 4, 16, 8, 8, _LENS_SMALL, (("paged_decode", 1),)),
 )
 
 
-def phase_paged_kernels(torch, ops, ref):
+def n_split(torch, pd, route, B, Hkv, P, psz, mp):
+    """Runs the fused-GQA planner cuts each sequence into (1 for the
+    per-query-head route, which does not split)."""
+    if route == "paged_decode":
+        return 1
+    return pd.plan(route, B, Hkv, P, psz, mp,
+                   pd.sm_count(torch.device("cuda"))).n_split
+
+
+def phase_paged_kernels(torch, ops, ref, pd):
     """5a: every route vs the plain version on the card at each layout of
     ``PD_LAYOUTS``. Returns the max abs error per route."""
     errs = dict.fromkeys(PD_ROUTES, 0.0)
     for name, B, H, Hkv, Dh, psz, P, lens_sets, routes in PD_LAYOUTS:
         shape = dict(B=B, H=H, Hkv=Hkv, Dh=Dh, P=P, psz=psz)
+        splits = {(r, mp): n_split(torch, pd, r, B, Hkv, P, psz, mp)
+                  for r, mp in routes}
+        if name == "long-gqa" and min(splits.values()) < 2:
+            raise AssertionError(f"{name}: the planner did not split {splits}")
         for lens in lens_sets:
             for dt in (torch.float32, torch.bfloat16, torch.int8):
                 args = paged_case(torch, lens=lens, dtype=dt, seed=5, **shape)
@@ -488,7 +538,7 @@ def phase_paged_kernels(torch, ops, ref):
                     log("kernel_check", kernel=route, layout=name,
                         heads=[H, Hkv], head_dim=Dh, page_size=psz, batch=B,
                         dtype=str(dt), pages_per_block=mp, lens=lens,
-                        max_abs_err=err)
+                        n_split=splits[route, mp], max_abs_err=err)
             # NaN in every slot past each length (and the null page)
             args = paged_case(torch, lens=lens, dtype=torch.float32, seed=6,
                               **shape)
@@ -510,7 +560,8 @@ def phase_paged_kernels(torch, ops, ref):
                 errs[route] = max(errs[route], err)
                 log("kernel_check", kernel=route, layout=name,
                     case="nan-poisoned dead slots", page_size=psz,
-                    pages_per_block=mp, lens=lens, max_abs_err=err)
+                    pages_per_block=mp, lens=lens,
+                    n_split=splits[route, mp], max_abs_err=err)
     return errs
 
 
@@ -524,51 +575,118 @@ def paged_bytes(q, kp, ks, lens, H, Hkv):
             + 2 * q.shape[0] * H * 4 + 4 * len(lens) * 2)
 
 
+# 5b contexts: (name, B, lengths or None for the trace's decode lengths,
+# routes). "long-b1" is one user decoding a long context: the same live
+# K/V bytes as "long", one sequence.
+PD_CONTEXTS = (("decode", 8, None, PD_ROUTES),
+               ("long", 8, [1024] * 8, PD_ROUTES),
+               ("long-b1", 1, [8192], PD_ROUTES[1:]))
+
+
+# device-kernel name fragments of each route's launch (the fused-GQA
+# routes: split pass and merge)
+PD_KERNEL_NAMES = {"paged_decode": ("decode_attention::",),
+                   "paged_decode_gqa": ("split_decode::",),
+                   "paged_decode_gqa_mp": ("split_decode::",)}
+
+
+def sdpa_takes_gqa(torch) -> bool:
+    """Whether this torch's ``scaled_dot_product_attention`` has
+    ``enable_gqa`` (torch 2.5 on)."""
+    major, minor = (int(x) for x in torch.__version__.split(".")[:2])
+    return (major, minor) >= (2, 5)
+
+
 def phase_paged_times(torch, ops, ref, pd, decode_lens):
-    """5b: CUDA-event medians of each route at the main path's decode shape
-    (B 8, psz 16, the trace's lengths; MHA 32 heads Dh 64 for the
-    per-query-head route, 32/8 heads Dh 128 for the GQA routes) and at a
-    long context (B 8 x 1024 tokens)."""
+    """5b: CUDA-event medians (and the run's spread) of each route at the
+    main path's decode shape (B 8, psz 16, the trace's lengths; MHA 32 heads
+    Dh 64 for the per-query-head route, 32/8 heads Dh 128 for the GQA
+    routes), at a long context (B 8 x 1024 tokens) and, for the GQA routes,
+    at one long sequence (B 1 x 8192), beside the bound, the plain version
+    and two SDPA yardsticks on K/V already gathered contiguous: K/V
+    repeated to H heads, and (where this torch takes ``enable_gqa``) K/V as
+    they are; ``library_ms`` is the faster. Each raw ``pd.launch`` is the
+    whole decode: split pass and merge. Beside the CUDA-event time of one
+    call (host launch work included), ``device_ms`` is the route's kernels'
+    own time under the profiler."""
     import torch.nn.functional as F
     rows = {}
+    gqa_ok = sdpa_takes_gqa(torch)
     for route in PD_ROUTES:
         H, Hkv, Dh = (32, 32, 64) if route == "paged_decode" else (32, 8, 128)
         mp = 2 if route == "paged_decode_gqa_mp" else 1
         per = {}
-        for ctx, lens in (("decode", decode_lens), ("long", [1024] * 8)):
+        for ctx, B, lens, routes in PD_CONTEXTS:
+            if route not in routes:
+                continue
+            lens = lens or decode_lens
             P = -(-max(lens) // PSZ)
             q, kp, vp, bt, ln, ks, vs = paged_case(
-                torch, B=8, H=H, Hkv=Hkv, Dh=Dh, P=P, lens=lens,
+                torch, B=B, H=H, Hkv=Hkv, Dh=Dh, P=P, lens=lens,
                 dtype=torch.float32, seed=7)
-            out = torch.empty((8, H, Dh), device=q.device)
-            m = torch.empty((8, H), device=q.device)
+            out = torch.empty((B, H, Dh), device=q.device)
+            m = torch.empty((B, H), device=q.device)
             l_ = torch.empty_like(m)
-            t = time_ms(torch, lambda: pd.launch(
+            t, spread = time_stats(torch, lambda: pd.launch(
                 route, q, kp, vp, bt, ln, None, None, out, m, l_,
                 normalize=True, pages_per_block=mp), reps=50)
+            dev = device_ms(torch, lambda: pd.launch(
+                route, q, kp, vp, bt, ln, None, None, out, m, l_,
+                normalize=True, pages_per_block=mp), PD_KERNEL_NAMES[route])
             p = time_ms(torch, lambda: ref.paged_decode_ref(q, kp, vp, bt, ln),
                         reps=20)
-            # yardstick: SDPA over K/V already gathered contiguous (B, H,
+            # yardsticks: SDPA over K/V already gathered contiguous (B, Hkv,
             # S, Dh) with a boolean length mask; gather and head repeat
             # excluded from the time
             S = P * PSZ
-            kc = kp[bt.long()].reshape(8, S, Hkv, Dh).transpose(1, 2)
-            vc = vp[bt.long()].reshape(8, S, Hkv, Dh).transpose(1, 2)
-            kc = kc.repeat_interleave(H // Hkv, 1).contiguous()
-            vc = vc.repeat_interleave(H // Hkv, 1).contiguous()
+            kc = kp[bt.long()].reshape(B, S, Hkv, Dh).transpose(1, 2)
+            vc = vp[bt.long()].reshape(B, S, Hkv, Dh).transpose(1, 2)
             mask = (torch.arange(S, device=q.device)[None, :]
                     < ln[:, None])[:, None, None, :]
             qs = q[:, :, None, :]
-            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qs, kc, vc, attn_mask=mask), reps=50)
+            lib_gqa = None
+            if H > Hkv and gqa_ok:
+                kg, vg = kc.contiguous(), vc.contiguous()
+                lib_gqa = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qs, kg, vg, attn_mask=mask, enable_gqa=True), reps=50)
+                del kg, vg
+            kr = kc.repeat_interleave(H // Hkv, 1).contiguous()
+            vr = vc.repeat_interleave(H // Hkv, 1).contiguous()
+            lib_rep = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, kr, vr, attn_mask=mask), reps=50)
+            del kr, vr, kc, vc
             b, by = bound_ms(paged_bytes(q, kp, ks, lens, H, Hkv),
                              4 * H * Dh * sum(lens))
-            per[ctx] = dict(ms=t, plain_ms=p, library_ms=lib, bound_ms=b,
-                            bound_by=by, heads=[H, Hkv], head_dim=Dh,
-                            lens=lens, pages_per_block=mp)
+            per[ctx] = dict(
+                ms=t, ms_range=spread, plain_ms=p,
+                library_ms=min(x for x in (lib_rep, lib_gqa) if x is not None),
+                sdpa_repeated_ms=lib_rep, sdpa_enable_gqa_ms=lib_gqa,
+                bound_ms=b, bound_by=by, share_of_bound=b / t,
+                device_ms=dev, device_share_of_bound=b / dev, batch=B,
+                heads=[H, Hkv], head_dim=Dh, lens=lens, pages_per_block=mp,
+                n_split=n_split(torch, pd, route, B, Hkv, P, PSZ, mp))
             log("kernel_time", kernel=route, context=ctx, **per[ctx])
+            del q, kp, vp, bt, ln
         rows[route] = per
     return rows
+
+
+# what the kernels line carries of each 5b context past the decode shape
+PD_CTX_KEYS = ("ms", "ms_range", "device_ms", "plain_ms", "bound_ms",
+               "library_ms", "sdpa_repeated_ms", "sdpa_enable_gqa_ms",
+               "share_of_bound", "device_share_of_bound", "n_split")
+
+
+def gqa_vs_sdpa(rows):
+    """One line per GQA route and long context: the kernel's time against
+    the faster SDPA yardstick of the same run, and its share of the bound
+    (a report, not a check: times are no correctness bar)."""
+    for route in PD_ROUTES[1:]:
+        for ctx in ("long", "long-b1"):
+            r = rows[route][ctx]
+            log("gqa_vs_sdpa", kernel=route, context=ctx,
+                **{k: r[k] for k in PD_CTX_KEYS},
+                faster=r["ms"] < r["library_ms"])
 
 
 def to_device(tree, dev):
@@ -619,9 +737,11 @@ def compare_runs(outs_a, outs_b, ties_ok, what):
 
 
 # device-kernel name fragments -> family for the serving profile (first
-# match wins); the paged routes run the kernel body of
-# csrc/decode_attention.cuh; cuBLAS takes GEMV kernels at B <= 8
+# match wins); the per-query-head paged route runs the kernel body of
+# csrc/decode_attention.cuh, the fused-GQA routes that of
+# csrc/split_decode.cuh; cuBLAS takes GEMV kernels at B <= 8
 SERVE_FAMILIES = (("decode_attention", "paged_decode (port kernel)"),
+                  ("split_decode", "paged_decode (port kernel)"),
                   ("paged_decode", "paged_decode (port kernel)"),
                   ("gemv", "matmul (cuBLAS)"),
                   ("index", "indexing (gather, K/V write)"),
@@ -969,8 +1089,8 @@ def phase_flash_times(torch, ref, fd, decode_len):
         q, k, v, _, _ = flash_case(torch, B=B, S=S, H=H, Hkv=Hkv, Dh=Dh,
                                    dtype=torch.float32, seed=10)
         out = torch.empty((B, H, Dh), device=q.device)
-        t = time_ms(torch, lambda: fd.launch(q, k, v, None, None, out,
-                                             kv_len=n), reps=50)
+        t, spread = time_stats(torch, lambda: fd.launch(
+            q, k, v, None, None, out, kv_len=n), reps=50)
         p = time_ms(torch, lambda: ref.flash_decode_ref(q, k, v, kv_len=n),
                     reps=20)
         mask = (torch.arange(S, device=q.device) < n)[None, None, None, :]
@@ -979,7 +1099,8 @@ def phase_flash_times(torch, ref, fd, decode_len):
             q[:, :, None, :], kt, vt, attn_mask=mask), reps=50)
         nbytes = 2 * B * n * Hkv * Dh * 4 + 2 * q.numel() * 4
         b, by = bound_ms(nbytes, 4 * B * H * Dh * n)
-        rows[ctx] = dict(ms=t, plain_ms=p, library_ms=lib, bound_ms=b,
+        rows[ctx] = dict(ms=t, ms_range=spread, plain_ms=p, library_ms=lib,
+                         bound_ms=b,
                          bound_by=by, batch=B, heads=[H, Hkv], head_dim=Dh,
                          cache_rows=S, kv_len=n)
         log("kernel_time", kernel="flash_decode", context=ctx, **rows[ctx])
@@ -1379,10 +1500,11 @@ def main() -> int:
     # ---- phase 5: paged serving ------------------------------------------
     from repro_torch.serving import build_trace
     pd = importlib.import_module("repro_torch.kernels.paged_decode")
-    pd_errs = phase_paged_kernels(torch, ops, ref)
+    pd_errs = phase_paged_kernels(torch, ops, ref, pd)
     decode_lens = [len(t["prompt"]) + TRACE["max_new"] // 2
                    for t in build_trace(cfg.vocab_size, **TRACE)[:8]]
     pd_rows = phase_paged_times(torch, ops, ref, pd, decode_lens)
+    gqa_vs_sdpa(pd_rows)
     params_q, setup_s = packed_opt(torch, cfg)
     serve_counts, split = phase_serving(torch, ops, pd_rows, cfg, params_q,
                                         setup_s)
@@ -1419,6 +1541,7 @@ def main() -> int:
             **{k: row[k] for k in ("per", "shapes", "dtype") if k in row}})
     for route in PD_ROUTES:
         main_row, long_row = pd_rows[route]["decode"], pd_rows[route]["long"]
+        b1_row = pd_rows[route].get("long-b1")
         kernels.append({
             "name": route, "route": "cuda",
             "source": "src/repro_torch/csrc/paged_decode.cu",
@@ -1435,13 +1558,17 @@ def main() -> int:
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
             "library_note": "torch scaled_dot_product_attention on K/V "
-                            "already gathered contiguous (B, H, S, Dh), "
-                            "boolean length mask; gather and GQA head repeat "
-                            "not timed",
+                            "already gathered contiguous, boolean length "
+                            "mask, the faster of K/V repeated to H heads and "
+                            "(GQA routes) enable_gqa on K/V as they are; "
+                            "gather and head repeat not timed",
             "shape": {k: main_row[k] for k in ("heads", "head_dim", "lens",
                                                "pages_per_block")},
-            "long_context": {k: long_row[k] for k in (
-                "ms", "plain_ms", "bound_ms", "library_ms")},
+            "device_ms": main_row["device_ms"],
+            "n_split": main_row["n_split"],
+            "long_context": {k: long_row[k] for k in PD_CTX_KEYS},
+            **({"long_context_b1": {k: b1_row[k] for k in PD_CTX_KEYS}}
+               if b1_row else {}),
             "dtype": "float32"})
     main_row, long_row = fd_rows["decode"], fd_rows["long"]
     kernels.append({
@@ -1458,9 +1585,10 @@ def main() -> int:
                         "length mask",
         "shape": {k: main_row[k] for k in ("batch", "heads", "head_dim",
                                            "cache_rows", "kv_len")},
+        "ms_range": main_row["ms_range"],
         "long_context": {k: long_row[k] for k in (
-            "ms", "plain_ms", "bound_ms", "library_ms", "cache_rows",
-            "kv_len")},
+            "ms", "ms_range", "plain_ms", "bound_ms", "library_ms",
+            "cache_rows", "kv_len")},
         "dtype": "float32"})
     qrow = qm_rows[QM_MAIN]
     kernels.append({

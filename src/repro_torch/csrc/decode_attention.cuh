@@ -1,6 +1,8 @@
-// One-token decode attention body shared by the paged and the contiguous
-// (flash) decode kernels: paged_decode.cu and flash_decode.cu include it and
-// only fill in Args.
+// One-token decode attention body shared by the per-query-head paged route
+// (rq_paged_decode_head) and the contiguous (flash) decode kernel:
+// paged_decode.cu and flash_decode.cu include it and only fill in Args. The
+// fused-GQA paged routes run the split-KV body of split_decode.cuh, which
+// takes load4 and the warp reductions from here.
 //
 //   out[b,h] = softmax(q[b,h] . K[b, :len, h/rep]^T / sqrt(Dh)) . V[...]
 //
@@ -15,7 +17,7 @@
 // A CTA owns nq query rows (1, or the rep query heads of KV head g) and walks
 // the live positions in tiles of `tile` rows, one online-softmax update per
 // tile. The tile is a parameter of its own, not a page count: the paged
-// routes set it to mp pages, the contiguous route to a fixed row count, so
+// route sets it to one page, the contiguous route to a fixed row count, so
 // shared memory never grows with the sequence.
 //
 // Bound: bytes. At decode the live K/V bytes dominate (16 KiB per token per

@@ -9,25 +9,35 @@
 //
 // Replaces the three TPU kernels of src/repro/kernels/paged_decode.py:
 //   rq_paged_decode_head    <- paged_decode_pallas      (one CTA per (b, h))
-//   rq_paged_decode_gqa     <- paged_decode_gqa_pallas  (one CTA per (b, g))
+//   rq_paged_decode_gqa     <- paged_decode_gqa_pallas  (per (b, g), split)
 //   rq_paged_decode_gqa_mp  <- _gqa_multipage_call      (MP pages per update)
-// All three are the kernel body of decode_attention.cuh (bound, design and
-// masking are described there): a CTA owns nq query rows (1, or the rep
-// query heads of KV head g) and walks the live pages in tiles of mp pages,
-// one online-softmax update per tile, so the routes cannot drift apart.
-// Only live pages are loaded (n_live = max(ceil(len / psz), 1), as the TPU
-// kernel's dead-page skip); the fused-GQA routes read each KV page once for
-// all rep query heads, the per-query-head route rep times (from L2).
+// Two bodies:
+// - rq_paged_decode_head runs the body of decode_attention.cuh (shared with
+//   flash_decode.cu): a CTA owns one query row and walks all live pages of
+//   its sequence, one page per online-softmax update.
+// - the two fused-GQA entries run the split-KV body of split_decode.cuh: a
+//   CTA owns the rep query heads of one KV head over one run of pages
+//   (the binding's planner picks the runs and the tile's positions:
+//   kernels/paged_decode.py), stages tiles with cp.async a few deep, and a second
+//   small kernel merges the runs' (acc, m, l) partials when there is more
+//   than one. The two entries differ in the runs they are given: the
+//   multi-page route's runs are whole blocks of MP pages.
+// Only live pages are loaded (the TPU kernels' dead-page skip, and more: no
+// slot at or past the length is read); the fused-GQA routes read each KV
+// row once for all rep query heads, the per-query-head route rep times
+// (from L2).
 #include "decode_attention.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
 using decode_attention::Args;
 
-Args make_args(const void* q, const void* k, const void* v, const void* ks,
+// the per-query-head route: one query row per CTA, one page per update
+Args head_args(const void* q, const void* k, const void* v, const void* ks,
                const void* vs, const void* bt, const void* lens, void* out,
                void* m, void* l, int H, int Hkv, int Dh, int psz, int P,
-               int per_query_head, int mp, int normalize, float scale) {
+               int normalize, float scale) {
   Args a;
   a.q = static_cast<const float*>(q);
   a.k = k;
@@ -45,8 +55,43 @@ Args make_args(const void* q, const void* k, const void* v, const void* ks,
   a.Dh = Dh;
   a.psz = psz;
   a.P = P;
-  a.per_query_head = per_query_head;
-  a.tile = mp * psz;
+  a.per_query_head = 1;
+  a.tile = psz;
+  a.normalize = normalize;
+  a.scale = scale;
+  return a;
+}
+
+// the fused-GQA routes: the split-KV body
+split_decode::Args split_args(
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, const void* bt, const void* lens, void* out, void* m,
+    void* l, void* ws_acc, void* ws_m, void* ws_l, int B, int H, int Hkv,
+    int Dh, int psz, int P, int n_split, int run_pages, int tile_rows,
+    int normalize, float scale) {
+  split_decode::Args a;
+  a.q = static_cast<const float*>(q);
+  a.k = k;
+  a.v = v;
+  a.ks = static_cast<const float*>(ks);
+  a.vs = static_cast<const float*>(vs);
+  a.bt = static_cast<const int32_t*>(bt);
+  a.lens = static_cast<const int32_t*>(lens);
+  a.out = static_cast<float*>(out);
+  a.m_out = static_cast<float*>(m);
+  a.l_out = static_cast<float*>(l);
+  a.ws_acc = static_cast<float*>(ws_acc);
+  a.ws_m = static_cast<float*>(ws_m);
+  a.ws_l = static_cast<float*>(ws_l);
+  a.B = B;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.Dh = Dh;
+  a.psz = psz;
+  a.P = P;
+  a.run_pages = run_pages;
+  a.n_split = n_split;
+  a.tile_rows = tile_rows;
   a.normalize = normalize;
   a.scale = scale;
   return a;
@@ -54,37 +99,47 @@ Args make_args(const void* q, const void* k, const void* v, const void* ks,
 
 }  // namespace
 
-// Each entry returns cudaGetLastError() after the launch (0 = cudaSuccess),
-// or kErrSmem without launching.
+// Each entry returns cudaGetLastError() after its launches (0 =
+// cudaSuccess), or kErrSmem (-1) without launching when one CTA's tiles
+// need more shared memory than a block has.
 extern "C" int rq_paged_decode_head(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* bt, const void* lens, void* out, void* m,
     void* l, int B, int H, int Hkv, int Dh, int psz, int P, int normalize,
     int kv_dtype, int quant, float scale, void* stream) {
   return decode_attention::launch(
-      make_args(q, k, v, ks, vs, bt, lens, out, m, l, H, Hkv, Dh, psz, P, 1,
-                1, normalize, scale),
+      head_args(q, k, v, ks, vs, bt, lens, out, m, l, H, Hkv, Dh, psz, P,
+                normalize, scale),
       B, kv_dtype, quant, stream);
 }
 
+// The fused-GQA entries: ws_acc (n_split, B, H, Dh), ws_m and ws_l
+// (n_split, B, H) are the partials' workspace, unused (may be null) when
+// n_split == 1; each sequence is cut into n_split runs of run_pages pages,
+// staged tile_rows positions at a time. They return kErrHeadDim (-2)
+// without launching when Dh > 1024.
 extern "C" int rq_paged_decode_gqa(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* bt, const void* lens, void* out, void* m,
-    void* l, int B, int H, int Hkv, int Dh, int psz, int P, int normalize,
-    int kv_dtype, int quant, float scale, void* stream) {
-  return decode_attention::launch(
-      make_args(q, k, v, ks, vs, bt, lens, out, m, l, H, Hkv, Dh, psz, P, 0,
-                1, normalize, scale),
-      B, kv_dtype, quant, stream);
+    void* l, void* ws_acc, void* ws_m, void* ws_l, int B, int H, int Hkv,
+    int Dh, int psz, int P, int n_split, int run_pages, int tile_rows,
+    int normalize, int kv_dtype, int quant, float scale, void* stream) {
+  return split_decode::launch(
+      split_args(q, k, v, ks, vs, bt, lens, out, m, l, ws_acc, ws_m, ws_l, B,
+                 H, Hkv, Dh, psz, P, n_split, run_pages, tile_rows, normalize,
+                 scale),
+      kv_dtype, quant, stream);
 }
 
 extern "C" int rq_paged_decode_gqa_mp(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* bt, const void* lens, void* out, void* m,
-    void* l, int B, int H, int Hkv, int Dh, int psz, int P, int mp,
+    void* l, void* ws_acc, void* ws_m, void* ws_l, int B, int H, int Hkv,
+    int Dh, int psz, int P, int n_split, int run_pages, int tile_rows,
     int normalize, int kv_dtype, int quant, float scale, void* stream) {
-  return decode_attention::launch(
-      make_args(q, k, v, ks, vs, bt, lens, out, m, l, H, Hkv, Dh, psz, P, 0,
-                mp, normalize, scale),
-      B, kv_dtype, quant, stream);
+  return split_decode::launch(
+      split_args(q, k, v, ks, vs, bt, lens, out, m, l, ws_acc, ws_m, ws_l, B,
+                 H, Hkv, Dh, psz, P, n_split, run_pages, tile_rows, normalize,
+                 scale),
+      kv_dtype, quant, stream);
 }

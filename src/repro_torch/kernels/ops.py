@@ -148,7 +148,9 @@ def paged_decode(q, k_pages, v_pages, block_tables, seq_lens, k_scale=None,
     with f32 (N, page_size, Hkv) scales), masked to ``seq_lens`` (B,) int32.
     Returns (B, H, Dh) f32, or the (acc, m, l) partials when
     ``normalize=False``. A CPU call runs ``ref.paged_decode_ref``; a CUDA
-    call launches the kernel of :func:`paged_decode_route` or raises.
+    call launches the kernel of :func:`paged_decode_route` (the fused-GQA
+    routes: the split-KV pass and, where the planner splits, the merge of
+    its partials; one count per call) or raises.
     """
     if q.device.type == "cpu":
         return ref.paged_decode_ref(q, k_pages, v_pages, block_tables,

@@ -12,7 +12,8 @@ from repro_torch.core.quant import (QuantConfig, compute_qparams,
                                     unpack_codes, vals_per_word)
 
 __all__ = ["group_quant_ref", "transform_quant_ref", "paged_decode_ref",
-           "flash_decode_ref", "dequant_ref", "quant_matmul_ref"]
+           "merge_partials", "flash_decode_ref", "dequant_ref",
+           "quant_matmul_ref"]
 
 NEG = -1e30
 
@@ -87,6 +88,26 @@ def paged_decode_ref(q, k_pages, v_pages, block_tables, seq_lens,
     if not normalize:
         return acc, m, l
     return acc / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def merge_partials(acc, m, l, normalize=True):  # noqa: E741 — softmax (m, l)
+    """Merge the (acc, m, l) log-sum-exp partials of runs of one softmax —
+    the plain version of the fused-GQA routes' merge kernel.
+
+    acc (N, B, H, Dh); m, l (N, B, H), the leading axis over runs: m* =
+    max m_i, l = Σ e^(m_i − m*) l_i, acc = Σ e^(m_i − m*) acc_i. Returns
+    acc / max(l, 1e-30), or (acc, m*, l) when ``normalize=False``. For
+    non-empty rows this is the reference's ``dist.attention.merge_partials``;
+    an all-empty row (every m_i = −1e30, l_i = 0) gives exactly 0 with
+    (m*, l) = (−1e30, 0), where the reference's acc / l is 0 / 0.
+    """
+    m_star = torch.amax(m, dim=0)
+    alpha = torch.exp(m - m_star[None])
+    num = torch.sum(alpha[..., None] * acc, dim=0)
+    den = torch.sum(alpha * l, dim=0)
+    if not normalize:
+        return num, m_star, den
+    return num / torch.clamp_min(den, 1e-30)[..., None]
 
 
 def flash_decode_ref(q, k, v, k_scale=None, v_scale=None, kv_len=None):

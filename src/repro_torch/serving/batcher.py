@@ -447,6 +447,12 @@ class ContinuousBatcher:
     # -- the decode loop ---------------------------------------------------
 
     def _batch_arrays(self):
+        """(tokens (B, 1), block tables (B, P), lengths (B,)) on the device.
+
+        The table is cut to the widest live row (P = the most pages a live
+        slot holds): no decode reads past its length, and the fused-GQA
+        split planner sizes its runs from P, so a table padded to
+        ``max_pages_per_seq`` would split short contexts."""
         bt = np.zeros((self.B, self.cache.max_pages_per_seq), np.int32)
         lens = np.zeros((self.B,), np.int32)
         toks = np.zeros((self.B, 1), np.int64)
@@ -456,8 +462,10 @@ class ContinuousBatcher:
             bt[i] = self.cache.block_table_row(slot.page_ids)
             lens[i] = slot.seq_len
             toks[i, 0] = slot.last_tok
-        return tuple(torch.from_numpy(a).to(self.device)
-                     for a in (toks, bt, lens))
+        P = max([len(s.page_ids) for s in self.slots if s is not None],
+                default=1)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                     for a in (toks, bt[:, :P], lens))
 
     def _sampling_arrays(self):
         """Per-slot (seeds, token_indices, temperatures, top_ks), all (B,).

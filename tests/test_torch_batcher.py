@@ -157,6 +157,37 @@ def test_gqa_multipage_route_matches_reference(models):
               max_batch=2, gqa_pages_per_block=2)
 
 
+def test_decode_table_is_cut_to_the_live_pages(models):
+    """Each decode step gets a block table as wide as the most pages a live
+    slot holds, not ``max_pages_per_seq`` (the fused-GQA split planner
+    sizes its runs from the width), whose rows start with the slots'
+    pages; the tokens stay the greedy oracle's."""
+    _, tcfg, _, tpq = models[2]
+    cache = ts.PagedKVCache(tcfg, n_pages=24, page_size=4,
+                            max_pages_per_seq=16, device="cpu")
+    tb = ts.ContinuousBatcher(tpq, tcfg, cache, max_batch=2)
+    seen = []
+    step = tb.step_fn
+
+    def spy(params, toks, pools, bt, lens):
+        held = [s.page_ids for s in tb.slots if s is not None]
+        seen.append((tuple(bt.shape), max(len(p) for p in held)))
+        for i, s in enumerate(tb.slots):
+            if s is not None:
+                assert bt[i, :len(s.page_ids)].tolist() == s.page_ids
+        assert bool((lens < bt.shape[1] * 4).all())
+        return step(params, toks, pools, bt, lens)
+
+    tb.step_fn = spy
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, 256, size=n).astype(np.int32) for n in (3, 9)]
+    outs = tb.run(_requests(ts, prompts, max_new=6))
+    assert seen and all(w == (2, p) for w, p in seen)
+    assert max(p for _, p in seen) < 16
+    for p, out in zip(prompts, outs):
+        assert out == _port_greedy_oracle(tpq, tcfg, p, 6)
+
+
 # ---------------------------------------------------------------------------
 # SLO scheduler: the same decisions as the reference's
 # ---------------------------------------------------------------------------

@@ -8,6 +8,8 @@ the port is installed:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -159,6 +161,66 @@ def test_paged_decode_cuda_never_reads_dead_slots(layout, route):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+SPLIT_ROUTES = [("paged_decode_gqa", 1), ("paged_decode_gqa_mp", 2),
+                ("paged_decode_gqa_mp", 4)]
+
+
+def _split_case(dev, lens, dtype, seed):
+    """A layout the fused-GQA planner splits: B 2, 8/2 heads, Dh 128, page
+    size 16, 64 pages per table."""
+    return _paged_case(dev, B=2, H=8, Hkv=2, Dh=128, psz=16, P=64, lens=lens,
+                       dtype=dtype, seed=seed)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("route,mp", SPLIT_ROUTES,
+                         ids=[f"{r}-mp{mp}" for r, mp in SPLIT_ROUTES])
+@pytest.mark.parametrize("lens", [[1024, 333], [0, 1000]],
+                         ids=["ragged", "empty"])
+def test_paged_decode_gqa_split_cuda_matches_plain(dtype, route, mp, lens):
+    """Both fused-GQA routes where the planner splits the pages across CTAs
+    (the split pass, then the merge of the runs' partials): outputs and
+    (acc, m, l) partials within 1e-5 of the plain version; runs past the
+    333-token sequence's end are empty; a zero-length sequence gives
+    exactly 0."""
+    dev = needs_cuda()
+    pd = importlib.import_module("repro_torch.kernels.paged_decode")
+    assert pd.plan(route, 2, 2, 64, 16, mp, pd.sm_count(dev)).n_split > 1
+    args = _split_case(dev, lens, dtype, seed=21)
+    kw = dict(gqa_pages_per_block=mp)
+    before = tk.LAUNCHES[route]
+    out = tk.paged_decode(*args, **kw)
+    assert tk.LAUNCHES[route] == before + 1
+    torch.testing.assert_close(out, tref.paged_decode_ref(*args),
+                               rtol=1e-5, atol=1e-5)
+    if 0 in lens:
+        assert not out[lens.index(0)].any(), "an empty sequence gives 0"
+    for got, want in zip(tk.paged_decode(*args, normalize=False, **kw),
+                         tref.paged_decode_ref(*args, normalize=False)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("route,mp", SPLIT_ROUTES,
+                         ids=[f"{r}-mp{mp}" for r, mp in SPLIT_ROUTES])
+def test_paged_decode_gqa_split_never_reads_dead_slots(route, mp):
+    """Split runs with NaN in every slot past each length (the last live
+    page's tail, every dead page, the null page): never read."""
+    dev = needs_cuda()
+    lens = [1000, 333]
+    q, kp, vp, bt, ln, _, _ = _split_case(dev, lens, torch.float32, seed=23)
+    want = tref.paged_decode_ref(q, kp, vp, bt, ln)
+    pos = torch.arange(64 * 16, device=dev).reshape(64, 16)
+    for b in range(2):
+        dead = pos >= lens[b]
+        for p in range(64):
+            kp[bt[b, p], dead[p]] = float("nan")
+            vp[bt[b, p], dead[p]] = float("nan")
+    kp[0] = vp[0] = float("nan")
+    got = tk.paged_decode(q, kp, vp, bt, ln, gqa_pages_per_block=mp)
+    assert not torch.isnan(got).any()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 def test_paged_decode_wrapper_raises_on_bad_inputs():
     dev = needs_cuda()
     q, kp, vp, bt, lens, _, _ = _paged_case(
@@ -168,8 +230,15 @@ def test_paged_decode_wrapper_raises_on_bad_inputs():
         tk.paged_decode(q, kp, vp, bt, lens.long())
     with pytest.raises(ValueError, match="contiguous"):
         tk.paged_decode(q, kp, vp, bt.t().contiguous().t(), lens)
-    with pytest.raises(ValueError, match="shared memory"):
-        tk.paged_decode(q, kp, vp, bt, lens, gqa_pages_per_block=4096)
+    # the split-KV body stages fixed row tiles: MP no longer sizes shared
+    # memory, so a block of 4096 pages is taken; a head dim past 1024 is not
+    torch.testing.assert_close(
+        tk.paged_decode(q, kp, vp, bt, lens, gqa_pages_per_block=4096),
+        tref.paged_decode_ref(q, kp, vp, bt, lens), rtol=1e-5, atol=1e-5)
+    wide = _paged_case(dev, B=2, H=4, Hkv=2, Dh=1028, psz=4, P=3, lens=[3, 5],
+                       dtype=torch.float32, seed=1)
+    with pytest.raises(ValueError, match="head dims up to 1024"):
+        tk.paged_decode(*wide)
     shifted = torch.empty(kp.numel() + 1, device=dev)[1:].view(kp.shape)
     with pytest.raises(ValueError, match="boundary"):
         tk.paged_decode(q, shifted, shifted, bt, lens)

@@ -3,20 +3,28 @@ CUDA route is held to (``repro_torch.kernels.ref.paged_decode_ref``, which
 ``kernels.paged_decode`` runs for CPU tensors) — vs the JAX reference's
 ``ops.paged_decode`` (its three Pallas kernels, in interpret mode on the
 CPU, as ``tests/test_paged.py`` runs them) and its ``paged_decode_ref``
-oracle, at the reference's bar of 1e-5. Also ``quantize_kv`` and the
-routing of the paged-decode wrapper.
+oracle, at the reference's bar of 1e-5. Also ``quantize_kv``, the
+routing of the paged-decode wrapper, and the split arithmetic of the
+fused-GQA routes (their planner, and the plain ``merge_partials`` that
+their merge kernel follows, against the reference's).
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from helpers.torch_parity import one_torch_thread, to_np  # noqa: F401
+from repro.dist.attention import merge_partials as jmerge_partials
 from repro.kernels import paged_decode as jpaged_decode
 from repro.kernels.ref import paged_decode_ref as jpaged_ref
 from repro.models.layers import quantize_kv as jquantize_kv
 from repro_torch import kernels as tk
+from repro_torch.kernels import ref as tref
 from repro_torch.models.layers import quantize_kv as tquantize_kv
+
+pd = importlib.import_module("repro_torch.kernels.paged_decode")
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -199,3 +207,126 @@ def test_cpu_calls_launch_nothing():
     before = dict(tk.LAUNCHES)
     tk.paged_decode(*t, gqa_pages_per_block=2)
     assert tk.LAUNCHES == before
+
+
+# ---- the fused-GQA routes' split: planner and merge arithmetic ----------
+
+H100_SMS = 132
+
+
+def _runs(sp, P):
+    """The page ranges [lo, hi) of a plan's runs over a P-page table."""
+    return [(s * sp.run_pages, min((s + 1) * sp.run_pages, P))
+            for s in range(sp.n_split)]
+
+
+def test_merge_partials_matches_reference():
+    """The plain merge against ``repro.dist.attention.merge_partials`` on the
+    same partials (one run empty in some rows, as a split past a sequence's
+    end gives), at 1e-6."""
+    rng = np.random.default_rng(17)
+    N, B, H, Dh = 4, 3, 5, 8
+    acc = rng.standard_normal((N, B, H, Dh)).astype(np.float32) * 3
+    m = rng.standard_normal((N, B, H)).astype(np.float32) * 4
+    l = rng.uniform(0.5, 20, (N, B, H)).astype(np.float32)  # noqa: E741
+    acc[1, 0], m[1, 0], l[1, 0] = 0.0, -1e30, 0.0          # an empty run
+    want = jmerge_partials(jnp.asarray(acc), jnp.asarray(m), jnp.asarray(l))
+    got = tref.merge_partials(torch.from_numpy(acc), torch.from_numpy(m),
+                              torch.from_numpy(l))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_merge_partials_of_empty_rows_is_exactly_zero():
+    """Every run empty: 0 with (m, l) = (-1e30, 0), where the reference's
+    acc / l is 0 / 0."""
+    acc = torch.zeros((3, 2, 4, 8))
+    m = torch.full((3, 2, 4), -1e30)
+    l = torch.zeros((3, 2, 4))  # noqa: E741
+    out = tref.merge_partials(acc, m, l)
+    assert not torch.isnan(out).any() and not out.any()
+    a, m2, l2 = tref.merge_partials(acc, m, l, normalize=False)
+    assert not a.any() and bool((m2 == -1e30).all()) and not l2.any()
+
+
+@pytest.mark.parametrize("H,Hkv,mp", [(4, 4, 1), (8, 2, 1), (8, 2, 2)],
+                         ids=["mha", "gqa", "gqa-mp2"])
+@pytest.mark.parametrize("runs_from", ["plan", "one-unit"])
+@pytest.mark.parametrize("normalize", [True, False], ids=["out", "partials"])
+def test_split_runs_merge_to_unsplit(H, Hkv, mp, runs_from, normalize):
+    """The split pass's arithmetic on the plain version: each run's
+    partials (its own block-table slice, its length clamped to the run)
+    merge to the unsplit decode at 1e-5. Lengths 0, 1, one ending mid-page
+    and the full table, so runs past a sequence's end are empty; a
+    zero-length sequence gives exactly 0 and no NaN."""
+    psz, P = 8, 48
+    lens = [0, 1, 5 * psz + 3, 300, P * psz]
+    args = _random_paged(29, B=5, H=H, Hkv=Hkv, Dh=16, psz=psz,
+                         n_pages=5 * P + 1, max_pages=P, lens=lens)
+    _, (q, kp, vp, bt, ln, _, _) = _both(args)
+    route = "paged_decode_gqa_mp" if mp > 1 else "paged_decode_gqa"
+    sp = pd.plan(route, 5, Hkv, P, psz, mp, H100_SMS)
+    if runs_from == "one-unit":
+        sp = sp._replace(run_pages=sp.unit_pages,
+                         n_split=-(-P // sp.unit_pages))
+    assert sp.n_split > 1
+    parts = []
+    for lo, hi in _runs(sp, P):
+        run_lens = torch.clamp(ln - lo * psz, 0, (hi - lo) * psz).int()
+        parts.append(tref.paged_decode_ref(q, kp, vp, bt[:, lo:hi].contiguous(),
+                                           run_lens, normalize=False))
+    acc, m, l = (torch.stack(x) for x in zip(*parts))  # noqa: E741
+    got = tref.merge_partials(acc, m, l, normalize=normalize)
+    want = tref.paged_decode_ref(q, kp, vp, bt, ln, normalize=normalize)
+    _check(got, want)
+    out = got if normalize else got[0]
+    assert not torch.isnan(out).any()
+    assert not out[0].any(), "an empty sequence must give exactly 0"
+    if not normalize:
+        assert bool((got[1][0] == -1e30).all()) and not got[2][0].any()
+
+
+@pytest.mark.parametrize("route,mp", [("paged_decode_gqa", 1),
+                                      ("paged_decode_gqa_mp", 2),
+                                      ("paged_decode_gqa_mp", 4)])
+@pytest.mark.parametrize("P", [1, 2, 3, 4, 5])
+def test_planner_keeps_the_decode_shape_whole(route, mp, P):
+    """The main path's decode shape (B 8, 32/8 heads, page size 16, at most
+    5 pages): one run, so one launch and no merge, as before the split."""
+    sp = pd.plan(route, 8, 8, P, 16, mp, H100_SMS)
+    assert sp.n_split == 1 and sp.run_pages >= P
+
+
+@pytest.mark.parametrize("route,mp", [("paged_decode_gqa", 1),
+                                      ("paged_decode_gqa_mp", 2),
+                                      ("paged_decode_gqa_mp", 4)])
+@pytest.mark.parametrize("B,P", [(1, 512), (8, 64), (2, 64)],
+                         ids=["1x8192", "8x1024", "2x1024"])
+def test_planner_splits_long_contexts(route, mp, B, P):
+    """Long contexts split into more CTAs than the (b, KV head) grid, and
+    into no more than one wave of two CTAs per SM."""
+    sp = pd.plan(route, B, 8, P, 16, mp, H100_SMS)
+    assert sp.n_split > 1
+    assert B * 8 * sp.n_split <= pd.CTAS_PER_SM * H100_SMS
+    assert sp.run_pages * 16 >= pd.MIN_RUN_ROWS
+
+
+@pytest.mark.parametrize("route,mp", [("paged_decode_gqa", 1),
+                                      ("paged_decode_gqa_mp", 2),
+                                      ("paged_decode_gqa_mp", 3),
+                                      ("paged_decode_gqa_mp", 8)])
+@pytest.mark.parametrize("psz", [1, 4, 16, 64])
+def test_planner_runs_cover_every_page_once(route, mp, psz):
+    """Over many (B, Hkv, P): the runs cover every page of the table exactly
+    once, none starts past it, and every run boundary falls on a unit (a
+    block of MP pages on the multi-page route)."""
+    for B in (1, 2, 3, 8, 64):
+        for Hkv in (1, 2, 8):
+            for P in (1, 2, 7, 16, 63, 64, 65, 512, 1000):
+                sp = pd.plan(route, B, Hkv, P, psz, mp, H100_SMS)
+                if route == "paged_decode_gqa_mp":
+                    assert sp.unit_pages == mp
+                assert sp.run_pages % sp.unit_pages == 0
+                pages = [p for lo, hi in _runs(sp, P) for p in range(lo, hi)]
+                assert pages == list(range(P))
+                assert (sp.n_split - 1) * sp.run_pages < P
