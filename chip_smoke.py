@@ -12,14 +12,18 @@ source, started together, into ``build/kernels/``), then:
    path gives it (the stacked attention, up and down weights of opt-1.3b
    flattened to (24·2048, 2048), (24·2048, 8192) and (24·8192, 2048) f32),
    ``transform_quant`` up (2048, 8192) and down (8192, 2048), bits 2/3/4,
-   groups 32/128; times each with CUDA events beside its bound; then the
-   main path at a small size (opt-tiny) on the card against the same path
-   on the CPU, where the wrappers run their plain versions;
+   groups 32/128, and up and down at every dense FFN shape of the config
+   zoo (2-bit g32, a random π); times each at the main path's shapes with
+   CUDA events and (device ms) under ``torch.profiler`` beside its bound,
+   ``transform_quant`` for an identity, a partially shuffled and a random
+   π; then the main path at a small size (opt-tiny) on the card against
+   the same path on the CPU, where the wrappers run their plain versions;
 2. the main path: ``quantize_model`` RTN and RTN + 16 fused InvarExplore
    steps on random-init opt-1.3b at full width and depth, with held-out
    perplexity for fp32 / RTN / RTN+search and the kernels' launch counts;
 3. fused lane vs unfused lane for 6 steps from the same seed;
-4. where one search step's time goes (candidate build vs forward), and
+4. where one search step's time goes (candidate build vs forward, and the
+   ``transform_quant`` kernels' device time in the fused build), and
    device time by kernel family under ``torch.profiler`` over a 4-step
    fused search, its set-up included;
 5. paged serving: (a) the three paged-decode routes vs the plain version
@@ -70,9 +74,10 @@ source, started together, into ``build/kernels/``), then:
    the dequantised weights, then the public op once per case.
 
 Prints the ``nvidia-smi`` name/power-limit line, a ``{"kernels": [...]}``
-line (all seven ported kernels), and last ``{"ok": true, "device": {...}}``. Any failed check raises,
-so the script exits non-zero without that last line; it also exits
-non-zero when no CUDA card is present or the port's sources are missing.
+line (all seven ported kernels), and last ``{"ok": true, "device":
+{...}}``. Any failed check raises, so the script exits non-zero without
+that last line; it also exits non-zero when no CUDA card is present or the
+port's sources are missing.
 """
 from __future__ import annotations
 
@@ -98,6 +103,12 @@ TQ_OPS = 13
 
 BITS = (2, 3, 4)
 GROUPS = (32, 128)
+# every distinct dense FFN shape (d_model, d_ff) of the config zoo: opt-1.3b
+# and internlm2 share the first
+ZOO_FFN = ((2048, 8192), (896, 4864), (2560, 9728), (4096, 6400),
+           (2048, 1408), (4096, 11008), (3584, 14336), (1024, 4096),
+           (8192, 22528))
+PI_KINDS = ("identity", "partial", "random")
 STEPS = 16
 LANE_STEPS = 6
 PROFILE_STEPS = 4
@@ -200,6 +211,24 @@ def main_path_gq_shapes(cfg):
             ("mlp down", (L * F, D), 1))
 
 
+def make_pi(torch, kind, f, gen, dev):
+    """A permutation of width f: identity, a partial shuffle (an eighth of
+    the positions permuted among themselves) or a random one."""
+    pi = torch.arange(f, device=dev)
+    if kind == "partial":
+        idx = torch.randperm(f, generator=gen, device=dev)[: f // 8]
+        pi[idx] = idx[torch.randperm(idx.numel(), generator=gen, device=dev)]
+    elif kind == "random":
+        pi = torch.randperm(f, generator=gen, device=dev)
+    return pi
+
+
+def tq_bytes(K, N, group, f):
+    """Bytes transform_quant must move: w read and fq written once, scale
+    and zero written, pi (int64), s, cos and sin read once."""
+    return 2 * K * N * 4 + 2 * (K // group) * N * 4 + f * (8 + 4) + f * 4
+
+
 def phase_kernels(torch, ops, ref, gq, tq, cfg):
     """Kernel vs plain version at every listed shape/dtype/bits/group;
     returns the per-kernel timing rows at the main path's shapes."""
@@ -237,6 +266,24 @@ def phase_kernels(torch, ops, ref, gq, tq, cfg):
                 log("kernel_check", kernel="transform_quant", mode=mode,
                     shape=list(w.shape), bits=bits, group=group,
                     max_abs_err=err)
+    for d, f in ZOO_FFN:   # every zoo FFN shape, 2-bit g32, a random pi
+        zpi = torch.randperm(f, generator=gen, device=dev)
+        zs = 1.0 + 0.05 * torch.randn(f, generator=gen, device=dev)
+        zphi = 1e-2 * torch.randn(f // 2, generator=gen, device=dev)
+        for mode in ("up", "down"):
+            w = torch.randn((d, f) if mode == "up" else (f, d),
+                            generator=gen, device=dev)
+            err = exact(torch, ops.transform_quant(
+                w, zpi, zs, zphi, bits=2, group=32, mode=mode),
+                ref.transform_quant_ref(w, zpi, zs, zphi, bits=2, group=32,
+                                        mode=mode),
+                f"transform_quant {mode} {tuple(w.shape)} b2 g32")
+            errs["transform_quant"] = max(errs["transform_quant"], err)
+            log("kernel_check", kernel="transform_quant", mode=mode,
+                shape=list(w.shape), bits=2, group=32, pi="random",
+                plan=tq.plan(*w.shape, 32, mode)._asdict(), max_abs_err=err)
+            del w
+        torch.cuda.empty_cache()
 
     # timing at the main path's shapes (bits 2, group 32): raw launches into
     # preallocated outputs for the kernel, the plain version for plain_ms
@@ -247,19 +294,24 @@ def phase_kernels(torch, ops, ref, gq, tq, cfg):
         w = torch.randn((K, N), generator=gen, device=dev)
         fq, s, z = torch.empty_like(w), *(
             torch.empty((K // group, N), device=dev) for _ in range(2))
-        t = time_ms(torch, lambda: gq.launch(w, fq, s, z, bits=bits,
-                                             group=group))
+        def run():
+            gq.launch(w, fq, s, z, bits=bits, group=group)
+        t = time_ms(torch, run)
+        dm = device_ms(torch, run, ("group_quant",))
         p = time_ms(torch, lambda: ref.group_quant_ref(w, bits, group),
                     reps=10)
         b, by = bound_ms(2 * K * N * 4 + 2 * (K // group) * N * 4,
                          GQ_OPS * K * N)
         per_shape.append(dict(leaf=leaf, shape=[K, N], per_pass=n, ms=t,
-                              plain_ms=p, bound_ms=b, bound_by=by))
+                              device_ms=dm, plain_ms=p, bound_ms=b,
+                              bound_by=by))
         log("kernel_time", kernel="group_quant", leaf=leaf, shape=[K, N],
-            dtype="torch.float32", ms=t, plain_ms=p, bound_ms=b)
+            dtype="torch.float32", ms=t, device_ms=dm, plain_ms=p,
+            bound_ms=b)
         del w, fq, s, z
     rows["group_quant"] = dict(
         ms=sum(r["ms"] * r["per_pass"] for r in per_shape),
+        device_ms=sum(r["device_ms"] * r["per_pass"] for r in per_shape),
         plain_ms=sum(r["plain_ms"] * r["per_pass"] for r in per_shape),
         bound_ms=sum(r["bound_ms"] * r["per_pass"] for r in per_shape),
         bound_by="bytes" if all(r["bound_by"] == "bytes" for r in per_shape)
@@ -277,28 +329,45 @@ def phase_kernels(torch, ops, ref, gq, tq, cfg):
         b, _ = bound_ms(nb, GQ_OPS * K * N)
         log("kernel_time", kernel="group_quant", shape=list(shape),
             dtype=str(dt), ms=t, plain_ms=p, bound_ms=b)
-    tq_ms = tq_plain = tq_bound = 0.0
+    # transform_quant at opt-1.3b's shapes for each kind of pi: ms (CUDA
+    # events, one call), device ms (the kernel alone, under the profiler),
+    # bound and the share of it by device time; the kernels line carries
+    # the random pi (the search's proposals)
+    per_pi = {}
     for mode, w in w_tq.items():
         K, N = w.shape
+        plan = tq.plan(K, N, group, mode)
         fq, s, z = torch.empty_like(w), *(torch.empty((K // group, N), device=dev)
                                            for _ in range(2))
         svec = sv if mode == "up" else 1.0 / sv
         cos, sin = torch.cos(phi), torch.sin(phi)
-        t = time_ms(torch, lambda: tq.launch(w, pi, svec, cos, sin, fq, s, z,
-                                             bits=bits, group=group, mode=mode))
-        p = time_ms(torch, lambda: ref.transform_quant_ref(
-            w, pi, sv, phi, bits=bits, group=group, mode=mode))
-        nb = 2 * K * N * 4 + 2 * (K // group) * N * 4 + F * (8 + 4) + F * 4
-        b, _ = bound_ms(nb, TQ_OPS * K * N)
-        log("kernel_time", kernel="transform_quant", mode=mode,
-            shape=[K, N], ms=t, plain_ms=p, bound_ms=b)
-        tq_ms += t
-        tq_plain += p
-        tq_bound += b
+        b, _ = bound_ms(tq_bytes(K, N, group, F), TQ_OPS * K * N)
+        for kind in PI_KINDS:
+            kpi = make_pi(torch, kind, F, gen, dev)
+
+            def run():
+                tq.launch(w, kpi, svec, cos, sin, fq, s, z, bits=bits,
+                          group=group, mode=mode, plan=plan)
+            t, spread = time_stats(torch, run)
+            dm = device_ms(torch, run, ("transform_quant",))
+            p = time_ms(torch, lambda: ref.transform_quant_ref(
+                w, kpi, sv, phi, bits=bits, group=group, mode=mode))
+            per_pi[f"{mode}/{kind}"] = dict(
+                ms=t, ms_range=spread, device_ms=dm, plain_ms=p, bound_ms=b,
+                share_of_bound=b / dm)
+            log("kernel_time", kernel="transform_quant", mode=mode, pi=kind,
+                shape=[K, N], plan=plan._asdict(), ms=t, ms_range=spread,
+                device_ms=dm, plain_ms=p, bound_ms=b, share_of_bound=b / dm)
+    rand = [per_pi[f"{mode}/random"] for mode in w_tq]
     rows["transform_quant"] = dict(
-        ms=tq_ms, plain_ms=tq_plain, bound_ms=tq_bound, bound_by="bytes",
-        per="one candidate: up (2048, 8192) + down (8192, 2048)",
-        dtype="float32")
+        **{k: sum(r[k] for r in rand) for k in ("ms", "device_ms", "plain_ms",
+                                                "bound_ms")},
+        bound_by="bytes",
+        per="one candidate at a random pi: up (2048, 8192) + down "
+            "(8192, 2048)",
+        plans={mode: tq.plan(*w.shape, group, mode)._asdict()
+               for mode, w in w_tq.items()},
+        per_pi=per_pi, dtype="float32")
     for name in rows:
         rows[name]["max_abs_err"] = errs[name]
     return rows
@@ -1484,10 +1553,15 @@ def main() -> int:
         return calib_ce(logits, calib, cfg.vocab_size), \
             activation_mse(hidden, hidden, 10)
 
+    def fused_build():
+        return adapter.transform_quant_unit(base, cand, 0, qcfg)
+
     split = dict(
         forward_objective_ms=time_ms(torch, eval_once, warmup=1, reps=5),
-        fused_build_ms=time_ms(torch, lambda: adapter.transform_quant_unit(
-            base, cand, 0, qcfg), reps=10),
+        fused_build_ms=time_ms(torch, fused_build, reps=10),
+        # the two transform_quant kernels' own time in one fused build
+        fused_build_kernels_device_ms=device_ms(
+            torch, fused_build, ("transform_quant",), calls=10),
         unfused_build_ms=time_ms(torch, lambda: adapter.quant_unit(
             adapter.transform_unit(base, cand, 0), qcfg), reps=10),
         step_ms=1e3 / sr.stats["proposals_per_sec"])
@@ -1538,7 +1612,8 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": None,
             "library_note": "no PyTorch call computes group fake-quant with "
                             "these closed-form scale/zero",
-            **{k: row[k] for k in ("per", "shapes", "dtype") if k in row}})
+            **{k: row[k] for k in ("device_ms", "per", "shapes", "plans",
+                                   "per_pi", "dtype") if k in row}})
     for route in PD_ROUTES:
         main_row, long_row = pd_rows[route]["decode"], pd_rows[route]["long"]
         b1_row = pd_rows[route].get("long-b1")

@@ -43,11 +43,23 @@ __device__ __forceinline__ void group_params(float wmin, float wmax,
   *zero = fminf(fmaxf(rintf(-wmin / s), 0.0f), qmax);
 }
 
+// Eqn. 1: the code q = clip(round(w / scale) + zero, 0, q_max), an integer
+// in [0, q_max] held exactly as a float (and in a byte, q_max <= 255).
+__device__ __forceinline__ float quant_code(float w, float scale, float zero,
+                                            float qmax) {
+  return fminf(fmaxf(rintf(w / scale) + zero, 0.0f), qmax);
+}
+
+// Eqn. 4: (q - zero) * scale.
+__device__ __forceinline__ float dequant_code(float q, float scale,
+                                              float zero) {
+  return (q - zero) * scale;
+}
+
 // Eqns. 1 and 4: (clip(round(w / scale) + zero, 0, q_max) - zero) * scale.
 __device__ __forceinline__ float fake_quant_value(float w, float scale,
                                                   float zero, float qmax) {
-  const float q = fminf(fmaxf(rintf(w / scale) + zero, 0.0f), qmax);
-  return (q - zero) * scale;
+  return dequant_code(quant_code(w, scale, zero, qmax), scale, zero);
 }
 
 }  // namespace rq

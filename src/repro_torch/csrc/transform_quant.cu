@@ -3,37 +3,67 @@
 // Replaces the TPU kernel src/repro/kernels/transform_quant.py,
 // transform_quant_pallas (bodies _kernel_up and _kernel_down).
 //
-//   mode 0, "up":   w (D, F). Rotate column pairs (2i, 2i+1) by phi_i, scale
-//                   columns by s, permute columns by pi; quant groups of G
-//                   rows run along D.
-//   mode 1, "down": w (F, D). Rotate row pairs by phi_i, scale rows by 1/s,
-//                   permute rows by pi; quant groups run along F, so pi
-//                   changes group membership and the transform cannot be
-//                   split from the quantisation.
+//   "up":   w (D, F). Rotate column pairs (2i, 2i+1) by phi_i, scale columns
+//           by s, permute columns by pi; quant groups of G rows run along D.
+//   "down": w (F, D). Rotate row pairs by phi_i, scale rows by 1/s, permute
+//           rows by pi; quant groups run along F, so pi changes group
+//           membership and the transform cannot be split from the
+//           quantisation.
 //
 // Output element (r, j) of "up" is rot(w)[r, pi[j]] * s[pi[j]]; output row i
-// of "down" is rot(w)[pi[i], :] * (1/s)[pi[i]]. The wrapper passes cos(phi),
-// sin(phi) and the column scale (s, or 1/s for "down") computed by PyTorch,
+// of "down" is rot(w)[pi[i], :] * (1/s)[pi[i]]. pi is a gather index (any
+// values in [0, f), duplicates included). The wrapper passes cos(phi),
+// sin(phi) and the scale vector (s, or 1/s for "down") computed by PyTorch,
 // so the kernel and the plain version share them bit for bit; -fmad=false
 // keeps c*a - s*b as two rounded products and a rounded difference, like
 // the plain version's separate tensor operations.
 //
 // Bound: bytes. About fifteen operations per element against 8 bytes moved
-// (one read of w, one write of fq). Design: one thread per (group, output
-// column), neighbouring threads on neighbouring output columns. The thread
-// builds each transformed value with a gather straight from device memory:
-// "up" reads source column pi[j] and its pair partner (one 8-byte pair),
-// "down" reads source rows pi[i] and its partner at the thread's column
-// (coalesced across the warp). The TPU kernel needed the whole F strip in
-// VMEM to resolve pi and fell back to jnp above its strip budget (both of
-// opt-1.3b's FFN shapes); the gather has no strip limit, so every shape
-// runs here. Two passes over the group (min/max, then write) re-read the
-// gathered values from L1/L2, not from device memory.
+// (one read of w, one write of fq). The launch parameters come from the
+// pure-Python planner kernels/transform_quant.py::plan.
+//
+// "up" design. A column's group statistics depend only on its source column:
+// pi moves whole quantised columns. So each quant band (G rows) is one thread
+// block cluster whose CTAs split the F source columns into contiguous
+// slices. A CTA reads its slice in source order (a thread per column, the
+// pair partner from the neighbouring lane by a warp shuffle, coalesced
+// loads with the whole group in flight), takes the per-column min/max,
+// scale and zero, and stores the column's codes (round(v / scale) + zero,
+// clipped: an integer in [0, 255]) as bytes in shared memory, 16 rows to a
+// 16-byte word. After cluster.sync() each CTA produces its slice of OUTPUT
+// columns: it gathers the codes, scale and zero of column pi[j] from the
+// owning CTA's shared memory (distributed shared memory) and writes
+// coalesced rows of fq = (code - zero) * scale — the plain version's last
+// two operations — and of scale and zero. w is read once and fq written
+// once when a thread can hold its column's group (G <= 32) and the cluster
+// the band's codes; otherwise a first pass takes the statistics and a
+// second streams the codes in sub-bands of R rows, a cluster barrier after
+// each (the second read mostly hits L2). Four 256-thread CTAs share an SM
+// (64 registers a thread), so one cluster's reads overlap another's gather
+// and writes; with one CTA an SM the phases of a band run one after the
+// other.
+//
+// "down" design. One CTA per (group, column tile). It loads the group's pi,
+// cos, sin and scale entries into shared memory once, stages the G source
+// rows and their pair-partner rows of its tile with cp.async (16-byte
+// copies, all in flight together), computes each transformed value once
+// into shared memory, reduces min/max over row slices, and writes fq 16
+// bytes at a time.
+#include <cooperative_groups.h>
+#include <math_constants.h>
+
 #include <cstdint>
 
 #include "quant_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+constexpr int kUpThreads = 256;    // kernels/transform_quant.py UP_THREADS
+constexpr int kUpBlocks = 4;       // "up" CTAs an SM holds (registers)
+constexpr int kHoldRows = 32;      // kernels/transform_quant.py UP_HOLD_ROWS
+constexpr int kDownThreads = 256;  // kernels/transform_quant.py DOWN_THREADS
 
 // Rotated value of pair member `odd` of the pair (a, b): the plain
 // version's ra = c*a - s*b, rb = s*a + c*b.
@@ -42,90 +72,396 @@ __device__ __forceinline__ float rotate(float a, float b, float c, float sn,
   return odd ? (sn * a + c * b) : (c * a - sn * b);
 }
 
-__global__ void transform_quant_up_kernel(
+// The transformed value of column col from its own value x and its pair
+// partner's value y (the neighbouring lane's).
+__device__ __forceinline__ float transform(float x, float y, float c,
+                                           float sn, float sv, bool odd) {
+  return (odd ? rotate(y, x, c, sn, true) : rotate(x, y, c, sn, false)) * sv;
+}
+
+// The code of value v as byte i % 4 of a 32-bit word.
+__device__ __forceinline__ unsigned code_byte(float v, float s, float z,
+                                              float qmax, int i) {
+  return (unsigned)rq::quant_code(v, s, z, qmax) << (8 * (i % 4));
+}
+
+// The cluster of a band: CTA `rank` owns source (and output) columns
+// [rank * slice, rank * slice + slice) of the band's rows; sub-bands of
+// `rows` rows. One thread per source column at a time (neighbouring lanes
+// hold a rotation pair: slice and blockDim.x are even). Shared memory:
+// codes [ceil(rows / 16)][slice] 16-byte words (word h of a column holds
+// rows 16h .. 16h + 15, one byte each), (scale, zero) per column, then pi
+// of the CTA's output columns.
+__global__ void __launch_bounds__(kUpThreads, kUpBlocks)
+transform_quant_up_kernel(
     const float* __restrict__ w, const int64_t* __restrict__ pi,
     const float* __restrict__ svec, const float* __restrict__ cosv,
     const float* __restrict__ sinv, float* __restrict__ fq,
-    float* __restrict__ scale, float* __restrict__ zero, int64_t f,
-    int group, float qmax) {
-  const int64_t j = (int64_t)blockIdx.y * blockDim.x + threadIdx.x;
-  if (j >= f) return;
-  const int64_t g = blockIdx.x;
-  const int64_t src = pi[j];
-  const int64_t pair = src >> 1;
-  const bool odd = (src & 1) != 0;
-  const float c = cosv[pair];
-  const float sn = sinv[pair];
-  const float sc = svec[src];
-  const float* row0 = w + g * group * f + 2 * pair;
+    float* __restrict__ scale, float* __restrict__ zero, int f, int group,
+    int slice, int rows, float qmax) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int64_t band = blockIdx.x / cluster.num_blocks();
+  const int chunks = (rows + 15) / 16;
+  const bool one_pass = rows == group && group <= kHoldRows;
 
-  float wmin = 0.0f, wmax = 0.0f;
-  for (int r = 0; r < group; ++r) {
-    const float* p = row0 + (int64_t)r * f;
-    const float v = rotate(p[0], p[1], c, sn, odd) * sc;
-    wmin = r == 0 ? v : fminf(wmin, v);
-    wmax = r == 0 ? v : fmaxf(wmax, v);
+  extern __shared__ uint4 smem_up[];
+  uint4* codes = smem_up;                                    // [chunks][slice]
+  float2* sz = reinterpret_cast<float2*>(codes + (int64_t)chunks * slice);
+  int* srcs = reinterpret_cast<int*>(sz + slice);            // [slice]
+
+  const int c0 = rank * slice;
+  const int ncols = max(0, min(slice, f - c0));   // even: f and slice are
+  const float* wband = w + band * group * f;
+
+  for (int jl = threadIdx.x; jl < ncols; jl += blockDim.x)
+    srcs[jl] = (int)pi[c0 + jl];   // read after the first cluster barrier
+
+  // statistics (and, in one pass, codes) in source order; every lane of a
+  // warp runs every iteration, for the partner shuffle
+  for (int base = 0; base < ncols; base += blockDim.x) {
+    const int cl = base + threadIdx.x;
+    const bool live = cl < ncols;
+    const int col = c0 + cl;
+    const bool odd = (col & 1) != 0;
+    float c = 0.0f, sn = 0.0f, sv = 0.0f;
+    if (live) {
+      c = cosv[col >> 1];
+      sn = sinv[col >> 1];
+      sv = svec[col];
+    }
+    const float* src = wband + col;
+    float lo = CUDART_INF_F, hi = -CUDART_INF_F;
+    if (one_pass) {   // the group in registers: values, statistics, codes
+      float x[kHoldRows];
+#pragma unroll
+      for (int i = 0; i < kHoldRows; ++i)
+        x[i] = live && i < group ? src[(int64_t)i * f] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < kHoldRows; ++i)
+        if (i < group) {
+          const float y = __shfl_xor_sync(0xffffffffu, x[i], 1);
+          x[i] = transform(x[i], y, c, sn, sv, odd);
+          lo = fminf(lo, x[i]);
+          hi = fmaxf(hi, x[i]);
+        }
+      if (live) {
+        float s, z;
+        rq::group_params(lo, hi, qmax, &s, &z);
+        sz[cl] = make_float2(s, z);
+#pragma unroll
+        for (int h = 0; h < kHoldRows / 16; ++h)
+          if (h < chunks) {
+            unsigned a[4] = {0, 0, 0, 0};
+#pragma unroll
+            for (int i = 0; i < 16; ++i)
+              if (16 * h + i < group)
+                a[i / 4] |= code_byte(x[16 * h + i], s, z, qmax, i);
+            codes[h * slice + cl] = make_uint4(a[0], a[1], a[2], a[3]);
+          }
+      }
+    } else {          // statistics over the whole group first
+      for (int r0 = 0; r0 < group; r0 += 16) {
+        float x[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          x[i] = live && r0 + i < group ? src[(int64_t)(r0 + i) * f] : 0.0f;
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          if (r0 + i < group) {
+            const float y = __shfl_xor_sync(0xffffffffu, x[i], 1);
+            const float v = transform(x[i], y, c, sn, sv, odd);
+            lo = fminf(lo, v);
+            hi = fmaxf(hi, v);
+          }
+      }
+      if (live) {
+        float s, z;
+        rq::group_params(lo, hi, qmax, &s, &z);
+        sz[cl] = make_float2(s, z);
+      }
+    }
   }
-  float s, z;
-  rq::group_params(wmin, wmax, qmax, &s, &z);
-  float* out = fq + g * group * f + j;
-  for (int r = 0; r < group; ++r) {
-    const float* p = row0 + (int64_t)r * f;
-    const float v = rotate(p[0], p[1], c, sn, odd) * sc;
-    out[(int64_t)r * f] = rq::fake_quant_value(v, s, z, qmax);
+
+  for (int b0 = 0; b0 < group; b0 += rows) {
+    const int nrows = min(rows, group - b0);
+    if (!one_pass) {   // this sub-band's codes, from the statistics (each
+      // thread reads back only the (scale, zero) it wrote)
+      for (int base = 0; base < ncols; base += blockDim.x) {
+        const int cl = base + threadIdx.x;
+        const bool live = cl < ncols;
+        const int col = c0 + cl;
+        const bool odd = (col & 1) != 0;
+        float c = 0.0f, sn = 0.0f, sv = 0.0f;
+        float2 q = make_float2(1.0f, 0.0f);
+        if (live) {
+          c = cosv[col >> 1];
+          sn = sinv[col >> 1];
+          sv = svec[col];
+          q = sz[cl];
+        }
+        const float* src = wband + (int64_t)b0 * f + col;
+        for (int h = 0; h < chunks; ++h) {
+          float x[16];
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            x[i] = live && 16 * h + i < nrows
+                       ? src[(int64_t)(16 * h + i) * f] : 0.0f;
+          unsigned a[4] = {0, 0, 0, 0};
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            if (16 * h + i < nrows) {
+              const float y = __shfl_xor_sync(0xffffffffu, x[i], 1);
+              const float v = transform(x[i], y, c, sn, sv, odd);
+              a[i / 4] |= code_byte(v, q.x, q.y, qmax, i);
+            }
+          if (live) codes[h * slice + cl] = make_uint4(a[0], a[1], a[2], a[3]);
+        }
+      }
+    }
+    cluster.sync();   // every slice's codes of the sub-band are in place
+
+    // resolve pi: gather output column j from the CTA owning pi[j]
+    for (int jl = threadIdx.x; jl < ncols; jl += blockDim.x) {
+      const int64_t j = c0 + jl;
+      const int owner = srcs[jl] / slice;
+      const int loc = srcs[jl] - owner * slice;
+      const uint4* rc = cluster.map_shared_rank(codes, owner) + loc;
+      const float2 q = cluster.map_shared_rank(sz, owner)[loc];
+      if (b0 == 0) {
+        scale[band * f + j] = q.x;
+        zero[band * f + j] = q.y;
+      }
+      float* out = fq + (band * group + b0) * (int64_t)f + j;
+      for (int h0 = 0; h0 < chunks; h0 += 2) {   // 32 rows: 2 words
+        uint4 cw[2];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+          cw[m] = h0 + m < chunks ? rc[(int64_t)(h0 + m) * slice]
+                                  : make_uint4(0, 0, 0, 0);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const unsigned wd[4] = {cw[m].x, cw[m].y, cw[m].z, cw[m].w};
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int r = 16 * (h0 + m) + i;
+            if (h0 + m < chunks && r < nrows)
+              out[(int64_t)r * f] = rq::dequant_code(
+                  (float)((wd[i / 4] >> (8 * (i % 4))) & 0xffu), q.x, q.y);
+          }
+        }
+      }
+    }
+    cluster.sync();   // no CTA overwrites or leaves while others read it
   }
-  scale[g * f + j] = s;
-  zero[g * f + j] = z;
 }
 
-__global__ void transform_quant_down_kernel(
+// 16-byte (VEC 4) or 4-byte (VEC 1) asynchronous copy to shared memory.
+template <int VEC>
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (VEC == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src));
+  }
+}
+
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<4> { using T = float4; };
+template <>
+struct Vec<1> { using T = float; };
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(float (&x)[VEC], const float* p) {
+  using T = typename Vec<VEC>::T;
+  const T t = *reinterpret_cast<const T*>(p);
+  if constexpr (VEC == 4) {
+    x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+  } else {
+    x[0] = t;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* p, const float (&x)[VEC]) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    *p = x[0];
+  }
+}
+
+// One CTA per (group g, tile of units * VEC columns); kDownThreads threads
+// = units column units x (kDownThreads / units) row slices.
+template <int VEC>
+__global__ void __launch_bounds__(kDownThreads) transform_quant_down_kernel(
     const float* __restrict__ w, const int64_t* __restrict__ pi,
     const float* __restrict__ svec, const float* __restrict__ cosv,
     const float* __restrict__ sinv, float* __restrict__ fq,
     float* __restrict__ scale, float* __restrict__ zero, int64_t n,
-    int group, float qmax) {
-  const int64_t col = (int64_t)blockIdx.y * blockDim.x + threadIdx.x;
-  if (col >= n) return;
-  const int64_t g = blockIdx.x;
-  const int64_t row_base = g * group;
+    int group, int units, int tiles, float qmax) {
+  const int tw = units * VEC;                      // tile width, columns
+  const int slices = blockDim.x / units;
+  extern __shared__ float4 smem_down[];
+  float* xs = reinterpret_cast<float*>(smem_down); // [group][tw] source rows
+  float* ps = xs + group * tw;                     // [group][tw] partners
+  float* mn = ps + group * tw;                     // [slices][tw]
+  float* mx = mn + slices * tw;                    // [slices][tw]
+  float* cs = mx + slices * tw;                    // [group] cos, sin, scale
+  float* ss = cs + group;
+  float* vs = ss + group;
+  int* rsrc = reinterpret_cast<int*>(vs + group);  // [group] source rows
 
-  float wmin = 0.0f, wmax = 0.0f;
-  for (int r = 0; r < group; ++r) {
-    const int64_t src = pi[row_base + r];
-    const int64_t pair = src >> 1;
-    const float* p = w + 2 * pair * n + col;
-    const float v = rotate(p[0], p[n], cosv[pair], sinv[pair], (src & 1) != 0)
-                    * svec[src];
-    wmin = r == 0 ? v : fminf(wmin, v);
-    wmax = r == 0 ? v : fmaxf(wmax, v);
+  const int tile = blockIdx.x % tiles;
+  const int64_t g = blockIdx.x / tiles;
+  const int64_t col0 = (int64_t)tile * tw;
+
+  for (int r = threadIdx.x; r < group; r += blockDim.x) {
+    const int src = (int)pi[g * group + r];
+    rsrc[r] = src;
+    cs[r] = cosv[src >> 1];
+    ss[r] = sinv[src >> 1];
+    vs[r] = svec[src];
   }
-  float s, z;
-  rq::group_params(wmin, wmax, qmax, &s, &z);
-  for (int r = 0; r < group; ++r) {
-    const int64_t src = pi[row_base + r];
-    const int64_t pair = src >> 1;
-    const float* p = w + 2 * pair * n + col;
-    const float v = rotate(p[0], p[n], cosv[pair], sinv[pair], (src & 1) != 0)
-                    * svec[src];
-    fq[(row_base + r) * n + col] = rq::fake_quant_value(v, s, z, qmax);
+  __syncthreads();
+  for (int k = threadIdx.x; k < group * units; k += blockDim.x) {
+    const int r = k / units, c = k - r * units;
+    const int64_t col = col0 + c * VEC;
+    if (col < n) {
+      const int src = rsrc[r];
+      copy_async<VEC>(xs + r * tw + c * VEC, w + (int64_t)src * n + col);
+      copy_async<VEC>(ps + r * tw + c * VEC, w + (int64_t)(src ^ 1) * n + col);
+    }
   }
-  scale[g * n + col] = s;
-  zero[g * n + col] = z;
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int c = threadIdx.x % units, sl = threadIdx.x / units;
+  const int64_t col = col0 + c * VEC;
+  const bool live = col < n;
+  const int per = (group + slices - 1) / slices;
+  const int r_lo = min(group, sl * per), r_hi = min(group, r_lo + per);
+  float lo[VEC], hi[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    lo[e] = CUDART_INF_F;
+    hi[e] = -CUDART_INF_F;
+  }
+  if (live) {
+    for (int r = r_lo; r < r_hi; ++r) {
+      float x[VEC], p[VEC];
+      load_vec<VEC>(x, xs + r * tw + c * VEC);
+      load_vec<VEC>(p, ps + r * tw + c * VEC);
+      const bool odd = (rsrc[r] & 1) != 0;
+      const float cr = cs[r], sr = ss[r], vr = vs[r];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        // the source row is the pair's second member when it is odd
+        x[e] = (odd ? rotate(p[e], x[e], cr, sr, true)
+                    : rotate(x[e], p[e], cr, sr, false)) * vr;
+        lo[e] = fminf(lo[e], x[e]);
+        hi[e] = fmaxf(hi[e], x[e]);
+      }
+      store_vec<VEC>(xs + r * tw + c * VEC, x);   // kept for the write
+    }
+  }
+  store_vec<VEC>(mn + sl * tw + c * VEC, lo);
+  store_vec<VEC>(mx + sl * tw + c * VEC, hi);
+  __syncthreads();
+  if (!live) return;
+
+  float s[VEC], z[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    lo[e] = CUDART_INF_F;
+    hi[e] = -CUDART_INF_F;
+  }
+  for (int k = 0; k < slices; ++k) {
+    float a[VEC], b[VEC];
+    load_vec<VEC>(a, mn + k * tw + c * VEC);
+    load_vec<VEC>(b, mx + k * tw + c * VEC);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      lo[e] = fminf(lo[e], a[e]);
+      hi[e] = fmaxf(hi[e], b[e]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < VEC; ++e)
+    rq::group_params(lo[e], hi[e], qmax, &s[e], &z[e]);
+  for (int r = r_lo; r < r_hi; ++r) {
+    float x[VEC];
+    load_vec<VEC>(x, xs + r * tw + c * VEC);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      x[e] = rq::fake_quant_value(x[e], s[e], z[e], qmax);
+    store_vec<VEC>(fq + (g * group + r) * n + col, x);
+  }
+  if (sl == 0) {
+    store_vec<VEC>(scale + g * n + col, s);
+    store_vec<VEC>(zero + g * n + col, z);
+  }
 }
 
 }  // namespace
 
-// w (K, N) float32, pi int64, svec/cosv/sinv float32. mode 0 = up (the
-// transformed axis is N), 1 = down (it is K). Returns cudaGetLastError()
-// after the launch (0 = cudaSuccess).
-extern "C" int rq_transform_quant(const void* w, const void* pi,
-                                  const void* svec, const void* cosv,
-                                  const void* sinv, void* fq, void* scale,
-                                  void* zero, int64_t k, int64_t n, int group,
-                                  int bits, int mode, void* stream) {
+// "up": w (d, f) float32, pi (f,) int64, svec/cosv/sinv float32. One cluster
+// of `cluster` CTAs per band of `group` rows, `slice` columns and `threads`
+// threads per CTA, sub-bands of `rows` rows, `smem` bytes of dynamic shared
+// memory (kernels/transform_quant.py::plan). Returns cudaGetLastError()
+// after the launch (0 = cudaSuccess) or the launch's own error.
+extern "C" int rq_transform_quant_up(
+    const void* w, const void* pi, const void* svec, const void* cosv,
+    const void* sinv, void* fq, void* scale, void* zero, int64_t d,
+    int64_t f, int group, int bits, int cluster, int slice, int rows,
+    int threads, int smem, void* stream) {
+  auto kernel = transform_quant_up_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(d / group * cluster));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const float*>(w),
+      static_cast<const int64_t*>(pi), static_cast<const float*>(svec),
+      static_cast<const float*>(cosv), static_cast<const float*>(sinv),
+      static_cast<float*>(fq), static_cast<float*>(scale),
+      static_cast<float*>(zero), (int)f, group, slice, rows,
+      (float)((1 << bits) - 1));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// "down": w (f, n) float32. One CTA per (group, tile of units * vec
+// columns), kDownThreads threads, `smem` bytes of dynamic shared memory;
+// vec is 4 (16-byte copies and stores; n % 4 == 0) or 1.
+extern "C" int rq_transform_quant_down(
+    const void* w, const void* pi, const void* svec, const void* cosv,
+    const void* sinv, void* fq, void* scale, void* zero, int64_t f,
+    int64_t n, int group, int bits, int units, int vec, int smem,
+    void* stream) {
+  const int tw = units * vec;
+  const int tiles = (int)((n + tw - 1) / tw);
+  const dim3 grid((unsigned)(f / group * tiles));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = n >= 256 ? 256 : (int)((n + 31) / 32 * 32);
-  const dim3 grid((unsigned)(k / group), (unsigned)((n + threads - 1) / threads));
   const float qmax = (float)((1 << bits) - 1);
   const float* wf = static_cast<const float*>(w);
   const int64_t* p = static_cast<const int64_t*>(pi);
@@ -135,12 +471,21 @@ extern "C" int rq_transform_quant(const void* w, const void* pi,
   float* out = static_cast<float*>(fq);
   float* sc = static_cast<float*>(scale);
   float* zr = static_cast<float*>(zero);
-  if (mode == 0) {
-    transform_quant_up_kernel<<<grid, threads, 0, st>>>(
-        wf, p, sv, cv, snv, out, sc, zr, n, group, qmax);
+  cudaError_t err;
+  if (vec == 4) {
+    err = cudaFuncSetAttribute(transform_quant_down_kernel<4>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    transform_quant_down_kernel<4><<<grid, kDownThreads, smem, st>>>(
+        wf, p, sv, cv, snv, out, sc, zr, n, group, units, tiles, qmax);
   } else {
-    transform_quant_down_kernel<<<grid, threads, 0, st>>>(
-        wf, p, sv, cv, snv, out, sc, zr, n, group, qmax);
+    err = cudaFuncSetAttribute(transform_quant_down_kernel<1>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    transform_quant_down_kernel<1><<<grid, kDownThreads, smem, st>>>(
+        wf, p, sv, cv, snv, out, sc, zr, n, group, units, tiles, qmax);
   }
   return (int)cudaGetLastError();
 }

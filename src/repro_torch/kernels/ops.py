@@ -4,8 +4,9 @@ For a CPU tensor each wrapper runs the kernel's plain PyTorch version
 (``ref.py``); that is the only reason it ever does. For a CUDA tensor it
 validates shape, dtype, device and contiguity, allocates the outputs,
 launches the CUDA kernel on the current stream and adds one to its launch
-count — or raises. There is no fallback: no strip-size planner like the
-TPU wrapper's ``tq_plan``, no plain version on the card and no CPU detour.
+count — or raises. There is no fallback: the TPU wrapper's ``tq_plan``
+fell back to jnp above its strip budget, the port's planners only size the
+launch; no plain version on the card and no CPU detour.
 """
 from __future__ import annotations
 
@@ -88,7 +89,9 @@ def transform_quant(w: torch.Tensor, pi: torch.Tensor, s: torch.Tensor,
 
     mode="up":   w (D, F) -> (fq (D, F), scale (D/G, F), zero (D/G, F))
     mode="down": w (F, D) -> (fq (F, D), scale (F/G, D), zero (F/G, D))
-    w f32; pi (F,) int64, a permutation; s (F,) f32; phi (F/2,) f32.
+    w f32; pi (F,) int64, a gather index into [0, F) (a permutation on the
+    search's path); s (F,) f32; phi (F/2,) f32. A CUDA call launches the
+    kernel by ``transform_quant.plan`` or raises.
     """
     _require(mode in _tq.MODES, f"mode must be 'up' or 'down', got {mode!r}")
     if w.device.type == "cpu":
@@ -105,6 +108,10 @@ def transform_quant(w: torch.Tensor, pi: torch.Tensor, s: torch.Tensor,
     _check_cuda("s", s, w.device, (torch.float32,), (f,))
     _check_cuda("phi", phi, w.device, (torch.float32,), (f // 2,))
     _check_quant_args(K, N, bits, group)
+    plan = _tq.plan(K, N, group, mode)   # raises for a shape it cannot take
+    _require(mode == "up" or plan.vec == 1 or w.data_ptr() % 16 == 0,
+             "w must start on a 16-byte boundary (the down kernel copies 16 "
+             "bytes at a time)")
     lo, hi = torch.stack(torch.aminmax(pi)).tolist()   # one host sync
     _require(0 <= lo and hi < f, f"pi must index [0, {f})")
     svec = s if mode == "up" else 1.0 / s
@@ -113,7 +120,7 @@ def transform_quant(w: torch.Tensor, pi: torch.Tensor, s: torch.Tensor,
     scale = torch.empty((K // group, N), dtype=torch.float32, device=w.device)
     zero = torch.empty_like(scale)
     _tq.launch(w, pi, svec, cos, sin, fq, scale, zero, bits=bits,
-               group=group, mode=mode)
+               group=group, mode=mode, plan=plan)
     LAUNCHES["transform_quant"] += 1
     return fq, scale, zero
 

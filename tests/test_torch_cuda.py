@@ -43,14 +43,52 @@ def test_group_quant_cuda_matches_plain(dtype, bits, group):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def _pi(kind, f, seed):
+    """A gather index of width f: identity, a partial shuffle (an eighth of
+    the positions permuted among themselves), a random permutation, or
+    random indices with duplicates."""
+    rng = np.random.default_rng(seed)
+    pi = np.arange(f)
+    if kind == "partial":
+        idx = rng.choice(f, f // 8, replace=False)
+        pi[idx] = rng.permutation(idx)
+    elif kind == "random":
+        pi = rng.permutation(f)
+    elif kind == "dup":
+        pi = rng.integers(0, f, f)
+    return torch.from_numpy(pi.astype(np.int64))
+
+
+# (D, F, bits, group, pi kind, gate): the shape the test held first, then
+# shapes that cross the kernels' tiles: a ragged F (1408 and 4864 columns:
+# "up" slices of 176 and 608, "down" tiles of 128 columns cut at the edge),
+# F = 22528 over a few bands (slices of 2816 columns), groups 64 and 128
+# ("up" in two passes, at F 8192 in two sub-bands), every pi kind, the gated
+# FFN's call (s = 1, phi = 0), D = 90 ("down" in 4-byte units) at group
+# 30, and 8 bits (codes up to 255)
+TQ_CUDA_CASES = [
+    (96, 256, 2, 32, "random", False), (96, 256, 4, 16, "random", False),
+    (1408, 4864, 2, 32, "random", False), (128, 1408, 2, 64, "dup", False),
+    (64, 22528, 2, 32, "random", False), (256, 8192, 2, 128, "random", False),
+    (256, 8192, 3, 128, "partial", False), (512, 1024, 2, 32, "identity",
+                                            False),
+    (512, 1024, 2, 32, "partial", False), (512, 1024, 2, 32, "dup", False),
+    (256, 2048, 2, 32, "random", True), (90, 120, 2, 30, "random", False),
+    (512, 1024, 8, 64, "random", False),
+]
+
+
 @pytest.mark.parametrize("mode", ["up", "down"])
-@pytest.mark.parametrize("bits,group", [(2, 32), (4, 16)])
-def test_transform_quant_cuda_matches_plain(mode, bits, group):
+@pytest.mark.parametrize("D,F,bits,group,kind,gate", TQ_CUDA_CASES)
+def test_transform_quant_cuda_matches_plain(mode, D, F, bits, group, kind,
+                                            gate):
     dev = needs_cuda()
-    D, F = 96, 256
     w = torch.randn((D, F) if mode == "up" else (F, D),
                     generator=torch.Generator().manual_seed(2)).to(dev)
-    pi, s, phi = (x.to(dev) for x in _tq_args(F, seed=3))
+    _, s, phi = _tq_args(F, seed=3)
+    if gate:
+        s, phi = torch.ones_like(s), torch.zeros_like(phi)
+    pi, s, phi = _pi(kind, F, seed=4).to(dev), s.to(dev), phi.to(dev)
     before = tk.LAUNCHES["transform_quant"]
     fq, sc, z = tk.transform_quant(w, pi, s, phi, bits=bits, group=group,
                                    mode=mode)
@@ -77,6 +115,12 @@ def test_cuda_wrappers_raise_on_bad_inputs():
         tk.transform_quant(w, pi.int(), s, phi, bits=2, group=32, mode="up")
     with pytest.raises(ValueError, match="is on"):
         tk.transform_quant(w, pi.cpu(), s, phi, bits=2, group=32, mode="up")
+    shifted = torch.randn(64 * 32 + 1, device=dev)[1:].view(64, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        tk.transform_quant(shifted, torch.arange(64, device=dev),
+                           torch.ones(64, device=dev),
+                           torch.zeros(32, device=dev), bits=2, group=32,
+                           mode="down")
 
 
 def _paged_case(dev, *, B, H, Hkv, Dh, psz, P, lens, dtype, seed):
