@@ -31,13 +31,13 @@ source, started together, into ``build/kernels/``), then:
    the kernel sums scores and values in another order than
    ``paged_decode_ref`` — at opt-1.3b's head layout, a full-width GQA one,
    a long full-width GQA one (B 2 × 64 pages, lengths [1024, 333] and
-   [0, 1000]) where the fused-GQA planner splits the pages across CTAs
-   (each check logs n_split), and the small configs' layouts that (d)
+   [0, 1000]) where the planner splits the pages across CTAs on every
+   route (each check logs n_split), and the small configs' layouts that (d)
    serves, on f32, bf16 and int8 pools, ragged lengths (0, 1,
    page-aligned, P·psz), ``normalize=False`` partials and NaN-poisoned
    dead slots; (b) each route's time at the main path's decode shape, at
-   B 8 × 1024 tokens and (GQA routes) at B 1 × 8192, beside its bound, its
-   device time under the profiler, its plain version and
+   B 8 × 1024 tokens and at B 1 × 8192, with its n_split, beside its bound,
+   its device time under the profiler, its plain version and
    ``scaled_dot_product_attention`` on K/V already gathered contiguous
    (repeated to H heads, and with ``enable_gqa`` on K/V as they are);
    (c) ``PagedServer`` on 2-bit opt-1.3b (full width and depth) over the
@@ -57,8 +57,9 @@ source, started together, into ``build/kernels/``), then:
    (``tests/test_kernels.py``), at opt-1.3b's head layout, a full-width GQA
    one and the small configs', on f32, bf16 and int8 caches, kv_len 0, 1, a
    tile boundary, ragged and S, and NaN in every slot past kv_len; (b) its
-   time at 6c's decode shape and at B 8 x 2048 rows beside its bound, its
-   plain version and ``scaled_dot_product_attention`` with a length mask;
+   time (one call, and device time under the profiler) at 6c's decode
+   shape and at B 8 x 2048 rows beside its bound, its plain version and
+   ``scaled_dot_product_attention`` with a length mask;
    (c) ``BatchedServer`` on 2-bit opt-1.3b (full width and depth, batch 8,
    max_len 128) over phase 5's trace with ``use_flash_decode`` off, then
    on: tokens identical (or parting only at a printed near tie), held to
@@ -70,8 +71,9 @@ source, started together, into ``build/kernels/``), then:
    identical greedy tokens; (e) ``quant_matmul`` vs its plain version at
    5e-4 (the reference's bar) at kernel_bench's three shapes, opt-1.3b's
    projections at M 8 and a 3-bit case with K padding, x in f32 and bf16,
-   with times beside the bound, the plain version and ``torch.matmul`` on
-   the dequantised weights, then the public op once per case.
+   with times (one call, and the kernels' device time under the profiler)
+   beside the bound, the plain version and ``torch.matmul`` on the
+   dequantised weights, then the public op once per case.
 
 Prints the ``nvidia-smi`` name/power-limit line, a ``{"kernels": [...]}``
 line (all seven ported kernels), and last ``{"ok": true, "device":
@@ -161,24 +163,53 @@ def time_stats(torch, fn, warmup=3, reps=25):
     return statistics.median(times), [min(times), max(times)]
 
 
-def device_ms(torch, fn, fragments, calls=20):
+def device_ms(torch, fn, fragments, calls=20, attempts=3):
     """Device time per call of ``fn``'s kernels whose names hold one of
     ``fragments``, under ``torch.profiler`` over ``calls`` calls after a
     warm-up: the kernels' own time, without the host's launch work that a
-    CUDA-event timing of one call also holds."""
+    CUDA-event timing of one call also holds.
+
+    The profiler now and then returns a trace without these kernels; the
+    trace is then taken again, up to ``attempts`` times. If a trace held
+    other device work but never these kernels, their names are wrong and
+    that fails. If every trace was empty, the time is that of ``calls``
+    calls back to back between two CUDA events, divided by ``calls`` (the
+    host's launch gaps included), and a ``device_time_fallback`` line says
+    so."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", 0)
-                for e in prof.key_averages()
-                if any(f in e.key for f in fragments))
-    if total <= 0:
-        raise AssertionError(f"the profiler saw no device time in {fragments}")
-    return total / calls / 1e3
+    others = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = 0
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", 0)
+            if any(f in e.key for f in fragments):
+                total += t
+            elif t > 0:
+                others.append(e.key)
+        if total > 0:
+            return total / calls / 1e3
+        log("device_time_retry", fragments=list(fragments),
+            others=sorted(set(others)))
+    if others:
+        raise AssertionError(f"the profiler saw no device time in "
+                             f"{fragments}, only in {sorted(set(others))}")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / calls
+    log("device_time_fallback", fragments=list(fragments), attempts=attempts,
+        ms=ms)
+    return ms
 
 
 def bound_ms(nbytes, nops):
@@ -544,8 +575,8 @@ def route_kw(route, mp=2):
 
 # 5a cases: (name, B, H, Hkv, Dh, psz, P, length sets, (route, MP) pairs).
 # The first two are opt-1.3b's decode layout (MHA) and a full-width GQA one;
-# "long-gqa" is a full-width GQA layout long enough that the fused-GQA
-# planner splits the pages across CTAs (runs past the 333-token sequence's
+# "long-gqa" is a full-width GQA layout long enough that the planner splits
+# the pages across CTAs on every route (runs past the 333-token sequence's
 # end are empty, a zero-length sequence merges to exactly 0); the last two
 # are the layouts 5d serves (opt-tiny reduced at max_batch 4, page size 8,
 # max_len 64).
@@ -558,19 +589,18 @@ PD_LAYOUTS = (
     ("gqa", 8, 32, 8, 128, PSZ, 8, (_LENS_8,),
      _GQA_ROUTES + (("paged_decode_gqa_mp", 4),)),
     ("long-gqa", 2, 32, 8, 128, PSZ, 64, ([1024, 333], [0, 1000]),
-     (("paged_decode_gqa", 1), ("paged_decode_gqa_mp", 2),
-      ("paged_decode_gqa_mp", 4))),
+     (("paged_decode", 1), ("paged_decode_gqa", 1),
+      ("paged_decode_gqa_mp", 2), ("paged_decode_gqa_mp", 4))),
     ("small-gqa", 4, 4, 2, 16, 8, 8, _LENS_SMALL, _GQA_ROUTES),
     ("small-mha", 4, 4, 4, 16, 8, 8, _LENS_SMALL, (("paged_decode", 1),)),
 )
 
 
-def n_split(torch, pd, route, B, Hkv, P, psz, mp):
-    """Runs the fused-GQA planner cuts each sequence into (1 for the
-    per-query-head route, which does not split)."""
-    if route == "paged_decode":
-        return 1
-    return pd.plan(route, B, Hkv, P, psz, mp,
+def n_split(torch, pd, route, B, H, Hkv, P, psz, mp):
+    """Runs the planner cuts each sequence into (its CTAs span the query
+    heads on the per-query-head route, the KV heads on the others)."""
+    heads = H if route == "paged_decode" else Hkv
+    return pd.plan(route, B, heads, P, psz, mp,
                    pd.sm_count(torch.device("cuda"))).n_split
 
 
@@ -580,7 +610,7 @@ def phase_paged_kernels(torch, ops, ref, pd):
     errs = dict.fromkeys(PD_ROUTES, 0.0)
     for name, B, H, Hkv, Dh, psz, P, lens_sets, routes in PD_LAYOUTS:
         shape = dict(B=B, H=H, Hkv=Hkv, Dh=Dh, P=P, psz=psz)
-        splits = {(r, mp): n_split(torch, pd, r, B, Hkv, P, psz, mp)
+        splits = {(r, mp): n_split(torch, pd, r, B, H, Hkv, P, psz, mp)
                   for r, mp in routes}
         if name == "long-gqa" and min(splits.values()) < 2:
             raise AssertionError(f"{name}: the planner did not split {splits}")
@@ -644,19 +674,16 @@ def paged_bytes(q, kp, ks, lens, H, Hkv):
             + 2 * q.shape[0] * H * 4 + 4 * len(lens) * 2)
 
 
-# 5b contexts: (name, B, lengths or None for the trace's decode lengths,
-# routes). "long-b1" is one user decoding a long context: the same live
-# K/V bytes as "long", one sequence.
-PD_CONTEXTS = (("decode", 8, None, PD_ROUTES),
-               ("long", 8, [1024] * 8, PD_ROUTES),
-               ("long-b1", 1, [8192], PD_ROUTES[1:]))
+# 5b contexts: (name, B, lengths or None for the trace's decode lengths).
+# "long-b1" is one user decoding a long context: the same live K/V bytes
+# as "long", one sequence.
+PD_CONTEXTS = (("decode", 8, None), ("long", 8, [1024] * 8),
+               ("long-b1", 1, [8192]))
 
 
-# device-kernel name fragments of each route's launch (the fused-GQA
-# routes: split pass and merge)
-PD_KERNEL_NAMES = {"paged_decode": ("decode_attention::",),
-                   "paged_decode_gqa": ("split_decode::",),
-                   "paged_decode_gqa_mp": ("split_decode::",)}
+# device-kernel name fragments of every route's launch: the split pass and,
+# where the planner splits, the merge
+PD_KERNEL_NAMES = ("split_decode::split_kernel", "split_decode::merge_kernel")
 
 
 def sdpa_takes_gqa(torch) -> bool:
@@ -670,12 +697,13 @@ def phase_paged_times(torch, ops, ref, pd, decode_lens):
     """5b: CUDA-event medians (and the run's spread) of each route at the
     main path's decode shape (B 8, psz 16, the trace's lengths; MHA 32 heads
     Dh 64 for the per-query-head route, 32/8 heads Dh 128 for the GQA
-    routes), at a long context (B 8 x 1024 tokens) and, for the GQA routes,
-    at one long sequence (B 1 x 8192), beside the bound, the plain version
+    routes), at a long context (B 8 x 1024 tokens) and at one long
+    sequence (B 1 x 8192), beside the bound, the plain version
     and two SDPA yardsticks on K/V already gathered contiguous: K/V
     repeated to H heads, and (where this torch takes ``enable_gqa``) K/V as
     they are; ``library_ms`` is the faster. Each raw ``pd.launch`` is the
-    whole decode: split pass and merge. Beside the CUDA-event time of one
+    whole decode: split pass and merge, with the planner's ``n_split``.
+    Beside the CUDA-event time of one
     call (host launch work included), ``device_ms`` is the route's kernels'
     own time under the profiler."""
     import torch.nn.functional as F
@@ -685,9 +713,7 @@ def phase_paged_times(torch, ops, ref, pd, decode_lens):
         H, Hkv, Dh = (32, 32, 64) if route == "paged_decode" else (32, 8, 128)
         mp = 2 if route == "paged_decode_gqa_mp" else 1
         per = {}
-        for ctx, B, lens, routes in PD_CONTEXTS:
-            if route not in routes:
-                continue
+        for ctx, B, lens in PD_CONTEXTS:
             lens = lens or decode_lens
             P = -(-max(lens) // PSZ)
             q, kp, vp, bt, ln, ks, vs = paged_case(
@@ -701,7 +727,7 @@ def phase_paged_times(torch, ops, ref, pd, decode_lens):
                 normalize=True, pages_per_block=mp), reps=50)
             dev = device_ms(torch, lambda: pd.launch(
                 route, q, kp, vp, bt, ln, None, None, out, m, l_,
-                normalize=True, pages_per_block=mp), PD_KERNEL_NAMES[route])
+                normalize=True, pages_per_block=mp), PD_KERNEL_NAMES)
             p = time_ms(torch, lambda: ref.paged_decode_ref(q, kp, vp, bt, ln),
                         reps=20)
             # yardsticks: SDPA over K/V already gathered contiguous (B, Hkv,
@@ -733,7 +759,7 @@ def phase_paged_times(torch, ops, ref, pd, decode_lens):
                 bound_ms=b, bound_by=by, share_of_bound=b / t,
                 device_ms=dev, device_share_of_bound=b / dev, batch=B,
                 heads=[H, Hkv], head_dim=Dh, lens=lens, pages_per_block=mp,
-                n_split=n_split(torch, pd, route, B, Hkv, P, PSZ, mp))
+                n_split=n_split(torch, pd, route, B, H, Hkv, P, PSZ, mp))
             log("kernel_time", kernel=route, context=ctx, **per[ctx])
             del q, kp, vp, bt, ln
         rows[route] = per
@@ -806,11 +832,9 @@ def compare_runs(outs_a, outs_b, ties_ok, what):
 
 
 # device-kernel name fragments -> family for the serving profile (first
-# match wins); the per-query-head paged route runs the kernel body of
-# csrc/decode_attention.cuh, the fused-GQA routes that of
+# match wins); the paged routes run the kernel body of
 # csrc/split_decode.cuh; cuBLAS takes GEMV kernels at B <= 8
-SERVE_FAMILIES = (("decode_attention", "paged_decode (port kernel)"),
-                  ("split_decode", "paged_decode (port kernel)"),
+SERVE_FAMILIES = (("split_decode", "paged_decode (port kernel)"),
                   ("paged_decode", "paged_decode (port kernel)"),
                   ("gemv", "matmul (cuBLAS)"),
                   ("index", "indexing (gather, K/V write)"),
@@ -1160,6 +1184,8 @@ def phase_flash_times(torch, ref, fd, decode_len):
         out = torch.empty((B, H, Dh), device=q.device)
         t, spread = time_stats(torch, lambda: fd.launch(
             q, k, v, None, None, out, kv_len=n), reps=50)
+        dev = device_ms(torch, lambda: fd.launch(
+            q, k, v, None, None, out, kv_len=n), ("decode_attention::",))
         p = time_ms(torch, lambda: ref.flash_decode_ref(q, k, v, kv_len=n),
                     reps=20)
         mask = (torch.arange(S, device=q.device) < n)[None, None, None, :]
@@ -1168,10 +1194,9 @@ def phase_flash_times(torch, ref, fd, decode_len):
             q[:, :, None, :], kt, vt, attn_mask=mask), reps=50)
         nbytes = 2 * B * n * Hkv * Dh * 4 + 2 * q.numel() * 4
         b, by = bound_ms(nbytes, 4 * B * H * Dh * n)
-        rows[ctx] = dict(ms=t, ms_range=spread, plain_ms=p, library_ms=lib,
-                         bound_ms=b,
-                         bound_by=by, batch=B, heads=[H, Hkv], head_dim=Dh,
-                         cache_rows=S, kv_len=n)
+        rows[ctx] = dict(ms=t, ms_range=spread, device_ms=dev, plain_ms=p,
+                         library_ms=lib, bound_ms=b, bound_by=by, batch=B,
+                         heads=[H, Hkv], head_dim=Dh, cache_rows=S, kv_len=n)
         log("kernel_time", kernel="flash_decode", context=ctx, **rows[ctx])
     return rows
 
@@ -1350,13 +1375,20 @@ QM_SHAPES = (
     ("3-bit, K padded 2048->2080, b3 g32", 8, 2048, 2048, 3, 32),
 )
 QM_MAIN = "opt-1.3b up 2048->8192 b2 g32"
+# what the kernels line carries of every 6e case
+QM_CASE_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms", "device_share_of_bound",
+                "faster_than_library", "plan")
 
 
 def phase_quant_matmul(torch, ops, ref, qm):
     """6e: quant_matmul vs its plain version at every ``QM_SHAPES`` case,
-    x in f32 and bf16; times (f32 x, raw launches) beside the bound, the
-    plain version and ``torch.matmul`` with W already dequantised to dense
-    f32; then the public op once per case, counts set to 0 just before.
+    x in f32 and bf16; times (f32 x, raw launches: the split pass and the
+    sum of its partials) beside the bound, the plain version and
+    ``torch.matmul`` with W already dequantised to dense f32, each as the
+    CUDA-event time of one call (``ms``, ``library_ms``) and as its kernels'
+    own time under the profiler (``device_ms``, ``library_device_ms``);
+    then the public op once per case, counts set to 0 just before.
     Returns (rows, max abs error, public-op launches)."""
     from repro_torch.core.quant import QuantConfig, quantize_tensor
 
@@ -1383,18 +1415,29 @@ def phase_quant_matmul(torch, ops, ref, qm):
                 shape=[M, K, N], k_pad=k_pad, bits=bits, group=group,
                 dtype=str(dt), max_abs_err=err)
         out = torch.empty((M, N), device=dev)
-        t = time_ms(torch, lambda: qm.launch(x, *w, out, bits=bits,
-                                             group=group), reps=50)
+
+        def run():
+            qm.launch(x, *w, out, bits=bits, group=group)
+        t = time_ms(torch, run, reps=50)
+        dev_t = device_ms(torch, run, ("quant_matmul",), calls=30)
         p = time_ms(torch, lambda: ref.quant_matmul_ref(x, *w, bits, group),
                     reps=20)
         dense = ref.dequant_ref(*w, bits, group, K)
         lib = time_ms(torch, lambda: torch.matmul(x, dense), reps=50)
+        # every kernel the library call runs (cuBLAS names them by shape)
+        lib_dev = device_ms(torch, lambda: torch.matmul(x, dense), ("",),
+                            calls=30)
         nbytes = (x.numel() * 4 + qt.packed.numel() * 4
                   + 2 * qt.scale.numel() * 4 + M * N * 4)
         b, by = bound_ms(nbytes, 2 * M * K * N + 2 * k_pad * N)
-        rows[name] = dict(ms=t, plain_ms=p, library_ms=lib, bound_ms=b,
-                          bound_by=by, shape=[M, K, N], bits=bits,
-                          group=group, dense_weight_bytes=K * N * 4)
+        sp = qm.plan(M, N, qt.packed.shape[0], bits, group,
+                     qm.sm_count(dev))
+        rows[name] = dict(ms=t, device_ms=dev_t, plain_ms=p, library_ms=lib,
+                          library_device_ms=lib_dev, bound_ms=b,
+                          bound_by=by, device_share_of_bound=b / dev_t,
+                          faster_than_library=dev_t < lib_dev,
+                          shape=[M, K, N], bits=bits, group=group,
+                          plan=sp._asdict(), dense_weight_bytes=K * N * 4)
         log("kernel_time", kernel="quant_matmul", case=name, **rows[name])
         del dense
     ops.reset_launch_counts()
@@ -1661,9 +1704,10 @@ def main() -> int:
         "shape": {k: main_row[k] for k in ("batch", "heads", "head_dim",
                                            "cache_rows", "kv_len")},
         "ms_range": main_row["ms_range"],
+        "device_ms": main_row["device_ms"],
         "long_context": {k: long_row[k] for k in (
-            "ms", "ms_range", "plain_ms", "bound_ms", "library_ms",
-            "cache_rows", "kv_len")},
+            "ms", "ms_range", "device_ms", "plain_ms", "bound_ms",
+            "library_ms", "cache_rows", "kv_len")},
         "dtype": "float32"})
     qrow = qm_rows[QM_MAIN]
     kernels.append({
@@ -1682,8 +1726,8 @@ def main() -> int:
                         "dequant + matmul",
         "shape": {"case": QM_MAIN, "mkn": qrow["shape"], "bits": qrow["bits"],
                   "group": qrow["group"]},
-        "cases": {n: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")}
+        **{k: qrow[k] for k in ("device_ms", "library_device_ms", "plan")},
+        "cases": {n: {k: r[k] for k in QM_CASE_KEYS}
                   for n, r in qm_rows.items()},
         "dtype": "float32"})
     print(smi, flush=True)

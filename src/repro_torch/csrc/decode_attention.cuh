@@ -1,43 +1,34 @@
-// One-token decode attention body shared by the per-query-head paged route
-// (rq_paged_decode_head) and the contiguous (flash) decode kernel:
-// paged_decode.cu and flash_decode.cu include it and only fill in Args. The
-// fused-GQA paged routes run the split-KV body of split_decode.cuh, which
-// takes load4 and the warp reductions from here.
+// One-token decode attention over a contiguous KV cache: the body of the
+// flash decode kernel (flash_decode.cu includes it and only fills in
+// Args). The three paged routes run the split-KV body of split_decode.cuh,
+// which takes load4 and the warp reductions from here.
 //
-//   out[b,h] = softmax(q[b,h] . K[b, :len, h/rep]^T / sqrt(Dh)) . V[...]
+//   out[b,h] = softmax(q[b,h] . K[b, :kv_len, h/rep]^T / sqrt(Dh)) . V[...]
 //
-// q (B, H, Dh) f32. The K/V rows of sequence b live in pages of psz rows of
-// a (N, psz, Hkv, Dh) pool, f32, bf16 or int8 (+ f32 scales (N, psz, Hkv)):
-// position t of sequence b is row t % psz of page bt[b, t / psz] (with a
-// block table), or of page b (without one: a contiguous (B, S, Hkv, Dh)
-// cache is the pool of B pages of psz = S rows). Outputs out (B, H, Dh) f32
-// (normalised by max(l, 1e-30), or the raw accumulator when normalize == 0)
-// and, where the pointers are given, the log-sum-exp stats m, l (B, H).
+// q (B, H, Dh) f32; K/V (B, S, Hkv, Dh) f32, bf16 or int8 (+ f32 scales
+// (B, S, Hkv)). Output out (B, H, Dh) f32, normalised by max(l, 1e-30).
 //
-// A CTA owns nq query rows (1, or the rep query heads of KV head g) and walks
-// the live positions in tiles of `tile` rows, one online-softmax update per
-// tile. The tile is a parameter of its own, not a page count: the paged
-// route sets it to one page, the contiguous route to a fixed row count, so
-// shared memory never grows with the sequence.
+// A CTA owns the rep query heads of KV head g of sequence b and walks the
+// live positions in tiles of `tile` rows, one online-softmax update per
+// tile, so shared memory never grows with the cache.
 //
 // Bound: bytes. At decode the live K/V bytes dominate (16 KiB per token per
 // layer at opt-1.3b in fp32: 32 heads x 64 x 4 B x 2), against about 4
-// flops per K/V value. Design: each CTA reads its own sequence length (and
-// block-table row) from device memory (no host sync), loops over live
-// positions only, and stages the tile's live K/V rows once into shared
-// memory as f32 — int8 rows dequantised with their per-(slot, head) scales
-// on the way — with neighbouring threads on neighbouring 4-value pieces of a
-// row, so every row read is coalesced and vectorised, and each thread keeps
+// flops per K/V value. Design: each CTA loops over live positions only,
+// and stages the tile's live K/V rows once into shared memory
+// as f32 — int8 rows dequantised with their per-(slot, head) scales on the
+// way — with neighbouring threads on neighbouring 4-value pieces of a row,
+// so every row read is coalesced and vectorised, and each thread keeps
 // several loads in flight (a first version that loaded one value per
-// iteration was latency-bound: 5.7 us per page at 1024 tokens). With
-// nq = rep, each K/V row is read once for all rep query heads. (m, l, acc)
-// stay in shared memory in f32.
+// iteration was latency-bound: 5.7 us per page at 1024 tokens). Each K/V
+// row is read once for all rep query heads. (m, l, acc) stay in shared
+// memory in f32.
 //
-// Positions at or past the length are masked by SELECTION: they are never
+// Positions at or past kv_len are masked by SELECTION: they are never
 // loaded, their score is set to -1e30 and their probability to 0 without
-// touching K or V, so a dead or NaN-poisoned slot cannot reach the
-// arithmetic (0 * NaN would be NaN). A zero-length sequence keeps
-// m = -1e30, l = 0, acc = 0 and returns exactly 0.
+// touching K or V, so a NaN there cannot reach the arithmetic (0 * NaN
+// would be NaN). kv_len = 0 keeps m = -1e30, l = 0, acc = 0 and returns
+// exactly 0.
 #pragma once
 
 #include <cstdint>
@@ -91,16 +82,10 @@ struct Args {
   const void* v;
   const float* ks;
   const float* vs;
-  const int32_t* bt;    // (B, P) block table, or null: page of sequence b is b
-  const int32_t* lens;  // (B,) lengths, or null: every sequence has kv_len
-  int kv_len;
+  int kv_len;          // live rows of every sequence (S where larger)
   float* out;
-  float* m_out;         // (B, H) or null
-  float* l_out;         // (B, H) or null
-  int H, Hkv, Dh, psz, P;
-  int per_query_head;  // 1: CTA = (b, h), nq = 1; 0: CTA = (b, g), nq = rep
+  int H, Hkv, Dh, S;
   int tile;            // positions per online-softmax update
-  int normalize;
   float scale;         // Dh ** -0.5
 };
 
@@ -114,8 +99,7 @@ template <typename T, bool kQuant>
 __global__ void __launch_bounds__(kThreads) decode_kernel(Args a) {
   extern __shared__ float smem[];
   const int Dh = a.Dh;
-  const int rep = a.H / a.Hkv;
-  const int nq = a.per_query_head ? 1 : rep;
+  const int nq = a.H / a.Hkv;  // rep
   const int tile_len = a.tile;
   float* k_t = smem;                      // (tile_len, Dh) staged K
   float* v_t = k_t + tile_len * Dh;       // (tile_len, Dh) staged V
@@ -127,13 +111,10 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Args a) {
   float* corr_s = l_s + nq;
 
   const int b = blockIdx.x;
-  const int unit = blockIdx.y;
-  const int g = a.per_query_head ? unit / rep : unit;   // KV head
-  const int h0 = a.per_query_head ? unit : unit * rep;  // first query head
+  const int g = blockIdx.y;  // KV head
+  const int h0 = g * nq;     // first query head
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // a length past the P pages reads all P pages, as the plain version does
-  const int len = min(a.lens ? a.lens[b] : a.kv_len, a.P * a.psz);
-  const int32_t* bt = a.bt ? a.bt + (int64_t)b * a.P : nullptr;
+  const int len = min(a.kv_len, a.S);
   const T* kp = static_cast<const T*>(a.k);
   const T* vp = static_cast<const T*>(a.v);
 
@@ -168,10 +149,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Args a) {
         const int e = base + u * kThreads;
         if (e < n4) {
           const int t = e / dv, d = (e - t * dv) * 4;
-          const int pos = start + t;
-          const int pg = pos / a.psz;
-          const int64_t page = bt ? (int64_t)bt[pg] : (int64_t)b;
-          const int64_t row = (page * a.psz + (pos - pg * a.psz)) * a.Hkv + g;
+          const int64_t row = ((int64_t)b * a.S + start + t) * a.Hkv + g;
           kr[u] = load4(kp + row * Dh + d);
           vr[u] = load4(vp + row * Dh + d);
           if (kQuant) {
@@ -247,28 +225,19 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Args a) {
   }
 
   float* og = a.out + ((int64_t)b * a.H + h0) * Dh;
-  for (int i = tid; i < nq * Dh; i += kThreads) {
-    const float o = acc[i];
-    og[i] = a.normalize ? o / fmaxf(l_s[i / Dh], 1e-30f) : o;
-  }
-  if (a.m_out) {
-    for (int i = tid; i < nq; i += kThreads) {
-      a.m_out[(int64_t)b * a.H + h0 + i] = m_s[i];
-      a.l_out[(int64_t)b * a.H + h0 + i] = l_s[i];
-    }
-  }
+  for (int i = tid; i < nq * Dh; i += kThreads)
+    og[i] = acc[i] / fmaxf(l_s[i / Dh], 1e-30f);
 }
 
 template <typename T, bool kQuant>
-int launch_typed(const Args& a, int B, int units, size_t smem,
-                 cudaStream_t stream) {
+int launch_typed(const Args& a, int B, size_t smem, cudaStream_t stream) {
   auto kernel = decode_kernel<T, kQuant>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<dim3((unsigned)B, (unsigned)units), kThreads, smem, stream>>>(a);
+  kernel<<<dim3((unsigned)B, (unsigned)a.Hkv), kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -277,9 +246,7 @@ int launch_typed(const Args& a, int B, int units, size_t smem,
 // launch (0 = cudaSuccess), or kErrSmem without launching.
 inline int launch(const Args& a, int B, int kv_dtype, int quant,
                   void* stream) {
-  const int rep = a.H / a.Hkv;
-  const int nq = a.per_query_head ? 1 : rep;
-  const int units = a.per_query_head ? a.H : a.Hkv;
+  const int nq = a.H / a.Hkv;
   const size_t smem = sizeof(float) * (size_t)smem_floats(a.tile, nq, a.Dh);
   int dev = 0, max_smem = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -290,13 +257,13 @@ inline int launch(const Args& a, int B, int kv_dtype, int quant,
   if (smem > (size_t)max_smem) return kErrSmem;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_dtype == 2)
-    return quant ? launch_typed<int8_t, true>(a, B, units, smem, s)
-                 : launch_typed<int8_t, false>(a, B, units, smem, s);
+    return quant ? launch_typed<int8_t, true>(a, B, smem, s)
+                 : launch_typed<int8_t, false>(a, B, smem, s);
   if (kv_dtype == 1)
-    return quant ? launch_typed<__nv_bfloat16, true>(a, B, units, smem, s)
-                 : launch_typed<__nv_bfloat16, false>(a, B, units, smem, s);
-  return quant ? launch_typed<float, true>(a, B, units, smem, s)
-               : launch_typed<float, false>(a, B, units, smem, s);
+    return quant ? launch_typed<__nv_bfloat16, true>(a, B, smem, s)
+                 : launch_typed<__nv_bfloat16, false>(a, B, smem, s);
+  return quant ? launch_typed<float, true>(a, B, smem, s)
+               : launch_typed<float, false>(a, B, smem, s);
 }
 
 }  // namespace decode_attention

@@ -10,9 +10,8 @@
 // (flash_decode_pallas), which streams every chunk of the max_len buffer
 // and masks the positions at or past kv_len, needs S % chunk == 0, and
 // takes GQA caches with their KV heads repeated to H first
-// (models/layers.py::_flash_decode_attention). Here the contiguous cache of
-// sequence b is page b of a B-page pool with psz = S rows, run through the
-// kernel body of decode_attention.cuh (bound and design are described
+// (models/layers.py::_flash_decode_attention). Here the cache runs through
+// the kernel body of decode_attention.cuh (bound and design are described
 // there): one CTA per (b, KV head) holds its rep query heads, so each live
 // K/V row is read once and no repeated cache exists; only positions below
 // kv_len are loaded, in tiles of kTile rows, so shared memory does not grow
@@ -40,20 +39,13 @@ extern "C" int rq_flash_decode(const void* q, const void* k, const void* v,
   a.v = v;
   a.ks = static_cast<const float*>(ks);
   a.vs = static_cast<const float*>(vs);
-  a.bt = nullptr;
-  a.lens = nullptr;
   a.kv_len = kv_len;
   a.out = static_cast<float*>(out);
-  a.m_out = nullptr;
-  a.l_out = nullptr;
   a.H = H;
   a.Hkv = Hkv;
   a.Dh = Dh;
-  a.psz = S;
-  a.P = 1;
-  a.per_query_head = 0;
+  a.S = S;
   a.tile = kTile;
-  a.normalize = 1;
   a.scale = scale;
   return decode_attention::launch(a, B, kv_dtype, quant, stream);
 }

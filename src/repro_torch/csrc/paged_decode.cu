@@ -8,61 +8,25 @@
 // accumulator when normalize == 0) and the log-sum-exp stats m, l (B, H).
 //
 // Replaces the three TPU kernels of src/repro/kernels/paged_decode.py:
-//   rq_paged_decode_head    <- paged_decode_pallas      (one CTA per (b, h))
+//   rq_paged_decode_head    <- paged_decode_pallas      (per (b, h), split)
 //   rq_paged_decode_gqa     <- paged_decode_gqa_pallas  (per (b, g), split)
 //   rq_paged_decode_gqa_mp  <- _gqa_multipage_call      (MP pages per update)
-// Two bodies:
-// - rq_paged_decode_head runs the body of decode_attention.cuh (shared with
-//   flash_decode.cu): a CTA owns one query row and walks all live pages of
-//   its sequence, one page per online-softmax update.
-// - the two fused-GQA entries run the split-KV body of split_decode.cuh: a
-//   CTA owns the rep query heads of one KV head over one run of pages
-//   (the binding's planner picks the runs and the tile's positions:
-//   kernels/paged_decode.py), stages tiles with cp.async a few deep, and a second
-//   small kernel merges the runs' (acc, m, l) partials when there is more
-//   than one. The two entries differ in the runs they are given: the
-//   multi-page route's runs are whole blocks of MP pages.
+// One body, the split-KV body of split_decode.cuh: a CTA owns one query
+// head (rq_paged_decode_head) or the rep query heads of one KV head (the
+// two fused-GQA entries) over one run of pages (the binding's planner picks
+// the runs and the tile's positions: kernels/paged_decode.py), stages tiles
+// with cp.async a few deep, and a second small kernel merges the runs'
+// (acc, m, l) partials when there is more than one. The fused-GQA entries
+// differ in the runs they are given: the multi-page route's runs are whole
+// blocks of MP pages.
 // Only live pages are loaded (the TPU kernels' dead-page skip, and more: no
 // slot at or past the length is read); the fused-GQA routes read each KV
 // row once for all rep query heads, the per-query-head route rep times
 // (from L2).
-#include "decode_attention.cuh"
 #include "split_decode.cuh"
 
 namespace {
 
-using decode_attention::Args;
-
-// the per-query-head route: one query row per CTA, one page per update
-Args head_args(const void* q, const void* k, const void* v, const void* ks,
-               const void* vs, const void* bt, const void* lens, void* out,
-               void* m, void* l, int H, int Hkv, int Dh, int psz, int P,
-               int normalize, float scale) {
-  Args a;
-  a.q = static_cast<const float*>(q);
-  a.k = k;
-  a.v = v;
-  a.ks = static_cast<const float*>(ks);
-  a.vs = static_cast<const float*>(vs);
-  a.bt = static_cast<const int32_t*>(bt);
-  a.lens = static_cast<const int32_t*>(lens);
-  a.kv_len = 0;
-  a.out = static_cast<float*>(out);
-  a.m_out = static_cast<float*>(m);
-  a.l_out = static_cast<float*>(l);
-  a.H = H;
-  a.Hkv = Hkv;
-  a.Dh = Dh;
-  a.psz = psz;
-  a.P = P;
-  a.per_query_head = 1;
-  a.tile = psz;
-  a.normalize = normalize;
-  a.scale = scale;
-  return a;
-}
-
-// the fused-GQA routes: the split-KV body
 split_decode::Args split_args(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* bt, const void* lens, void* out, void* m,
@@ -100,46 +64,26 @@ split_decode::Args split_args(
 }  // namespace
 
 // Each entry returns cudaGetLastError() after its launches (0 =
-// cudaSuccess), or kErrSmem (-1) without launching when one CTA's tiles
-// need more shared memory than a block has.
-extern "C" int rq_paged_decode_head(
-    const void* q, const void* k, const void* v, const void* ks,
-    const void* vs, const void* bt, const void* lens, void* out, void* m,
-    void* l, int B, int H, int Hkv, int Dh, int psz, int P, int normalize,
-    int kv_dtype, int quant, float scale, void* stream) {
-  return decode_attention::launch(
-      head_args(q, k, v, ks, vs, bt, lens, out, m, l, H, Hkv, Dh, psz, P,
-                normalize, scale),
-      B, kv_dtype, quant, stream);
-}
-
-// The fused-GQA entries: ws_acc (n_split, B, H, Dh), ws_m and ws_l
+// cudaSuccess), kErrSmem (-1) without launching when one CTA's tiles need
+// more shared memory than a block has, or kErrHeadDim (-2) without
+// launching when Dh > 1024. ws_acc (n_split, B, H, Dh), ws_m and ws_l
 // (n_split, B, H) are the partials' workspace, unused (may be null) when
 // n_split == 1; each sequence is cut into n_split runs of run_pages pages,
-// staged tile_rows positions at a time. They return kErrHeadDim (-2)
-// without launching when Dh > 1024.
-extern "C" int rq_paged_decode_gqa(
-    const void* q, const void* k, const void* v, const void* ks,
-    const void* vs, const void* bt, const void* lens, void* out, void* m,
-    void* l, void* ws_acc, void* ws_m, void* ws_l, int B, int H, int Hkv,
-    int Dh, int psz, int P, int n_split, int run_pages, int tile_rows,
-    int normalize, int kv_dtype, int quant, float scale, void* stream) {
-  return split_decode::launch(
-      split_args(q, k, v, ks, vs, bt, lens, out, m, l, ws_acc, ws_m, ws_l, B,
-                 H, Hkv, Dh, psz, P, n_split, run_pages, tile_rows, normalize,
-                 scale),
-      kv_dtype, quant, stream);
-}
+// staged tile_rows positions at a time.
+#define RQ_PAGED_ENTRY(name, per_query_head)                                 \
+  extern "C" int name(                                                       \
+      const void* q, const void* k, const void* v, const void* ks,           \
+      const void* vs, const void* bt, const void* lens, void* out, void* m,  \
+      void* l, void* ws_acc, void* ws_m, void* ws_l, int B, int H, int Hkv,  \
+      int Dh, int psz, int P, int n_split, int run_pages, int tile_rows,     \
+      int normalize, int kv_dtype, int quant, float scale, void* stream) {   \
+    return split_decode::launch(                                             \
+        split_args(q, k, v, ks, vs, bt, lens, out, m, l, ws_acc, ws_m, ws_l, \
+                   B, H, Hkv, Dh, psz, P, n_split, run_pages, tile_rows,     \
+                   normalize, scale),                                        \
+        kv_dtype, quant, per_query_head, stream);                            \
+  }
 
-extern "C" int rq_paged_decode_gqa_mp(
-    const void* q, const void* k, const void* v, const void* ks,
-    const void* vs, const void* bt, const void* lens, void* out, void* m,
-    void* l, void* ws_acc, void* ws_m, void* ws_l, int B, int H, int Hkv,
-    int Dh, int psz, int P, int n_split, int run_pages, int tile_rows,
-    int normalize, int kv_dtype, int quant, float scale, void* stream) {
-  return split_decode::launch(
-      split_args(q, k, v, ks, vs, bt, lens, out, m, l, ws_acc, ws_m, ws_l, B,
-                 H, Hkv, Dh, psz, P, n_split, run_pages, tile_rows, normalize,
-                 scale),
-      kv_dtype, quant, stream);
-}
+RQ_PAGED_ENTRY(rq_paged_decode_head, 1)
+RQ_PAGED_ENTRY(rq_paged_decode_gqa, 0)
+RQ_PAGED_ENTRY(rq_paged_decode_gqa_mp, 0)

@@ -1,8 +1,8 @@
-// Split-KV one-token decode attention for the fused-GQA paged routes
-// (rq_paged_decode_gqa, rq_paged_decode_gqa_mp in paged_decode.cu). The
-// per-query-head paged route and the contiguous flash route keep the body
-// of decode_attention.cuh; this body only serves a CTA that holds the rep
-// query heads of one KV head.
+// Split-KV one-token decode attention for the three paged routes
+// (rq_paged_decode_head, rq_paged_decode_gqa, rq_paged_decode_gqa_mp in
+// paged_decode.cu). A CTA holds one query head (the per-query-head route,
+// QR = 1) or the rep query heads of one KV head (the fused-GQA routes). The
+// contiguous flash route keeps the body of decode_attention.cuh.
 //
 //   out[b,h] = softmax(q[b,h] . K[pages(b), h/rep]^T / sqrt(Dh)) . V[...]
 //
@@ -58,8 +58,12 @@
 // kernel's time, at bf16 and int8 the per-tile arithmetic and barriers do;
 // neither reaches the card's memory rate.
 //
-// Query rows per CTA: QR = 2, 4 or 8 (the smallest that holds rep); a rep
-// above 8 is cut into n_qc = ceil(rep / 8) chunks of 8, each its own CTA.
+// Query rows per CTA: QR = 1 on the per-query-head route (n_qc = rep
+// chunks of one row, so CTA (s, u, b) serves query head u; a GQA layout
+// served with fused_gqa=False reads each K/V row once per query head, rep -
+// 1 times of it from L2); on the fused-GQA routes QR = 2, 4 or 8 (the
+// smallest that holds rep), and a rep above 8 is cut into n_qc = ceil(rep /
+// 8) chunks of 8, each its own CTA.
 //
 // Positions at or past the length are masked by SELECTION, as in
 // decode_attention.cuh: they are never loaded, their score is -1e30 and
@@ -368,7 +372,9 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Args a) {
           vv = make_float4(vv.x * s, vv.y * s, vv.z * s, vv.w * s);
         }
         float p[QR];
-        if constexpr (QR % 4 == 0) {
+        if constexpr (QR == 1) {
+          p[0] = p_s[r];
+        } else if constexpr (QR % 4 == 0) {
 #pragma unroll
           for (int j = 0; j < QR; j += 4) {
             const float4 p4 = reinterpret_cast<const float4*>(p_s + r * QR)[j / 4];
@@ -520,6 +526,7 @@ int launch_typed(Args a, cudaStream_t stream, int max_smem) {
 
 template <typename T, bool kQuant>
 int launch_qr(const Args& a, int qr, cudaStream_t s, int max_smem) {
+  if (qr == 1) return launch_typed<T, kQuant, 1>(a, s, max_smem);
   if (qr == 2) return launch_typed<T, kQuant, 2>(a, s, max_smem);
   if (qr == 4) return launch_typed<T, kQuant, 4>(a, s, max_smem);
   return launch_typed<T, kQuant, 8>(a, s, max_smem);
@@ -527,13 +534,16 @@ int launch_qr(const Args& a, int qr, cudaStream_t s, int max_smem) {
 
 // One decode over B sequences: the split pass, then (n_split > 1) the
 // merge. kv_dtype: 0 = float32, 1 = bfloat16, 2 = int8; quant: scales
-// given. Returns cudaGetLastError() after the launches (0 = cudaSuccess),
-// kErrSmem when one CTA's tiles need more shared memory than a block has,
-// or kErrHeadDim when Dh > 1024, without launching.
-inline int launch(Args a, int kv_dtype, int quant, void* stream) {
+// given; per_query_head: one query row per CTA (QR 1, n_qc = rep chunks),
+// else the smallest QR that holds rep. Returns cudaGetLastError() after
+// the launches (0 = cudaSuccess), kErrSmem when one CTA's tiles need more
+// shared memory than a block has, or kErrHeadDim when Dh > 1024, without
+// launching.
+inline int launch(Args a, int kv_dtype, int quant, int per_query_head,
+                  void* stream) {
   if (a.Dh / 4 > kMaxDq) return kErrHeadDim;
   const int rep = a.H / a.Hkv;
-  const int qr = rep <= 2 ? 2 : (rep <= 4 ? 4 : 8);
+  const int qr = per_query_head ? 1 : (rep <= 2 ? 2 : (rep <= 4 ? 4 : 8));
   a.n_qc = (rep + qr - 1) / qr;
   int dev = 0, smem = 0;
   cudaError_t e = cudaGetDevice(&dev);

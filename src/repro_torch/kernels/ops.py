@@ -155,9 +155,9 @@ def paged_decode(q, k_pages, v_pages, block_tables, seq_lens, k_scale=None,
     with f32 (N, page_size, Hkv) scales), masked to ``seq_lens`` (B,) int32.
     Returns (B, H, Dh) f32, or the (acc, m, l) partials when
     ``normalize=False``. A CPU call runs ``ref.paged_decode_ref``; a CUDA
-    call launches the kernel of :func:`paged_decode_route` (the fused-GQA
-    routes: the split-KV pass and, where the planner splits, the merge of
-    its partials; one count per call) or raises.
+    call launches the kernel of :func:`paged_decode_route` (the split-KV
+    pass and, where the planner splits, the merge of its partials; one
+    count per call) or raises.
     """
     if q.device.type == "cpu":
         return ref.paged_decode_ref(q, k_pages, v_pages, block_tables,
@@ -251,7 +251,8 @@ def quant_matmul(x, packed, scale, zero, *, bits: int, group: int):
     (K_pad/G, N) f32 and rows K..K_pad-1 are padding. Every shape takes the
     kernel (the reference's wrapper falls back to jnp off its tiling). A
     CPU call runs ``ref.quant_matmul_ref``; a CUDA call launches the kernel
-    or raises.
+    by ``quant_matmul.plan`` (the split-K pass and, where K is split, the
+    sum of its partials; one count per call) or raises.
     """
     if x.device.type == "cpu":
         return ref.quant_matmul_ref(x, packed, scale, zero, bits, group)

@@ -92,7 +92,7 @@ def paged_decode_ref(q, k_pages, v_pages, block_tables, seq_lens,
 
 def merge_partials(acc, m, l, normalize=True):  # noqa: E741 — softmax (m, l)
     """Merge the (acc, m, l) log-sum-exp partials of runs of one softmax —
-    the plain version of the fused-GQA routes' merge kernel.
+    the plain version of the paged-decode routes' merge kernel.
 
     acc (N, B, H, Dh); m, l (N, B, H), the leading axis over runs: m* =
     max m_i, l = Σ e^(m_i − m*) l_i, acc = Σ e^(m_i − m*) acc_i. Returns

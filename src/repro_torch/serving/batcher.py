@@ -450,7 +450,7 @@ class ContinuousBatcher:
         """(tokens (B, 1), block tables (B, P), lengths (B,)) on the device.
 
         The table is cut to the widest live row (P = the most pages a live
-        slot holds): no decode reads past its length, and the fused-GQA
+        slot holds): no decode reads past its length, and the paged-decode
         split planner sizes its runs from P, so a table padded to
         ``max_pages_per_seq`` would split short contexts."""
         bt = np.zeros((self.B, self.cache.max_pages_per_seq), np.int32)

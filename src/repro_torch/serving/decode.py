@@ -51,11 +51,17 @@ def request_key(seed: int, token_index: int, device) -> torch.Generator:
         (int(state[0]) << 31) ^ int(state[1]))
 
 
+_TINY = torch.finfo(torch.float32).tiny
+
+
 def _gumbel(keys, V: int, device) -> torch.Tensor:
     """(B, V) f32 Gumbel noise on ``device``, row b from generator
-    ``keys[b]`` (zeros for a row whose key is None)."""
+    ``keys[b]`` (zeros for a row whose key is None). The uniform draws lie
+    in [finfo(f32).tiny, 1), as ``jax.random.gumbel``'s do: a draw of 0
+    would give noise -inf and shut its token out whatever its logit."""
     rows = [torch.zeros(V, device=device) if g is None else
-            -torch.log(-torch.log(torch.rand(V, generator=g, device=device)))
+            -torch.log(-torch.log(torch.rand(V, generator=g, device=device)
+                                  .clamp_min_(_TINY)))
             for g in keys]
     return torch.stack(rows)
 

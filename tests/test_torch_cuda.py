@@ -206,14 +206,19 @@ def test_paged_decode_cuda_never_reads_dead_slots(layout, route):
 
 
 SPLIT_ROUTES = [("paged_decode_gqa", 1), ("paged_decode_gqa_mp", 2),
-                ("paged_decode_gqa_mp", 4)]
+                ("paged_decode_gqa_mp", 4), ("paged_decode", 1)]
 
 
 def _split_case(dev, lens, dtype, seed):
-    """A layout the fused-GQA planner splits: B 2, 8/2 heads, Dh 128, page
-    size 16, 64 pages per table."""
+    """A layout the planner splits on every route: B 2, 8/2 heads, Dh 128,
+    page size 16, 64 pages per table (the per-query-head route serves it
+    with ``fused_gqa=False``)."""
     return _paged_case(dev, B=2, H=8, Hkv=2, Dh=128, psz=16, P=64, lens=lens,
                        dtype=dtype, seed=seed)
+
+
+def _split_kw(route, mp):
+    return dict(gqa_pages_per_block=mp, fused_gqa=route != "paged_decode")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
@@ -222,16 +227,17 @@ def _split_case(dev, lens, dtype, seed):
 @pytest.mark.parametrize("lens", [[1024, 333], [0, 1000]],
                          ids=["ragged", "empty"])
 def test_paged_decode_gqa_split_cuda_matches_plain(dtype, route, mp, lens):
-    """Both fused-GQA routes where the planner splits the pages across CTAs
-    (the split pass, then the merge of the runs' partials): outputs and
+    """Every route where the planner splits the pages across CTAs (the
+    split pass, then the merge of the runs' partials): outputs and
     (acc, m, l) partials within 1e-5 of the plain version; runs past the
     333-token sequence's end are empty; a zero-length sequence gives
     exactly 0."""
     dev = needs_cuda()
     pd = importlib.import_module("repro_torch.kernels.paged_decode")
-    assert pd.plan(route, 2, 2, 64, 16, mp, pd.sm_count(dev)).n_split > 1
+    heads = 8 if route == "paged_decode" else 2
+    assert pd.plan(route, 2, heads, 64, 16, mp, pd.sm_count(dev)).n_split > 1
     args = _split_case(dev, lens, dtype, seed=21)
-    kw = dict(gqa_pages_per_block=mp)
+    kw = _split_kw(route, mp)
     before = tk.LAUNCHES[route]
     out = tk.paged_decode(*args, **kw)
     assert tk.LAUNCHES[route] == before + 1
@@ -260,9 +266,31 @@ def test_paged_decode_gqa_split_never_reads_dead_slots(route, mp):
             kp[bt[b, p], dead[p]] = float("nan")
             vp[bt[b, p], dead[p]] = float("nan")
     kp[0] = vp[0] = float("nan")
-    got = tk.paged_decode(q, kp, vp, bt, ln, gqa_pages_per_block=mp)
+    got = tk.paged_decode(q, kp, vp, bt, ln, **_split_kw(route, mp))
     assert not torch.isnan(got).any()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_paged_decode_head_long_context_split_cuda_matches_plain(dtype):
+    """The per-query-head route on an MHA layout (opt-1.3b's head dim 64)
+    at one long sequence and a ragged one: the planner splits B · H = 8
+    pairs into runs, and the merged output and partials hold to the plain
+    version at 1e-5."""
+    dev = needs_cuda()
+    pd = importlib.import_module("repro_torch.kernels.paged_decode")
+    assert pd.plan("paged_decode", 2, 4, 128, 16, 1,
+                   pd.sm_count(dev)).n_split > 1
+    args = _paged_case(dev, B=2, H=4, Hkv=4, Dh=64, psz=16, P=128,
+                       lens=[2048, 777], dtype=dtype, seed=25)
+    before = tk.LAUNCHES["paged_decode"]
+    out = tk.paged_decode(*args)
+    assert tk.LAUNCHES["paged_decode"] == before + 1
+    torch.testing.assert_close(out, tref.paged_decode_ref(*args),
+                               rtol=1e-5, atol=1e-5)
+    for got, want in zip(tk.paged_decode(*args, normalize=False),
+                         tref.paged_decode_ref(*args, normalize=False)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_paged_decode_wrapper_raises_on_bad_inputs():
@@ -379,6 +407,31 @@ def test_quant_matmul_cuda_matches_plain(dtype, bits, group, M, K, N):
                           group=group)
     assert tk.LAUNCHES["quant_matmul"] == before + 1
     assert out.dtype == torch.float32 and out.shape == (M, N)
+    torch.testing.assert_close(out, tref.quant_matmul_ref(
+        x, qt.packed, qt.scale, qt.zero, bits, group), rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits,group,M,K,N", [
+    (2, 32, 8, 8192, 2048), (3, 32, 8, 2048, 256), (4, 128, 128, 1024, 1024),
+    (6, 32, 3, 640, 37)], ids=["down", "3-bit", "M128", "ragged"])
+def test_quant_matmul_cuda_split_k_matches_plain(dtype, bits, group, M, K, N):
+    """Shapes the planner cuts into two or more runs of K (split pass, then
+    the ordered sum of the partials): opt-1.3b's down projection, a padded
+    3-bit K, M = 128, and a ragged N with 6 bits; 5e-4 as above."""
+    dev = needs_cuda()
+    from repro_torch.core.quant import QuantConfig, quantize_tensor
+    tqm = importlib.import_module("repro_torch.kernels.quant_matmul")
+    g = torch.Generator().manual_seed(bits * 10 + M)
+    qt = quantize_tensor(torch.randn((K, N), generator=g),
+                         QuantConfig(bits=bits, group_size=group)).to(dev)
+    assert tqm.plan(M, N, qt.packed.shape[0], bits, group,
+                    tqm.sm_count(dev)).n_split >= 2
+    x = torch.randn((M, K), generator=g).to(dev, dtype)
+    before = tk.LAUNCHES["quant_matmul"]
+    out = tk.quant_matmul(x, qt.packed, qt.scale, qt.zero, bits=bits,
+                          group=group)
+    assert tk.LAUNCHES["quant_matmul"] == before + 1
     torch.testing.assert_close(out, tref.quant_matmul_ref(
         x, qt.packed, qt.scale, qt.zero, bits, group), rtol=5e-4, atol=5e-4)
 

@@ -314,7 +314,8 @@ def test_planner_splits_long_contexts(route, mp, B, P):
 @pytest.mark.parametrize("route,mp", [("paged_decode_gqa", 1),
                                       ("paged_decode_gqa_mp", 2),
                                       ("paged_decode_gqa_mp", 3),
-                                      ("paged_decode_gqa_mp", 8)])
+                                      ("paged_decode_gqa_mp", 8),
+                                      ("paged_decode", 1)])
 @pytest.mark.parametrize("psz", [1, 4, 16, 64])
 def test_planner_runs_cover_every_page_once(route, mp, psz):
     """Over many (B, Hkv, P): the runs cover every page of the table exactly
@@ -330,3 +331,51 @@ def test_planner_runs_cover_every_page_once(route, mp, psz):
                 pages = [p for lo, hi in _runs(sp, P) for p in range(lo, hi)]
                 assert pages == list(range(P))
                 assert (sp.n_split - 1) * sp.run_pages < P
+
+
+# ---- the per-query-head route on the split-KV body ----------------------
+
+@pytest.mark.parametrize("P", [1, 2, 3, 4, 5])
+def test_head_route_planner_keeps_the_decode_shape_whole(P):
+    """The product's decode shape (B 8, 32 query heads, page size 16, at
+    most 5 pages): 256 CTAs, one run, so one launch and no merge."""
+    sp = pd.plan("paged_decode", 8, 32, P, 16, 1, H100_SMS)
+    assert sp.n_split == 1 and sp.run_pages >= P
+
+
+@pytest.mark.parametrize("B,P,split", [(8, 64, False), (1, 512, True),
+                                       (2, 64, True)],
+                         ids=["8x1024", "1x8192", "2x1024"])
+def test_head_route_planner_splits_only_short_of_a_wave(B, P, split):
+    """The per-query-head route's pairs are B · H (32 query heads): B 8 ×
+    1024 already fills a wave of two CTAs per SM and stays whole; one or
+    two long sequences split, into no more than that wave."""
+    sp = pd.plan("paged_decode", B, 32, P, 16, 1, H100_SMS)
+    assert (sp.n_split > 1) == split
+    assert B * 32 * sp.n_split <= max(pd.CTAS_PER_SM * H100_SMS, B * 32)
+    assert sp.unit_pages == 2 and sp.run_pages * 16 >= pd.MIN_RUN_ROWS
+
+
+@pytest.mark.parametrize("normalize", [True, False], ids=["out", "partials"])
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (8, 2)], ids=["mha", "gqa-unfused"])
+def test_head_route_runs_merge_to_unsplit(H, Hkv, normalize):
+    """The per-query-head route's runs (planned over B · H pairs) on the
+    plain version: each run's partials merge to the unsplit decode at 1e-5,
+    a zero-length sequence to exactly 0."""
+    psz, P = 8, 48
+    lens = [0, 1, 5 * psz + 3, 300, P * psz]
+    args = _random_paged(31, B=5, H=H, Hkv=Hkv, Dh=16, psz=psz,
+                         n_pages=5 * P + 1, max_pages=P, lens=lens)
+    _, (q, kp, vp, bt, ln, _, _) = _both(args)
+    sp = pd.plan("paged_decode", 5, H, P, psz, 1, H100_SMS)
+    assert sp.n_split > 1
+    parts = []
+    for lo, hi in _runs(sp, P):
+        run_lens = torch.clamp(ln - lo * psz, 0, (hi - lo) * psz).int()
+        parts.append(tref.paged_decode_ref(q, kp, vp, bt[:, lo:hi].contiguous(),
+                                           run_lens, normalize=False))
+    acc, m, l = (torch.stack(x) for x in zip(*parts))  # noqa: E741
+    got = tref.merge_partials(acc, m, l, normalize=normalize)
+    _check(got, tref.paged_decode_ref(q, kp, vp, bt, ln, normalize=normalize))
+    out = got if normalize else got[0]
+    assert not torch.isnan(out).any() and not out[0].any()

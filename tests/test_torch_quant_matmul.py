@@ -6,9 +6,13 @@ and carried across (uint32 words viewed as int32). On a CPU tensor
 ``kernels.quant_matmul`` runs its plain version; it is held to the
 reference's ``quant_matmul`` (its Pallas kernel in interpret mode where the
 shape tiles, its oracle elsewhere) and to ``quant_matmul_ref`` at
-rtol = atol = 5e-4, the bar of ``tests/test_kernels.py``.
+rtol = atol = 5e-4, the bar of ``tests/test_kernels.py``. The CUDA
+kernel's split-K planner is held here too, with the decomposition it sums.
 """
+import importlib
+import importlib.util
 import math
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -109,5 +113,115 @@ def test_port_packing_feeds_the_same_product():
                                   np.asarray(qt.packed).view(np.int32))
     got = tkernels.quant_matmul(torch.from_numpy(x), tq.packed, tq.scale,
                                 tq.zero, bits=bits, group=group)
+    np.testing.assert_allclose(to_np(got), np.asarray(jquant_matmul_ref(
+        jnp.asarray(x), qt.packed, qt.scale, qt.zero, bits, group)), **TOL)
+
+
+# ---- the split-K planner and the decomposition the kernel sums ----------
+
+H100_SMS = 132
+tqm = importlib.import_module("repro_torch.kernels.quant_matmul")
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+QM_SHAPES = _chip_smoke().QM_SHAPES   # the cases chip_smoke.py times
+
+
+def _words(K, bits, group):
+    """Packed word rows of a K-row weight (K padded to lcm(G, vpw))."""
+    vpw = 32 // bits
+    unit = math.lcm(group, vpw)
+    return -(-K // unit) * unit // vpw
+
+
+@pytest.mark.parametrize("case", QM_SHAPES, ids=[c[0] for c in QM_SHAPES])
+def test_planner_fills_a_wave_at_every_timed_case(case):
+    """At every shape chip_smoke.py times, the (column tile, run, row tile)
+    grid fills one wave of CTAS_PER_SM CTAs per SM as far as whole tiles
+    allow, and does not spill into a second; the runs cover every word
+    once."""
+    _, M, K, N, bits, group = case
+    W = _words(K, bits, group)
+    sp = tqm.plan(M, N, W, bits, group, H100_SMS)
+    tiles = -(-N // tqm.CTA_COLS) * -(-M // tqm.CTA_ROWS)
+    wave = tqm.CTAS_PER_SM * H100_SMS
+    assert wave - tiles < tiles * sp.n_split <= wave
+    assert [w for lo, hi in sp.runs(W) for w in range(lo, hi)] == \
+        list(range(W))
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+@pytest.mark.parametrize("group", [8, 32, 128])
+def test_planner_cuts_whole_words_and_groups(bits, group):
+    """Over many (M, N, K): runs are whole units covering every word once,
+    as many as the wave holds (or as there are units); a unit is whole
+    groups and words (lcm(G, vpw) rows) unless whole groups are too few to
+    fill the wave, and then one word."""
+    vpw = 32 // bits
+    group_words = math.lcm(group, vpw) // vpw
+    for M in (1, 8, 9, 128):
+        for N in (64, 100, 2048, 8192):
+            for K in (96, 1024, 2048, 8192):
+                W = _words(K, bits, group)
+                sp = tqm.plan(M, N, W, bits, group, H100_SMS)
+                runs = sp.runs(W)
+                assert [w for lo, hi in runs for w in range(lo, hi)] == \
+                    list(range(W))
+                assert all(lo % sp.unit_words == 0 for lo, _ in runs)
+                tiles = -(-N // tqm.CTA_COLS) * -(-M // tqm.CTA_ROWS)
+                most = max(1, tqm.CTAS_PER_SM * H100_SMS // tiles)
+                assert sp.n_split == min(most, W // sp.unit_words)
+                if sp.unit_words == group_words:
+                    assert all(lo * vpw % group == 0 for lo, _ in runs)
+                else:
+                    assert sp.unit_words == 1 and W // group_words < most
+
+
+@pytest.mark.parametrize("args,match", [
+    ((8, 64, 8, 0, 32), "bits"), ((8, 64, 8, 9, 32), "bits"),
+    ((8, 64, 8, 2, 48), "multiple of group"), ((8, 64, 8, 2, 0), "group"),
+    ((0, 64, 8, 2, 32), "empty"), ((8, 0, 8, 2, 32), "empty"),
+    ((65535 * 8 + 1, 64, 8, 2, 32), "row tiles")])
+def test_planner_raises_for_what_it_cannot_take(args, match):
+    with pytest.raises(ValueError, match=match):
+        tqm.plan(*args, H100_SMS)
+
+
+def _split_k_sum(x, packed, scale, zero, bits, group, sp):
+    """The kernel's decomposition on the plain version: each run's partial
+    x[:, run rows] @ dequant(W)[run rows] (x zero past K), added in run
+    order, as the sum kernel does."""
+    vpw = 32 // bits
+    W = packed.shape[0]
+    w = tref.dequant_ref(packed, scale, zero, bits, group, W * vpw)
+    xp = torch.nn.functional.pad(x.float(), (0, W * vpw - x.shape[1]))
+    out = None
+    for lo, hi in sp.runs(W):
+        part = xp[:, lo * vpw:hi * vpw] @ w[lo * vpw:hi * vpw]
+        out = part if out is None else out + part
+    return out
+
+
+@pytest.mark.parametrize("sms", [1, H100_SMS], ids=["few-runs", "many-runs"])
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_split_k_sum_matches_reference(bits, sms):
+    """The split-K runs of the planner, summed in the kernel's fixed order,
+    give the plain version's and the reference's product at 5e-4, bits
+    1-8 (3 and 6 bits pad K); with many runs, runs start inside groups."""
+    M, K, N, group = 7, 96, 100, 32
+    x, _, qt, port = _case(M, K, N, bits, group, seed=40 + bits)
+    sp = tqm.plan(M, N, port[0].shape[0], bits, group, sms)
+    if sms == H100_SMS:
+        assert sp.n_split > 1
+    got = _split_k_sum(torch.from_numpy(x), *port, bits, group, sp)
+    np.testing.assert_allclose(to_np(got), to_np(tref.quant_matmul_ref(
+        torch.from_numpy(x), *port, bits, group)), **TOL)
     np.testing.assert_allclose(to_np(got), np.asarray(jquant_matmul_ref(
         jnp.asarray(x), qt.packed, qt.scale, qt.zero, bits, group)), **TOL)
