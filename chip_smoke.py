@@ -55,11 +55,13 @@ source, started together, into ``build/kernels/``), then:
 6. contiguous-cache serving and the dequant-matmul: (a) ``flash_decode`` vs
    its plain version at rtol = atol = 2e-4, the reference's bar
    (``tests/test_kernels.py``), at opt-1.3b's head layout, a full-width GQA
-   one and the small configs', on f32, bf16 and int8 caches, kv_len 0, 1, a
-   tile boundary, ragged and S, and NaN in every slot past kv_len; (b) its
-   time (one call, and device time under the profiler) at 6c's decode
-   shape and at B 8 x 2048 rows beside its bound, its plain version and
-   ``scaled_dot_product_attention`` with a length mask;
+   one, the small configs' and one long sequence (B 1 x 2048, MHA and GQA:
+   the planner splits its rows across CTAs), on f32, bf16 and int8 caches,
+   kv_len 0, 1, a tile boundary, a run boundary, ragged and S, and NaN in
+   every slot past kv_len; (b) its time (one call, and device time under
+   the profiler) at 6c's decode shape, at B 8 x 2048 rows and at B 1 x 2048
+   beside its bound, its plain version and ``scaled_dot_product_attention``
+   with a length mask (one call, and device time);
    (c) ``BatchedServer`` on 2-bit opt-1.3b (full width and depth, batch 8,
    max_len 128) over phase 5's trace with ``use_flash_decode`` off, then
    on: tokens identical (or parting only at a printed near tie), held to
@@ -163,50 +165,81 @@ def time_stats(torch, fn, warmup=3, reps=25):
     return statistics.median(times), [min(times), max(times)]
 
 
+def trace_ms(events, fragments, calls):
+    """From a profiler's ``key_averages()`` over ``calls`` calls: (device ms
+    per call of the kernels whose names hold one of ``fragments``, or None
+    when the trace is incomplete; their event counts by name; the names of
+    the other events with device time). A trace is complete when it holds
+    these kernels and each was counted a whole multiple of ``calls`` times:
+    after long traces the profiler drops some kernels' events (12-19 of 20)
+    and then reads 10-40 % low (PERF.md §7)."""
+    total, counts, others = 0, {}, []
+    for e in events:
+        t = getattr(e, "self_device_time_total", 0)
+        if t <= 0:
+            continue
+        if any(f in e.key for f in fragments):
+            total += t
+            counts[e.key] = counts.get(e.key, 0) + e.count
+        else:
+            others.append(e.key)
+    whole = all(n > 0 and n % calls == 0 for n in counts.values())
+    ms = total / calls / 1e3 if counts and whole else None
+    return ms, counts, others
+
+
+def queued_ms(torch, fn, calls=20):
+    """Time per call of ``calls`` calls of ``fn`` between two CUDA events,
+    queued while the card sleeps (``torch.cuda._sleep``), so the card runs
+    them back to back without waiting for the host: device time with the
+    card's own gaps between launches (about 1-2 us each), without the
+    profiler. A ``fn`` that syncs with the host waits out the sleep once
+    and is then timed with its host gaps."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)     # ~25 ms, longer than queuing the calls
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def device_ms(torch, fn, fragments, calls=20, attempts=3):
     """Device time per call of ``fn``'s kernels whose names hold one of
     ``fragments``, under ``torch.profiler`` over ``calls`` calls after a
     warm-up: the kernels' own time, without the host's launch work that a
     CUDA-event timing of one call also holds.
 
-    The profiler now and then returns a trace without these kernels; the
-    trace is then taken again, up to ``attempts`` times. If a trace held
-    other device work but never these kernels, their names are wrong and
-    that fails. If every trace was empty, the time is that of ``calls``
-    calls back to back between two CUDA events, divided by ``calls`` (the
-    host's launch gaps included), and a ``device_time_fallback`` line says
-    so."""
+    The profiler now and then returns a trace without these kernels, or
+    (after long traces) with some of their events dropped (``trace_ms``);
+    the trace is then taken again, up to ``attempts`` times. If a trace
+    held other device work but never these kernels, their names are wrong
+    and that fails. If no trace was complete, the time is ``queued_ms``'s
+    and a ``device_time_fallback`` line says so."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    others = []
+    others, seen = [], False
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total = 0
-        for e in prof.key_averages():
-            t = getattr(e, "self_device_time_total", 0)
-            if any(f in e.key for f in fragments):
-                total += t
-            elif t > 0:
-                others.append(e.key)
-        if total > 0:
-            return total / calls / 1e3
-        log("device_time_retry", fragments=list(fragments),
-            others=sorted(set(others)))
-    if others:
+        ms, counts, other = trace_ms(prof.key_averages(), fragments, calls)
+        if ms is not None:
+            return ms
+        seen = seen or bool(counts)
+        others += other
+        log("device_time_retry", fragments=list(fragments), calls=calls,
+            counts=counts, others=sorted(set(other)))
+    if others and not seen:
         raise AssertionError(f"the profiler saw no device time in "
                              f"{fragments}, only in {sorted(set(others))}")
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / calls
+    ms = queued_ms(torch, fn, calls)
     log("device_time_fallback", fragments=list(fragments), attempts=attempts,
         ms=ms)
     return ms
@@ -1093,11 +1126,32 @@ def phase_small_serving(torch, ops):
 FD_TOL = dict(rtol=2e-4, atol=2e-4)   # tests/test_kernels.py flash_decode bar
 QM_TOL = dict(rtol=5e-4, atol=5e-4)   # tests/test_kernels.py quant_matmul bar
 LEGACY = dict(batch_size=8, max_len=128)
-FD_TILE = 64                          # csrc/flash_decode.cu kTile
 # 6a layouts: (name, B, H, Hkv, Dh, S): opt-1.3b's decode layout in 6c's
-# 128-row cache, a full-width GQA one, and the layouts 6d serves
+# 128-row cache, a full-width GQA one, the layouts 6d serves, and one
+# sequence of opt-1.3b's max_seq_len rows, MHA and GQA (split across CTAs)
 FD_LAYOUTS = (("mha", 8, 32, 32, 64, 128), ("gqa", 8, 32, 8, 128, 128),
-              ("small-gqa", 4, 4, 2, 16, 64), ("small-mha", 4, 4, 4, 16, 64))
+              ("small-gqa", 4, 4, 2, 16, 64), ("small-mha", 4, 4, 4, 16, 64),
+              ("long-mha", 1, 32, 32, 64, 2048),
+              ("long-gqa", 1, 32, 8, 128, 2048))
+# 6b contexts, MHA 32 heads of 64: (name, B, S, live rows or None for 6c's
+# decode length)
+FD_CONTEXTS = (("decode", 8, LEGACY["max_len"], None), ("long", 8, 2048, 2048),
+               ("long-b1", 1, 2048, 2048))
+
+
+def flash_decode_len(vocab_size: int) -> int:
+    """Live rows of 6c's first decode batch halfway through its steps:
+    the longest prompt of the trace's first batch + max_new // 2."""
+    from repro_torch.serving import build_trace
+    trace0 = build_trace(vocab_size, **TRACE)[:LEGACY["batch_size"]]
+    return max(len(t["prompt"]) for t in trace0) + TRACE["max_new"] // 2
+
+
+def flash_lens(fd, B, H, Hkv, S, sms):
+    """6a's kv_len values of a layout: 0, 1, a tile boundary, the end of
+    the first run at S (where the planner splits), ragged, S."""
+    run = fd.plan(B, H, Hkv, S, sms).run_pages
+    return tuple(sorted({0, 1, fd.TILE_ROWS, min(run, S), S // 2 + 7, S}))
 
 
 def flash_case(torch, *, B, S, H, Hkv, Dh, dtype, seed):
@@ -1120,15 +1174,21 @@ def flash_case(torch, *, B, S, H, Hkv, Dh, dtype, seed):
     return [q, k, v, ks, vs]
 
 
-def phase_flash_kernels(torch, ops, ref):
+def phase_flash_kernels(torch, ops, ref, fd):
     """6a: flash_decode vs its plain version at every layout of
     ``FD_LAYOUTS``, f32 / bf16 / int8 caches, kv_len 0, 1, a tile boundary,
-    a ragged value and S, then NaN in every slot at or past kv_len (in the
-    scales for int8). Returns the max abs error."""
+    a run boundary, a ragged value and S, then NaN in every slot at or past
+    kv_len (in the scales for int8). The long layouts must split at S.
+    Returns the max abs error."""
     worst = 0.0
+    sms = fd.sm_count(torch.device("cuda"))
     for name, B, H, Hkv, Dh, S in FD_LAYOUTS:
         shape = dict(B=B, S=S, H=H, Hkv=Hkv, Dh=Dh)
-        lens = (0, 1, FD_TILE, S // 2 + 7, S)
+        lens = flash_lens(fd, B, H, Hkv, S, sms)
+        splits = [fd.plan(B, H, Hkv, n, sms).n_split for n in lens]
+        if name.startswith("long") and splits[-1] < 2:
+            raise AssertionError(f"flash_decode {name}: the planner did not "
+                                 f"split {dict(zip(lens, splits))}")
         for dt in (torch.float32, torch.bfloat16, torch.int8):
             args = flash_case(torch, dtype=dt, seed=8, **shape)
             err = 0.0
@@ -1146,7 +1206,8 @@ def phase_flash_kernels(torch, ops, ref):
             worst = max(worst, err)
             log("kernel_check", kernel="flash_decode", layout=name,
                 heads=[H, Hkv], head_dim=Dh, batch=B, cache_rows=S,
-                dtype=str(dt), kv_lens=list(lens), max_abs_err=err)
+                dtype=str(dt), kv_lens=list(lens), n_split=splits,
+                max_abs_err=err)
         for n in (1, S // 2 + 7):
             for dt in (torch.float32, torch.int8):
                 args = flash_case(torch, dtype=dt, seed=9, **shape)
@@ -1163,42 +1224,62 @@ def phase_flash_kernels(torch, ops, ref):
                 worst = max(worst, err)
                 log("kernel_check", kernel="flash_decode", layout=name,
                     case="nan past kv_len", dtype=str(dt), kv_len=n,
+                    n_split=fd.plan(B, H, Hkv, n, sms).n_split,
                     max_abs_err=err)
     return worst
 
 
 def phase_flash_times(torch, ref, fd, decode_len):
     """6b: CUDA-event medians of the kernel (raw launches into a
-    preallocated output) at 6c's decode shape (B 8, MHA 32 heads, Dh 64,
-    f32, ``decode_len`` live rows of a 128-row cache) and at B 8 x 2048
-    rows (opt-1.3b's max_seq_len), beside its bound, its plain version and
+    preallocated output: the split pass and, where the planner splits, the
+    merge) at each ``FD_CONTEXTS`` shape (MHA 32 heads, Dh 64, f32: 6c's
+    decode shape with ``decode_len`` live rows of a 128-row cache, B 8 x
+    2048 rows (opt-1.3b's max_seq_len) and B 1 x 2048), with their device
+    time under the profiler, beside the bound, the plain version and
     ``scaled_dot_product_attention`` over the same cache (a transposed
-    view, no copy) with a boolean length mask."""
+    view, no copy) with a boolean length mask, that too as one call and as
+    device time."""
     import torch.nn.functional as F
     rows = {}
-    B, H, Hkv, Dh = 8, 32, 32, 64
-    for ctx, S, n in (("decode", LEGACY["max_len"], decode_len),
-                      ("long", 2048, 2048)):
+    H, Hkv, Dh = 32, 32, 64
+    sms = fd.sm_count(torch.device("cuda"))
+    for ctx, B, S, n in FD_CONTEXTS:
+        n = n or decode_len
         q, k, v, _, _ = flash_case(torch, B=B, S=S, H=H, Hkv=Hkv, Dh=Dh,
                                    dtype=torch.float32, seed=10)
         out = torch.empty((B, H, Dh), device=q.device)
-        t, spread = time_stats(torch, lambda: fd.launch(
-            q, k, v, None, None, out, kv_len=n), reps=50)
-        dev = device_ms(torch, lambda: fd.launch(
-            q, k, v, None, None, out, kv_len=n), ("decode_attention::",))
+
+        def run():
+            fd.launch(q, k, v, None, None, out, kv_len=n)
+        t, spread = time_stats(torch, run, reps=50)
+        dev = device_ms(torch, run, PD_KERNEL_NAMES)
         p = time_ms(torch, lambda: ref.flash_decode_ref(q, k, v, kv_len=n),
                     reps=20)
         mask = (torch.arange(S, device=q.device) < n)[None, None, None, :]
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q[:, :, None, :], kt, vt, attn_mask=mask), reps=50)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q[:, :, None, :], kt, vt,
+                                                  attn_mask=mask)
+        lib = time_ms(torch, sdpa, reps=50)
+        # every kernel the library call runs
+        lib_dev = device_ms(torch, sdpa, ("",))
         nbytes = 2 * B * n * Hkv * Dh * 4 + 2 * q.numel() * 4
         b, by = bound_ms(nbytes, 4 * B * H * Dh * n)
         rows[ctx] = dict(ms=t, ms_range=spread, device_ms=dev, plain_ms=p,
-                         library_ms=lib, bound_ms=b, bound_by=by, batch=B,
-                         heads=[H, Hkv], head_dim=Dh, cache_rows=S, kv_len=n)
+                         library_ms=lib, library_device_ms=lib_dev,
+                         bound_ms=b, bound_by=by,
+                         device_share_of_bound=b / dev, batch=B,
+                         heads=[H, Hkv], head_dim=Dh, cache_rows=S, kv_len=n,
+                         n_split=fd.plan(B, H, Hkv, n, sms).n_split)
         log("kernel_time", kernel="flash_decode", context=ctx, **rows[ctx])
     return rows
+
+
+# what the kernels line carries of each 6b context past the decode shape
+FD_CTX_KEYS = ("ms", "ms_range", "device_ms", "plain_ms", "bound_ms",
+               "library_ms", "library_device_ms", "device_share_of_bound",
+               "batch", "cache_rows", "kv_len", "n_split")
 
 
 def padded_requests(Request, reqs, B):
@@ -1214,7 +1295,8 @@ def padded_requests(Request, reqs, B):
     return out
 
 
-LEGACY_FAMILIES = (("decode_attention", "flash_decode (port kernel)"),
+# no paged route runs in 6c: the split-KV kernels there are flash_decode's
+LEGACY_FAMILIES = (("split_decode", "flash_decode (port kernel)"),
                    ) + SERVE_FAMILIES
 
 
@@ -1630,10 +1712,9 @@ def main() -> int:
     # ---- phase 6: contiguous-cache serving, quant_matmul -----------------
     fd = importlib.import_module("repro_torch.kernels.flash_decode")
     qm = importlib.import_module("repro_torch.kernels.quant_matmul")
-    fd_err = phase_flash_kernels(torch, ops, ref)
-    trace0 = build_trace(cfg.vocab_size, **TRACE)[:LEGACY["batch_size"]]
-    fd_rows = phase_flash_times(torch, ref, fd, max(
-        len(t["prompt"]) for t in trace0) + TRACE["max_new"] // 2)
+    fd_err = phase_flash_kernels(torch, ops, ref, fd)
+    fd_rows = phase_flash_times(torch, ref, fd,
+                                flash_decode_len(cfg.vocab_size))
     fd_launches = phase_legacy_serving(torch, ops, cfg, params_q)
     del params_q
     torch.cuda.empty_cache()
@@ -1688,10 +1769,12 @@ def main() -> int:
             **({"long_context_b1": {k: b1_row[k] for k in PD_CTX_KEYS}}
                if b1_row else {}),
             "dtype": "float32"})
-    main_row, long_row = fd_rows["decode"], fd_rows["long"]
+    main_row = fd_rows["decode"]
     kernels.append({
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_decode.cu",
+        "sources": ["src/repro_torch/csrc/flash_decode.cu",
+                    "src/repro_torch/csrc/split_decode.cuh"],
         "replaces": "src/repro/kernels/flash_decode.py:64",
         "launches": fd_launches,
         "launches_on": "opt-1.3b BatchedServer, use_flash_decode on",
@@ -1703,11 +1786,11 @@ def main() -> int:
                         "length mask",
         "shape": {k: main_row[k] for k in ("batch", "heads", "head_dim",
                                            "cache_rows", "kv_len")},
-        "ms_range": main_row["ms_range"],
-        "device_ms": main_row["device_ms"],
-        "long_context": {k: long_row[k] for k in (
-            "ms", "ms_range", "device_ms", "plain_ms", "bound_ms",
-            "library_ms", "cache_rows", "kv_len")},
+        **{k: main_row[k] for k in ("ms_range", "device_ms",
+                                    "library_device_ms",
+                                    "device_share_of_bound", "n_split")},
+        "long_context": {k: fd_rows["long"][k] for k in FD_CTX_KEYS},
+        "long_context_b1": {k: fd_rows["long-b1"][k] for k in FD_CTX_KEYS},
         "dtype": "float32"})
     qrow = qm_rows[QM_MAIN]
     kernels.append({

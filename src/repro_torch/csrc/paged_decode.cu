@@ -33,7 +33,7 @@ split_decode::Args split_args(
     void* l, void* ws_acc, void* ws_m, void* ws_l, int B, int H, int Hkv,
     int Dh, int psz, int P, int n_split, int run_pages, int tile_rows,
     int normalize, float scale) {
-  split_decode::Args a;
+  split_decode::Args a{};
   a.q = static_cast<const float*>(q);
   a.k = k;
   a.v = v;
@@ -77,7 +77,7 @@ split_decode::Args split_args(
       void* l, void* ws_acc, void* ws_m, void* ws_l, int B, int H, int Hkv,  \
       int Dh, int psz, int P, int n_split, int run_pages, int tile_rows,     \
       int normalize, int kv_dtype, int quant, float scale, void* stream) {   \
-    return split_decode::launch(                                             \
+    return split_decode::launch<false>(                                      \
         split_args(q, k, v, ks, vs, bt, lens, out, m, l, ws_acc, ws_m, ws_l, \
                    B, H, Hkv, Dh, psz, P, n_split, run_pages, tile_rows,     \
                    normalize, scale),                                        \

@@ -1,10 +1,20 @@
-// Split-KV one-token decode attention for the three paged routes
-// (rq_paged_decode_head, rq_paged_decode_gqa, rq_paged_decode_gqa_mp in
-// paged_decode.cu). A CTA holds one query head (the per-query-head route,
-// QR = 1) or the rep query heads of one KV head (the fused-GQA routes). The
-// contiguous flash route keeps the body of decode_attention.cuh.
+// Split-KV one-token decode attention: the body of every decode kernel of
+// the port, the three paged routes (rq_paged_decode_head,
+// rq_paged_decode_gqa, rq_paged_decode_gqa_mp in paged_decode.cu) and the
+// contiguous flash route (rq_flash_decode in flash_decode.cu). A CTA holds
+// one query head (QR = 1) or the rep query heads of one KV head (QR 2/4/8).
 //
-//   out[b,h] = softmax(q[b,h] . K[pages(b), h/rep]^T / sqrt(Dh)) . V[...]
+//   out[b,h] = softmax(q[b,h] . K[rows(b), h/rep]^T / sqrt(Dh)) . V[...]
+//
+// Two flavours, picked at compile time by launch<kContig>() (each .cu
+// instantiates only its own):
+// - paged (kContig = false): position pos of sequence b is slot
+//   pos % psz of page bt[b, pos / psz] of the (N, psz, Hkv, Dh) pool, and
+//   the sequence's length is lens[b], read on the device;
+// - contiguous (kContig = true): position pos of sequence b is row
+//   b * S + pos of the (B * S, Hkv, Dh) cache, with page size 1, and every
+//   sequence has the host's one length kv_len, passed as P (the live rows
+//   the planner cut into runs). No block table, no length tensor.
 //
 // Bound: bytes. Every live K/V row is read once for its rep query heads and
 // carries about 4 flops per value per query row, so the card's memory rate
@@ -17,9 +27,10 @@
 //    route a run is a whole number of MP-page blocks) and computes the
 //    (acc, m, l) partials of its query rows over that run. A CTA whose run
 //    starts at or past the sequence's live positions loads nothing and
-//    writes the empty partial (acc 0, m -1e30, l 0). Lengths and the block
-//    table are read on the device: no host sync. With n_split = 1 the CTA
-//    writes the final output itself and no merge runs.
+//    writes the empty partial (acc 0, m -1e30, l 0). Paged lengths and
+//    block tables are read on the device, the contiguous kv_len is the
+//    host's own: no host sync. With n_split = 1 the CTA writes the final
+//    output itself and no merge runs.
 // 2. Merge. With n_split > 1 the partials go to a workspace the binding
 //    allocates ((n_split, B, H, Dh) acc, (n_split, B, H) m and l) and a
 //    second small kernel, one CTA per (b, h), merges them:
@@ -65,10 +76,10 @@
 // smallest that holds rep), and a rep above 8 is cut into n_qc = ceil(rep /
 // 8) chunks of 8, each its own CTA.
 //
-// Positions at or past the length are masked by SELECTION, as in
-// decode_attention.cuh: they are never loaded, their score is -1e30 and
-// their probability 0 without touching K or V, so a dead or NaN-poisoned
-// slot cannot reach the arithmetic.
+// Positions at or past the length are masked by SELECTION: they are never
+// loaded, their score is -1e30 and their probability 0 without touching K
+// or V, so a dead or NaN-poisoned slot cannot reach the arithmetic (0 * NaN
+// would be NaN). A length of 0 gives exactly 0.
 #pragma once
 
 #include <cstdint>
@@ -76,13 +87,35 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "decode_attention.cuh"
-
 namespace split_decode {
 
-using decode_attention::load4;
-using decode_attention::warp_max;
-using decode_attention::warp_sum;
+// four consecutive Dh values as f32: one 16-, 8- or 4-byte load (Dh % 4 == 0
+// and 4-value-aligned bases keep every such load aligned)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  return make_float4(__low2float(a), __high2float(a), __low2float(b),
+                     __high2float(b));
+}
+__device__ __forceinline__ float4 load4(const int8_t* p) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
 
 constexpr float kNeg = -1e30f;
 constexpr int kThreads = 256;
@@ -92,7 +125,8 @@ constexpr int kMaxDq = kThreads;  // 4-value pieces per row: Dh <= 1024
 // on the SM (228 KB per SM, 1 KB of it reserved per block)
 constexpr int kTwoPerSm = 112 * 1024;
 
-constexpr int kErrSmem = decode_attention::kErrSmem;
+// returned (instead of a CUDA error) without launching; the bindings raise
+constexpr int kErrSmem = -1;     // one CTA's tiles exceed a block's smem
 constexpr int kErrHeadDim = -2;  // Dh > 4 * kMaxDq
 
 struct Args {
@@ -101,15 +135,17 @@ struct Args {
   const void* v;
   const float* ks;
   const float* vs;
-  const int32_t* bt;    // (B, P) block table
-  const int32_t* lens;  // (B,) lengths
+  const int32_t* bt;    // paged: (B, P) block table
+  const int32_t* lens;  // paged: (B,) lengths
   float* out;           // (B, H, Dh)
   float* m_out;         // (B, H)
   float* l_out;         // (B, H)
   float* ws_acc;        // (n_split, B, H, Dh) when n_split > 1
   float* ws_m;          // (n_split, B, H)
   float* ws_l;          // (n_split, B, H)
-  int B, H, Hkv, Dh, psz, P;
+  // contiguous: psz = 1, P = kv_len (every sequence's live rows), S the
+  // cache rows per sequence
+  int B, H, Hkv, Dh, psz, P, S;
   int run_pages;   // pages per split
   int n_split;
   int normalize;
@@ -179,7 +215,7 @@ __device__ __forceinline__ void cp_wait(int pending) {
   else asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-template <typename T, bool kQuant, int QR>
+template <typename T, bool kQuant, int QR, bool kContig>
 __global__ void __launch_bounds__(kThreads) split_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int Dh = a.Dh;
@@ -203,7 +239,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Args a) {
 
   // this CTA's positions: [pos0, pos1) of the sequence's live ones; a
   // length past the P pages reads all P pages, as the plain version does
-  const int len = min(a.lens[b], a.P * a.psz);
+  const int len = kContig ? a.P : min(a.lens[b], a.P * a.psz);
   const int pos0 = split * a.run_pages * a.psz;
   const int pos1 = min(pos0 + a.run_pages * a.psz, len);
   const bool direct = a.n_split == 1;
@@ -221,10 +257,19 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Args a) {
     return;
   }
 
-  const int32_t* bt = a.bt + (int64_t)b * a.P;
   const T* kp = static_cast<const T*>(a.k);
   const T* vp = static_cast<const T*>(a.v);
   const int n_tiles = (pos1 - pos0 + tile_rows - 1) / tile_rows;
+  // the (slot, KV head) row of position pos
+  auto row_of = [&](int pos) -> int64_t {
+    if constexpr (kContig) {
+      return ((int64_t)b * a.S + pos) * a.Hkv + g;
+    } else {
+      const int pg = pos / a.psz;
+      return ((int64_t)a.bt[(int64_t)b * a.P + pg] * a.psz +
+              (pos - pg * a.psz)) * a.Hkv + g;
+    }
+  };
 
   // stage tile `t` (if it exists) into its ring slot; one commit per call
   // so the group count stays in step with the tile index
@@ -238,9 +283,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Args a) {
       const int c = tid % dq;
       if (tid < rows_per * dq) {
         for (int r = tid / dq; r < nv; r += rows_per) {
-          const int pos = start + r, pg = pos / a.psz;
-          const int64_t row =
-              ((int64_t)bt[pg] * a.psz + (pos - pg * a.psz)) * a.Hkv + g;
+          const int64_t row = row_of(start + r);
           cp_piece<T>(kb + r * L.row_b + c * 4 * sizeof(T),
                       kp + row * Dh + 4 * c);
           cp_piece<T>(vb + r * L.row_b + c * 4 * sizeof(T),
@@ -251,9 +294,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Args a) {
         float* ksc = reinterpret_cast<float*>(vb + tile_rows * L.row_b);
         float* vsc = ksc + tile_rows;
         for (int r = tid; r < nv; r += kThreads) {
-          const int pos = start + r, pg = pos / a.psz;
-          const int64_t row =
-              ((int64_t)bt[pg] * a.psz + (pos - pg * a.psz)) * a.Hkv + g;
+          const int64_t row = row_of(start + r);
           cp_async4(ksc + r, a.ks + row);
           cp_async4(vsc + r, a.vs + row);
         }
@@ -492,7 +533,7 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(Args a) {
   }
 }
 
-template <typename T, bool kQuant, int QR>
+template <typename T, bool kQuant, int QR, bool kContig>
 int launch_typed(Args a, cudaStream_t stream, int max_smem) {
   // the given tile, three stages where that leaves room for a second CTA
   // on the SM, else two; fewer rows only where even two stages would not
@@ -508,7 +549,7 @@ int launch_typed(Args a, cudaStream_t stream, int max_smem) {
     if (L.total <= max_smem) break;
     if (a.tile_rows == 1) return kErrSmem;
   }
-  auto kernel = split_kernel<T, kQuant, QR>;
+  auto kernel = split_kernel<T, kQuant, QR, kContig>;
   if (L.total > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
@@ -524,23 +565,24 @@ int launch_typed(Args a, cudaStream_t stream, int max_smem) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kQuant>
+template <typename T, bool kQuant, bool kContig>
 int launch_qr(const Args& a, int qr, cudaStream_t s, int max_smem) {
-  if (qr == 1) return launch_typed<T, kQuant, 1>(a, s, max_smem);
-  if (qr == 2) return launch_typed<T, kQuant, 2>(a, s, max_smem);
-  if (qr == 4) return launch_typed<T, kQuant, 4>(a, s, max_smem);
-  return launch_typed<T, kQuant, 8>(a, s, max_smem);
+  if (qr == 1) return launch_typed<T, kQuant, 1, kContig>(a, s, max_smem);
+  if (qr == 2) return launch_typed<T, kQuant, 2, kContig>(a, s, max_smem);
+  if (qr == 4) return launch_typed<T, kQuant, 4, kContig>(a, s, max_smem);
+  return launch_typed<T, kQuant, 8, kContig>(a, s, max_smem);
 }
 
-// One decode over B sequences: the split pass, then (n_split > 1) the
-// merge. kv_dtype: 0 = float32, 1 = bfloat16, 2 = int8; quant: scales
-// given; per_query_head: one query row per CTA (QR 1, n_qc = rep chunks),
-// else the smallest QR that holds rep. Returns cudaGetLastError() after
-// the launches (0 = cudaSuccess), kErrSmem when one CTA's tiles need more
-// shared memory than a block has, or kErrHeadDim when Dh > 1024, without
-// launching.
-inline int launch(Args a, int kv_dtype, int quant, int per_query_head,
-                  void* stream) {
+// One decode over B sequences, paged or contiguous (kContig): the split
+// pass, then (n_split > 1) the merge. kv_dtype: 0 = float32, 1 = bfloat16,
+// 2 = int8; quant: scales given; per_query_head: one query row per CTA (QR
+// 1, n_qc = rep chunks), else the smallest QR that holds rep. Returns
+// cudaGetLastError() after the launches (0 = cudaSuccess), kErrSmem when
+// one CTA's tiles need more shared memory than a block has, or kErrHeadDim
+// when Dh > 1024, without launching.
+template <bool kContig>
+int launch(Args a, int kv_dtype, int quant, int per_query_head,
+           void* stream) {
   if (a.Dh / 4 > kMaxDq) return kErrHeadDim;
   const int rep = a.H / a.Hkv;
   const int qr = per_query_head ? 1 : (rep <= 2 ? 2 : (rep <= 4 ? 4 : 8));
@@ -553,13 +595,13 @@ inline int launch(Args a, int kv_dtype, int quant, int per_query_head,
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_dtype == 2)
-    return quant ? launch_qr<int8_t, true>(a, qr, s, smem)
-                 : launch_qr<int8_t, false>(a, qr, s, smem);
+    return quant ? launch_qr<int8_t, true, kContig>(a, qr, s, smem)
+                 : launch_qr<int8_t, false, kContig>(a, qr, s, smem);
   if (kv_dtype == 1)
-    return quant ? launch_qr<__nv_bfloat16, true>(a, qr, s, smem)
-                 : launch_qr<__nv_bfloat16, false>(a, qr, s, smem);
-  return quant ? launch_qr<float, true>(a, qr, s, smem)
-               : launch_qr<float, false>(a, qr, s, smem);
+    return quant ? launch_qr<__nv_bfloat16, true, kContig>(a, qr, s, smem)
+                 : launch_qr<__nv_bfloat16, false, kContig>(a, qr, s, smem);
+  return quant ? launch_qr<float, true, kContig>(a, qr, s, smem)
+               : launch_qr<float, false, kContig>(a, qr, s, smem);
 }
 
 }  // namespace split_decode

@@ -208,7 +208,9 @@ def flash_decode(q, k, v, k_scale=None, v_scale=None, *, kv_len=None):
     scales; query head h reads KV head h // (H // Hkv), so GQA caches are
     not repeated. Returns (B, H, Dh) f32; ``kv_len = 0`` gives exactly 0. A
     CPU call runs ``ref.flash_decode_ref``; a CUDA call launches the kernel
-    or raises.
+    by ``flash_decode.plan`` (the split-KV pass over the live rows and,
+    where the planner splits, the merge of its partials; one count per
+    call) or raises.
     """
     if q.device.type == "cpu":
         return ref.flash_decode_ref(q, k, v, k_scale, v_scale, kv_len)

@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["ROUTES", "SplitPlan", "plan", "sm_count", "launch"]
+__all__ = ["ROUTES", "SplitPlan", "plan", "sm_count", "workspace",
+           "launch"]
 
 # route -> C entry point (one per TPU kernel)
 ROUTES = {"paged_decode": "rq_paged_decode_head",
@@ -71,10 +72,12 @@ def plan(route: str, B: int, heads: int, P: int, page_size: int,
     positions, and evens the runs out over the units. P stands for the
     live length, which only the device holds: the paged server cuts its
     table to the widest live row (``ContinuousBatcher._batch_arrays``), so
-    its short contexts stay one launch, with no merge."""
+    its short contexts stay one launch, with no merge. P = 0 (an empty
+    contiguous cache) plans one run of one unit: one launch of empty
+    CTAs."""
     unit = pages_per_block if route == "paged_decode_gqa_mp" \
         else -(-TILE_ROWS // page_size)
-    units = -(-P // unit)
+    units = max(1, -(-P // unit))
     want = CTAS_PER_SM * sm_count // (B * heads)
     cap = max(1, P * page_size // MIN_RUN_ROWS)
     n = max(1, min(units, want, cap))
@@ -91,6 +94,18 @@ def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device."""
     return _sm_count(device.index if device.index is not None
                      else torch.cuda.current_device())
+
+
+def workspace(n_split: int, B: int, H: int, Dh: int, device):
+    """The split pass's (acc, m, l) partials of every run: one f32 buffer
+    and the addresses of its (n_split, B, H, Dh), (n_split, B, H) and
+    (n_split, B, H) parts, or (None, [None] * 3) when nothing is split.
+    The caller keeps the buffer until the launch is queued."""
+    if n_split == 1:
+        return None, [None] * 3
+    n = n_split * B * H
+    w = torch.empty(n * (Dh + 2), dtype=torch.float32, device=device)
+    return w, [w.data_ptr() + 4 * n * k for k in (0, Dh, Dh + 1)]
 
 
 def launch(route: str, q, k_pages, v_pages, block_tables, seq_lens, k_scale,
@@ -117,11 +132,7 @@ def launch(route: str, q, k_pages, v_pages, block_tables, seq_lens, k_scale,
             float(Dh ** -0.5), torch.cuda.current_stream(q.device).cuda_stream]
     heads = H if route == "paged_decode" else Hkv
     sp = plan(route, B, heads, P, psz, pages_per_block, sm_count(q.device))
-    ws = [None] * 3
-    if sp.n_split > 1:   # (acc, m, l) partials of every run
-        n = sp.n_split * B * H
-        w = torch.empty(n * (Dh + 2), dtype=torch.float32, device=q.device)
-        ws = [w.data_ptr() + 4 * n * k for k in (0, Dh, Dh + 1)]
+    w, ws = workspace(sp.n_split, B, H, Dh, q.device)
     rc = getattr(lib, ROUTES[route])(*ptrs, *ws, B, H, Hkv, Dh, psz, P,
                                      sp.n_split, sp.run_pages, TILE_ROWS,
                                      *tail)

@@ -177,7 +177,7 @@ def self_attention(p, cfg: ModelConfig, x, *, causal: bool = True,
         cache[key][:, rows] = val.to(cache[key].dtype)
     kv_len = cache_index + S
     if cfg.use_flash_decode and S == 1:
-        out = _flash_decode_attention(q, cache, kv_len)
+        out = _flash_decode_step(q, cache, kv_len)
     else:
         out = blocked_attention(q, cache["k"], cache["v"], causal=causal,
                                 q_offset=cache_index, kv_len=kv_len,
@@ -187,7 +187,7 @@ def self_attention(p, cfg: ModelConfig, x, *, causal: bool = True,
     return attn_out(p, out), cache
 
 
-def _flash_decode_attention(q, cache, kv_len: int):
+def _flash_decode_step(q, cache, kv_len: int):
     """A single decode token through ``kernels.flash_decode`` (the CUDA
     kernel for a CUDA tensor): GQA query heads read their KV head in the
     kernel (no repeated cache), int8 caches are dequantised there."""

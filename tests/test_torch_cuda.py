@@ -361,7 +361,7 @@ def _flash_case(dev, *, B, S, H, Hkv, Dh, dtype, seed):
 def test_flash_decode_cuda_matches_plain(dtype, H, Hkv):
     """The kernel against the plain version on the same card tensors at
     the reference's 2e-4, kv_len 0 (exactly 0), 1, a tile boundary, ragged
-    and S; S = 150 is no multiple of the kernel's 64-row tile."""
+    and S; S = 150 is no multiple of the kernel's 32-row tile."""
     dev = needs_cuda()
     S = 150
     args = _flash_case(dev, B=3, S=S, H=H, Hkv=Hkv, Dh=32, dtype=dtype,
@@ -387,6 +387,55 @@ def test_flash_decode_cuda_never_reads_past_kv_len(H, Hkv):
     got = tk.flash_decode(q, k, v, kv_len=70)
     assert not torch.isnan(got).any()
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def _flash_split_plan(dev, H, Hkv, S):
+    """The planner's split of one S-row sequence on this card; it must cut
+    the rows into two or more runs."""
+    tfd = importlib.import_module("repro_torch.kernels.flash_decode")
+    sp = tfd.plan(1, H, Hkv, S, tfd.sm_count(dev))
+    assert sp.n_split >= 2, sp
+    return sp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (8, 2)], ids=["mha", "gqa"])
+def test_flash_decode_split_cuda_matches_plain(dtype, H, Hkv):
+    """One 1000-row sequence, which the planner cuts into runs across CTAs
+    (split pass, then the merge of the partials): against the plain
+    version at 2e-4 at kv_len 0 (exactly 0), 1, a run boundary and one row
+    past it, ragged and S."""
+    dev = needs_cuda()
+    S = 1000
+    run = _flash_split_plan(dev, H, Hkv, S).run_pages
+    args = _flash_case(dev, B=1, S=S, H=H, Hkv=Hkv, Dh=32, dtype=dtype,
+                       seed=25)
+    for kv_len in (0, 1, run, run + 1, 517, S):
+        before = tk.LAUNCHES["flash_decode"]
+        out = tk.flash_decode(*args, kv_len=kv_len)
+        assert tk.LAUNCHES["flash_decode"] == before + 1
+        torch.testing.assert_close(out, tref.flash_decode_ref(
+            *args, kv_len=kv_len), rtol=2e-4, atol=2e-4)
+        if kv_len == 0:
+            assert not out.any(), "an empty cache gives exactly 0"
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (8, 2)], ids=["mha", "gqa"])
+def test_flash_decode_split_cuda_never_reads_past_kv_len(H, Hkv):
+    """NaN in every row at or past kv_len (in the scales for int8) never
+    reaches the output while the rows are split across CTAs."""
+    dev = needs_cuda()
+    S, kv_len = 1000, 777
+    _flash_split_plan(dev, H, Hkv, kv_len)
+    for dtype in (torch.float32, torch.int8):
+        args = list(_flash_case(dev, B=1, S=S, H=H, Hkv=Hkv, Dh=32,
+                                dtype=dtype, seed=27))
+        want = tref.flash_decode_ref(*args, kv_len=kv_len)
+        for i in ((3, 4) if dtype == torch.int8 else (1, 2)):
+            args[i][:, kv_len:] = float("nan")
+        got = tk.flash_decode(*args, kv_len=kv_len)
+        assert not torch.isnan(got).any()
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

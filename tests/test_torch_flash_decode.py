@@ -11,8 +11,15 @@ vs the JAX reference.
   reference takes its Pallas kernel) at 2e-3, the bar of
   ``tests/test_serve.py``'s flash-decode integration test; compute and int8
   KV, MHA and GQA.
+- The CUDA kernel's host side, which the CPU reaches: the split planner
+  (the paged routes' plan over ``kv_len`` one-row pages) at every layout
+  and context ``chip_smoke.py`` runs, and the arguments the binding hands
+  the kernel (with the library stubbed out).
 """
 import dataclasses
+import importlib
+from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -233,3 +240,158 @@ def test_prefill_sized_calls_never_take_the_flash_route(flash_spy):
     assert not cache["k"][:, 5:].any() and cache["k"][:, :5].any()
     np.testing.assert_allclose(to_np(tout), np.asarray(jout), rtol=2e-3,
                                atol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# the split planner and the binding's host side
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+tfd = importlib.import_module("repro_torch.kernels.flash_decode")
+tpd = importlib.import_module("repro_torch.kernels.paged_decode")
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_CS = _chip_smoke()
+FD_LAYOUTS = _CS.FD_LAYOUTS       # the layouts chip_smoke.py checks (6a)
+FD_CONTEXTS = _CS.FD_CONTEXTS     # the contexts it times (6b)
+# n_split at kv_len = S on an H100: only one long sequence splits (its
+# CTAs span 32 query heads, or 8 KV heads, against 132 SMs)
+SPLIT_AT_S = {"mha": 1, "gqa": 1, "small-gqa": 1, "small-mha": 1,
+              "long-mha": 8, "long-gqa": 16}
+SPLIT_BY_CONTEXT = {"decode": 1, "long": 1, "long-b1": 8}
+
+
+def _runs(sp, kv_len):
+    """The row ranges [lo, hi) of a plan's runs over kv_len live rows."""
+    run = sp.run_pages
+    return [(s * run, min((s + 1) * run, kv_len)) for s in range(sp.n_split)]
+
+
+def test_flash_plan_of_an_empty_cache_is_one_launch_of_empty_ctas():
+    """kv_len = 0 plans one run (no division by zero): every CTA finds no
+    live row and writes the empty result, which is exactly 0."""
+    for B, H, Hkv in ((8, 32, 32), (8, 32, 8), (1, 32, 32), (1, 4, 2)):
+        sp = tfd.plan(B, H, Hkv, 0, H100_SMS)
+        assert sp.n_split == 1 and sp.run_pages >= 1
+        assert _runs(sp, 0) == [(0, 0)]
+    assert tpd.plan("paged_decode", 8, 32, 0, 1, 1, H100_SMS).n_split == 1
+
+
+@pytest.mark.parametrize("layout", FD_LAYOUTS, ids=[c[0] for c in FD_LAYOUTS])
+def test_flash_plan_runs_cover_the_live_rows(layout):
+    """At kv_len 1, the tile, the first run's end at S (a run boundary),
+    ragged and S: runs of whole tiles, none empty, covering each live row
+    once, at most one wave of CTAS_PER_SM CTAs per SM, none shorter than
+    MIN_RUN_ROWS rows when split."""
+    name, B, H, Hkv, _, S = layout
+    heads = H if H == Hkv else Hkv
+    lens = _CS.flash_lens(tfd, B, H, Hkv, S, H100_SMS)
+    assert {1, tfd.TILE_ROWS, S} <= set(lens)
+    for kv_len in lens:
+        sp = tfd.plan(B, H, Hkv, kv_len, H100_SMS)
+        assert sp.run_pages % tfd.TILE_ROWS == 0
+        if kv_len:
+            runs = _runs(sp, kv_len)
+            assert all(lo < hi for lo, hi in runs), (kv_len, runs)
+            assert [r for lo, hi in runs for r in range(lo, hi)] == \
+                list(range(kv_len))
+        if sp.n_split > 1:
+            assert B * heads * sp.n_split <= tpd.CTAS_PER_SM * H100_SMS
+            assert sp.run_pages >= tpd.MIN_RUN_ROWS
+
+
+def test_flash_plan_is_sized_by_kv_len_not_by_the_cache(monkeypatch):
+    """The live rows size the split: 66 rows of a 128-row or a 2048-row
+    cache plan alike (one run), and one sequence splits only once its live
+    rows are many."""
+    for S in (128, 2048):
+        args = _launch_args(monkeypatch, B=8, S=S, H=32, Hkv=32, Dh=64,
+                            kv_len=66)
+        assert (args["S"], args["n_split"], args["run_rows"]) == (S, 1, 96)
+    for kv_len, n_split in ((100, 1), (2048, 8)):
+        assert _launch_args(monkeypatch, B=1, S=2048, H=32, Hkv=32, Dh=64,
+                            kv_len=kv_len)["n_split"] == n_split
+
+
+@pytest.mark.parametrize("layout", FD_LAYOUTS, ids=[c[0] for c in FD_LAYOUTS])
+def test_flash_plan_at_every_chip_smoke_layout(layout):
+    name, B, H, Hkv, _, S = layout
+    assert tfd.plan(B, H, Hkv, S, H100_SMS).n_split == SPLIT_AT_S[name]
+
+
+@pytest.mark.parametrize("ctx", FD_CONTEXTS, ids=[c[0] for c in FD_CONTEXTS])
+def test_flash_plan_at_every_timed_context(ctx):
+    """6b's contexts: the fixed-slot server's decode shape (66 live rows
+    of 128) and B 8 x 2048 stay one launch, B 1 x 2048 splits 8 ways."""
+    name, B, S, n = ctx
+    n = n or _CS.flash_decode_len(tget_config("opt-1.3b").vocab_size)
+    if name == "decode":
+        assert (n, S) == (66, 128)
+    assert tfd.plan(B, 32, 32, n, H100_SMS).n_split == SPLIT_BY_CONTEXT[name]
+
+
+_C_ARGS = ("q", "k", "v", "ks", "vs", "out", "ws_acc", "ws_m", "ws_l", "B",
+           "H", "Hkv", "Dh", "S", "kv_len", "n_split", "run_rows",
+           "tile_rows", "kv_dtype", "quant", "scale", "stream")
+
+
+def _launch_args(monkeypatch, *, B, S, H, Hkv, Dh, kv_len,
+                 dtype=torch.float32, rc=0):
+    """The arguments ``flash_decode.launch`` hands ``rq_flash_decode`` for
+    CPU tensors of these shapes, with the library, the SM count (an
+    H100's) and the stream stubbed out; ``rc`` is what the stub returns."""
+    calls = []
+
+    def entry(*a):
+        calls.append(dict(zip(_C_ARGS, a, strict=True)))
+        return rc
+
+    monkeypatch.setattr(tfd.build, "load", lambda name, sig: SimpleNamespace(
+        rq_flash_decode=entry))
+    monkeypatch.setattr(tfd, "sm_count", lambda dev: H100_SMS)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: SimpleNamespace(cuda_stream=7))
+    q = torch.zeros((B, H, Dh))
+    k = torch.zeros((B, S, Hkv, Dh), dtype=dtype)
+    scales = [torch.ones((B, S, Hkv))] * 2 if dtype == torch.int8 \
+        else [None, None]
+    tfd.launch(q, k, k.clone(), *scales, torch.empty((B, H, Dh)),
+               kv_len=kv_len)
+    (args,) = calls
+    return args
+
+
+def test_flash_launch_hands_the_kernel_the_plan_and_its_workspace(
+        monkeypatch):
+    one = _launch_args(monkeypatch, B=8, S=128, H=32, Hkv=8, Dh=128,
+                       kv_len=66)
+    assert one["ws_acc"] is one["ws_m"] is one["ws_l"] is None
+    assert (one["tile_rows"], one["kv_dtype"], one["quant"],
+            one["stream"]) == (tfd.TILE_ROWS, 0, 0, 7)
+    assert one["ks"] is None and abs(one["scale"] - 128 ** -0.5) < 1e-12
+    B, H, Dh = 1, 32, 64
+    split = _launch_args(monkeypatch, B=B, S=2048, H=H, Hkv=H, Dh=Dh,
+                         kv_len=1500, dtype=torch.int8)
+    n = split["n_split"] * B * H
+    assert split["n_split"] > 1 and split["quant"] == 1
+    assert split["kv_dtype"] == 2 and split["ks"] is not None
+    assert (split["ws_m"] - split["ws_acc"],
+            split["ws_l"] - split["ws_m"]) == (4 * n * Dh, 4 * n)
+
+
+@pytest.mark.parametrize("rc,err", [(-1, ValueError), (-2, ValueError),
+                                    (700, RuntimeError)],
+                         ids=["smem", "head-dim", "cuda"])
+def test_flash_launch_raises_on_what_the_source_reports(rc, err,
+                                                        monkeypatch):
+    with pytest.raises(err):
+        _launch_args(monkeypatch, B=2, S=64, H=4, Hkv=2, Dh=16, kv_len=10,
+                     rc=rc)
