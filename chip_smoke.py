@@ -75,7 +75,22 @@ source, started together, into ``build/kernels/``), then:
    projections at M 8 and a 3-bit case with K padding, x in f32 and bf16,
    with times (one call, and the kernels' device time under the profiler)
    beside the bound, the plain version and ``torch.matmul`` on the
-   dequantised weights, then the public op once per case.
+   dequantised weights, then the public op once per case;
+7. the calibrated base methods and the other objectives: (a) on phase 2's
+   opt-1.3b weights and sets, ``quantize_model`` with ``gptq``, ``awq`` and
+   ``omniquant`` (OmniQuant cut to 20 Adam steps a block from 200), each
+   alone and then with 16 fused search steps: ppl for fp32 / base /
+   base+search, the search's initial and final loss and accept rate,
+   seconds for the taps (timed on their own), the method and the search,
+   peak memory and the launch counts, with ``group_quant`` held to
+   ``base_method_gq_launches`` and ``transform_quant`` to 2 × steps;
+   (b) a 4-step fused search after RTN with ``objective="swd_actmatch"``
+   and ``"saliency_ce"``; (c) on opt-tiny reduced, each method on the card
+   against the CPU (weights within ``group_quant``'s bar, GPTQ's output
+   within its own and parting after the pipeline's fake-quant only at
+   round-half ties, AWQ's α and clip picks equal or parted at a printed
+   near tie) and each 7b objective's search with the same proposals and
+   SWD directions (``histories_agree``).
 
 Prints the ``nvidia-smi`` name/power-limit line, a ``{"kernels": [...]}``
 line (all seven ported kernels), and last ``{"ok": true, "device":
@@ -1535,6 +1550,330 @@ def phase_quant_matmul(torch, ops, ref, qm):
     return rows, worst, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the calibrated base methods and the other search objectives
+# ---------------------------------------------------------------------------
+
+BASE_METHODS = ("gptq", "awq", "omniquant")
+# 7a's OmniQuant runs 20 Adam steps a block, not the default 200 (cut: the
+# per-step ms is logged; 7c runs the default on opt-tiny)
+OMNI_STEPS = 20
+OBJ_STEPS = 4
+BASE_OBJECTIVES = ("swd_actmatch", "saliency_ce")
+CHOICE_TIE = 1e-6     # relative loss gap under which AWQ's grid picks may part
+
+
+def base_method_gq_launches(method, cfg):
+    """``group_quant`` launches of one ``quantize_model(method)`` call on a
+    dense ``cfg``, with or without the fused search (the same count: the
+    search's initial stack quantizes the stacked FFN leaves that the plain
+    FFN fake-quant would):
+
+    - the attention freeze: one launch per stacked leaf (wq, wk, wv, wo): 4;
+    - the FFN: one per stacked leaf (up, down, and gate where there is one);
+    - AWQ, per layer: 20 α × (up, down[, gate]) plus 10 clip ratios × the
+      clipped weights (up, down, wq, wk, wv, wo[, gate]): 20 × 2 + 10 × 6 =
+      100 on opt;
+    - GPTQ and OmniQuant round with their own code, never ``group_quant``.
+    """
+    from repro_torch.core.awq import ALPHA_GRID, CLIP_GRID
+
+    n_ffn = 3 if cfg.gated_mlp else 2
+    n = 4 + n_ffn
+    if method == "awq":
+        n += cfg.n_layers * (ALPHA_GRID * n_ffn + CLIP_GRID * (n_ffn + 4))
+    return n
+
+
+def choices_agree(card, cpu, rel_gap=CHOICE_TIE):
+    """AWQ's per-layer grid choices on the card against the CPU's
+    (``PTQResult.base["choices"]``). Returns the partings, each with its
+    relative loss gap on the CPU; raises if a pick parts at a gap of
+    ``rel_gap`` or more (not a near tie)."""
+    parted = []
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        grids = [("alpha", a["alpha"], b["alpha"])] + [
+            (f"clip {k}", a["clip"][k], b["clip"][k]) for k in sorted(b["clip"])]
+        for what, ga, gb in grids:
+            if ga.index == gb.index:
+                continue
+            lo = gb.losses[gb.index]
+            gap = abs(gb.losses[ga.index] - lo) / max(abs(lo), 1e-30)
+            parted.append({"layer": i, "grid": what, "card": ga.index,
+                           "cpu": gb.index, "rel_gap": gap})
+            if gap >= rel_gap:
+                raise AssertionError(
+                    f"AWQ layer {i} {what}: the card picks {ga.index}, the "
+                    f"CPU {gb.index}, {gap:.3g} apart (not a near tie)")
+    return parted
+
+
+def within_one_step(got, want, bits, group, atol=None):
+    """The ``group_quant`` bar (``tests/test_kernels.py``'s
+    ``_assert_within_one_step``) on weights (..., K, N): at most one
+    quantization step apart, and a step apart (more than half a step) on
+    < 0.1 % of elements; with ``atol``, the GPTQ bar: more than ``atol``
+    apart on < 0.1 %. The step of each group is its range over q_max in
+    ``want``. Returns the fraction of elements apart."""
+    import numpy as np
+    got = got.detach().cpu().double().numpy()
+    want = want.detach().cpu().double().numpy()
+    K, N = want.shape[-2:]
+    g = want.reshape(-1, K // group, group, N)
+    step = np.broadcast_to((g.max(2, keepdims=True) - g.min(2, keepdims=True))
+                           / ((1 << bits) - 1), g.shape)
+    diff = np.abs(got.reshape(g.shape) - g)
+    if np.any(diff > step * 1.001 + 1e-6):
+        raise AssertionError("weights differ by more than one step")
+    frac = float(np.mean(diff > (0.5 * step if atol is None else atol)))
+    if frac >= 1e-3:
+        raise AssertionError(f"{frac:.3%} of the weights are a step apart")
+    return frac
+
+
+def parts_only_at_ties(got, want, base, bits, group):
+    """GPTQ's final weights: its output sits on a subset of each group's
+    levels, so the pipeline's fake-quant re-rounds several % of it at exact
+    round-half ties, where an ulp decides. ``got``/``want`` may part by
+    one step there, and by 1e-3 at most elsewhere; ``base`` is the GPTQ
+    output ``want`` was quantized from. Returns the fraction parted."""
+    import numpy as np
+    got = got.detach().cpu().double().numpy()
+    want = want.detach().cpu().double().numpy()
+    base = base.detach().cpu().float().numpy()
+    K, N = want.shape[-2:]
+    g = base.reshape(-1, K // group, group, N)
+    mx, mn = g.max(2, keepdims=True), g.min(2, keepdims=True)
+    scale = np.maximum((mx - mn) / np.float32((1 << bits) - 1), 1e-8)
+    t = (g / scale + np.clip(np.round(-mn / scale), 0, (1 << bits) - 1))
+    tie = np.abs(t - np.floor(t) - 0.5) < 1e-4
+    diff = np.abs(got.reshape(g.shape) - want.reshape(g.shape))
+    if np.any(diff[~tie] > 1e-3):
+        raise AssertionError("GPTQ weights part away from a round-half tie")
+    if np.any(diff > np.broadcast_to(scale, g.shape) * 1.001 + 1e-6):
+        raise AssertionError("GPTQ weights part by more than one step")
+    return float(np.mean(diff > 1e-3))
+
+
+def phase_base_methods(torch, ops, cfg, qcfg):
+    """7a and 7b on random-init opt-1.3b at full width and depth, with
+    phase 2's weights (seed 0), calibration and held-out sets. Returns
+    7a's launch counts by kernel and run ("awq", "awq+search", ...)."""
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.core.taps import capture_dense_taps
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import forward, init_params, lm_loss
+
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    calib = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=512,
+                               seed=99, device="cuda")
+    held = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=512,
+                              seed=123, device="cuda")
+
+    def ppl(p):
+        logits = forward(p, cfg, held)
+        return math.exp(float(lm_loss(logits[:, :-1], held[:, 1:],
+                                      cfg.vocab_size)))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0, dict(ops.LAUNCHES),
+                torch.cuda.max_memory_allocated())
+
+    ppl_fp = ppl(params)
+    taps, taps_s, _, taps_peak = timed(
+        lambda: capture_dense_taps(params, cfg, calib))
+    taps_bytes = sum(t.numel() * t.element_size() for t in taps.values())
+    del taps
+    log("taps", arch=cfg.name, calib=list(calib.shape), seconds=taps_s,
+        bytes=taps_bytes, peak_bytes=taps_peak)
+    scfg = SearchConfig(steps=STEPS, fused_kernel=True, log_every=0)
+    launches = {"group_quant": {}, "transform_quant": {}}
+    # GPTQ's rows a layer: the K of wq, wk, wv, wo, up (gate), down
+    rows_per_layer = (4 + cfg.gated_mlp) * cfg.d_model + cfg.d_ff \
+        + cfg.n_heads * cfg.resolved_head_dim
+    for method in BASE_METHODS:
+        alone, base_s, counts, peak = timed(lambda: quantize_model(
+            params, cfg, qcfg, method, calib, omniquant_steps=OMNI_STEPS,
+            device="cuda"))
+        ppl_base = ppl(alone.params_q)
+        info, label = alone.base, alone.method
+        del alone
+        res, wall_s, counts_s, peak_s = timed(lambda: quantize_model(
+            params, cfg, qcfg, method, calib, scfg,
+            omniquant_steps=OMNI_STEPS, device="cuda"))
+        sr, label_search = res.search, res.method
+        ppl_search = ppl(res.params_q)
+        del res
+        want_gq = base_method_gq_launches(method, cfg)
+        extra = {}
+        if method == "awq":
+            extra = {"alpha_index": [c["alpha"].index for c in info["choices"]],
+                     "clip_index": {k: [c["clip"][k].index
+                                        for c in info["choices"]]
+                                    for k in info["choices"][0]["clip"]}}
+        elif method == "omniquant":
+            losses = info["losses"]
+            extra = {"block_loss_first": float(losses[:, 0].mean()),
+                     "block_loss_last": float(losses[:, -1].mean()),
+                     "omni_steps": OMNI_STEPS, "omni_steps_cut_from": 200,
+                     "step_ms_approx": 1e3 * (base_s - taps_s)
+                     / (cfg.n_layers * OMNI_STEPS)}
+            if not bool(torch.isfinite(losses).all()):
+                raise AssertionError("non-finite OmniQuant block losses")
+        elif method == "gptq":
+            extra = {"rows": cfg.n_layers * rows_per_layer,
+                     "row_ms_approx": 1e3 * (base_s - taps_s)
+                     / (cfg.n_layers * rows_per_layer)}
+        log("base_method", method=label, method_search=label_search,
+            ppl_fp32=ppl_fp, ppl_base=ppl_base, ppl_base_search=ppl_search,
+            initial_loss=sr.initial_loss, final_loss=sr.final_loss,
+            accept_rate=sr.accept_rate, steps=STEPS,
+            taps_s=taps_s, base_wall_s=base_s, method_s=base_s - taps_s,
+            search_s=STEPS / sr.stats["proposals_per_sec"],
+            search_wall_s=wall_s, peak_bytes=peak, peak_bytes_search=peak_s,
+            launches=counts, launches_search=counts_s,
+            group_quant_expected=want_gq, **extra)
+        nums = [ppl_fp, ppl_base, ppl_search, sr.initial_loss, sr.final_loss] \
+            + [h[1] for h in sr.history]
+        if not all(math.isfinite(x) for x in nums):
+            raise AssertionError(f"{method}: non-finite numbers {nums}")
+        if not sr.final_loss <= sr.initial_loss:
+            raise AssertionError(f"{method}: search final loss above initial")
+        for what, c in (("alone", counts), ("search", counts_s)):
+            if c["group_quant"] != want_gq:
+                raise AssertionError(f"{method} {what}: group_quant launches "
+                                     f"{c['group_quant']} != {want_gq}")
+        if counts["transform_quant"] != 0 or \
+                counts_s["transform_quant"] != 2 * STEPS * scfg.population:
+            raise AssertionError(f"{method}: transform_quant launches "
+                                 f"{counts['transform_quant']} / "
+                                 f"{counts_s['transform_quant']}")
+        for kernel in launches:
+            launches[kernel][method] = counts[kernel]
+            launches[kernel][method + "+search"] = counts_s[kernel]
+
+    # 7b: the other two objectives, a fused search after RTN
+    for objective in BASE_OBJECTIVES:
+        res, wall_s, counts, peak = timed(lambda: quantize_model(
+            params, cfg, qcfg, "rtn", calib,
+            SearchConfig(steps=OBJ_STEPS, fused_kernel=True,
+                         objective=objective, log_every=0), device="cuda"))
+        sr = res.search
+        del res
+        log("objective_search", objective=objective,
+            stats_objective=sr.stats["objective"], steps=OBJ_STEPS,
+            initial_loss=sr.initial_loss, final_loss=sr.final_loss,
+            losses=[h[1] for h in sr.history], accept_rate=sr.accept_rate,
+            wall_s=wall_s, peak_bytes=peak, launches=counts)
+        if sr.stats["objective"] != objective:
+            raise AssertionError(f"stats objective {sr.stats['objective']}")
+        if not all(math.isfinite(h[1]) for h in sr.history) or \
+                not sr.final_loss <= sr.initial_loss:
+            raise AssertionError(f"{objective}: losses {sr.history}")
+        if counts["transform_quant"] != 2 * OBJ_STEPS:
+            raise AssertionError(f"{objective}: launches {counts}")
+    del params, calib, held
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_small_base_methods(torch):
+    """7c: each base method and each of 7b's objectives on opt-tiny reduced,
+    on the card and on the CPU (where ``fake_quant`` runs its plain
+    version), from the same weights, tokens, proposals and SWD directions."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import invariance as inv
+    from repro_torch.core import rtn
+    from repro_torch.core.gptq import gptq_process_dense
+    from repro_torch.core.objective import SWDActMatchObjective
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.quant import QuantConfig, fake_quant
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import init_params, quantizable_paths
+    from repro_torch.search import run
+
+    cfg = get_config("opt-tiny").reduced()
+    qcfg = QuantConfig(bits=2, group_size=32)
+    params = init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+    calib = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=64,
+                               device="cpu")
+    devs = (torch.device("cpu"), torch.device("cuda"))
+    for method in BASE_METHODS:
+        runs = {d.type: quantize_model(to_device(params, d), cfg, qcfg, method,
+                                       calib.to(d), device=d) for d in devs}
+        parted = []
+        if method == "awq":
+            parted = choices_agree(runs["cuda"].base["choices"],
+                                   runs["cpu"].base["choices"])
+        if method == "gptq":
+            bases = {d.type: gptq_process_dense(to_device(params, d), cfg,
+                                                calib.to(d), qcfg)
+                     for d in devs}
+        fracs = {}
+        for path in quantizable_paths(params):
+            card = rtn.get_by_path(runs["cuda"].params_q, path)
+            cpu = rtn.get_by_path(runs["cpu"].params_q, path)
+            name = path[-1]
+            layers = [i for i in range(cfg.n_layers)
+                      if not any(p["layer"] == i and p["grid"] in
+                                 ("alpha", f"clip {name}") for p in parted)]
+            if method == "gptq":
+                within_one_step(rtn.get_by_path(bases["cuda"], path),
+                                rtn.get_by_path(bases["cpu"], path), 2, 32,
+                                atol=1e-3)
+                fracs[name] = parts_only_at_ties(
+                    card, cpu, rtn.get_by_path(bases["cpu"], path), 2, 32)
+            elif layers:
+                fracs[name] = within_one_step(card[layers], cpu[layers], 2, 32)
+        log("small_base_method", method=method, arch="opt-tiny (reduced)",
+            parted_frac=fracs, choices_parted=parted)
+
+    class Proposals:          # CPU draws, handed over on the run's device
+        def __init__(self, d):
+            self.src, self.d = inv.NativeProposals(3, "cpu"), d
+
+        def __call__(self, t_u, k, pcfg):
+            t_cpu = inv.FFNTransform(*(x.cpu() for x in t_u))
+            return [inv.FFNTransform(*(x.to(self.d) for x in c))
+                    for c in self.src(t_cpu, k, pcfg)]
+
+    # SWD's directions drawn once on the CPU: a generator on the card draws
+    # other numbers
+    dirs = torch.randn((cfg.d_model, 64),
+                       generator=torch.Generator().manual_seed(0))
+    for objective in BASE_OBJECTIVES:
+        hist = {}
+        for d in devs:
+            p = to_device(params, d)
+            base = rtn.map_quantizable(p, lambda w, _: fake_quant(w, qcfg),
+                                       only=lambda q: q[-1] not in ("up",
+                                                                    "down"))
+            objv = SWDActMatchObjective(dirs=dirs) \
+                if objective == "swd_actmatch" else objective
+            res = run(p, base, cfg, qcfg, calib.to(d),
+                      SearchConfig(steps=LANE_STEPS, fused_kernel=True,
+                                   log_every=0),
+                      objective=objv, proposals=Proposals(d))
+            if res.stats["objective"] != objective:
+                raise AssertionError(f"stats objective {res.stats}")
+            hist[d.type] = res.history
+        compared, parted = histories_agree(hist["cuda"], hist["cpu"],
+                                           f"{objective} card vs CPU")
+        log("small_objective", objective=objective, steps=LANE_STEPS,
+            compared=compared, parted_at=parted,
+            card_losses=[h[1] for h in hist["cuda"]],
+            cpu_losses=[h[1] for h in hist["cpu"]])
+
+
 def main() -> int:
     import torch
 
@@ -1721,6 +2060,10 @@ def main() -> int:
     phase_small_legacy(torch, ops)
     qm_rows, qm_err, qm_launches = phase_quant_matmul(torch, ops, ref, qm)
 
+    # ---- phase 7: the calibrated base methods, the other objectives ------
+    base_launches = phase_base_methods(torch, ops, cfg, qcfg)
+    phase_small_base_methods(torch)
+
     kernels = []
     for name, source, replaces in (
             ("group_quant", "src/repro_torch/csrc/group_quant.cu",
@@ -1731,6 +2074,13 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
+            "launches_on": "phase 2: quantize_model rtn, then rtn + 16 fused "
+                           "steps (opt-1.3b)",
+            "base_methods": {
+                "launches": base_launches[name],
+                "launches_on": "phase 7a: quantize_model gptq / awq / "
+                               "omniquant on opt-1.3b, alone and with 16 "
+                               "fused steps, each counted from 0"},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,

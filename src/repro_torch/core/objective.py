@@ -9,9 +9,20 @@ only consumes the scalar pair, so objectives implement the reference's
   the engine combines them as ``loss = primary + α · aux``;
 - ``resolve_mix(p0, a0, env) → α`` from the step-0 values.
 
-Built-ins: ``"ce"`` (Eqn. 23, the default) and ``"kl"`` (the Algorithm-1
-listing's label-free variant). ``swd_actmatch`` and ``saliency_ce`` wait
-(ROADMAP Queue 1 item 8).
+Built-ins (see ``OBJECTIVES`` / :func:`get_objective`), the reference's
+four:
+
+- ``"ce"``           Eqn. 23, the default;
+- ``"kl"``           the Algorithm-1 listing's label-free KL variant;
+- ``"swd_actmatch"`` sliced-Wasserstein alignment of tapped activations
+  (random-projection 1-D Wasserstein, PAPERS.md: Cao/Yin/Aref 2026);
+- ``"saliency_ce"``  per-token CE weighted by the FP model's confidence in
+  the true token (PAPERS.md: Cao/Aref 2025).
+
+``swd_actmatch`` draws its projection directions from a ``torch.Generator``
+seeded with ``proj_seed`` on the objective's device (the reference draws
+them from ``jax.random``, which the port does not re-derive); ``dirs=``
+hands it the directions instead.
 """
 from __future__ import annotations
 
@@ -24,8 +35,8 @@ from repro_torch.models.model import lm_loss
 
 __all__ = ["calib_ce", "calib_kl", "activation_mse", "resolve_alpha",
            "ObjectiveEnv", "Objective", "CEObjective", "KLObjective",
-           "OBJECTIVES", "register_objective", "get_objective",
-           "objective_name"]
+           "SWDActMatchObjective", "SaliencyCEObjective", "OBJECTIVES",
+           "register_objective", "get_objective", "objective_name"]
 
 
 def calib_ce(logits, tokens, vocab_size: int):
@@ -128,9 +139,127 @@ class KLObjective(CEObjective):
             _aux_mse(logits, hidden, env)
 
 
+def _swd_1d(x_sorted, y):
+    """1-D Wasserstein-2² between pre-sorted reference projections and a new
+    sample set (both (N, P)): sort y, mean squared quantile difference."""
+    return torch.mean(torch.square(torch.sort(y, dim=0).values - x_sorted))
+
+
+class SWDActMatchObjective(Objective):
+    """Sliced-Wasserstein activation alignment (PAPERS.md 2601.07878).
+
+    Project the tapped activations of the quantized and FP models onto
+    ``n_proj`` fixed random directions, sort each 1-D cloud, and average the
+    squared quantile differences — a distributional match that, unlike the
+    pointwise MSE, tolerates token-position reshuffling while still pinning
+    the activation geometry. With ``n_match == 0`` the logits cloud is
+    matched instead (data-free variant). ``aux`` is the calibration CE so
+    ``resolve_mix`` can anchor the scale the same way the paper anchors α.
+
+    ``dirs``: optional (d, n_proj) raw directions (normalised here, as the
+    reference normalises its draws); None draws them from
+    ``torch.Generator(device).manual_seed(proj_seed)``.
+    """
+
+    name = "swd_actmatch"
+
+    def __init__(self, n_proj: int = 64, proj_seed: int = 0,
+                 ce_anchor: bool = True, dirs=None):
+        self.n_proj = int(n_proj)
+        self.proj_seed = int(proj_seed)
+        self.ce_anchor = bool(ce_anchor)
+        self.dirs = dirs
+
+    def _features(self, hidden, env: ObjectiveEnv):
+        if env.n_match and hidden is not None:
+            h = hidden[:env.n_match].float()
+            return h.reshape(env.n_match, -1, h.shape[-1])    # (L, N, D)
+        return None
+
+    def prepare(self, env: ObjectiveEnv):
+        feats = self._features(env.hidden_fp, env)
+        if feats is None:   # data-free fallback: match the logits cloud
+            ref = env.logits_fp.float()
+            feats = ref.reshape(1, -1, ref.shape[-1])
+        d, dev = feats.shape[-1], feats.device
+        if self.dirs is None:
+            gen = torch.Generator(device=dev).manual_seed(self.proj_seed)
+            dirs = torch.randn((d, self.n_proj), generator=gen,
+                               dtype=torch.float32, device=dev)
+        else:
+            dirs = torch.as_tensor(self.dirs, dtype=torch.float32, device=dev)
+            if tuple(dirs.shape) != (d, self.n_proj):
+                raise ValueError(f"dirs has shape {tuple(dirs.shape)}, "
+                                 f"expected {(d, self.n_proj)}")
+        dirs = dirs / (torch.linalg.norm(dirs, dim=0, keepdim=True) + 1e-12)
+        # (L, N, n_proj) reference projections, pre-sorted along samples
+        ref_sorted = torch.sort(feats @ dirs, dim=1).values
+        return {"dirs": dirs, "ref_sorted": ref_sorted}
+
+    def evaluate(self, logits, hidden, state, env: ObjectiveEnv):
+        feats = self._features(hidden, env)
+        if feats is None:
+            lg = logits.float()
+            feats = lg.reshape(1, -1, lg.shape[-1])
+        proj = feats @ state["dirs"]                          # (L, N, n_proj)
+        swd = torch.stack([_swd_1d(r, p) for r, p in
+                           zip(state["ref_sorted"], proj)]).mean()
+        aux = (calib_ce(logits, env.calib, env.vocab_size) if self.ce_anchor
+               else logits.new_zeros((), dtype=torch.float32))
+        return swd, aux
+
+    def resolve_mix(self, primary0, aux0, env):
+        # anchor: the CE term starts 1/ce_weight as important as the SWD
+        if not self.ce_anchor or aux0 <= 0:
+            return 0.0
+        return float(primary0 / (env.ce_weight * aux0))
+
+
+class SaliencyCEObjective(Objective):
+    """Saliency-weighted CE (PAPERS.md 2504.13932): per-token NLL weighted by
+    the FP model's probability of the true token, so tokens the full-precision
+    model is confident about dominate the search signal while tokens it
+    already gets wrong cannot drag the climb. Weights are normalized to mean
+    1 over valid positions (the unweighted CE is the all-ones special case);
+    ``aux`` is the paper's activation MSE, mixed exactly like ``"ce"``."""
+
+    name = "saliency_ce"
+
+    def __init__(self, temperature: float = 1.0):
+        self.temperature = float(temperature)
+
+    def prepare(self, env: ObjectiveEnv):
+        lg = env.logits_fp[:, :-1].float()
+        # a same-device divisor: the reference's division on every device
+        temp = torch.tensor(self.temperature, dtype=torch.float32,
+                            device=lg.device)
+        lp = torch.log_softmax(lg / temp, dim=-1)
+        labels = env.calib[:, 1:].long()
+        p_true = torch.gather(torch.exp(lp), -1, labels[..., None])[..., 0]
+        return {"w": p_true / torch.clamp_min(torch.mean(p_true), 1e-9)}
+
+    def evaluate(self, logits, hidden, state, env: ObjectiveEnv):
+        lg = logits[:, :-1]
+        labels = env.calib[:, 1:].long()
+        V = lg.shape[-1]
+        if V > env.vocab_size:
+            keep = torch.arange(V, device=lg.device) < env.vocab_size
+            neg = torch.finfo(torch.float32).min / 2
+            lg = torch.where(keep[None, None, :], lg, neg)
+        logp = torch.log_softmax(lg.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        return torch.mean(nll * state["w"]), _aux_mse(logits, hidden, env)
+
+    def resolve_mix(self, primary0, aux0, env):
+        return resolve_alpha(primary0, aux0, env.ce_weight) \
+            if env.n_match else 0.0
+
+
 OBJECTIVES: Dict[str, Callable[[], Objective]] = {
     "ce": CEObjective,
     "kl": KLObjective,
+    "swd_actmatch": SWDActMatchObjective,
+    "saliency_ce": SaliencyCEObjective,
 }
 
 

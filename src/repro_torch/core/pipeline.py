@@ -1,17 +1,15 @@
 """End-to-end PTQ pipeline: base method → (optional) InvarExplore search.
 
-    params_q = quantize_model(params_fp, cfg, qcfg, method="rtn",
+    params_q = quantize_model(params_fp, cfg, qcfg, method="awq",
                               calib_tokens=X, search=SearchConfig(...)).params_q
 
 Contract between stages (as in the reference):
-  * the base method produces FFN weights in the continuous domain — plain
-    θ₀ for RTN — and FINAL fake-quant weights for everything else
+  * the base method produces FFN weights in the continuous (dequantized)
+    domain — AWQ-scaled/clipped, GPTQ-compensated, OmniQuant-optimized, or
+    plain θ₀ for RTN — and FINAL fake-quant weights for everything else
     (attention projections), which stay frozen during the search;
   * InvarExplore then hill-climbs fq(T(θ_base)) per unit (Algorithm 1);
   * without the search, the FFN weights are simply fake-quantized.
-
-Only ``method="rtn"`` is ported; AWQ, GPTQ and OmniQuant wait (ROADMAP
-Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -21,6 +19,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.awq import awq_process_dense
+from repro_torch.core.gptq import gptq_process_dense
+from repro_torch.core.omniquant import omniquant_process_dense
 from repro_torch.core.quant import QuantConfig, fake_quant
 from repro_torch.core.rtn import map_quantizable
 from repro_torch.core.search import SearchConfig
@@ -44,6 +45,9 @@ class PTQResult:
     params_q: dict
     method: str
     search: Optional[object]  # SearchResult when InvarExplore ran
+    # what the base method reports: AWQ's per-layer grid choices
+    # ({"choices": [...]}), OmniQuant's block losses ({"losses": (L, steps)})
+    base: Optional[dict] = None
 
 
 def _as_tokens(tokens, dev: torch.device) -> torch.Tensor:
@@ -60,22 +64,39 @@ def quantize_model(
     calib_tokens=None,
     search: Optional[SearchConfig] = None,
     *,
+    omniquant_steps: int = 200,
     device="cuda",
 ) -> PTQResult:
     """Quantize ``params_fp`` (which must already live on ``device``).
-    ``calib_tokens`` (numpy or tensor, (B, S)) is needed by the search."""
+
+    ``method``: "rtn", "awq", "gptq" or "omniquant". ``calib_tokens``
+    (numpy or tensor, (B, S)) is needed by every method but RTN, and by the
+    search. ``omniquant_steps``: Adam steps per block for ``omniquant``
+    (the reference's 200; read by no other method)."""
     dev = resolve_device(device)
     check_on_device(params_fp, dev)
-    if method in ("awq", "gptq", "omniquant"):
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet (ROADMAP Queue 1 item 8)")
-    if method != "rtn":
-        raise ValueError(f"unknown method {method!r}")
+    if method != "rtn" and calib_tokens is None:
+        raise ValueError(f"method {method!r} needs calib_tokens")
     if search is not None and calib_tokens is None:
         raise ValueError("the InvarExplore search needs calib_tokens")
+    tokens = None if calib_tokens is None else _as_tokens(calib_tokens, dev)
 
-    # 1) base method: RTN keeps the continuous weights
-    params_base = params_fp
+    # 1) base-method processing (continuous-domain FFN weights)
+    base = None
+    if method == "rtn":
+        params_base = params_fp
+    elif method == "awq":
+        params_base, choices = awq_process_dense(params_fp, cfg, tokens,
+                                                 qcfg)
+        base = {"choices": choices}
+    elif method == "gptq":
+        params_base = gptq_process_dense(params_fp, cfg, tokens, qcfg)
+    elif method == "omniquant":
+        params_base, losses = omniquant_process_dense(
+            params_fp, cfg, tokens, qcfg, steps=omniquant_steps)
+        base = {"losses": losses}
+    else:
+        raise ValueError(f"unknown method {method!r}")
 
     # 2) freeze non-FFN quantizable weights at their fake-quant values
     params_base = map_quantizable(
@@ -83,10 +104,11 @@ def quantize_model(
 
     # 3) InvarExplore search or plain FFN fake-quant
     if search is not None:
-        result = run_invar_search(params_fp, params_base, cfg, qcfg,
-                                  _as_tokens(calib_tokens, dev), search)
-        return PTQResult(result.params_q, method + "+invarexplore", result)
+        result = run_invar_search(params_fp, params_base, cfg, qcfg, tokens,
+                                  search)
+        return PTQResult(result.params_q, method + "+invarexplore", result,
+                         base)
 
     params_q = map_quantizable(
         params_base, lambda w, p: fake_quant(w, qcfg), only=_is_ffn)
-    return PTQResult(params_q, method, None)
+    return PTQResult(params_q, method, None, base)

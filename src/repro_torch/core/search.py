@@ -33,8 +33,8 @@ __all__ = ["SearchConfig", "SearchResult", "DenseFFNAdapter", "make_adapter"]
 class SearchConfig:
     steps: int = 2000
     seed: int = 0
-    # registry name ("ce" Eqn. 23 | "kl" Algorithm-1 listing) or an
-    # core.objective.Objective instance
+    # registry name ("ce" Eqn. 23 | "kl" Algorithm-1 listing |
+    # "swd_actmatch" | "saliency_ce") or a core.objective.Objective instance
     objective: Any = "ce"
     n_match_layers: int = 10       # activation-matching depth (paper Table 4)
     ce_weight: float = 10.0        # CE is 10x more important at step 0 (§4.1)

@@ -1,0 +1,69 @@
+"""Per-linear input capture ("taps") for calibration-based PTQ (GPTQ, AWQ,
+OmniQuant).
+
+Re-runs the dense decoder block math with the same ``models.layers``
+primitives as the forward, emitting the input activations of every
+quantizable linear:
+
+    attn_in  (L, B, S, D)     — input of wq/wk/wv
+    attn_mid (L, B, S, Hq·Dh) — input of wo
+    mlp_in   (L, B, S, D)     — input of up/gate
+    mlp_mid  (L, B, S, F)     — input of down
+
+Dense pattern only (the paper's OPT family), as in the reference. The layers
+run one after another over views of the stacked weights, and each tap is
+written into a preallocated (L, ...) tensor, so no stack is copied.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig, check_supported
+from repro_torch.models.model import dequant_tree, embed_tokens, layer_slice
+
+__all__ = ["capture_dense_taps"]
+
+
+def capture_dense_taps(params, cfg: ModelConfig, tokens):
+    """tokens (B, S) int on the params' device -> dict of the four taps."""
+    check_supported(cfg)
+    B, S = tokens.shape
+    dt = getattr(torch, cfg.compute_dtype)
+    h = embed_tokens(params, cfg, tokens, torch.arange(S, device=tokens.device))
+    width = cfg.n_heads * cfg.resolved_head_dim
+    taps = {name: torch.empty((cfg.n_layers, B, S, d), dtype=dt,
+                              device=h.device)
+            for name, d in (("attn_in", cfg.d_model), ("attn_mid", width),
+                            ("mlp_in", cfg.d_model), ("mlp_mid", cfg.d_ff))}
+    act = L.activation_fn(cfg.activation)
+    for i in range(cfg.n_layers):
+        pl = dequant_tree(layer_slice(params["blocks"], i), dt)
+        a_in = L.apply_norm(h, pl["ln1"], cfg.norm)
+        q, k, v = L.attn_qkv(pl["attn"], cfg, a_in)
+        attn = L.blocked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+        attn_mid = attn.reshape(B, S, -1)
+        a = attn_mid @ pl["attn"]["wo"]
+        if "bo" in pl["attn"]:
+            a = a + pl["attn"]["bo"]
+        h = h + a
+        m_in = L.apply_norm(h, pl["ln2"], cfg.norm)
+        mlp = pl["mlp"]
+        up = m_in @ mlp["up"]
+        if "b_up" in mlp:
+            up = up + mlp["b_up"]
+        if cfg.gated_mlp:
+            g = m_in @ mlp["gate"]
+            if "b_gate" in mlp:
+                g = g + mlp["b_gate"]
+            mid = act(g) * up
+        else:
+            mid = act(up)
+        out = mid @ mlp["down"]
+        if "b_down" in mlp:
+            out = out + mlp["b_down"]
+        h = h + out
+        for name, t in (("attn_in", a_in), ("attn_mid", attn_mid),
+                        ("mlp_in", m_in), ("mlp_mid", mid)):
+            taps[name][i] = t
+    return taps

@@ -24,7 +24,8 @@ def run(params_fp, params_base, cfg, qcfg, calib_tokens, scfg=None, *,
         fake-quantized (frozen during the search).
     calib_tokens: (B, S) int tensor on the params' device.
     scfg: ``core.search.SearchConfig`` (defaults reproduce the paper run).
-    objective: registry name ("ce", "kl") or an ``Objective`` instance;
+    objective: registry name ("ce", "kl", "swd_actmatch", "saliency_ce") or
+        an ``Objective`` instance;
         overrides ``scfg.objective``.
     proposals: proposal source ``(t_u, k, pcfg) -> [FFNTransform] * k``,
         called once per step; None draws natively from a torch.Generator.

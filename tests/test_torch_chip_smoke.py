@@ -1,13 +1,21 @@
-"""``chip_smoke.py``'s reading of a profiler trace (``trace_ms``), which the
-CPU reaches: device time is taken only from a complete trace, one in which
-every named kernel was counted a whole multiple of the calls. On the H100,
-after long traces, the profiler drops some kernels' events and would
-otherwise read low."""
+"""The helpers of ``chip_smoke.py`` that the CPU reaches.
+
+- Its reading of a profiler trace (``trace_ms``): device time is taken only
+  from a complete trace, one in which every named kernel was counted a
+  whole multiple of the calls. On the H100, after long traces, the
+  profiler drops some kernels' events and would otherwise read low.
+- Phase 7's launch-count formula (``base_method_gq_launches``), held to the
+  ``group_quant`` calls that ``quantize_model`` makes on the CPU, and its
+  card-against-CPU comparisons (``choices_agree``, ``within_one_step``,
+  ``parts_only_at_ties``).
+"""
 import importlib.util
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
+import torch
 
 
 def _chip_smoke():
@@ -18,7 +26,8 @@ def _chip_smoke():
     return mod
 
 
-trace_ms = _chip_smoke().trace_ms
+CS = _chip_smoke()
+trace_ms = CS.trace_ms
 SPLIT = "void split_decode::split_kernel<float, false, 1, true>"
 MERGE = "split_decode::merge_kernel(split_decode::Args)"
 NAMES = ("split_decode::split_kernel", "split_decode::merge_kernel")
@@ -57,3 +66,133 @@ def test_other_kernels_are_named_not_timed():
     ms, counts, others = trace_ms([_ev("ampere_sgemm_32x32", 20, 90.0)],
                                   NAMES, 20)
     assert ms is None and counts == {} and others == ["ampere_sgemm_32x32"]
+
+
+# ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tiny_models():
+    from repro_torch.configs import get_config
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import init_params
+    out = {}
+    for name, over in (("opt", {}), ("gated-silu", dict(gated_mlp=True,
+                                                       activation="silu"))):
+        cfg = get_config("opt-tiny").reduced(**over)
+        out[name] = (cfg, init_params(cfg, torch.Generator().manual_seed(1),
+                                      device="cpu"))
+    calib = calibration_tensor(512, n_seqs=2, seq_len=32, device="cpu")
+    return out, calib
+
+
+@pytest.mark.parametrize("search", [False, True], ids=["alone", "search"])
+@pytest.mark.parametrize("method", ["rtn", "gptq", "awq", "omniquant"])
+@pytest.mark.parametrize("model", ["opt", "gated-silu"])
+def test_base_method_launch_formula_counts_the_group_quant_calls(
+        tiny_models, monkeypatch, model, method, search):
+    """Every ``fake_quant`` reaches ``repro_torch.kernels.group_quant``
+    (one launch on the card): count the calls on the CPU."""
+    import repro_torch.kernels as kernels
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.core.search import SearchConfig
+
+    models, calib = tiny_models
+    cfg, params = models[model]
+    calls = []
+    real = kernels.group_quant
+
+    def counted(*a, **k):
+        calls.append(a[0].shape)
+        return real(*a, **k)
+
+    monkeypatch.setattr(kernels, "group_quant", counted)
+    scfg = SearchConfig(steps=2, fused_kernel=True, log_every=0) \
+        if search else None
+    quantize_model(params, cfg, QuantConfig(2, 32), method, calib, scfg,
+                   omniquant_steps=2, device="cpu")
+    want = CS.base_method_gq_launches(method, cfg)
+    assert len(calls) == want
+    if method == "awq" and model == "opt":
+        assert want == 6 + cfg.n_layers * (20 * 2 + 10 * 6)
+
+
+def _choice(index, losses):
+    from repro_torch.core.awq import GridChoice
+    return GridChoice(index, 0.0, list(losses))
+
+
+def _layer(alpha, clips):
+    return {"alpha": alpha, "clip": clips}
+
+
+def test_choices_agree_passes_equal_picks_and_near_ties():
+    cpu = [_layer(_choice(2, [3.0, 2.0, 1.0]),
+                  {"up": _choice(0, [1.0, 1.0 + 1e-7, 2.0])})]
+    same = [_layer(_choice(2, [3.0, 2.0, 1.0]),
+                   {"up": _choice(0, [1.0, 1.0, 2.0])})]
+    assert CS.choices_agree(same, cpu) == []
+    tie = [_layer(_choice(2, [3.0, 2.0, 1.0]),
+                  {"up": _choice(1, [1.0, 1.0, 2.0])})]
+    parted = CS.choices_agree(tie, cpu)
+    assert [(p["layer"], p["grid"], p["card"], p["cpu"]) for p in parted] == [
+        (0, "clip up", 1, 0)]
+    assert parted[0]["rel_gap"] == pytest.approx(1e-7)
+
+
+def test_choices_agree_fails_a_parting_away_from_a_tie():
+    cpu = [_layer(_choice(2, [3.0, 2.0, 1.0]), {})]
+    card = [_layer(_choice(1, [3.0, 2.0, 1.0]), {})]
+    with pytest.raises(AssertionError, match="not a near tie"):
+        CS.choices_agree(card, cpu)
+
+
+def _grid_weights(seed=0, L=2, K=64, N=8):
+    """Weights on a 2-bit g32 grid (every group uses levels 0..3)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=(L, K, N)).astype(np.float32)
+    codes[:, ::32] = 0
+    codes[:, 1::32] = 3
+    scale = rng.uniform(0.1, 1.0, size=(L, K // 32, 1, N)).astype(np.float32)
+    w = (codes.reshape(L, K // 32, 32, N) - 1) * scale
+    return torch.from_numpy(w.reshape(L, K, N)), np.repeat(
+        scale, 32, axis=2).reshape(L, K, N)
+
+
+def test_within_one_step_takes_rare_one_step_flips_only():
+    w, step = _grid_weights()
+    assert CS.within_one_step(w, w, 2, 32) == 0.0
+    one = w.clone()
+    one[0, 5, 3] += float(step[0, 5, 3])             # one flip in 1024
+    assert CS.within_one_step(one, w, 2, 32) == pytest.approx(1 / w.numel())
+    two = w.clone()
+    two[0, 5, 3] += 2 * float(step[0, 5, 3])
+    with pytest.raises(AssertionError, match="more than one step"):
+        CS.within_one_step(two, w, 2, 32)
+    many = w.clone()
+    many[:, 2:10] += torch.from_numpy(step[:, 2:10])
+    with pytest.raises(AssertionError, match="step apart"):
+        CS.within_one_step(many, w, 2, 32)
+    # the GPTQ bar: small drift counts only past atol
+    drift = w + 1e-4
+    assert CS.within_one_step(drift, w, 2, 32, atol=1e-3) == 0.0
+
+
+def test_parts_only_at_ties_knows_where_the_ties_are():
+    """A group on levels {0, 1, 2} of its scale re-quantizes at 2/3 of
+    it: the middle level lands on a round-half tie."""
+    s = 0.3
+    base = torch.zeros(1, 32, 1)
+    base[0, :, 0] = torch.tensor([0.0, s, 2 * s] * 10 + [0.0, 2 * s])
+    step = 2 * s / 3
+    want = base.clone()
+    got = base.clone()
+    got[0, 1, 0] += step / 2            # the tie rounds the other way
+    assert CS.parts_only_at_ties(got, want, base, 2, 32) == pytest.approx(
+        1 / 32)
+    off = base.clone()
+    off[0, 0, 0] += step                # level 0 is not at a tie
+    with pytest.raises(AssertionError, match="away from a round-half tie"):
+        CS.parts_only_at_ties(off, want, base, 2, 32)

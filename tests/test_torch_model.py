@@ -186,7 +186,7 @@ def test_objective_registry():
     inst = tobj.KLObjective()
     assert tobj.get_objective(inst) is inst
     with pytest.raises(ValueError, match="unknown objective"):
-        tobj.get_objective("swd_actmatch")
+        tobj.get_objective("nope")
     with pytest.raises(TypeError):
         tobj.get_objective(3)
     with pytest.raises(ValueError, match="already registered"):

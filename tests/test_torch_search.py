@@ -33,6 +33,7 @@ from repro_torch import search as tsearch
 from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import invariance as tinv
+from repro_torch.core import objective as tobj
 from repro_torch.core import quant as tq
 from repro_torch.core import rtn as trtn
 from repro_torch.core import search as tcs
@@ -228,9 +229,21 @@ def _compare_histories(th, jh):
             cur = jl
 
 
+def _port_objective(name, tcfg):
+    """The port's objective for a replayed run: SWD on the reference's raw
+    projection directions (``jax.random`` at proj_seed 0; the port does not
+    re-derive threefry), every other objective by name."""
+    if name != "swd_actmatch":
+        return name
+    dirs = np.array(jax.random.normal(jax.random.PRNGKey(0),
+                                      (tcfg.d_model, 64), jnp.float32))
+    return tobj.SWDActMatchObjective(dirs=torch.from_numpy(dirs))
+
+
 @pytest.mark.parametrize("fused,objective", [
-    (False, "ce"), (True, "ce"), (False, "kl")],
-    ids=["unfused", "fused", "unfused-kl"])
+    (False, "ce"), (True, "ce"), (False, "kl"), (True, "swd_actmatch"),
+    (True, "saliency_ce")],
+    ids=["unfused", "fused", "unfused-kl", "fused-swd", "fused-saliency"])
 def test_search_replay_matches_reference(opt_pair, fused, objective):
     jcfg, tcfg, jparams, tparams, calib = opt_pair
     jqc, tqc, jbase, tbase = _bases(opt_pair)
@@ -242,7 +255,8 @@ def test_search_replay_matches_reference(opt_pair, fused, objective):
                        torch.from_numpy(calib.astype(np.int64)),
                        tcs.SearchConfig(steps=STEPS, seed=SEED,
                                         fused_kernel=fused, log_every=0),
-                       objective=objective, proposals=JaxReplay(SEED))
+                       objective=_port_objective(objective, tcfg),
+                       proposals=JaxReplay(SEED))
     assert tres.stats["objective"] == objective
     _compare_histories(tres.history, jres.history)
     assert sum(h[4] for h in tres.history[1:]) > 0, "no move was accepted"
@@ -309,8 +323,10 @@ def test_quantize_model_search_and_method_guards(opt_pair):
     res = tquantize_model(tparams, tcfg, qc, "rtn", calib,
                           tcs.SearchConfig(steps=2, log_every=0), device="cpu")
     assert res.method == "rtn+invarexplore" and len(res.search.history) == 3
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tquantize_model(tparams, tcfg, qc, "awq", calib, device="cpu")
+    awq = tquantize_model(tparams, tcfg, qc, "awq", calib, device="cpu")
+    assert awq.method == "awq" and awq.search is None
+    with pytest.raises(ValueError, match="unknown method 'nope'"):
+        tquantize_model(tparams, tcfg, qc, "nope", calib, device="cpu")
     with pytest.raises(ValueError, match="calib_tokens"):
         tquantize_model(tparams, tcfg, qc, "rtn", None, tcs.SearchConfig(),
                         device="cpu")
