@@ -90,7 +90,25 @@ source, started together, into ``build/kernels/``), then:
    within its own and parting after the pipeline's fake-quant only at
    round-half ties, AWQ's α and clip picks equal or parted at a printed
    near tie) and each 7b objective's search with the same proposals and
-   SWD directions (``histories_agree``).
+   SWD directions (``histories_agree``);
+8. the rest of the search engine, through ``repro_torch.search.run`` on
+   phase 2's opt-1.3b weights and calibration set (fused lane): (a) K 2
+   for 6 steps with one island, two islands without migration (island 0
+   must equal the single chain exactly) and two migrating every 2 steps;
+   (b) ``shard_calib`` over two islands of 2 sequences each; (c) K 8 for 3
+   steps with ``install="unit"`` and ``"stack"`` and ``measure_memory``
+   (identical histories, or the reference's install bar; stack bytes equal,
+   candidate batch bytes K units against K stacks, a ratio of exactly 24,
+   from the shapes; the unit peak below the stack peak); (d) the tabu
+   memory with a state-deterministic proposal source (identical histories
+   with and without it, at least one hit; two annealed runs identical, π
+   still permutations). After every run the registry's search counters
+   must equal the stats, and the ``group_quant`` / ``transform_quant``
+   launches ``search_launches``. (e) The search CLI on the card (islands;
+   memory rows for both install modes) into ``build/smoke/``; (f)
+   opt-tiny reduced on the card against the CPU: islands with migration,
+   tabu and ``shard_calib``, the same with ``install="stack"``, and a warm
+   annealed tabu run whose cached moves are accepted and rebuilt.
 
 Prints the ``nvidia-smi`` name/power-limit line, a ``{"kernels": [...]}``
 line (all seven ported kernels), and last ``{"ok": true, "device":
@@ -1874,6 +1892,345 @@ def phase_small_base_methods(torch):
             cpu_losses=[h[1] for h in hist["cpu"]])
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the rest of the search engine
+# ---------------------------------------------------------------------------
+
+ISL_STEPS = 6
+MEM_K = 8
+MEM_STEPS = 3
+TABU_STEPS = 8
+SEARCH_KERNELS = ("group_quant", "transform_quant")
+SMOKE_OUT = "build/smoke"      # the CLI's rows and metrics (git-ignored)
+COUNTERS = ("search_proposals_total", "search_accepts_total",
+            "search_migrations_total")
+
+
+def search_launches(cfg, scfg, stats):
+    """``group_quant`` and ``transform_quant`` launches of one
+    ``repro_torch.search.run`` call. Each built unit quantizes its 2-D
+    weights (up, down, and gate on a gated model), one launch each:
+    ``transform_quant`` on the fused lane, ``group_quant`` on the unfused
+    one. The initial stack takes one ``group_quant`` per weight; K units
+    are built on each island step the tabu memory did not skip, and one
+    more on each accepted cached move (``stats["tabu_skips"]``,
+    ``stats["tabu_rebuilds"]``)."""
+    n_w = 2 + int(cfg.gated_mlp)
+    K = max(int(scfg.population), 1)
+    built = scfg.steps * max(int(scfg.islands), 1) - stats["tabu_skips"]
+    units = K * built + stats["tabu_rebuilds"]
+    fused = bool(scfg.fused_kernel)
+    return {"group_quant": n_w + (0 if fused else n_w * units),
+            "transform_quant": n_w * units if fused else 0}
+
+
+class StateProposals:
+    """A state-deterministic proposal source: the K candidates depend only
+    on (t_u, k), drawn on the CPU from a generator re-seeded with ``seed``
+    at every call, then handed over on ``device`` — the counterpart of the
+    reference's ``_ConstProposalAdapter`` (``tests/test_search_v2.py``).
+    An unaccepted state therefore re-proposes the same points."""
+
+    def __init__(self, torch, inv, device, seed=7):
+        self.torch, self.inv, self.device, self.seed = torch, inv, device, seed
+
+    def __call__(self, t_u, k, pcfg):
+        gen = self.torch.Generator().manual_seed(self.seed)
+        t_cpu = self.inv.FFNTransform(*(x.cpu() for x in t_u))
+        return [self.inv.FFNTransform(*(x.to(self.device) for x in
+                                        self.inv.propose(gen, t_cpu, pcfg)))
+                for _ in range(k)]
+
+
+class CpuProposals:
+    """Island ``index``'s native source drawn on the CPU, handed over on
+    ``device`` (as phase 1's card-against-CPU run does)."""
+
+    def __init__(self, inv, seed, device):
+        self.src, self.inv, self.device = inv.NativeProposals(seed, "cpu"), \
+            inv, device
+
+    def __call__(self, t_u, k, pcfg):
+        t_cpu = self.inv.FFNTransform(*(x.cpu() for x in t_u))
+        return [self.inv.FFNTransform(*(x.to(self.device) for x in c))
+                for c in self.src(t_cpu, k, pcfg)]
+
+
+def histories_identical(ha, hb, what):
+    """True when two histories are equal as Python floats; else log where
+    they part and by how much, and hold them to the reference's own bar for
+    install modes (``tests/test_search_v2.py``: same steps and accept
+    flags, losses within atol 1e-5)."""
+    if ha == hb:
+        return True
+    first = next(i for i, (a, b) in enumerate(zip(ha, hb)) if a != b)
+    diff = max(abs(x - y) for a, b in zip(ha, hb) for x, y in
+               zip(a[1:4], b[1:4]))
+    log("histories_part", what=what, first_step=ha[first][0],
+        max_abs_diff=diff)
+    for a, b in zip(ha, hb):
+        if a[0] != b[0] or a[4] != b[4] or \
+                max(abs(x - y) for x, y in zip(a[1:4], b[1:4])) > 1e-5:
+            raise AssertionError(f"{what}: step {b[0]} {a} vs {b}")
+    return False
+
+
+def phase_search_engine(torch, ops, cfg, qcfg):
+    """8a-8d on random-init opt-1.3b at full width and depth (phase 2's
+    weights, seed 0, and its 4 x 512 calibration tokens), through
+    ``repro_torch.search.run`` after RTN froze the attention weights, as
+    ``quantize_model`` does; 8e the search CLI. Returns the launch counts
+    by kernel and run."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core import invariance as inv
+    from repro_torch.core import rtn
+    from repro_torch.core.quant import fake_quant
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import init_params
+    from repro_torch.search import run
+
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    calib = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=512,
+                               seed=99, device="cuda")
+    base = rtn.map_quantizable(params, lambda w, p: fake_quant(w, qcfg),
+                               only=lambda p: p[-1] not in ("up", "down"))
+    reg = obs.get_registry()
+    launches = {k: {} for k in SEARCH_KERNELS}
+
+    def search(label, proposals=None, **kw):
+        scfg = SearchConfig(fused_kernel=True, log_every=0,
+                            **{"population": 2, **kw})
+        before = {n: reg.counter(n).total() for n in COUNTERS}
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run(params, base, cfg, qcfg, calib, scfg, proposals=proposals)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: ops.LAUNCHES[k] for k in SEARCH_KERNELS}
+        delta = {n: reg.counter(n).total() - before[n] for n in COUNTERS}
+        st = res.stats
+        accepts = sum(h[4] for hist in res.island_histories
+                      for h in hist[1:])
+        want = {"search_proposals_total": st["proposals"],
+                "search_accepts_total": accepts,
+                "search_migrations_total": st["migrations"]}
+        if delta != want:
+            raise AssertionError(f"{label}: registry deltas {delta} != "
+                                 f"stats {want}")
+        if counts != search_launches(cfg, scfg, st):
+            raise AssertionError(f"{label}: launches {counts} != "
+                                 f"{search_launches(cfg, scfg, st)}")
+        hists = res.island_histories
+        if not all(math.isfinite(h[1]) for hist in hists for h in hist):
+            raise AssertionError(f"{label}: non-finite losses {hists}")
+        if not res.final_loss <= min(hist[0][1] for hist in hists) or \
+                res.initial_loss not in [hist[0][1] for hist in hists]:
+            raise AssertionError(f"{label}: initial {res.initial_loss} / "
+                                 f"final {res.final_loss} vs {hists}")
+        for k in SEARCH_KERNELS:
+            launches[k][label] = counts[k]
+        return res, seconds, counts
+
+    def row(label, res, seconds, counts, **extra):
+        st = res.stats
+        log("search_engine", run=label, seconds=seconds,
+            proposals_per_sec=st["proposals_per_sec"],
+            initial_loss=res.initial_loss, final_loss=res.final_loss,
+            accept_rate=res.accept_rate,
+            island_losses=[[h[1] for h in hist]
+                           for hist in res.island_histories],
+            island_accepts=[[int(h[4]) for h in hist[1:]]
+                            for hist in res.island_histories],
+            launches=counts,
+            stats={k: v for k, v in st.items() if k != "proposals_per_sec"},
+            **extra)
+
+    # 8a: islands, migration and island 0's independence of the count
+    one = search("islands=1", steps=ISL_STEPS)
+    row("islands=1", *one)
+    two = search("islands=2,migrate_every=0", steps=ISL_STEPS, islands=2,
+                 migrate_every=0)
+    row("islands=2,migrate_every=0", *two)
+    if two[0].island_histories[0] != one[0].history:
+        raise AssertionError("island 0 of 2 walked another path than the "
+                             "single chain")
+    mig = search("islands=2,migrate_every=2", steps=ISL_STEPS, islands=2,
+                 migrate_every=2)
+    row("islands=2,migrate_every=2", *mig,
+        migrations=mig[0].stats["migrations"])
+    del one, two, mig
+
+    # 8b: each island climbs on its own 2 sequences
+    shd = search("shard_calib", steps=4, islands=2, population=1,
+                 shard_calib=True)
+    hists = shd[0].island_histories
+    row("shard_calib", *shd, step0_losses=[h[0][1] for h in hists],
+        island_final=[min(x[1] for x in h if x[4]) for h in hists])
+    if hists[0][0][1] == hists[1][0][1]:
+        raise AssertionError("both calibration slices gave one step-0 loss")
+    del shd
+
+    # 8c: the two install modes with the allocator's peak
+    mem = {}
+    for mode in ("unit", "stack"):
+        res, seconds, counts = search(
+            f"install={mode}", steps=MEM_STEPS, population=MEM_K,
+            install=mode, measure_memory=True)
+        row(f"install={mode}", res, seconds, counts)
+        mem[mode] = (res.history, res.stats)
+        del res
+        torch.cuda.empty_cache()
+    unit_bytes = 4 * (2 * cfg.d_model * cfg.d_ff + cfg.d_ff)
+    want = {"unit": MEM_K * unit_bytes,
+            "stack": MEM_K * cfg.n_layers * unit_bytes}
+    su, ss = mem["unit"][1], mem["stack"][1]
+    identical = histories_identical(mem["unit"][0], mem["stack"][0],
+                                    "install unit vs stack")
+    log("install_modes", identical=identical,
+        stack_bytes=su["stack_bytes"], stack_bytes_expected=cfg.n_layers
+        * unit_bytes, candidate_batch_bytes={"unit": su[
+            "candidate_batch_bytes"], "stack": ss["candidate_batch_bytes"]},
+        expected=want, ratio=ss["candidate_batch_bytes"]
+        / su["candidate_batch_bytes"],
+        peak_live_bytes={"unit": su["peak_live_bytes"],
+                         "stack": ss["peak_live_bytes"]})
+    if su["stack_bytes"] != ss["stack_bytes"] or \
+            su["stack_bytes"] != cfg.n_layers * unit_bytes:
+        raise AssertionError(f"stack bytes {su['stack_bytes']} / "
+                             f"{ss['stack_bytes']}")
+    if {"unit": su["candidate_batch_bytes"],
+            "stack": ss["candidate_batch_bytes"]} != want or \
+            ss["candidate_batch_bytes"] != \
+            cfg.n_layers * su["candidate_batch_bytes"]:
+        raise AssertionError("candidate batch bytes off the memory model")
+    if not su["peak_live_bytes"] < ss["peak_live_bytes"]:
+        raise AssertionError("unit install peak not below stack install")
+    del mem
+
+    # 8d: the tabu memory, with larger scale moves than the paper's (σ_s
+    # 0.5, not 0.01). On these weights the greedy chain rejects steps 6 and
+    # 7, and seed 0's unit picks revisit unit 0 (step 6) at step 8 with the
+    # state unchanged, so the memory replays that whole step.
+    wide = inv.ProposalConfig(sigma_s=0.5)
+    src = StateProposals(torch, inv, torch.device("cuda"))
+    plain = search("tabu=0", src, steps=TABU_STEPS, proposal=wide)
+    row("tabu=0", *plain)
+    tabu = search("tabu=64", src, steps=TABU_STEPS, proposal=wide, tabu=64)
+    row("tabu=64", *tabu)
+    if tabu[0].history != plain[0].history:
+        raise AssertionError("the tabu memory changed the history")
+    if not tabu[0].stats["tabu_hits"] > 0:
+        raise AssertionError("no tabu hit")
+    hot = [search(f"tabu=64,T=5#{i}", src, steps=TABU_STEPS, tabu=64,
+                  temperature=5.0, anneal="constant") for i in (1, 2)]
+    row("tabu=64,T=5", *hot[0])
+    if hot[0][0].history != hot[1][0].history:
+        raise AssertionError("annealed tabu run not deterministic")
+    pi = hot[0][0].transforms.pi
+    if not torch.equal(torch.sort(pi, dim=1).values,
+                       torch.arange(cfg.d_ff, device=pi.device).expand_as(pi)):
+        raise AssertionError("a pi is no longer a permutation")
+    del plain, tabu, hot, params, base, calib
+    torch.cuda.empty_cache()
+
+    # 8e: the search CLI on the card (its .reduced() config)
+    from repro_torch.launch.search import main as search_main
+    out = f"{SMOKE_OUT}/BENCH_search.json"
+    common = ["--out", out, "--metrics-out", f"{SMOKE_OUT}/metrics.json"]
+    rows = {}
+    for name, argv in (
+            ("islands", ["--islands", "2", "--population", "2", "--steps",
+                         "8", "--fused"]),
+            ("mem-unit", ["--measure-mem", "--install", "unit",
+                          "--population", "8", "--steps", "4"]),
+            ("mem-stack", ["--measure-mem", "--install", "stack",
+                           "--population", "8", "--steps", "4"])):
+        ops.reset_launch_counts()
+        search_main(argv + common, device="cuda")
+        rows[name] = json.loads(Path(out).read_text())[-1]
+        log("search_cli", argv=argv, row=rows[name],
+            launches={k: ops.LAUNCHES[k] for k in SEARCH_KERNELS})
+    u, s = rows["mem-unit"], rows["mem-stack"]
+    n_units = get_config("opt-tiny").reduced().n_layers
+    if not u["peak_live_bytes"] < s["peak_live_bytes"] or \
+            u["stack_bytes"] != s["stack_bytes"] or \
+            s["candidate_batch_bytes"] != n_units * u["candidate_batch_bytes"]:
+        raise AssertionError(f"CLI memory rows {u} / {s}")
+    if "migrations=" not in rows["islands"]["derived"]:
+        raise AssertionError(f"CLI row {rows['islands']}")
+    return launches
+
+
+def phase_small_search_engine(torch, devs=("cpu", "cuda")):
+    """8f: opt-tiny reduced on the card against the CPU, with the same
+    proposals drawn on the CPU: islands with migration, tabu and sharded
+    calibration; the same with ``install="stack"``; and a warm annealed
+    tabu run with the state-deterministic source, where cached moves are
+    accepted and rebuilt (on the CPU, by the run's data, at least once).
+    ``devs``: the yardstick's device, then the device under test."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import invariance as inv
+    from repro_torch.core import rtn
+    from repro_torch.core.quant import QuantConfig, fake_quant
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import init_params
+    from repro_torch.search import run
+    from repro_torch.search.islands import island_seed
+
+    cfg = get_config("opt-tiny").reduced(n_kv_heads=4)
+    qcfg = QuantConfig(bits=2, group_size=32)
+    params = init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+    calib = calibration_tensor(cfg.vocab_size, n_seqs=2, seq_len=64,
+                               device="cpu")
+    isl = dict(steps=LANE_STEPS, population=2, islands=2, migrate_every=2,
+               tabu=16, shard_calib=True, seed=3)
+    # T 3e-3 against Δ ≈ 2e-3 here: replayed (rejected) moves are accepted
+    # about half the time
+    cases = (("islands+tabu+shard", isl, "native"),
+             ("islands+tabu+shard,stack", dict(isl, install="stack"),
+              "native"),
+             ("tabu,warm", dict(steps=16, population=2, tabu=16, seed=0,
+                                temperature=3e-3, anneal="constant"),
+              "state"))
+    for label, kw, kind in cases:
+        out = []
+        for d in map(torch.device, devs):
+            p = to_device(params, d)
+            base = rtn.map_quantizable(p, lambda w, _: fake_quant(w, qcfg),
+                                       only=lambda q: q[-1] not in ("up",
+                                                                    "down"))
+            n = kw.get("islands", 1)
+            srcs = ([CpuProposals(inv, island_seed(kw["seed"], i), d)
+                     for i in range(n)] if kind == "native"
+                    else [StateProposals(torch, inv, d)])
+            out.append(run(p, base, cfg, qcfg, calib.to(d),
+                           SearchConfig(fused_kernel=True, log_every=0,
+                                        **kw), proposals=srcs))
+        cpu, card = out
+        parted = []
+        for i, (hc, hp) in enumerate(zip(card.island_histories,
+                                         cpu.island_histories)):
+            parted.append(histories_agree(hc, hp, f"{label} island {i}"))
+        keys = ("migrations", "tabu_hits", "tabu_skips", "tabu_rebuilds")
+        if all(p[1] is None for p in parted) and \
+                any(card.stats[k] != cpu.stats[k] for k in keys):
+            raise AssertionError(f"{label}: stats {card.stats} vs "
+                                 f"{cpu.stats}")
+        if kind == "state" and not cpu.stats["tabu_rebuilds"] > 0:
+            raise AssertionError(f"{label}: no cached move was accepted")
+        log("small_search_engine", run=label, parted=parted,
+            **{k: [card.stats[k], cpu.stats[k]] for k in keys},
+            card_losses=[[h[1] for h in hist]
+                         for hist in card.island_histories],
+            cpu_losses=[[h[1] for h in hist]
+                        for hist in cpu.island_histories])
+
+
 def main() -> int:
     import torch
 
@@ -2064,6 +2421,12 @@ def main() -> int:
     base_launches = phase_base_methods(torch, ops, cfg, qcfg)
     phase_small_base_methods(torch)
 
+    # ---- phase 8: the rest of the search engine, the search CLI ----------
+    t0 = time.perf_counter()
+    engine_launches = phase_search_engine(torch, ops, cfg, qcfg)
+    phase_small_search_engine(torch)
+    log("phase8", seconds=time.perf_counter() - t0)
+
     kernels = []
     for name, source, replaces in (
             ("group_quant", "src/repro_torch/csrc/group_quant.cu",
@@ -2081,6 +2444,11 @@ def main() -> int:
                 "launches_on": "phase 7a: quantize_model gptq / awq / "
                                "omniquant on opt-1.3b, alone and with 16 "
                                "fused steps, each counted from 0"},
+            "search_engine": {
+                "launches": engine_launches[name],
+                "launches_on": "phase 8a-8d: repro_torch.search.run on "
+                               "opt-1.3b (islands, shard_calib, both "
+                               "install modes, tabu), each counted from 0"},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,

@@ -11,8 +11,8 @@ block's FFN as a transformable unit, with two candidate builds:
   launch per weight (up, down) reading the original weights once.
 
 Stacks are never modified in place: :meth:`DenseFFNAdapter.install_unit`
-returns a fresh stack, so a stack held as the elite snapshot stays what it
-was when it was taken.
+returns a fresh stack (``search.install.tree_install_unit``), so a stack
+held as the elite snapshot stays what it was when it was taken.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from repro_torch.core import invariance as inv
 from repro_torch.core.quant import QuantConfig, fake_quant
 from repro_torch.models.config import ModelConfig, check_supported
 from repro_torch.models.model import layer_slice
+from repro_torch.search.install import tree_install_unit
 
 __all__ = ["SearchConfig", "SearchResult", "DenseFFNAdapter", "make_adapter"]
 
@@ -40,15 +41,21 @@ class SearchConfig:
     ce_weight: float = 10.0        # CE is 10x more important at step 0 (§4.1)
     proposal: inv.ProposalConfig = dataclasses.field(default_factory=inv.ProposalConfig)
     log_every: int = 200
+    # --- engine scale-out (repro_torch.search); defaults = legacy behavior ---
     population: int = 1            # candidates per step
-    islands: int = 1               # >1 not ported yet (ROADMAP item 7)
+    islands: int = 1               # independent chains, run in turn
     temperature: float = 0.0       # initial annealing T; 0 = greedy climb
     anneal: str = "geometric"      # schedule: constant | geometric | linear
+    migrate_every: int = 50        # elite-migration cadence (0 = never)
     fused_kernel: bool = False     # kernels.transform_quant fused lane
     mapped: bool = False           # not ported yet (ROADMAP item 14)
-    tabu: int = 0                  # not ported yet (ROADMAP item 7)
-    shard_calib: bool = False      # not ported yet (ROADMAP item 7)
-    measure_memory: bool = False   # not ported yet (ROADMAP item 7)
+    # --- candidate-eval memory model + calibration sharding ---
+    install: str = "unit"          # "unit": stack + K×unit, one override
+                                   # forward each; "stack": K full stacks
+    tabu: int = 0                  # tried-point memory capacity (0 = off)
+    shard_calib: bool = False      # per-island calibration slices
+    measure_memory: bool = False   # CUDA allocator peak into
+                                   # stats["peak_live_bytes"] (bench)
 
 
 @dataclasses.dataclass
@@ -139,12 +146,7 @@ class DenseFFNAdapter:
 
     def install_unit(self, fq_stack, u: int, unit):
         """A fresh stack equal to ``fq_stack`` with unit ``u`` replaced."""
-        out = {}
-        for k, v in fq_stack.items():
-            nv = v.clone()
-            nv[u] = unit[k]
-            out[k] = nv
-        return out
+        return tree_install_unit(fq_stack, u, unit)
 
 
 def make_adapter(cfg: ModelConfig):

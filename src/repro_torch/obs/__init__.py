@@ -1,6 +1,7 @@
 """Observability for the port: metrics registry, span tracing and a
 single-process snapshot writer (the part of the reference's ``repro.obs``
-that serving reads; the multi-host merge waits for the multi-GPU slice).
+that serving and the search read; the multi-host merge waits for the
+multi-GPU slice).
 Call sites write ``from repro_torch import obs``."""
 from __future__ import annotations
 
@@ -9,19 +10,21 @@ import pathlib
 from typing import Optional
 
 from repro_torch.obs.registry import (LATENCY_BUCKETS_S, Counter, Gauge,
-                                      Histogram, Registry, get_registry,
-                                      hist_quantile)
-from repro_torch.obs.tracing import (enable_profiler, profile_range,
+                                      Histogram, Registry, counter, gauge,
+                                      get_registry, hist_quantile, histogram)
+from repro_torch.obs.tracing import (emit, enable_profiler, profile_range,
                                      set_trace_sink, trace_span)
 
 __all__ = [
     "LATENCY_BUCKETS_S", "Counter", "Gauge", "Histogram", "Registry",
-    "get_registry", "hist_quantile", "enable_profiler", "profile_range",
-    "set_trace_sink", "trace_span",
-    "DEFAULT_METRICS_PATH", "write_snapshot",
+    "counter", "gauge", "get_registry", "hist_quantile", "histogram",
+    "emit", "enable_profiler", "profile_range", "set_trace_sink",
+    "trace_span", "DEFAULT_METRICS_PATH", "write_snapshot",
 ]
 
-DEFAULT_METRICS_PATH = "artifacts/obs/metrics.json"
+# under the git-ignored build/ (relative to the working directory), so a
+# CLI run from a checkout writes nothing that git tracks
+DEFAULT_METRICS_PATH = "build/obs/metrics.json"
 
 
 def write_snapshot(snapshot: Optional[dict] = None,

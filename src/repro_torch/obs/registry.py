@@ -31,7 +31,8 @@ import threading
 from typing import Dict, List, Optional, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "Registry", "hist_quantile",
-           "LATENCY_BUCKETS_S", "get_registry"]
+           "LATENCY_BUCKETS_S", "get_registry", "counter", "gauge",
+           "histogram"]
 
 # geometric ladder from 100us to 2 minutes: wide enough for a CPU-container
 # TTFT and a real-accelerator decode step to land in informative buckets
@@ -236,3 +237,16 @@ _default = Registry()
 
 def get_registry() -> Registry:
     return _default
+
+
+def counter(name: str, help: str = "") -> Counter:
+    return _default.counter(name, help)
+
+
+def gauge(name: str, help: str = "") -> Gauge:
+    return _default.gauge(name, help)
+
+
+def histogram(name: str, help: str = "",
+              buckets=LATENCY_BUCKETS_S) -> Histogram:
+    return _default.histogram(name, help, buckets=buckets)

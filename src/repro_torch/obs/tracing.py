@@ -13,7 +13,9 @@ per process, written once per sink as a ``clock_anchor`` metadata event, so
 activity in a ``torch.profiler`` trace — the counterpart of the reference's
 ``jax.profiler`` annotation. ``profile_range(name)`` marks a region inside a
 span for such a trace only (no sink event, no histogram) and is a no-op
-unless ``enable_profiler()`` is on.
+unless ``enable_profiler()`` is on. ``emit(name, **fields)`` writes an
+instant event to the sink and prints the same ``[name] k=v ...`` line as
+the reference's.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import time
 from typing import IO, Optional, Union
 
 __all__ = ["trace_span", "set_trace_sink", "enable_profiler",
-           "profile_range"]
+           "profile_range", "emit"]
 
 _lock = threading.Lock()
 _sink: Optional[IO] = None
@@ -34,6 +36,11 @@ _profile_default = False
 
 _EPOCH_WALL = time.time()
 _EPOCH_MONO = time.monotonic()
+
+
+def _now_ts() -> float:
+    """Wall-valued, monotonically-derived timestamp."""
+    return _EPOCH_WALL + (time.monotonic() - _EPOCH_MONO)
 
 
 def enable_profiler(on: bool = True) -> None:
@@ -105,7 +112,7 @@ class trace_span:
             import torch
             self._record = torch.profiler.record_function(self.name)
             self._record.__enter__()
-        self.t_wall = _EPOCH_WALL + (time.monotonic() - _EPOCH_MONO)
+        self.t_wall = _now_ts()
         self._t0 = time.monotonic()
         if _sink is not None:
             _write({"ph": "B", "name": self.name, "ts": self.t_wall,
@@ -124,3 +131,13 @@ class trace_span:
                     "ts": self.t_wall + self.dur, "dur_s": self.dur,
                     **({"error": repr(exc)} if exc is not None else {})})
         return False
+
+
+def emit(name: str, _print: bool = True, **fields) -> str:
+    """Structured instant event + compact human line. Returns the line."""
+    if _sink is not None:
+        _write({"ph": "i", "name": name, "ts": _now_ts(), **fields})
+    line = f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items())
+    if _print:
+        print(line, flush=True)
+    return line

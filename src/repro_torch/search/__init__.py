@@ -1,6 +1,8 @@
 """Discrete search: the front door (``api.run``), the engine's sequential
-lane (``engine.py``) and the annealing schedules (``anneal.py``, a verbatim
-copy of the reference's pure-Python module)."""
+lane (``engine.py``), islands and migration (``islands.py``), the tabu
+memory (``tabu.py``), candidate install (``install.py``) and the annealing
+schedules (``anneal.py``). ``anneal.py`` and ``tabu.py`` are copies of the
+reference's host-only modules."""
 from repro_torch.search.anneal import accept, temperature_schedule
 from repro_torch.search.api import run
 

@@ -28,13 +28,21 @@ def run(params_fp, params_base, cfg, qcfg, calib_tokens, scfg=None, *,
         an ``Objective`` instance;
         overrides ``scfg.objective``.
     proposals: proposal source ``(t_u, k, pcfg) -> [FFNTransform] * k``,
-        called once per step; None draws natively from a torch.Generator.
+        called once per island step: one source (one island) or a list
+        with one source per island. None draws natively from one
+        torch.Generator per island (``search.islands.make_island_streams``).
     """
     from repro_torch.core.search import SearchConfig, make_adapter
 
     scfg = scfg if scfg is not None else SearchConfig()
     if objective is not None:
         scfg = dataclasses.replace(scfg, objective=objective)
+    if proposals is not None:
+        if not isinstance(proposals, (list, tuple)):
+            proposals = [proposals]
+        if len(proposals) != max(int(scfg.islands), 1):
+            raise ValueError(
+                f"{len(proposals)} proposal source(s) for {scfg.islands} "
+                f"islands: pass one source per island")
     return _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
-                       adapter=make_adapter(cfg),
-                       proposals=proposals)
+                       adapter=make_adapter(cfg), proposals=proposals)

@@ -1,74 +1,101 @@
-"""The Algorithm 1 engine: sequential lane, one island.
+"""Population × island annealed discrete search (the Algorithm 1 engine),
+sequential lane.
 
-Per step: pick a unit ``u`` from the host stream, draw K candidate
-transforms for it from the proposal source, build each candidate's
-fake-quant unit (fused: ``transform_quant`` kernels; unfused:
-``transform_unit`` + ``fake_quant``), score each with one calibration
-forward in which only layer ``u`` reads the candidate (the stack itself is
-not copied), and apply the Metropolis rule to the best candidate
-(T = 0: accept iff the loss strictly improves).
+Per island step: pick a unit ``u`` from the island's host stream, draw K
+candidate transforms for it from the island's proposal source (called
+exactly once per island step), build each candidate's fake-quant unit
+(fused: ``transform_quant`` kernels; unfused: ``transform_unit`` +
+``fake_quant``), score each with one calibration forward, and apply the
+Metropolis rule to the best candidate (T = 0: accept iff the loss strictly
+improves). The degrees of freedom, each defaulting to the paper's
+single-chain hill climb:
 
-Host streams are the reference's verbatim: ``np.random.default_rng(seed)``,
-``u = rng.integers(n_units)`` every step and ``rng.random()`` only when
-T > 0, so the unit picks match the JAX engine's exactly. Proposals come from
-a pluggable source (``core.invariance.NativeProposals`` by default).
+- population K, and the memory model (``SearchConfig.install``):
+  ``"unit"`` keeps ONE stack plus the K built units and runs each forward
+  with ``layer_override`` (only layer ``u`` reads the candidate; the stack
+  is not copied); ``"stack"`` installs each unit into a full copy of the
+  stack (K stacks live at once) and runs the forward without an override.
+- temperature T under an annealing schedule (``search/anneal.py``).
+- islands: independent chains run one after another, each with its own
+  host stream and proposal source (``search/islands.py``), and elite
+  migration every ``migrate_every`` steps. With ``shard_calib=True`` each
+  island climbs on its own contiguous slice of the calibration batch
+  (views of the FP reference's logits and taps), with its own step-0
+  baseline; α comes from the full batch.
+- a tried-point tabu memory per island (``tabu=N``, ``search/tabu.py``):
+  when all K candidates were already evaluated at the current chain state
+  the build and forwards are skipped and the cached scalars replayed; if
+  the rule then accepts the cached move, only that unit is rebuilt.
 
-Accepted moves install the winning unit into a FRESH stack
-(``adapter.install_unit``), so the elite snapshot never aliases state that
-a later step changes. Islands, tabu memory, sharded calibration, mapped
-execution and memory sampling are not ported yet and raise.
+Host streams are the reference's verbatim, so unit picks and accept draws
+match the JAX engine's. Accepted moves install the winning unit into a
+FRESH stack (``adapter.install_unit``) and transform tree
+(``search.install.tree_install_unit``), so an elite snapshot never aliases
+state that a later step changes.
+
+Observability: the reference's nine ``search_*`` metrics, spans
+``search.run`` / ``search.step`` / ``search.eval``, and a ``[search]``
+line through ``obs.emit`` every ``log_every`` steps. ``measure_memory``
+reads the CUDA caching allocator (see ``_run_engine``). Mapped islands (one
+island per device) wait for the multi-GPU port and raise.
 """
 from __future__ import annotations
-
-import logging
-import time
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import invariance as inv
 from repro_torch.core import objective as obj
+from repro_torch.data.calib import shard_calibration
 from repro_torch.models.model import forward
 from repro_torch.search import anneal
+from repro_torch.search.install import (stack_unit_batch, tree_bytes,
+                                        tree_install_unit)
+from repro_torch.search.islands import IslandState, make_island_streams, migrate
+from repro_torch.search.tabu import TabuMemory, transform_bytes
 
 __all__ = ["_run_engine"]
 
-log = logging.getLogger(__name__)
-
-_NOT_PORTED = (
-    ("islands", lambda v: int(v) > 1, "ROADMAP Queue 1 item 7 (islands, migrate)"),
-    ("tabu", lambda v: int(v) > 0, "ROADMAP Queue 1 item 7 (search/tabu.py)"),
-    ("shard_calib", bool, "ROADMAP Queue 1 item 7 (shard_calib)"),
-    ("mapped", bool, "ROADMAP Queue 1 item 14 (mapped islands)"),
-    ("measure_memory", bool, "ROADMAP Queue 1 item 7 (measure_memory)"),
-)
+def _resolve_install(scfg) -> str:
+    mode = str(scfg.install)
+    if mode not in ("unit", "stack"):
+        raise ValueError(
+            f"SearchConfig.install must be 'unit' or 'stack', got {mode!r}")
+    return mode
 
 
-def _check_ported(scfg) -> None:
-    for field, used, item in _NOT_PORTED:
-        value = getattr(scfg, field)
-        if used(value):
-            raise NotImplementedError(
-                f"SearchConfig.{field}={value!r} is not ported yet: {item}")
-
-
-def _stack_transform(t: inv.FFNTransform, n: int) -> inv.FFNTransform:
-    return inv.FFNTransform(*(x.unsqueeze(0).repeat((n,) + (1,) * x.ndim)
-                              for x in t))
+def _search_metrics():
+    """Instrument handles on the process registry (get-or-create, so a
+    registry ``reset()`` between runs keeps these valid)."""
+    reg = obs.get_registry()
+    return {
+        "proposals": reg.counter(
+            "search_proposals_total", "Candidate transforms proposed"),
+        "accepts": reg.counter(
+            "search_accepts_total", "Moves accepted by the Metropolis rule"),
+        "uphill": reg.counter(
+            "search_uphill_accepts_total",
+            "Accepted strictly-worse (uphill) moves"),
+        "migrations": reg.counter(
+            "search_migrations_total", "Elite island migrations applied"),
+        "tabu": reg.counter(
+            "search_tabu_hits_total",
+            "Proposals deduplicated by the tried-point memory"),
+        "best": reg.gauge(
+            "search_objective_best", "Best combined objective seen so far"),
+        "temp": reg.gauge(
+            "search_temperature", "Annealing temperature at the last step"),
+        "step": reg.histogram(
+            "search_step_seconds", "Wall time of one full search step"),
+        "eval": reg.histogram(
+            "search_eval_seconds",
+            "Proposal evaluation latency (dispatch + loss sync)"),
+    }
 
 
 def _unit_transform(ts: inv.FFNTransform, u: int) -> inv.FFNTransform:
     return inv.FFNTransform(*(x[u] for x in ts))
-
-
-def _install_transform(ts: inv.FFNTransform, u: int,
-                       t: inv.FFNTransform) -> inv.FFNTransform:
-    out = []
-    for stack, row in zip(ts, t):
-        new = stack.clone()
-        new[u] = row
-        out.append(new)
-    return inv.FFNTransform(*out)
 
 
 def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
@@ -77,106 +104,260 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
 
     ``params_fp``: FP reference model. ``params_base``: FFN weights in the
     continuous domain, every other quantizable weight already fake-quantized.
-    ``proposals``: proposal source ``(t_u, k, pcfg) -> [FFNTransform]``;
-    None draws natively from ``torch.Generator(seed)`` on the tokens' device.
+    ``proposals``: one proposal source ``(t_u, k, pcfg) -> [FFNTransform]``
+    per island, or None for the native per-island sources on the tokens'
+    device (``search.islands.make_island_streams``).
+
+    ``measure_memory`` (CUDA only; the CPU has no allocator statistics and
+    raises ``ValueError``): after set-up the engine synchronises, empties
+    the allocator's cache and resets its peak; ``stats["peak_live_bytes"]``
+    is then ``torch.cuda.max_memory_allocated()`` at the end minus
+    ``memory_allocated()`` at that start — the bytes of the allocator's
+    blocks handed to tensors (rounded up to its block sizes), not the
+    tensors' own bytes. ``stack_bytes`` is the fake-quant stack's payload
+    and ``candidate_batch_bytes`` the largest per-step payload of the K
+    built units (``"unit"``) or the K stacks (``"stack"``).
     """
     from repro_torch.core.search import SearchResult
 
-    _check_ported(scfg)
     n_match = min(scfg.n_match_layers, cfg.n_layers)
     K = max(int(scfg.population), 1)
+    n_islands = max(int(scfg.islands), 1)
+    migrate_every = int(scfg.migrate_every)
     fused = bool(scfg.fused_kernel)
+    install_mode = _resolve_install(scfg)
+    tabu_cap = int(scfg.tabu)
+    shard_calib = bool(scfg.shard_calib)
+    measure = bool(scfg.measure_memory)
+    if tabu_cap and scfg.mapped:
+        raise ValueError(
+            "tabu memory needs the host-synchronous sequential lane "
+            "(candidate fingerprints are host state); mapped=True cannot "
+            "combine with tabu>0")
+    if scfg.mapped:
+        raise NotImplementedError(
+            "SearchConfig.mapped=True is not ported yet: ROADMAP Queue 1 "
+            "item 14 (mapped islands)")
     objv = obj.get_objective(scfg.objective)
     dev = calib_tokens.device
-    if proposals is None:
-        proposals = inv.NativeProposals(scfg.seed, dev)
+    if measure and dev.type != "cuda":
+        raise ValueError(
+            "measure_memory reads the CUDA caching allocator's statistics; "
+            f"the calibration tokens are on {dev}")
 
     base = adapter.base_stack(params_base)
-    transforms0 = _stack_transform(inv.identity_transform(adapter.f_dim, dev),
-                                   adapter.n_units)
+    transforms0 = stack_unit_batch(
+        [inv.identity_transform(adapter.f_dim, dev)] * adapter.n_units)
     fq0 = adapter.quant_stack(base, qcfg)
 
+    # FP reference forward on the FULL batch; per-island slices are views
+    # into these (batch axis 0 for tokens/logits, axis 1 for the taps)
     logits_fp, hidden_fp = forward(params_fp, cfg, calib_tokens,
                                    collect_hidden=True)
     hidden_fp = hidden_fp[:n_match].clone() if n_match else None
-    env = obj.ObjectiveEnv(calib=calib_tokens, logits_fp=logits_fp,
-                           hidden_fp=hidden_fp, vocab_size=cfg.vocab_size,
-                           n_match=n_match, ce_weight=scfg.ce_weight)
-    state = objv.prepare(env)
 
-    def evaluate(fq_stack, override=None):
-        logits, hidden = forward(adapter.install(params_base, fq_stack), cfg,
-                                 env.calib, collect_hidden=True,
-                                 layer_override=override)
-        return objv.evaluate(logits, hidden, state, env)
+    def make_env(tokens, lfp, hfp):
+        return obj.ObjectiveEnv(calib=tokens, logits_fp=lfp, hidden_fp=hfp,
+                                vocab_size=cfg.vocab_size, n_match=n_match,
+                                ce_weight=scfg.ce_weight)
 
-    p0, a0 = (float(x) for x in evaluate(fq0))
-    alpha = float(objv.resolve_mix(p0, a0, env))
+    def make_eval(env):
+        state = objv.prepare(env)
+
+        def evaluate(fq_stack, override=None):
+            logits, hidden = forward(adapter.install(params_base, fq_stack),
+                                     cfg, env.calib, collect_hidden=True,
+                                     layer_override=override)
+            return objv.evaluate(logits, hidden, state, env)
+
+        return evaluate
+
+    env_global = make_env(calib_tokens, logits_fp, hidden_fp)
+    eval_global = make_eval(env_global)
+    p0, a0 = (float(x) for x in eval_global(fq0))
+    alpha = float(objv.resolve_mix(p0, a0, env_global))
     loss0 = p0 + alpha * a0
+    if shard_calib:
+        slices = shard_calibration(calib_tokens, n_islands)
+        bounds = np.cumsum([0] + [int(s.shape[0]) for s in slices])
+        eval_fns = [make_eval(make_env(
+            slices[i], logits_fp[bounds[i]:bounds[i + 1]],
+            hidden_fp[:, bounds[i]:bounds[i + 1]] if n_match else None))
+            for i in range(n_islands)]
+        # per-island step-0 baselines on each island's OWN slice (1 island
+        # == the full batch == the replicated baseline)
+        base0 = [tuple(float(x) for x in f(fq0)) for f in eval_fns]
+    else:
+        eval_fns = [eval_global] * n_islands
+        base0 = [(p0, a0)] * n_islands
+    loss0s = [p + alpha * a for p, a in base0]
 
     def quant_candidate(t_new, u):
         if fused:
             return adapter.transform_quant_unit(base, t_new, u, qcfg)
         return adapter.quant_unit(adapter.transform_unit(base, t_new, u), qcfg)
 
+    def build(cands, fq_stack, u):
+        """The K candidates' batch: built units, or stacks holding them."""
+        if install_mode == "unit":
+            return [quant_candidate(c, u) for c in cands]
+        return [adapter.install_unit(fq_stack, u, quant_candidate(c, u))
+                for c in cands]
+
+    def score(evaluate, batch, fq_stack, u):
+        """Host lists (loss, primary, aux) over the K candidates; one sync."""
+        if install_mode == "unit":
+            outs = [evaluate(fq_stack, adapter.unit_override(u, unit))
+                    for unit in batch]
+        else:
+            outs = [evaluate(stack) for stack in batch]
+        p_vec = torch.stack([o[0] for o in outs]).float()
+        a_vec = torch.stack([o[1] for o in outs]).float()
+        loss_vec = p_vec + alpha * a_vec         # fp32, as on the reference
+        return torch.stack([loss_vec, p_vec, a_vec]).tolist()
+
     schedule = anneal.temperature_schedule(scfg.anneal,
                                            float(scfg.temperature), scfg.steps)
-    rng = np.random.default_rng(scfg.seed)
-    cur_loss = best_loss = loss0
-    fq_stack = best_fq = fq0
-    transforms = best_t = transforms0
-    history = [(0, loss0, p0, a0, True)]
-    n_accept = uphill = 0
+    stats = {"migrations": 0, "uphill_accepts": 0,
+             "proposals": scfg.steps * K * n_islands, "fused": fused,
+             "mapped": False, "objective": objv.name,
+             "install": install_mode, "tabu_hits": 0,
+             "shard_calib": shard_calib, "tabu_skips": 0,
+             "tabu_rebuilds": 0}
+    metrics = _search_metrics()
+    metrics["best"].set(loss0)
 
-    t_start = time.perf_counter()
-    for step in range(1, scfg.steps + 1):
-        T = schedule(step)
-        u = int(rng.integers(adapter.n_units))
-        cands = proposals(_unit_transform(transforms, u), K, scfg.proposal)
-        units, ps, auxs = [], [], []
-        for cand in cands:
-            unit = quant_candidate(cand, u)
-            p, a = evaluate(fq_stack, adapter.unit_override(u, unit))
-            units.append(unit)
-            ps.append(p)
-            auxs.append(a)
-        p_vec = torch.stack(ps).float()
-        a_vec = torch.stack(auxs).float()
-        loss_vec = p_vec + alpha * a_vec         # fp32, as on the reference
-        i = int(torch.argmin(loss_vec))          # first minimum on ties
-        loss, p, a = (float(x) for x in (loss_vec[i], p_vec[i], a_vec[i]))
-        delta = loss - cur_loss
-        uniform = rng.random() if T > 0.0 else None
+    islands, tabus = [], []
+    for i in range(n_islands):
+        rng, native = make_island_streams(scfg.seed, i, dev)
+        islands.append(IslandState(
+            index=i, rng=rng,
+            proposals=native if proposals is None else proposals[i],
+            transforms=transforms0, fq_stack=fq0,
+            current_loss=loss0s[i], best_loss=loss0s[i],
+            best_transforms=transforms0, best_fq=fq0,
+            history=[(0, loss0s[i], base0[i][0], base0[i][1], True)]))
+        tabus.append(TabuMemory(tabu_cap) if tabu_cap else None)
+
+    if measure:
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        baseline = torch.cuda.memory_allocated(dev)
+    batch_bytes = 0
+
+    def island_step(isl, step, T):
+        nonlocal batch_bytes
+        mem = tabus[isl.index]
+        u = int(isl.rng.integers(adapter.n_units))
+        cands = isl.proposals(_unit_transform(isl.transforms, u), K,
+                              scfg.proposal)
+        skipped = False
+        if mem is not None:
+            cand_bytes = [transform_bytes(c) for c in cands]
+            fps = [mem.fingerprint(u, cb) for cb in cand_bytes]
+            hits_before = mem.hits
+            cached = [mem.lookup(fp) for fp in fps]
+            new_hits = mem.hits - hits_before
+            if new_hits:
+                stats["tabu_hits"] += new_hits
+                metrics["tabu"].inc(new_hits)
+            skipped = all(c is not None for c in cached)
+        with obs.trace_span("search.eval", hist=metrics["eval"]):
+            if skipped:
+                # replay: no build, no forward; the source was already
+                # called this step, exactly as on the eval path
+                stats["tabu_skips"] += 1
+                i = int(np.argmin([c[0] for c in cached]))
+                loss, p, a = cached[i]
+                chosen = None
+            else:
+                batch = build(cands, isl.fq_stack, u)
+                if measure:
+                    batch_bytes = max(batch_bytes, tree_bytes(batch))
+                losses, ps, auxs = score(eval_fns[isl.index], batch,
+                                         isl.fq_stack, u)
+                i = int(np.argmin(losses))       # first minimum on ties
+                loss, p, a = losses[i], ps[i], auxs[i]
+                chosen = batch[i]
+                del batch      # free the other candidates before an install
+                if mem is not None:
+                    for k in range(K):
+                        mem.record(fps[k], losses[k], ps[k], auxs[k])
+        metrics["proposals"].inc(K, objective=objv.name)
+        delta = loss - isl.current_loss
+        uniform = isl.rng.random() if T > 0.0 else None
         accepted = anneal.accept(delta, T, uniform)
         if accepted:
+            if skipped:
+                stats["tabu_rebuilds"] += 1
+                fq_new = adapter.install_unit(isl.fq_stack, u,
+                                              quant_candidate(cands[i], u))
+            elif install_mode == "unit":
+                fq_new = adapter.install_unit(isl.fq_stack, u, chosen)
+            else:
+                fq_new = chosen
             if delta > 0.0:              # strictly-worse moves only
-                uphill += 1
-            cur_loss = loss
-            fq_stack = adapter.install_unit(fq_stack, u, units[i])
-            transforms = _install_transform(transforms, u, cands[i])
-            n_accept += 1
-            if loss < best_loss:
-                best_loss = loss
-                best_t = transforms
-                best_fq = fq_stack
-        history.append((step, loss, p, a, accepted))
-        if scfg.log_every and step % scfg.log_every == 0:
-            log.info("search step=%d best=%.5f accept=%.2f%% T=%.4g "
-                     "elapsed_s=%.1f", step, best_loss,
-                     100.0 * n_accept / step, T,
-                     time.perf_counter() - t_start)
-    elapsed = time.perf_counter() - t_start
+                stats["uphill_accepts"] += 1
+                metrics["uphill"].inc()
+            metrics["accepts"].inc()
+            isl.current_loss = loss
+            isl.fq_stack = fq_new
+            isl.transforms = tree_install_unit(isl.transforms, u, cands[i])
+            isl.n_accept += 1
+            if mem is not None:
+                mem.advance(cand_bytes[i])
+            if loss < isl.best_loss:
+                isl.best_loss = loss
+                isl.best_transforms = isl.transforms
+                isl.best_fq = isl.fq_stack
+        isl.history.append((step, loss, float(p), float(a), accepted))
 
-    stats = {"uphill_accepts": uphill, "proposals": scfg.steps * K,
-             "fused": fused, "objective": objv.name,
-             "proposals_per_sec": scfg.steps * K / max(elapsed, 1e-9)}
+    with obs.trace_span("search.run", mode="sequential", islands=n_islands,
+                        population=K) as run_span:
+        for step in range(1, scfg.steps + 1):
+            T = schedule(step)
+            with obs.trace_span("search.step", step=step,
+                                hist=metrics["step"]):
+                for isl in islands:
+                    island_step(isl, step, T)
+                if migrate_every and n_islands > 1 \
+                        and step % migrate_every == 0:
+                    if tabu_cap:
+                        src = min(islands, key=lambda s: s.best_loss)
+                        dst = max(islands, key=lambda s: s.current_loss)
+                        will = (src is not dst
+                                and src.best_loss < dst.current_loss)
+                    moved = int(migrate(islands))
+                    stats["migrations"] += moved
+                    metrics["migrations"].inc(moved)
+                    if tabu_cap and moved and will:
+                        tabus[dst.index].adopt_digest(tabus[src.index])
+            metrics["best"].set(min(s.best_loss for s in islands))
+            metrics["temp"].set(T)
+            if scfg.log_every and step % scfg.log_every == 0:
+                best = min(s.best_loss for s in islands)
+                rate = sum(s.n_accept for s in islands) / (step * n_islands)
+                obs.emit("search", step=step, best=f"{best:.5f}",
+                         accept=f"{rate:.2%}", T=f"{T:.4g}",
+                         elapsed_s=f"{run_span.elapsed():.1f}")
+
+    elite = min(islands, key=lambda s: s.best_loss)
+    # monotonic clock (run_span.dur): wall time steps backwards under NTP
+    stats["proposals_per_sec"] = stats["proposals"] / max(run_span.dur, 1e-9)
+    if measure:
+        torch.cuda.synchronize(dev)
+        stats["peak_live_bytes"] = max(
+            torch.cuda.max_memory_allocated(dev) - baseline, 0)
+        stats["stack_bytes"] = tree_bytes(fq0)
+        stats["candidate_batch_bytes"] = batch_bytes
     return SearchResult(
-        params_q=adapter.install(params_base, best_fq),
-        transforms=best_t,
-        history=history,
-        accept_rate=n_accept / max(scfg.steps, 1),
-        final_loss=best_loss,
-        initial_loss=loss0,
-        island_histories=[history],
+        params_q=adapter.install(params_base, elite.best_fq),
+        transforms=elite.best_transforms,
+        history=elite.history,
+        accept_rate=elite.n_accept / max(scfg.steps, 1),
+        final_loss=elite.best_loss,
+        initial_loss=loss0s[elite.index],
+        island_histories=[s.history for s in islands],
         stats=stats,
     )

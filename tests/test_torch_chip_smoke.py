@@ -8,6 +8,9 @@
   ``group_quant`` calls that ``quantize_model`` makes on the CPU, and its
   card-against-CPU comparisons (``choices_agree``, ``within_one_step``,
   ``parts_only_at_ties``).
+- Phase 8's launch-count formula (``search_launches``), held to the kernel
+  wrapper calls of ``search.run`` on the CPU, its state-deterministic
+  proposal source, its install-mode comparison, and 8f run CPU against CPU.
 """
 import importlib.util
 from pathlib import Path
@@ -196,3 +199,100 @@ def test_parts_only_at_ties_knows_where_the_ties_are():
     off[0, 0, 0] += step                # level 0 is not at a tie
     with pytest.raises(AssertionError, match="away from a round-half tie"):
         CS.parts_only_at_ties(off, want, base, 2, 32)
+
+
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tiny_search():
+    from repro_torch.configs import get_config
+    from repro_torch.core import rtn
+    from repro_torch.core.quant import QuantConfig, fake_quant
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import init_params
+
+    cfg = get_config("opt-tiny").reduced(n_kv_heads=4)
+    qcfg = QuantConfig(2, 32)
+    params = init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+    base = rtn.map_quantizable(params, lambda w, p: fake_quant(w, qcfg),
+                               only=lambda p: p[-1] not in ("up", "down"))
+    calib = calibration_tensor(cfg.vocab_size, n_seqs=2, seq_len=64,
+                               device="cpu")
+    return cfg, qcfg, params, base, calib
+
+
+@pytest.mark.parametrize("kw,source", [
+    (dict(population=2, fused_kernel=True), None),
+    (dict(population=3, fused_kernel=False), None),
+    (dict(population=2, islands=2, migrate_every=2, fused_kernel=True,
+          shard_calib=True), None),
+    (dict(population=2, fused_kernel=True, install="stack"), None),
+    (dict(population=2, fused_kernel=True, tabu=16), "state"),
+    (dict(population=2, fused_kernel=False, tabu=16), "state"),
+    (dict(population=2, fused_kernel=True, tabu=16, temperature=3e-3,
+          anneal="constant", steps=16), "state"),
+], ids=["fused", "unfused", "islands", "stack", "tabu", "tabu-unfused",
+        "tabu-warm"])
+def test_search_launch_formula_counts_the_kernel_calls(
+        tiny_search, monkeypatch, kw, source):
+    """Phase 8's ``search_launches`` against the ``group_quant`` and
+    ``transform_quant`` wrapper calls of ``search.run`` on the CPU (one
+    launch each on the card), tabu skips and cached accepts included."""
+    import repro_torch.kernels as kernels
+    from repro_torch.core import invariance as inv
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.search import run
+
+    cfg, qcfg, params, base, calib = tiny_search
+    calls = {"group_quant": 0, "transform_quant": 0}
+    for name in calls:
+        real = getattr(kernels, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(kernels, name, counted)
+    scfg = SearchConfig(log_every=0, seed=0, **{"steps": 8, **kw})
+    src = None if source is None else [
+        CS.StateProposals(torch, inv, torch.device("cpu"))]
+    res = run(params, base, cfg, qcfg, calib, scfg, proposals=src)
+    assert calls == CS.search_launches(cfg, scfg, res.stats)
+    if source:
+        assert res.stats["tabu_skips"] > 0
+    if kw.get("temperature"):
+        assert res.stats["tabu_rebuilds"] > 0
+
+
+def test_state_proposals_depend_only_on_the_state():
+    from repro_torch.core import invariance as inv
+
+    src = CS.StateProposals(torch, inv, torch.device("cpu"))
+    t = inv.identity_transform(64, "cpu")
+    pcfg = inv.ProposalConfig()
+    a, b = src(t, 2, pcfg), src(t, 2, pcfg)
+    assert all(torch.equal(x, y) for ca, cb in zip(a, b)
+               for x, y in zip(ca, cb))
+    assert not torch.equal(a[0].pi, a[1].pi)
+    moved = src(a[0], 2, pcfg)
+    assert not torch.equal(moved[0].pi, a[0].pi)
+
+
+def test_histories_identical_falls_back_to_the_install_bar(capsys):
+    h = [(0, 5.0, 4.0, 1.0, True), (1, 4.9, 3.9, 1.0, True)]
+    assert CS.histories_identical(h, list(h), "same") is True
+    near = [h[0], (1, 4.9 + 5e-6, 3.9, 1.0, True)]
+    assert CS.histories_identical(near, h, "near") is False
+    assert '"first_step": 1' in capsys.readouterr().out
+    with pytest.raises(AssertionError, match="step 1"):
+        CS.histories_identical([h[0], (1, 4.9, 3.9, 1.0, False)], h, "flag")
+    with pytest.raises(AssertionError, match="step 1"):
+        CS.histories_identical([h[0], (1, 4.91, 3.9, 1.0, True)], h, "far")
+
+
+def test_phase_8f_runs_cpu_against_cpu():
+    """8f's comparisons and its cached-accept check on the CPU's own data:
+    the card's run is held to exactly this yardstick."""
+    CS.phase_small_search_engine(torch, devs=("cpu", "cpu"))

@@ -501,3 +501,37 @@ def test_flash_decode_and_quant_matmul_raise_on_bad_inputs():
     with pytest.raises(ValueError, match="dtype"):
         tk.quant_matmul(torch.ones((2, 64), device=dev), words.float(), sz,
                         sz, bits=2, group=32)
+
+
+def test_search_measure_memory_unit_below_stack_on_the_card():
+    """``measure_memory`` at opt-tiny: the candidate batch is K units under
+    ``install="unit"`` and K stacks under ``"stack"`` (a ratio of exactly
+    n_units), the stack is the same, and the unit lane's allocator peak
+    stays below the stack lane's."""
+    dev = needs_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import init_params
+    from repro_torch.search import run
+
+    cfg = get_config("opt-tiny").reduced()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    calib = calibration_tensor(cfg.vocab_size, n_seqs=2, seq_len=32,
+                               device=dev)
+    stats = {}
+    for mode in ("unit", "stack"):
+        res = run(params, params, cfg, QuantConfig(2, 32), calib,
+                  SearchConfig(steps=3, population=4, fused_kernel=True,
+                               log_every=0, measure_memory=True,
+                               install=mode))
+        stats[mode] = res.stats
+    assert stats["unit"]["stack_bytes"] == stats["stack"]["stack_bytes"]
+    assert (stats["unit"]["candidate_batch_bytes"] * cfg.n_layers
+            == stats["stack"]["candidate_batch_bytes"])
+    assert stats["unit"]["candidate_batch_bytes"] * cfg.n_layers == \
+        4 * stats["unit"]["stack_bytes"]
+    assert 0 < stats["unit"]["peak_live_bytes"] < \
+        stats["stack"]["peak_live_bytes"]
