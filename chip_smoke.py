@@ -108,7 +108,33 @@ source, started together, into ``build/kernels/``), then:
    memory rows for both install modes) into ``build/smoke/``; (f)
    opt-tiny reduced on the card against the CPU: islands with migration,
    tabu and ``shard_calib``, the same with ``install="stack"``, and a warm
-   annealed tabu run whose cached moves are accepted and rebuilt.
+   annealed tabu run whose cached moves are accepted and rebuilt;
+9. training and checkpoints: (a) ``repro_torch.launch.train.train`` on
+   opt-1.3b (full width and depth, ≈ 1.42 B params, untied head) from
+   phase 2's seed for 10 steps at batch 4 × 512 (the mean loss of the last
+   third must fall below the first third's; loss, lr and grad_norm
+   finite), then 3 timed steady steps of the same train step (step ms,
+   tokens/s, 6·N·tokens TFLOP/s and its share of the fp32 peak, peak
+   allocator bytes), device time by kernel family under ``torch.profiler``
+   over two steps, the optimizer alone beside its bound, and
+   ``accum_steps=2`` on the same batch against the full batch (loss within
+   1e-4, params within the reference's rtol 2e-3 / atol 2e-4); (b) that
+   train state (params, m and v, ≈ 17 GB f32) through an async
+   ``CheckpointManager`` into build/smoke/ckpt/ (deleted afterwards): 3
+   uninterrupted steps, against 1 step, a save, and ``run_resilient`` from
+   step 1 with a failure injected at its first step, which restores the
+   save (every restored leaf ``torch.equal`` to the saved one, dtype kept;
+   a ``("restored", 1)`` event) and runs the last 2 steps (losses within
+   rtol 1e-5 of the uninterrupted ones: the embedding backward accumulates
+   with atomics); the host's disk and memory, bytes, save / wait / restore
+   seconds and peak RSS; (c) ``repro_torch.bench.table1_main.run`` on the
+   bench model that the port trains itself (400 steps, into
+   build/smoke/bench_model/): every row's held-out ppl, seconds, accept
+   rate and launches (``group_quant`` held to ``base_method_gq_launches``,
+   ``transform_quant`` to 2 × 400 on each +IE row), with
+   ``table1_main``'s claims; (d) opt-tiny reduced, the same init and
+   batches, 5 steps of ``train()`` on the card against the CPU (losses
+   within 1e-5 relative, params within (a)'s bar).
 
 Prints the ``nvidia-smi`` name/power-limit line, a ``{"kernels": [...]}``
 line (all seven ported kernels), and last ``{"ok": true, "device":
@@ -2231,6 +2257,363 @@ def phase_small_search_engine(torch, devs=("cpu", "cuda")):
                         for hist in cpu.island_histories])
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training and checkpoints, Table 1 on a port-trained model
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(batch=4, seq=512)       # 9a: 2,048 tokens a step
+# 9a's train() run: at lr 3e-4 (5 warm-up steps) the loss falls by ≈ 0.1 a
+# few steps, under a step-to-step spread of ≈ 0.2 across batches (PERF.md
+# §6, PR 20), so the first and last thirds are compared
+TRAIN_STEPS = 10
+TIMED_STEPS = 3                      # 9a's timed steady steps (2 profiled)
+RESUME_STEPS = 3                     # 9b: 1 step, save, restore, 2 steps
+ACCUM_TOL = dict(rtol=2e-3, atol=2e-4)   # tests/test_substrate.py's bar
+RESUME_RTOL = 1e-5
+SMALL_TRAIN_STEPS = 5
+# device-kernel name fragments -> family for the train-step profile (first
+# match wins)
+TRAIN_FAMILIES = (("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
+                  ("cutlass", "matmul (cuBLAS)"),
+                  ("softmax", "softmax / log_softmax"),
+                  ("index", "indexing (embedding gather, scatter-add)"),
+                  ("scatter", "indexing (embedding gather, scatter-add)"),
+                  ("reduce", "reductions"), ("memcpy", "copies"),
+                  ("memset", "copies"), ("copy", "copies"),
+                  ("elementwise", "elementwise"))
+
+
+def state_leaves(state):
+    """Every tensor of a (params, opt_state) train state, in a fixed order."""
+    from repro_torch.optim.adamw import tree_leaves
+    return [x for part in state for x in tree_leaves(part)]
+
+
+def within(torch, got, want, rtol, atol, what):
+    """Raises unless |got - want| <= atol + rtol |want| everywhere, over two
+    lists of tensors; returns the largest |got - want|."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        diff = (a.float() - b.float()).abs()
+        excess = float((diff - (atol + rtol * b.float().abs())).max())
+        if excess > 0:
+            raise AssertionError(f"{what}: leaf {i} {tuple(a.shape)} off the "
+                                 f"bar by {excess}")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def mem_available() -> int:
+    """The host's MemAvailable (bytes, /proc/meminfo)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise AssertionError("no MemAvailable in /proc/meminfo")
+
+
+def phase_train(torch, cfg):
+    """9a: ``train()`` on opt-1.3b (full width and depth) from phase 2's
+    seed at batch 4 × 512; then TIMED_STEPS steady steps of the same train
+    step with device time by family over two of them under the profiler,
+    the optimizer alone, and ``accum_steps=2`` against the full batch.
+    Returns (state, step_fn, tokens_at) for 9b."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+    from repro_torch.launch.steps import _value_and_grad, make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         adamw_update, tree_leaves)
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params, losses, _ = train(steps=TRAIN_STEPS, lr=3e-4, cfg=cfg, seed=0,
+                              log_every=1, device="cuda", **TRAIN)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    third = TRAIN_STEPS // 3
+    if not all(math.isfinite(x) for x in losses) or \
+            not statistics.mean(losses[-third:]) < statistics.mean(losses[:third]):
+        raise AssertionError(f"9a: losses {losses} are not finite or do not "
+                             f"fall")
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    # train()'s optimizer settings
+    opt_cfg = AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
+                          warmup_steps=max(TRAIN_STEPS // 20, 5))
+    step_fn = make_train_step(cfg, opt_cfg)
+    batch_at = make_pipeline(DataConfig(seq_len=TRAIN["seq"],
+                                        global_batch=TRAIN["batch"],
+                                        vocab_size=cfg.vocab_size))
+
+    def tokens_at(s):
+        return torch.from_numpy(batch_at(s).astype(np.int64)).to(dev)
+
+    batch = {"tokens": tokens_at(0)}
+    state = [(params, adamw_init(params))]
+    del params
+    metrics = []
+
+    def one():
+        p, o, m = step_fn(*state[0], batch)
+        state[0] = (p, o)
+        metrics.append(m)
+
+    one()                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            one()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    by_family, by_kernel = defaultdict(float), {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", 0.0)
+        if t > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_family[_family(ev.key, TRAIN_FAMILIES)] += t / 1e3 / 2
+            by_kernel[ev.key[:100]] = (t / 1e3 / 2, ev.count // 2)
+    if not by_family:
+        raise AssertionError("9a: the profiler saw no device time")
+    for m in metrics:
+        if not all(math.isfinite(float(m[k])) for k in ("loss", "lr",
+                                                         "grad_norm")):
+            raise AssertionError(f"9a: non-finite metrics {m}")
+    step_s = statistics.median(times)
+
+    # the optimizer alone, on this state's gradients
+    p, o = state[0]
+    lossf = lambda pp, tt: M.lm_loss(M.forward(pp, cfg, tt)[:, :-1],  # noqa: E731
+                                     tt[:, 1:], cfg.vocab_size)
+    _, grads = _value_and_grad(lossf, p, batch["tokens"])
+    opt_ms = time_ms(torch, lambda: adamw_update(p, grads, o, opt_cfg),
+                     warmup=1, reps=5)
+    del grads
+    # read p, g, m, v and write p, m, v once: 7 f32 passes over N
+    opt_bound, opt_by = bound_ms(7 * 4 * n_params, 0)
+
+    # accum_steps=2 on the same batch against the full batch
+    p1, o1, m1 = step_fn(p, o, batch)
+    del o1
+    p2, o2, m2 = make_train_step(cfg, opt_cfg, accum_steps=2)(p, o, batch)
+    del o2
+    loss_diff = abs(float(m1["loss"]) - float(m2["loss"]))
+    if not loss_diff < 1e-4:
+        raise AssertionError(f"9a: accum_steps=2 loss parts by {loss_diff}")
+    param_diff = within(torch, tree_leaves(p2), tree_leaves(p1),
+                        what="9a accum", **ACCUM_TOL)
+    del p1, p2
+    flops = 6 * n_params * tokens
+    log("train", arch=cfg.name, n_params=n_params, batch=TRAIN["batch"],
+        seq=TRAIN["seq"], train_steps=TRAIN_STEPS, train_wall_s=train_s,
+        losses=losses, step_ms=step_s * 1e3,
+        step_ms_range=[min(times) * 1e3, max(times) * 1e3],
+        tokens_per_s=tokens / step_s, tflops=flops / step_s / 1e12,
+        share_of_fp32_peak=flops / step_s / FP32_OPS_PER_S,
+        peak_bytes=peak, profile_window_ms=window_ms / 2,
+        device_ms_by_family=dict(sorted(by_family.items(),
+                                        key=lambda kv: -kv[1])),
+        top_kernels_ms_launches=sorted(by_kernel.items(),
+                                       key=lambda kv: -kv[1][0])[:12],
+        optimizer_ms=opt_ms, optimizer_bound_ms=opt_bound,
+        optimizer_bound_by=opt_by,
+        steady_losses=[float(m["loss"]) for m in metrics],
+        accum2_loss_diff=loss_diff, accum2_max_abs_param_diff=param_diff)
+    metrics.clear()
+    return state[0], step_fn, tokens_at
+
+
+def phase_ckpt(torch, obs, state, step_fn, tokens_at):
+    """9b: the train state (params, m, v) through ``CheckpointManager``
+    (async, format 1) into build/smoke/ckpt/, deleted afterwards:
+    RESUME_STEPS uninterrupted steps, then from the same state 1 step, a
+    save, and ``run_resilient`` from step 1 with a failure injected at its
+    first step: it restores the save (every restored leaf must equal the
+    saved one) and runs the last 2 steps, whose losses must equal the
+    uninterrupted ones within RESUME_RTOL."""
+    import resource
+    import shutil
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.dist.fault import run_resilient
+
+    root = ROOT / "build" / "smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    df = subprocess.run(["df", "-B1", str(root)], capture_output=True,
+                        text=True, timeout=60, check=True).stdout
+    log("host", df=df.strip().splitlines()[-1], mem_available=mem_available())
+
+    class TimedManager(CheckpointManager):
+        """Seconds of each save (the synchronous host snapshot), each wait
+        that joined a write, and each restore."""
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.seconds = defaultdict(list)
+
+        def save(self, *a, **kw):
+            self.wait()
+            t0 = time.perf_counter()
+            super().save(*a, **kw)
+            self.seconds["save"].append(time.perf_counter() - t0)
+
+        def wait(self):
+            joined = self._thread is not None
+            t0 = time.perf_counter()
+            super().wait()
+            if joined:
+                self.seconds["wait"].append(time.perf_counter() - t0)
+
+        def restore(self, *a, **kw):
+            self.wait()
+            t0 = time.perf_counter()
+            out = super().restore(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds["restore"].append(time.perf_counter() - t0)
+            return out
+
+    def step_at(st, s, record):
+        p, o, m = step_fn(*st, {"tokens": tokens_at(s)})
+        record.append(float(m["loss"]))
+        return (p, o)
+
+    uninterrupted, st = [], state
+    for s in range(RESUME_STEPS):
+        st = step_at(st, s, uninterrupted)
+    del st
+    resumed = []
+    saved = step_at(state, 0, resumed)
+    del state
+    n_bytes = sum(x.numel() * x.element_size() for x in state_leaves(saved))
+    ckdir = root / "ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    mgr = TimedManager(ckdir, keep=1, device="cuda")
+    written = obs.counter("ckpt_bytes_written_total").value()
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    checked = {"armed": True, "leaves": 0}
+    try:
+        mgr.save(1, saved)
+
+        def resilient_step(st, s):
+            if checked["armed"]:
+                checked["armed"] = False
+                raise RuntimeError("injected step failure")
+            if not checked["leaves"]:     # the restored state, once
+                if st is saved:
+                    raise AssertionError("9b: the run resumed from its "
+                                         "initial state, not the checkpoint")
+                got, want = state_leaves(st), state_leaves(saved)
+                for i, (a, b) in enumerate(zip(got, want)):
+                    if a.dtype != b.dtype or a.device != b.device or \
+                            not torch.equal(a, b):
+                        raise AssertionError(f"9b: restored leaf {i} "
+                                             f"differs from the saved one")
+                checked["leaves"] = len(got)
+            return step_at(st, s, resumed)
+
+        _, events = run_resilient(resilient_step, saved,
+                                  n_steps=RESUME_STEPS, ckpt=mgr,
+                                  save_every=0, start_step=1)
+    finally:
+        mgr.wait()
+        shutil.rmtree(ckdir, ignore_errors=True)
+    if ("restored", 1) not in events or not checked["leaves"] or \
+            len(mgr.seconds["restore"]) != 1:
+        raise AssertionError(f"9b: events {events}, {checked['leaves']} "
+                             f"leaves checked")
+    diffs = [abs(a - b) / abs(b) for a, b in zip(resumed, uninterrupted)]
+    if len(resumed) != RESUME_STEPS or max(diffs) > RESUME_RTOL:
+        raise AssertionError(f"9b: resumed losses {resumed} vs "
+                             f"uninterrupted {uninterrupted}")
+    log("ckpt", state_bytes=n_bytes,
+        file_bytes=obs.counter("ckpt_bytes_written_total").value() - written,
+        leaves=checked["leaves"], **{f"{k}_s": v for k, v in
+                                      mgr.seconds.items()},
+        peak_rss_bytes=resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss * 1024,
+        peak_rss_before_bytes=rss0, mem_available_after=mem_available(),
+        events=[list(e[:2]) for e in events], resumed_losses=resumed,
+        uninterrupted_losses=uninterrupted, max_rel_loss_diff=max(diffs),
+        bar=f"rtol {RESUME_RTOL} (not bitwise: the embedding backward "
+            f"accumulates with atomics)")
+
+
+def phase_table1(torch, ops):
+    """9c: ``repro_torch.bench.table1_main.run`` on the card: the bench
+    model trained by the port (400 steps) into build/smoke/bench_model/,
+    then every row, with ``table1_main``'s claims and the rows' kernel
+    launches held to the pipeline's counts."""
+    import shutil
+
+    from repro_torch.bench import table1_main as t1
+    from repro_torch.bench.common import BENCH_CFG, bench_model
+
+    root = ROOT / "build" / "smoke"
+    ck = root / "bench_model"
+    shutil.rmtree(ck, ignore_errors=True)
+    t0 = time.perf_counter()
+    bench_model(device="cuda", ckpt_dir=ck)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows, info = t1.run(device="cuda", ckpt_dir=ck, out=root / "table1.json")
+    total = defaultdict(int)
+    for name, r in info.items():
+        method = name.split("+")[0]
+        want = {"group_quant": base_method_gq_launches(method, BENCH_CFG),
+                "transform_quant": 2 * 400 if "+" in name else 0}
+        got = {k: r["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"9c {name}: launches {got} != {want}")
+        for k, v in got.items():
+            total[k] += v
+        log("table1_row", row=name, ppl=rows[name], seconds=r["seconds"],
+            accept_rate=r["accept_rate"], launches=got)
+    log("table1", fp32=rows["fp32"], train_s=train_s,
+        rows_s=time.perf_counter() - t0, rows=rows, launches=dict(total),
+        model=dict(n_layers=BENCH_CFG.n_layers, d_model=BENCH_CFG.d_model,
+                   d_ff=BENCH_CFG.d_ff, vocab=BENCH_CFG.vocab_size))
+    return dict(total)
+
+
+def phase_small_train(torch, devs=("cpu", "cuda")):
+    """9d: opt-tiny reduced, the same init (drawn on the CPU) and batches,
+    SMALL_TRAIN_STEPS steps of ``train()`` on each of ``devs`` (the
+    yardstick's device, then the device under test): losses within 1e-5
+    relative, params within 9a's accumulation bar."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config("opt-tiny").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(11), device="cpu")
+    out = []
+    for d in devs:
+        p, losses, _ = train(steps=SMALL_TRAIN_STEPS, batch=4, seq=64,
+                             lr=1e-3, cfg=cfg, params=to_device(params, d),
+                             log_every=1000, device=d)
+        out.append((p, losses))
+    (p_ref, l_ref), (p_dev, l_dev) = out
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_ref))
+    if rel > 1e-5:
+        raise AssertionError(f"9d: losses {l_dev} vs {l_ref}")
+    param_diff = within(torch, [x.cpu() for x in tree_leaves(p_dev)],
+                        tree_leaves(p_ref), what="9d params", **ACCUM_TOL)
+    log("small_train", devices=list(devs), losses=l_dev, ref_losses=l_ref,
+        max_rel_loss_diff=rel, params_max_abs_diff=param_diff)
+
+
 def main() -> int:
     import torch
 
@@ -2427,6 +2810,16 @@ def main() -> int:
     phase_small_search_engine(torch)
     log("phase8", seconds=time.perf_counter() - t0)
 
+    # ---- phase 9: training and checkpoints, Table 1 trained by the port --
+    from repro_torch import obs
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_ckpt(torch, obs, *phase_train(torch, cfg))
+    torch.cuda.empty_cache()
+    table1_launches = phase_table1(torch, ops)
+    phase_small_train(torch)
+    log("phase9", seconds=time.perf_counter() - t0)
+
     kernels = []
     for name, source, replaces in (
             ("group_quant", "src/repro_torch/csrc/group_quant.cu",
@@ -2449,6 +2842,12 @@ def main() -> int:
                 "launches_on": "phase 8a-8d: repro_torch.search.run on "
                                "opt-1.3b (islands, shard_calib, both "
                                "install modes, tabu), each counted from 0"},
+            "table1": {
+                "launches": table1_launches[name],
+                "launches_on": "phase 9c: repro_torch.bench.table1_main.run "
+                               "on the port-trained bench model, 8 rows "
+                               "(400 fused steps on each +IE row), each "
+                               "counted from 0"},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,

@@ -1,2 +1,2 @@
 """Command-line entry points of the port (the reference's ``repro.launch``):
-``serve``."""
+``train``, ``serve`` and ``search``."""

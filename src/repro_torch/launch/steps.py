@@ -1,9 +1,10 @@
-"""Serving step builders over the contiguous KV cache (the reference's
-``repro.launch.steps``: ``make_serve_step`` and ``make_prefill_step``).
+"""Step builders (the reference's ``repro.launch.steps``): the train step
+(forward, autograd, AdamW) and the serving steps over the contiguous KV
+cache.
 
 The steps are plain functions (PyTorch runs eagerly; the reference jits
-them). The train step and the dry-run ``*_structs`` builders are not
-ported yet.
+them). The dry-run ``*_structs`` builders and the remat policies, which
+only the reference's dry-run reads, wait for ROADMAP Queue 1 item 15.
 """
 from __future__ import annotations
 
@@ -11,8 +12,69 @@ import torch
 
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
+                                     cosine_schedule, tree_leaves, tree_map)
 
-__all__ = ["make_serve_step", "make_prefill_step"]
+__all__ = ["make_train_step", "make_serve_step", "make_prefill_step"]
+
+
+def _value_and_grad(loss_of, params, tokens):
+    """(loss, grads) of ``loss_of(params, tokens)`` by autograd on detached
+    leaf copies of the param tensors (the inputs keep no grad state)."""
+    tree = tree_map(lambda x: x.detach().requires_grad_(True), params)
+    leaves = tree_leaves(tree)
+    with torch.enable_grad():
+        loss = loss_of(tree, tokens)
+        grads = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+    return loss.detach(), tree_map(lambda x: grads[id(x)], tree)
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
+                    accum_steps: int = 1):
+    """(params, opt_state, batch {"tokens": (B, S) int}) -> (params,
+    opt_state, metrics {"loss", "lr", "grad_norm"}); the inputs are not
+    modified.
+
+    ``accum_steps > 1`` splits the batch into equal microbatches (rows
+    ``i·B/n .. (i+1)·B/n``), sums their f32 losses and gradients in order
+    and divides by ``accum_steps``: activation memory scales down at the
+    cost of ``accum_steps`` weight passes.
+    """
+    schedule = cosine_schedule(opt_cfg)
+
+    def loss_of(p, tokens):
+        # each layer reads its slice of the stacked (L, ...) block leaves:
+        # by ``unbind``, whose backward stacks the L slice gradients once,
+        # not by indexing, whose backward writes each slice into a fresh
+        # zero-filled (L, ...) gradient and adds the L of them
+        p = dict(p, blocks=tree_map(lambda x: x.unbind(0), p["blocks"]))
+        logits = M.forward(p, cfg, tokens)
+        return M.lm_loss(logits[:, :-1], tokens[:, 1:], cfg.vocab_size)
+
+    def train_step(params, opt_state, batch):
+        tokens = batch["tokens"].long()
+        if accum_steps == 1:
+            loss, grads = _value_and_grad(loss_of, params, tokens)
+        else:
+            mb = tokens.shape[0] // accum_steps
+            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+            for i in range(accum_steps):
+                lo, g = _value_and_grad(loss_of, params,
+                                        tokens[i * mb:(i + 1) * mb])
+                loss = loss + lo
+                grads = tree_map(torch.add, grads, g)
+                del g
+            n = torch.tensor(float(accum_steps), device=tokens.device)
+            loss = loss / n
+            grads = tree_map(lambda g: g / n, grads)
+        params2, opt2, metrics = adamw_update(params, grads, opt_state,
+                                              opt_cfg, schedule)
+        metrics["loss"] = loss
+        return params2, opt2, metrics
+
+    return train_step
 
 
 def make_serve_step(cfg: ModelConfig):

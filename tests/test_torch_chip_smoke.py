@@ -11,6 +11,9 @@
 - Phase 8's launch-count formula (``search_launches``), held to the kernel
   wrapper calls of ``search.run`` on the CPU, its state-deterministic
   proposal source, its install-mode comparison, and 8f run CPU against CPU.
+- Phase 9's parameter bar (``within``), its train-state leaves, 9c's launch
+  counts on the bench model's shapes (held to the wrapper calls of a
+  ``table1_main`` row on the CPU), and 9d run CPU against CPU.
 """
 import importlib.util
 from pathlib import Path
@@ -19,6 +22,12 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
+
+from helpers.torch_parity import one_torch_thread  # noqa: F401
+
+# one intra-op thread: at these tiny shapes PyTorch's CPU pool costs more
+# than the work, and far more beside the other test workers
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _chip_smoke():
@@ -296,3 +305,68 @@ def test_phase_8f_runs_cpu_against_cpu():
     """8f's comparisons and its cached-accept check on the CPU's own data:
     the card's run is held to exactly this yardstick."""
     CS.phase_small_search_engine(torch, devs=("cpu", "cpu"))
+
+
+# ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("delta,ok", [(0.0, True), (1e-4, True), (2e-4, True),
+                                      (3e-3, False)])
+def test_within_holds_the_accumulation_bar(delta, ok):
+    want = [torch.zeros(3), torch.ones(4)]
+    got = [torch.full((3,), delta), torch.ones(4) + delta]
+    if ok:
+        assert CS.within(torch, got, want, what="t", **CS.ACCUM_TOL) == \
+            pytest.approx(delta, rel=1e-3)
+    else:
+        with pytest.raises(AssertionError, match="leaf 0"):
+            CS.within(torch, got, want, what="t", **CS.ACCUM_TOL)
+
+
+def test_state_leaves_cover_params_m_v_and_step():
+    from repro_torch.optim.adamw import adamw_init
+    params = {"b": {"w": torch.ones(2, 3)}, "a": torch.zeros(4)}
+    leaves = CS.state_leaves((params, adamw_init(params)))
+    # params, then m, step, v (sorted keys)
+    assert [tuple(x.shape) for x in leaves] == [(4,), (2, 3)] * 2 + [()] + \
+        [(4,), (2, 3)]
+
+
+@pytest.mark.parametrize("row", ["rtn", "awq", "awq+invarexplore"])
+def test_table1_row_launches_match_the_formula(monkeypatch, row):
+    """9c holds each row's launches to ``base_method_gq_launches`` on the
+    bench model and 2 x 400 ``transform_quant`` on a +IE row: count the
+    wrapper calls of the same ``quantize_model`` on the CPU (the bench
+    model's shapes, random weights, 2 search steps)."""
+    import repro_torch.kernels as kernels
+    from repro_torch.bench.common import BENCH_CFG
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import init_params
+
+    calls = {"group_quant": 0, "transform_quant": 0}
+    for name in calls:
+        real = getattr(kernels, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(kernels, name, counted)
+    params = init_params(BENCH_CFG, torch.Generator().manual_seed(0),
+                         device="cpu")
+    calib = calibration_tensor(BENCH_CFG.vocab_size, 2, 32, device="cpu")
+    method, search = row.split("+")[0], "+" in row
+    scfg = SearchConfig(steps=2, n_match_layers=4, log_every=0,
+                        fused_kernel=True) if search else None
+    quantize_model(params, BENCH_CFG, QuantConfig(2, 32), method, calib, scfg,
+                   device="cpu")
+    assert calls == {"group_quant": CS.base_method_gq_launches(method, BENCH_CFG),
+                     "transform_quant": 2 * 2 if search else 0}
+
+
+def test_phase_9d_runs_cpu_against_cpu():
+    CS.phase_small_train(torch, devs=("cpu", "cpu"))

@@ -62,7 +62,8 @@ def test_every_port_module_imports():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch, repro_torch.core.pipeline, "
             "repro_torch.search, repro_torch.kernels, repro_torch.convert, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.ckpt, repro_torch.dist, repro_torch.bench.table1_main; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' or "
             "m.startswith(('jax.', 'repro.'))]; "
             "assert not bad, bad; print('ok')")
@@ -134,6 +135,36 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_a_gpu(no_gpu):
         BatchedServer(params_q, cfg, batch_size=2, max_len=32)
     assert BatchedServer(params_q, cfg, batch_size=2, max_len=32,
                          device="cpu").generate([]) == []
+
+
+def test_train_and_checkpoint_entry_points_default_to_cuda(no_gpu, tmp_path):
+    from repro_torch.bench.common import bench_model
+    from repro_torch.ckpt.checkpoint import (CheckpointManager,
+                                             restore_checkpoint,
+                                             restore_sharded_checkpoint,
+                                             save_checkpoint)
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.launch.train import train
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(steps=1, batch=2, seq=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main(["--steps", "1", "--batch", "2", "--seq", "16"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_model(ckpt_dir=tmp_path / "bench")
+    save_checkpoint(tmp_path, 1, {"w": torch.ones(2)})   # saving needs no card
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        restore_checkpoint(tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        restore_sharded_checkpoint(tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CheckpointManager(tmp_path).restore()
+    # and with device="cpu" they run
+    assert restore_checkpoint(tmp_path, device="cpu")[0]["w"].device.type == "cpu"
+    tree, _ = CheckpointManager(tmp_path, device="cpu").restore()
+    assert tree["w"].device.type == "cpu"
+    _, losses, _ = train(steps=2, batch=2, seq=16, log_every=1000, device="cpu")
+    assert len(losses) == 2
 
 
 def test_quantize_model_refuses_params_on_another_device():
