@@ -134,7 +134,25 @@ source, started together, into ``build/kernels/``), then:
    ``transform_quant`` to 2 × 400 on each +IE row), with
    ``table1_main``'s claims; (d) opt-tiny reduced, the same init and
    batches, 5 steps of ``train()`` on the card against the CPU (losses
-   within 1e-5 relative, params within (a)'s bar).
+   within 1e-5 relative, params within (a)'s bar);
+10. the dense zoo (RoPE, qk-norm, gated SwiGLU, GQA): (a) Qwen3-4B
+   (``configs/qwen3_4b.py``: 36 layers, d 2560, 32/8 heads, Dh 128, d_ff
+   9728, vocab 151936) at full width and depth, random-init, in fp32 (a
+   cut: the config's own dtype is bf16): ``quantize_model`` RTN and AWQ,
+   each alone and with 16 fused steps (``transform_quant``'s gate call
+   included), on 4 x 512 calibration tokens: held-out ppl, losses, accept
+   rate, seconds, peak memory, launches held to ``base_method_gq_launches``
+   and ``search_launches`` (3 x 16 a search), and one candidate's forward
+   beside its operations (``forward_flops``); (b) the same weights packed
+   at 2 bits through ``PagedServer`` over phase 5's trace with sharing
+   off, on, and on with 2 pages per block, as 5c (the GQA routes, 36 x
+   decode steps each, tokens held to the oracle and to each other, 0
+   leaked pages, saved_frac >= 0.5, the step split); (c) through
+   ``BatchedServer`` with ``use_flash_decode`` off and on, as 6c; (d) the
+   four dense configs' ``reduced()`` sizes on the card against the CPU:
+   logits of the forward and of prefill + 3 decode steps, RTN + 4 fused
+   steps (``histories_agree``), the base methods at 7c's bars, 5 train
+   steps at 9d's, PagedServer's greedy tokens identical.
 
 Prints the ``nvidia-smi`` name/power-limit line, a ``{"kernels": [...]}``
 line (all seven ported kernels), and last ``{"ok": true, "device":
@@ -543,15 +561,6 @@ def phase_small_reference(torch):
         return {k: to(v, d) if isinstance(v, dict) else v.to(d)
                 for k, v in tree.items()}
 
-    class Proposals:          # CPU draws, handed over on the run's device
-        def __init__(self, d):
-            self.src, self.d = inv.NativeProposals(3, "cpu"), d
-
-        def __call__(self, t_u, k, pcfg):
-            t_cpu = inv.FFNTransform(*(x.cpu() for x in t_u))
-            return [inv.FFNTransform(*(x.to(self.d) for x in c))
-                    for c in self.src(t_cpu, k, pcfg)]
-
     runs = {}
     for d in (torch.device("cpu"), torch.device("cuda")):
         params = to(cpu_params, d)
@@ -560,7 +569,8 @@ def phase_small_reference(torch):
                                    only=lambda p: p[-1] not in ("up", "down"))
         res = run(params, base, cfg, qcfg, cpu_calib.to(d),
                   SearchConfig(steps=LANE_STEPS, fused_kernel=True,
-                               log_every=0), proposals=Proposals(d))
+                               log_every=0),
+                  proposals=CpuProposals(inv, 3, d))
         runs[d.type] = (rtn_q, res.history)
     rtn_err = 0.0
     for path in quantizable_paths(cpu_params):
@@ -1023,9 +1033,20 @@ def packed_opt(torch, cfg):
     return params_q, time.perf_counter() - t0
 
 
-def phase_serving(torch, ops, kernel_rows, cfg, params_q, setup_s):
-    """5c: PagedServer on 2-bit opt-1.3b over the 8-tenant trace, prefix
-    sharing off then on."""
+SERVE_VARIANTS = (("off", False, 1), ("on", True, 1))   # 5c: label, sharing, MP
+
+
+def phase_serving(torch, ops, kernel_rows, cfg, params_q, setup_s,
+                  variants=SERVE_VARIANTS, tag="", profile_requests=None):
+    """5c (and 10b): PagedServer on a packed model over the 8-tenant trace,
+    one run per variant (label, prefix sharing, gqa_pages_per_block), then
+    a profiled run of the second variant over the first
+    ``profile_requests`` requests (all by default: the profiler's Python
+    side takes ≈ 0.2 ms an event, ≈ 120 s for the whole trace on a 36-layer
+    model). Each run's outputs are held to the greedy oracle and to the
+    first run's; each launches only the paged-decode route its heads and MP
+    choose, n_layers x decode steps times. Returns (each run's launch
+    counts by label, the step split)."""
     from repro_torch import obs
     from repro_torch.launch.serve import PagedServer, Request
     from repro_torch.models.model import dequant_tree, forward
@@ -1036,9 +1057,11 @@ def phase_serving(torch, ops, kernel_rows, cfg, params_q, setup_s):
     reqs = [Request(**t) for t in trace]
     reg = obs.get_registry()
     runs = {}
-    for sharing in (False, True):
+    for label, sharing, mp in variants:
+        route = ops.paged_decode_route(cfg.n_heads, cfg.n_kv_heads,
+                                       gqa_pages_per_block=mp)
         server = PagedServer(params_q, cfg, prefix_cache=sharing,
-                             device="cuda", **SERVE)
+                             gqa_pages_per_block=mp, device="cuda", **SERVE)
         reg.reset()
         torch.cuda.synchronize()
         live_before = torch.cuda.memory_allocated()
@@ -1052,11 +1075,12 @@ def phase_serving(torch, ops, kernel_rows, cfg, params_q, setup_s):
         st = dict(server.batcher.stats)
         alloc = server.cache.allocator
         if alloc.num_free != alloc.n_pages - alloc.reserved:
-            raise AssertionError(f"sharing={sharing}: leaked pages")
-        if counts["paged_decode"] != cfg.n_layers * st["steps"] or \
-                counts["paged_decode_gqa"] or counts["paged_decode_gqa_mp"]:
-            raise AssertionError(f"paged-decode launches {counts} != "
-                                 f"{cfg.n_layers} x {st['steps']} steps")
+            raise AssertionError(f"{label}: leaked pages")
+        if counts[route] != cfg.n_layers * st["steps"] or \
+                any(counts[r] for r in PD_ROUTES if r != route):
+            raise AssertionError(f"{label}: paged-decode launches {counts} != "
+                                 f"{route} {cfg.n_layers} x {st['steps']} "
+                                 f"steps")
         snap = reg.snapshot()
 
         def total(name):
@@ -1078,45 +1102,56 @@ def phase_serving(torch, ops, kernel_rows, cfg, params_q, setup_s):
                 raise AssertionError(f"obs {name} = {got} != {want}")
         tpot = snap["serving_tpot_seconds"]["series"][0]
         rep = server.sharing_report()
-        runs[sharing] = dict(outs=outs, wall=wall, counts=counts, stats=st,
-                             report=rep, step_ms=1e3 * tpot["sum"] / tpot["count"],
-                             peak=torch.cuda.max_memory_allocated(),
-                             live_before=live_before,
-                             pool=server.cache.pool_bytes(),
-                             tokens=sum(len(o) for o in outs))
+        if sharing and rep["saved_frac"] < 0.5:
+            raise AssertionError(f"{label}: saved_frac {rep['saved_frac']}")
+        runs[label] = dict(outs=outs, wall=wall, counts=counts, stats=st,
+                           report=rep, route=route, sharing=sharing, mp=mp,
+                           step_ms=1e3 * tpot["sum"] / tpot["count"],
+                           peak=torch.cuda.max_memory_allocated(),
+                           live_before=live_before,
+                           pool=server.cache.pool_bytes(),
+                           tokens=sum(len(o) for o in outs))
         del server
     dense = dequant_tree(params_q)             # the oracle's weights
-    ties = {s: check_greedy(torch, forward, dense, cfg, reqs, runs[s]["outs"],
-                            f"sharing={s} vs oracle") for s in runs}
-    parted = compare_runs(runs[False]["outs"], runs[True]["outs"],
-                          {(i, j) for t in ties.values() for i, j, _ in t},
-                          "sharing off vs on")
-    if runs[True]["report"]["saved_frac"] < 0.5:
-        raise AssertionError(f"saved_frac {runs[True]['report']['saved_frac']}")
+    ties = {k: check_greedy(torch, forward, dense, cfg, reqs, r["outs"],
+                            f"{k} vs oracle") for k, r in runs.items()}
     del dense
-    # where one decode step's time goes: a third sharing-on run of the
-    # trace under torch.profiler, read against the unprofiled run's steps
-    on = runs[True]
+    first = variants[0][0]
+    parted = {k: compare_runs(runs[first]["outs"], r["outs"],
+                              {(i, j) for t in ties.values() for i, j, _ in t},
+                              f"{first} vs {k}")
+              for k, r in runs.items() if k != first}
+    # where one decode step's time goes: the second variant again under
+    # torch.profiler, read against its unprofiled run's steps
+    label, sharing, mp = variants[1]
+    on = runs[label]
+    preqs = reqs[:profile_requests]
+    t0 = time.perf_counter()
     prof, prof_outs = profile_serving(torch, obs, PagedServer(
-        params_q, cfg, prefix_cache=True, device="cuda", **SERVE), reqs)
-    prof["outputs_as_sharing_on"] = prof_outs == on["outs"]
+        params_q, cfg, prefix_cache=sharing, gqa_pages_per_block=mp,
+        device="cuda", **SERVE), preqs)
+    prof[f"outputs_as_{label}"] = prof_outs == on["outs"][:len(preqs)]
+    prof["requests"] = len(preqs)
+    prof["seconds"] = time.perf_counter() - t0
     dec = prof["serve.decode_step"]
     n = dec["spans"]
     pd_ms = dec["by_family_ms"].get("paged_decode (port kernel)", 0.0) / n
     deq_ms = dec["dequant_device_ms"] / n
     dev_ms = dec["device_ms"] / n
     split = dict(
-        step_ms=on["step_ms"], profiled_step_ms=dec["host_ms"] / n,
+        arch=cfg.name, run=label, step_ms=on["step_ms"],
+        profiled_step_ms=dec["host_ms"] / n,
         device_ms=dev_ms, dequant_ms=deq_ms,
         dequant_per_layer_ms=deq_ms / cfg.n_layers, paged_decode_ms=pd_ms,
         other_device_ms=dev_ms - deq_ms - pd_ms,
         device_idle_ms=on["step_ms"] - dev_ms,
         device_busy_share=dev_ms / on["step_ms"],
         by_family_ms={k: v / n for k, v in dec["by_family_ms"].items()},
-        steps=n, kernel_5b_ms=kernel_rows["paged_decode"]["decode"]["ms"])
-    log("serving_profile", **prof)
-    for s, r in runs.items():
-        log("serving", arch=cfg.name, prefix_cache=s, requests=len(reqs),
+        steps=n, kernel_5b_ms=kernel_rows[on["route"]]["decode"]["ms"])
+    log(tag + "serving_profile", **prof)
+    for k, r in runs.items():
+        log(tag + "serving", arch=cfg.name, run=k, prefix_cache=r["sharing"],
+            pages_per_block=r["mp"], route=r["route"], requests=len(reqs),
             tokens=r["tokens"], wall_s=r["wall"],
             tokens_per_s=r["tokens"] / r["wall"],
             ttft_p50_s=r["report"]["ttft_p50_s"],
@@ -1124,12 +1159,33 @@ def phase_serving(torch, ops, kernel_rows, cfg, params_q, setup_s):
             saved_frac=r["report"]["saved_frac"], stats=r["stats"],
             launches=r["counts"], step_ms=r["step_ms"], peak_bytes=r["peak"],
             live_bytes_at_start=r["live_before"],
-            pool_bytes=r["pool"], near_ties=ties[s])
-    log("serving_check", parted_at=parted, packed_bytes=packed_bytes(params_q),
-        dense_bytes=dense_bytes(params_q), setup_s=setup_s,
-        outputs_identical=not parted)
-    log("decode_step_split", **split)
-    return on["counts"], split
+            pool_bytes=r["pool"], near_ties=ties[k])
+    log(tag + "serving_check", parted_at=parted,
+        packed_bytes=packed_bytes(params_q), dense_bytes=dense_bytes(params_q),
+        setup_s=setup_s, outputs_identical=not any(parted.values()))
+    log(tag + "decode_step_split", **split)
+    return {k: r["counts"] for k, r in runs.items()}, split
+
+
+def serve_on_devices(torch, ops, cfg, params_q, mp, devs):
+    """5d's run on each of ``devs``: PagedServer (4 slots, 8-token pages,
+    64 pages, max_len 64) with ``mp`` pages per block over a 4-tenant
+    trace, from the same packed weights. Returns one (outputs, stats,
+    launch counts) per device."""
+    from repro_torch.launch.serve import PagedServer, Request
+    from repro_torch.serving import build_trace
+
+    trace = build_trace(cfg.vocab_size, n_tenants=4, per_tenant=2,
+                        page_size=8, max_new=6)
+    res = []
+    for dev in devs:
+        server = PagedServer(to_device(params_q, dev), cfg, max_batch=4,
+                             page_size=8, n_pages=64, max_len=64,
+                             gqa_pages_per_block=mp, device=dev)
+        ops.reset_launch_counts()
+        outs = server.generate([Request(**t) for t in trace])
+        res.append((outs, dict(server.batcher.stats), dict(ops.LAUNCHES)))
+    return res
 
 
 def phase_small_serving(torch, ops):
@@ -1138,10 +1194,8 @@ def phase_small_serving(torch, ops):
     on the CPU with the same packed weights and requests."""
     from repro_torch.configs import get_config
     from repro_torch.core.quant import QuantConfig
-    from repro_torch.launch.serve import PagedServer, Request
     from repro_torch.models.model import init_params
     from repro_torch.quantized.qmodel import pack_model
-    from repro_torch.serving import build_trace
 
     launches = {}
     for name, over, mp, route in (
@@ -1152,28 +1206,20 @@ def phase_small_serving(torch, ops):
         params_q = pack_model(init_params(
             cfg, torch.Generator().manual_seed(3), device="cpu"),
             QuantConfig(bits=2, group_size=32))
-        trace = build_trace(cfg.vocab_size, n_tenants=4, per_tenant=2,
-                            page_size=8, max_new=6)
-        res = {}
-        for dev in ("cpu", "cuda"):
-            server = PagedServer(to_device(params_q, dev), cfg, max_batch=4,
-                                 page_size=8, n_pages=64, max_len=64,
-                                 gqa_pages_per_block=mp, device=dev)
-            ops.reset_launch_counts()
-            outs = server.generate([Request(**t) for t in trace])
-            res[dev] = (outs, dict(server.batcher.stats), dict(ops.LAUNCHES))
-        if res["cuda"][0] != res["cpu"][0]:
+        cpu, card = serve_on_devices(torch, ops, cfg, params_q, mp,
+                                     ("cpu", "cuda"))
+        if card[0] != cpu[0]:
             raise AssertionError(f"{name}: card tokens differ from the CPU's")
-        if res["cuda"][1] != res["cpu"][1]:
+        if card[1] != cpu[1]:
             raise AssertionError(f"{name}: batcher stats differ")
-        counts = res["cuda"][2]
-        if counts[route] != cfg.n_layers * res["cuda"][1]["steps"] or \
+        counts = card[2]
+        if counts[route] != cfg.n_layers * card[1]["steps"] or \
                 any(counts[r] for r in PD_ROUTES if r != route) or \
-                any(res["cpu"][2].values()):
+                any(cpu[2].values()):
             raise AssertionError(f"{name}: launches {counts}")
         launches[route] = counts[route]
         log("small_serving", config=name, heads=[cfg.n_heads, cfg.n_kv_heads],
-            pages_per_block=mp, stats=res["cuda"][1], launches=counts,
+            pages_per_block=mp, stats=card[1], launches=counts,
             tokens_identical=True)
     return launches
 
@@ -1359,12 +1405,13 @@ LEGACY_FAMILIES = (("split_decode", "flash_decode (port kernel)"),
                    ) + SERVE_FAMILIES
 
 
-def legacy_step_profile(torch, server, params_q, padded, steps):
+def legacy_step_profile(torch, server, params_q, padded, steps,
+                        profile=True):
     """Host ms per decode step of ``server`` on its first batch (prefill,
-    then ``steps`` steps ending in one synchronize), then the same window
-    under ``torch.profiler``: device ms by kernel family over the prefill
-    and the steps."""
-    from torch.profiler import ProfilerActivity, profile
+    then ``steps`` steps ending in one synchronize), then, with
+    ``profile``, the same window under ``torch.profiler``: device ms by
+    kernel family over the prefill and the steps."""
+    from torch.profiler import ProfilerActivity
 
     B = server.B
     plen = len(padded[0].prompt)
@@ -1382,8 +1429,10 @@ def legacy_step_profile(torch, server, params_q, padded, steps):
         return (time.perf_counter() - t0) * 1e3 / steps
 
     step_ms = run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    if not profile:
+        return step_ms, {}
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
         run()
     by_family = defaultdict(float)
     for ev in prof.key_averages():
@@ -1394,10 +1443,12 @@ def legacy_step_profile(torch, server, params_q, padded, steps):
     return step_ms, dict(sorted(by_family.items(), key=lambda kv: -kv[1]))
 
 
-def phase_legacy_serving(torch, ops, cfg, params_q):
-    """6c: BatchedServer on 2-bit opt-1.3b (full width and depth) over
-    phase 5's 24-request trace, use_flash_decode off then on. Returns the
-    flag-on run's flash_decode launches."""
+def phase_legacy_serving(torch, ops, cfg, params_q, profile=True):
+    """6c (and 10c): BatchedServer on a 2-bit model at full width and depth
+    (opt-1.3b; Qwen3-4B) over phase 5's 24-request trace, use_flash_decode
+    off then on; with ``profile``, device time by kernel family over batch
+    0's prefill and steps. Returns the flag-on run's flash_decode
+    launches."""
     import dataclasses
 
     from repro_torch.launch.serve import BatchedServer, Request
@@ -1433,7 +1484,8 @@ def phase_legacy_serving(torch, ops, cfg, params_q):
                                  f"{counts}, expected flash_decode {want}")
         peak = torch.cuda.max_memory_allocated()
         step_ms, family = legacy_step_profile(torch, server, params_q,
-                                              padded, TRACE["max_new"] - 1)
+                                              padded, TRACE["max_new"] - 1,
+                                              profile)
         runs[flash] = dict(outs=outs, wall=wall, counts=counts, peak=peak,
                            live_before=live_before, step_ms=step_ms,
                            family=family, tokens=sum(len(o) for o in outs))
@@ -1454,8 +1506,8 @@ def phase_legacy_serving(torch, ops, cfg, params_q):
             launches=r["counts"], cache_bytes=kv_bytes, peak_bytes=r["peak"],
             live_bytes_at_start=r["live_before"], near_ties=ties[f],
             profile_ms_by_family=r["family"],
-            profile_window=f"prefill + {TRACE['max_new'] - 1} decode steps "
-                           f"of batch 0")
+            profile_window=(f"prefill + {TRACE['max_new'] - 1} decode steps "
+                            f"of batch 0" if profile else None))
     log("serving_legacy_check", parted_at=parted, outputs_identical=not parted,
         oracle="full forward over the dequantized weights on the "
                "left-padded prompts")
@@ -1829,20 +1881,151 @@ def phase_base_methods(torch, ops, cfg, qcfg):
     return launches
 
 
-def phase_small_base_methods(torch):
+OMNI_AGREE_STEPS = 10   # tests/test_baselines.py: 10 block-loss steps at rtol 1e-3
+
+
+def ulp_moved(torch, tree, gen):
+    """``tree`` with every float element moved one ulp up, down or not, at
+    random (``gen``, a CPU generator)."""
+    if isinstance(tree, dict):
+        return {k: ulp_moved(torch, v, gen) for k, v in tree.items()}
+    u = torch.randint(-1, 2, tree.shape, generator=gen).to(tree.device)
+    up = torch.nextafter(tree, torch.full_like(tree, math.inf))
+    down = torch.nextafter(tree, torch.full_like(tree, -math.inf))
+    return torch.where(u > 0, up, torch.where(u < 0, down, tree))
+
+
+def omni_partings(torch, card, ref, params, cfg, calib, qcfg, draws=2):
+    """OmniQuant's runs (``PTQResult``s) on the device under test and on the
+    yardstick's device, from the same weights. A layer whose block losses
+    part by more than 1e-5 relative at some step went down another
+    trajectory after a code flipped at a near tie in the rounding STE
+    (ROADMAP.md parity notes). Then the first OMNI_AGREE_STEPS steps must
+    agree at rtol 1e-3, and the quantized models' calibration CE within
+    twice the yardstick's own spread under one-ulp changes of its input
+    weights, or 1e-3 relative, the larger (the bars of
+    ``tests/test_torch_baselines.py``). ``params`` and ``calib`` are on the
+    yardstick's device. Returns the parted layers, each with its first
+    parting step, and the CE comparison (empty without a parting)."""
+    from repro_torch.core.objective import calib_ce
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.models.model import forward
+
+    lc = card.base["losses"].cpu().double()
+    lr = ref.base["losses"].cpu().double()
+    rel = (lc - lr).abs() / lr.abs().clamp_min(1e-30)
+    parted = [{"layer": i, "first_step": int(torch.nonzero(rel[i] > 1e-5)[0, 0])}
+              for i in range(rel.shape[0]) if bool((rel[i] > 1e-5).any())]
+    if not parted:
+        return {}
+    head = slice(0, OMNI_AGREE_STEPS)
+    within(torch, [lc[:, head]], [lr[:, head]], rtol=1e-3, atol=0.0,
+           what="OmniQuant block losses, first steps")
+
+    def ce(params_q):
+        toks = calib.to(params_q["embed"]["tok"].device)
+        return float(calib_ce(forward(params_q, cfg, toks), toks,
+                              cfg.vocab_size))
+
+    ce_ref, ce_card = ce(ref.params_q), ce(card.params_q)
+    gen = torch.Generator().manual_seed(0)
+    spread = max(abs(ce(quantize_model(
+        ulp_moved(torch, params, gen), cfg, qcfg, "omniquant", calib,
+        device=calib.device).params_q) - ce_ref) for _ in range(draws))
+    bar = max(1e-3 * abs(ce_ref), 2 * spread)
+    if abs(ce_card - ce_ref) > bar:
+        raise AssertionError(f"OmniQuant: calibration CE {ce_card} vs "
+                             f"{ce_ref}, beyond {bar:.3g}")
+    return {"layers": parted, "ce": ce_card, "ce_ref": ce_ref,
+            "ulp_spread": spread, "bar": bar}
+
+
+def within_one_step_but(got, want, bits, group, spared):
+    """``within_one_step`` over every layer of (L, K, N) weights; where that
+    fails, over the layers not in ``spared`` (held by another bar, which
+    the caller has checked). Returns (the fraction apart, the layers the
+    weight bar left to the other one)."""
+    try:
+        return within_one_step(got, want, bits, group), []
+    except AssertionError:
+        keep = [i for i in range(want.shape[0]) if i not in spared]
+        if len(keep) == want.shape[0]:
+            raise
+        frac = within_one_step(got[keep], want[keep], bits, group) \
+            if keep else 0.0
+        return frac, sorted(spared)
+
+
+def small_base_methods(torch, cfg, params, calib, devs, label):
+    """GPTQ, AWQ and OmniQuant (200 steps a block) on ``devs`` (the
+    yardstick's device, then the device under test) from the same
+    weights and tokens: weights within ``group_quant``'s bar, GPTQ's output
+    within its own and parting after the pipeline's fake-quant only at
+    round-half ties, AWQ's α and clip picks equal or parted at a printed
+    near tie (those layers' weights not compared), OmniQuant's up / down
+    within the weight bar, or, where that fails, all but the layers that
+    ``omni_partings`` found parted and held by the calibration CE."""
+    from repro_torch.core import rtn
+    from repro_torch.core.gptq import gptq_process_dense
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.models.model import quantizable_paths
+
+    qcfg = QuantConfig(bits=2, group_size=32)
+    ref_dev, dev = (torch.device(d) for d in devs)
+    for method in BASE_METHODS:
+        runs = [quantize_model(to_device(params, d), cfg, qcfg, method,
+                               calib.to(d), device=d) for d in (ref_dev, dev)]
+        ref_run, dev_run = runs
+        parted, omni = [], {}
+        if method == "awq":
+            parted = choices_agree(dev_run.base["choices"],
+                                   ref_run.base["choices"])
+        if method == "gptq":
+            bases = [gptq_process_dense(to_device(params, d), cfg,
+                                        calib.to(d), qcfg)
+                     for d in (ref_dev, dev)]
+        if method == "omniquant":
+            omni = omni_partings(torch, dev_run, ref_run,
+                                 to_device(params, ref_dev), cfg,
+                                 calib.to(ref_dev), qcfg)
+        fracs, by_ce = {}, {}
+        for path in quantizable_paths(params):
+            card = rtn.get_by_path(dev_run.params_q, path)
+            cpu = rtn.get_by_path(ref_run.params_q, path)
+            name = path[-1]
+            layers = [i for i in range(cfg.n_layers)
+                      if not any(p["layer"] == i and p["grid"] in
+                                 ("alpha", f"clip {name}") for p in parted)]
+            if method == "omniquant" and name in ("up", "down"):
+                fracs[name], by_ce[name] = within_one_step_but(
+                    card, cpu, 2, 32,
+                    {o["layer"] for o in omni.get("layers", ())})
+            elif method == "gptq":
+                within_one_step(rtn.get_by_path(bases[1], path),
+                                rtn.get_by_path(bases[0], path), 2, 32,
+                                atol=1e-3)
+                fracs[name] = parts_only_at_ties(
+                    card, cpu, rtn.get_by_path(bases[0], path), 2, 32)
+            elif layers:
+                fracs[name] = within_one_step(card[layers], cpu[layers], 2, 32)
+        log("small_base_method", method=method, arch=label,
+            devices=list(devs), parted_frac=fracs, choices_parted=parted,
+            omniquant_parted=omni, layers_held_by_ce=by_ce)
+
+
+def phase_small_base_methods(torch, devs=("cpu", "cuda")):
     """7c: each base method and each of 7b's objectives on opt-tiny reduced,
     on the card and on the CPU (where ``fake_quant`` runs its plain
     version), from the same weights, tokens, proposals and SWD directions."""
     from repro_torch.configs import get_config
     from repro_torch.core import invariance as inv
     from repro_torch.core import rtn
-    from repro_torch.core.gptq import gptq_process_dense
     from repro_torch.core.objective import SWDActMatchObjective
-    from repro_torch.core.pipeline import quantize_model
     from repro_torch.core.quant import QuantConfig, fake_quant
     from repro_torch.core.search import SearchConfig
     from repro_torch.data.calib import calibration_tensor
-    from repro_torch.models.model import init_params, quantizable_paths
+    from repro_torch.models.model import init_params
     from repro_torch.search import run
 
     cfg = get_config("opt-tiny").reduced()
@@ -1850,52 +2033,15 @@ def phase_small_base_methods(torch):
     params = init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
     calib = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=64,
                                device="cpu")
-    devs = (torch.device("cpu"), torch.device("cuda"))
-    for method in BASE_METHODS:
-        runs = {d.type: quantize_model(to_device(params, d), cfg, qcfg, method,
-                                       calib.to(d), device=d) for d in devs}
-        parted = []
-        if method == "awq":
-            parted = choices_agree(runs["cuda"].base["choices"],
-                                   runs["cpu"].base["choices"])
-        if method == "gptq":
-            bases = {d.type: gptq_process_dense(to_device(params, d), cfg,
-                                                calib.to(d), qcfg)
-                     for d in devs}
-        fracs = {}
-        for path in quantizable_paths(params):
-            card = rtn.get_by_path(runs["cuda"].params_q, path)
-            cpu = rtn.get_by_path(runs["cpu"].params_q, path)
-            name = path[-1]
-            layers = [i for i in range(cfg.n_layers)
-                      if not any(p["layer"] == i and p["grid"] in
-                                 ("alpha", f"clip {name}") for p in parted)]
-            if method == "gptq":
-                within_one_step(rtn.get_by_path(bases["cuda"], path),
-                                rtn.get_by_path(bases["cpu"], path), 2, 32,
-                                atol=1e-3)
-                fracs[name] = parts_only_at_ties(
-                    card, cpu, rtn.get_by_path(bases["cpu"], path), 2, 32)
-            elif layers:
-                fracs[name] = within_one_step(card[layers], cpu[layers], 2, 32)
-        log("small_base_method", method=method, arch="opt-tiny (reduced)",
-            parted_frac=fracs, choices_parted=parted)
-
-    class Proposals:          # CPU draws, handed over on the run's device
-        def __init__(self, d):
-            self.src, self.d = inv.NativeProposals(3, "cpu"), d
-
-        def __call__(self, t_u, k, pcfg):
-            t_cpu = inv.FFNTransform(*(x.cpu() for x in t_u))
-            return [inv.FFNTransform(*(x.to(self.d) for x in c))
-                    for c in self.src(t_cpu, k, pcfg)]
+    small_base_methods(torch, cfg, params, calib, devs, "opt-tiny (reduced)")
+    devs = [torch.device(d) for d in devs]
 
     # SWD's directions drawn once on the CPU: a generator on the card draws
     # other numbers
     dirs = torch.randn((cfg.d_model, 64),
                        generator=torch.Generator().manual_seed(0))
     for objective in BASE_OBJECTIVES:
-        hist = {}
+        hist = []
         for d in devs:
             p = to_device(params, d)
             base = rtn.map_quantizable(p, lambda w, _: fake_quant(w, qcfg),
@@ -1906,16 +2052,16 @@ def phase_small_base_methods(torch):
             res = run(p, base, cfg, qcfg, calib.to(d),
                       SearchConfig(steps=LANE_STEPS, fused_kernel=True,
                                    log_every=0),
-                      objective=objv, proposals=Proposals(d))
+                      objective=objv, proposals=CpuProposals(inv, 3, d))
             if res.stats["objective"] != objective:
                 raise AssertionError(f"stats objective {res.stats}")
-            hist[d.type] = res.history
-        compared, parted = histories_agree(hist["cuda"], hist["cpu"],
+            hist.append(res.history)
+        compared, parted = histories_agree(hist[1], hist[0],
                                            f"{objective} card vs CPU")
         log("small_objective", objective=objective, steps=LANE_STEPS,
             compared=compared, parted_at=parted,
-            card_losses=[h[1] for h in hist["cuda"]],
-            cpu_losses=[h[1] for h in hist["cpu"]])
+            card_losses=[h[1] for h in hist[1]],
+            cpu_losses=[h[1] for h in hist[0]])
 
 
 # ---------------------------------------------------------------------------
@@ -2586,9 +2732,9 @@ def phase_table1(torch, ops):
     return dict(total)
 
 
-def phase_small_train(torch, devs=("cpu", "cuda")):
-    """9d: opt-tiny reduced, the same init (drawn on the CPU) and batches,
-    SMALL_TRAIN_STEPS steps of ``train()`` on each of ``devs`` (the
+def phase_small_train(torch, devs=("cpu", "cuda"), arch="opt-tiny"):
+    """9d (and 10d): ``arch`` reduced, the same init (drawn on the CPU) and
+    batches, SMALL_TRAIN_STEPS steps of ``train()`` on each of ``devs`` (the
     yardstick's device, then the device under test): losses within 1e-5
     relative, params within 9a's accumulation bar."""
     from repro_torch.configs import get_config
@@ -2596,7 +2742,7 @@ def phase_small_train(torch, devs=("cpu", "cuda")):
     from repro_torch.models.model import init_params
     from repro_torch.optim.adamw import tree_leaves
 
-    cfg = get_config("opt-tiny").reduced()
+    cfg = get_config(arch).reduced()
     params = init_params(cfg, torch.Generator().manual_seed(11), device="cpu")
     out = []
     for d in devs:
@@ -2610,8 +2756,290 @@ def phase_small_train(torch, devs=("cpu", "cuda")):
         raise AssertionError(f"9d: losses {l_dev} vs {l_ref}")
     param_diff = within(torch, [x.cpu() for x in tree_leaves(p_dev)],
                         tree_leaves(p_ref), what="9d params", **ACCUM_TOL)
-    log("small_train", devices=list(devs), losses=l_dev, ref_losses=l_ref,
+    log("small_train", arch=arch, devices=list(devs), losses=l_dev,
+        ref_losses=l_ref,
         max_rel_loss_diff=rel, params_max_abs_diff=param_diff)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the dense zoo (RoPE, qk-norm, gated SwiGLU, GQA) at full width
+# ---------------------------------------------------------------------------
+
+ZOO_ARCH = "qwen3-4b"
+ZOO_ARCHS = ("qwen3-4b", "yi-6b", "internlm2-1.8b", "command-r-35b")
+# cut: the configs' own dtype is bf16; the port's parity runs are fp32
+ZOO_DTYPE = dict(param_dtype="float32", compute_dtype="float32")
+ZOO_METHODS = ("rtn", "awq")     # each alone, then + STEPS fused steps
+ZOO_SERVE = (("off", False, 1), ("on", True, 1), ("on-mp2", True, 2))
+# 10b profiles the first request of each tenant (a third of the trace's
+# profiler events); 10c takes no profile (6c's covers the same kernels)
+ZOO_PROFILE_REQUESTS = 8
+SMALL_ZOO_STEPS = 4
+FWD_TOL = dict(rtol=1e-4, atol=1e-5)      # tests/test_torch_model.py
+DECODE_TOL = dict(rtol=1e-4, atol=1e-4)   # tests/test_torch_legacy_serve.py
+FFN_KEYS = ("up", "gate", "down")
+
+
+def dense_param_count(cfg) -> int:
+    """Parameters of the port's ``init_params`` tree for a dense ``cfg``."""
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    attn = 2 * D * hq * hd + 2 * D * hkv * hd
+    if cfg.attn_qkv_bias or cfg.use_bias:
+        attn += (hq + 2 * hkv) * hd
+    if cfg.use_bias:
+        attn += D
+    if cfg.qk_norm:
+        attn += 2 * hd
+    n_ffn = 2 + int(cfg.gated_mlp)
+    mlp = n_ffn * D * F + ((n_ffn - 1) * F + D if cfg.use_bias else 0)
+    norm = D * (2 if cfg.norm == "layernorm" else 1)
+    n = cfg.n_layers * (attn + mlp + 2 * norm) + norm + V * D
+    if cfg.pos_emb == "learned":
+        n += cfg.max_seq_len * D
+    if not cfg.tie_embeddings:
+        n += D * V
+    return n
+
+
+def matmul_params(cfg) -> int:
+    """Weights a forward multiplies by: every block's projections and the
+    LM head (the token embedding is a lookup)."""
+    D, F = cfg.d_model, cfg.d_ff
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    per_layer = 2 * D * hq * hd + 2 * D * hkv * hd \
+        + (2 + int(cfg.gated_mlp)) * D * F
+    return cfg.n_layers * per_layer + D * cfg.padded_vocab
+
+
+def forward_flops(cfg, B, S) -> int:
+    """Operations of one forward over (B, S) tokens: 2 per weight per token,
+    and causal attention's QK^T and PV over the S(S+1)/2 pairs a head."""
+    return 2 * matmul_params(cfg) * B * S + 2 * 2 * cfg.n_layers * B \
+        * (S * (S + 1) // 2) * cfg.n_heads * cfg.resolved_head_dim
+
+
+def ffn_stack_bytes(cfg, elem=4) -> int:
+    """The stacked FFN weights (up, gate, down) that an accepted move clones."""
+    return cfg.n_layers * (2 + int(cfg.gated_mlp)) * cfg.d_model * cfg.d_ff \
+        * elem
+
+
+def paged_launches(cfg, steps) -> int:
+    """Paged-decode launches of a serving run: one per layer per step."""
+    return cfg.n_layers * steps
+
+
+def zoo_config(get_config, arch=ZOO_ARCH):
+    import dataclasses
+    return dataclasses.replace(get_config(arch), **ZOO_DTYPE)
+
+
+def phase_zoo_main(torch, ops, cfg, qcfg):
+    """10a: ``quantize_model`` on random-init Qwen3-4B at full width and
+    depth (fp32): RTN, RTN + STEPS fused steps, AWQ, AWQ + STEPS fused
+    steps on 4 x 512 calibration tokens, held-out ppl on 4 x 512 others;
+    then one search step's forward timed; last, the fp32 params packed at
+    2 bits / g32 for 10b and 10c. Returns (the packed params, the seconds
+    the packing took, the launch counts by kernel and run)."""
+    from repro_torch.core.objective import activation_mse, calib_ce
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import forward, init_params, lm_loss
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.quantized.qmodel import pack_model
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    calib = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=512,
+                               seed=99, device="cuda")
+    held = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=512,
+                              seed=123, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if n_params != dense_param_count(cfg):
+        raise AssertionError(f"{n_params} params != {dense_param_count(cfg)}")
+    log("zoo_setup", arch=cfg.name, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+        head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
+        dtype=cfg.param_dtype, params=n_params,
+        param_bytes=4 * n_params, calib=list(calib.shape),
+        seconds=time.perf_counter() - t0)
+
+    def ppl(p):
+        logits = forward(p, cfg, held)
+        return math.exp(float(lm_loss(logits[:, :-1], held[:, 1:],
+                                      cfg.vocab_size)))
+
+    ppl_fp = ppl(params)
+    scfg = SearchConfig(steps=STEPS, fused_kernel=True, log_every=0)
+    launches = {"group_quant": {}, "transform_quant": {}}
+    step_ms = None
+    for method in ZOO_METHODS:
+        for search in (None, scfg):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = quantize_model(params, cfg, qcfg, method, calib, search,
+                                 device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, peak = dict(ops.LAUNCHES), torch.cuda.max_memory_allocated()
+            ppl_q = ppl(res.params_q)
+            sr, label = res.search, res.method
+            del res
+            want_gq = base_method_gq_launches(method, cfg)
+            want_tq = search_launches(cfg, scfg, sr.stats)["transform_quant"] \
+                if sr else 0
+            if counts["group_quant"] != want_gq or \
+                    counts["transform_quant"] != want_tq:
+                raise AssertionError(f"{label}: launches {counts}, expected "
+                                     f"group_quant {want_gq}, "
+                                     f"transform_quant {want_tq}")
+            nums = [ppl_q] + ([sr.initial_loss, sr.final_loss]
+                              + [h[1] for h in sr.history] if sr else [])
+            if not all(math.isfinite(x) for x in nums):
+                raise AssertionError(f"{label}: non-finite numbers {nums}")
+            extra = {}
+            if sr:
+                if not sr.final_loss <= sr.initial_loss:
+                    raise AssertionError(f"{label}: final loss above initial")
+                step_ms = 1e3 / sr.stats["proposals_per_sec"]
+                extra = dict(initial_loss=sr.initial_loss,
+                             final_loss=sr.final_loss,
+                             accept_rate=sr.accept_rate, steps=STEPS,
+                             step_ms=step_ms,
+                             search_s=STEPS / sr.stats["proposals_per_sec"])
+            log("zoo_quantize", arch=cfg.name, method=label, ppl_fp32=ppl_fp,
+                ppl=ppl_q, wall_s=wall, peak_bytes=peak, launches=counts,
+                group_quant_expected=want_gq,
+                transform_quant_expected=want_tq, **extra)
+            for kernel in launches:
+                launches[kernel][label] = counts[kernel]
+            del sr
+    # one candidate's forward and objective (its cost does not depend on
+    # the weights' values), beside the step the searches measured
+    B, S = calib.shape
+
+    def eval_once():
+        logits, hidden = forward(params, cfg, calib, collect_hidden=True)
+        return calib_ce(logits, calib, cfg.vocab_size), \
+            activation_mse(hidden, hidden, 10)
+
+    fwd_ms = time_ms(torch, eval_once, warmup=1, reps=3)
+    flops = forward_flops(cfg, B, S)
+    log("zoo_step", arch=cfg.name, forward_objective_ms=fwd_ms,
+        step_ms=step_ms, forward_flops=flops,
+        forward_tflops_per_s=flops / fwd_ms / 1e9,
+        share_of_fp32_peak=flops / fwd_ms / 1e-3 / FP32_OPS_PER_S,
+        ffn_stack_clone_bytes=ffn_stack_bytes(cfg),
+        logits_bytes=B * S * cfg.padded_vocab * 4)
+    del calib, held
+    t0 = time.perf_counter()
+    params_q = pack_model(params, qcfg)
+    torch.cuda.synchronize()
+    return params_q, time.perf_counter() - t0, launches
+
+
+def phase_zoo_serving(torch, ops, cfg, params_q, setup_s, pd_rows):
+    """10b and 10c: the packed model served over the 8-tenant trace by
+    PagedServer (sharing off, on, on with 2 pages per block: the two GQA
+    routes) and by BatchedServer (use_flash_decode off, on). Returns the
+    paged runs' launch counts by label and the flash run's launches."""
+    t0 = time.perf_counter()
+    paged, _ = phase_serving(torch, ops, pd_rows, cfg, params_q, setup_s,
+                             variants=ZOO_SERVE, tag="zoo_",
+                             profile_requests=ZOO_PROFILE_REQUESTS)
+    t1 = time.perf_counter()
+    flash = phase_legacy_serving(torch, ops, cfg, params_q, profile=False)
+    log("zoo_serving_seconds", paged_s=t1 - t0,
+        batched_s=time.perf_counter() - t1)
+    return paged, flash
+
+
+def phase_small_zoo(torch, ops, arch, devs=("cpu", "cuda")):
+    """10d: ``arch``'s reduced config on ``devs`` (the yardstick's device,
+    then the device under test), from the same weights (drawn on the CPU),
+    tokens and proposals: the forward's logits (FWD_TOL), prefill + 3
+    decode steps (DECODE_TOL, logits and caches), RTN + SMALL_ZOO_STEPS
+    fused steps (``histories_agree``), the base methods
+    (``small_base_methods``), SMALL_TRAIN_STEPS train steps
+    (``phase_small_train``) and PagedServer's greedy tokens and stats
+    (identical)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import invariance as inv
+    from repro_torch.core import rtn
+    from repro_torch.core.quant import QuantConfig, fake_quant
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import (decode_step, forward, init_params,
+                                          prefill)
+    from repro_torch.quantized.qmodel import pack_model
+    from repro_torch.search import run
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch).reduced()
+    qcfg = QuantConfig(bits=2, group_size=32)
+    params = init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+    calib = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=64,
+                               device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (3, 12)))
+    scfg = SearchConfig(steps=SMALL_ZOO_STEPS, fused_kernel=True, log_every=0)
+    outs = []
+    for d in map(torch.device, devs):
+        p = to_device(params, d)
+        logits = [forward(p, cfg, calib.to(d)).cpu()]
+        lg, cache = prefill(p, cfg, toks[:, :9].to(d), 32)
+        logits.append(lg.cpu())
+        for t in range(9, 12):
+            lg, cache = decode_step(p, cfg, toks[:, t:t + 1].to(d), cache, t)
+            logits.append(lg.cpu())
+        base = rtn.map_quantizable(p, lambda w, _: fake_quant(w, qcfg),
+                                   only=lambda q: q[-1] not in FFN_KEYS)
+        ops.reset_launch_counts()
+        res = run(p, base, cfg, qcfg, calib.to(d), scfg,
+                  proposals=CpuProposals(inv, 3, d))
+        counts = dict(ops.LAUNCHES)
+        want = search_launches(cfg, scfg, res.stats) if d.type == "cuda" \
+            else {k: 0 for k in counts}
+        if any(counts[k] != want.get(k, 0) for k in counts):
+            raise AssertionError(f"{arch}: search launches {counts} != {want}")
+        outs.append((logits, [cache[k].cpu() for k in sorted(cache)],
+                     res.history))
+        del p, base, res, cache
+    (l_ref, c_ref, h_ref), (l_dev, c_dev, h_dev) = outs
+    fwd_err = within(torch, l_dev[:1], l_ref[:1], what=f"{arch} forward",
+                     **FWD_TOL)
+    dec_err = within(torch, l_dev[1:] + c_dev, l_ref[1:] + c_ref,
+                     what=f"{arch} prefill / decode", **DECODE_TOL)
+    compared, parted = histories_agree(h_dev, h_ref, f"{arch} search")
+    small_base_methods(torch, cfg, params, calib, devs, f"{arch} (reduced)")
+    phase_small_train(torch, devs, arch=arch)
+    params_q = pack_model(params, qcfg)
+    route = ops.paged_decode_route(cfg.n_heads, cfg.n_kv_heads)
+    ref, dev = serve_on_devices(torch, ops, cfg, params_q, 1, devs)
+    if dev[0] != ref[0] or dev[1] != ref[1]:
+        raise AssertionError(f"{arch}: served tokens or stats differ")
+    if devs[1] == "cuda" and (
+            dev[2][route] != paged_launches(cfg, dev[1]["steps"])
+            or any(dev[2][r] for r in PD_ROUTES if r != route)):
+        raise AssertionError(f"{arch}: paged launches {dev[2]}")
+    log("small_zoo", arch=arch, devices=list(devs),
+        heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.resolved_head_dim,
+        qk_norm=cfg.qk_norm, norm=cfg.norm, rope_theta=cfg.rope_theta,
+        forward_max_abs_diff=fwd_err, decode_max_abs_diff=dec_err,
+        search_compared=compared, search_parted_at=parted,
+        card_losses=[h[1] for h in h_dev], ref_losses=[h[1] for h in h_ref],
+        serve_stats=dev[1], serve_launches=dev[2], tokens_identical=True,
+        seconds=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -2786,6 +3214,7 @@ def main() -> int:
     params_q, setup_s = packed_opt(torch, cfg)
     serve_counts, split = phase_serving(torch, ops, pd_rows, cfg, params_q,
                                         setup_s)
+    serve_counts = serve_counts["on"]
     small_counts = phase_small_serving(torch, ops)
 
     # ---- phase 6: contiguous-cache serving, quant_matmul -----------------
@@ -2820,6 +3249,22 @@ def main() -> int:
     phase_small_train(torch)
     log("phase9", seconds=time.perf_counter() - t0)
 
+    # ---- phase 10: the dense zoo; Qwen3-4B at full width and depth -------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    zcfg = zoo_config(get_config)
+    zoo_q, pack_s, zoo_launches = phase_zoo_main(torch, ops, zcfg, qcfg)
+    t1 = time.perf_counter()
+    zoo_paged, zoo_flash = phase_zoo_serving(torch, ops, zcfg, zoo_q, pack_s,
+                                             pd_rows)
+    del zoo_q
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    for arch in ZOO_ARCHS:
+        phase_small_zoo(torch, ops, arch)
+    t3 = time.perf_counter()
+    log("phase10", seconds=t3 - t0, a_s=t1 - t0, bc_s=t2 - t1, d_s=t3 - t2)
+
     kernels = []
     for name, source, replaces in (
             ("group_quant", "src/repro_torch/csrc/group_quant.cu",
@@ -2848,6 +3293,11 @@ def main() -> int:
                                "on the port-trained bench model, 8 rows "
                                "(400 fused steps on each +IE row), each "
                                "counted from 0"},
+            "zoo": {
+                "launches": zoo_launches[name],
+                "launches_on": "phase 10a: quantize_model rtn / awq, alone "
+                               "and with 16 fused steps, on Qwen3-4B (fp32, "
+                               "full width and depth), each counted from 0"},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
@@ -2866,10 +3316,17 @@ def main() -> int:
                              "src/repro/kernels/paged_decode.py:289",
                          "paged_decode_gqa_mp":
                              "src/repro/kernels/paged_decode.py:369"}[route],
-            "launches": (serve_counts if route == "paged_decode"
-                         else small_counts)[route],
-            "launches_on": ("opt-1.3b serving, sharing on" if route ==
-                            "paged_decode" else "opt-tiny reduced serving"),
+            **({"launches": serve_counts[route],
+                "launches_on": "phase 5c: opt-1.3b serving, sharing on"}
+               if route == "paged_decode" else
+               {"launches": zoo_paged["on" if route == "paged_decode_gqa"
+                                      else "on-mp2"][route],
+                "launches_on": "phase 10b: PagedServer on 2-bit Qwen3-4B, "
+                               "sharing on" + (", 2 pages per block" if
+                                               route.endswith("_mp") else ""),
+                "small_serving": {
+                    "launches": small_counts[route],
+                    "launches_on": "phase 5d: opt-tiny reduced serving"}}),
             "max_abs_err": pd_errs[route],
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
@@ -2895,6 +3352,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_decode.py:64",
         "launches": fd_launches,
         "launches_on": "opt-1.3b BatchedServer, use_flash_decode on",
+        "zoo": {"launches": zoo_flash,
+                "launches_on": "phase 10c: Qwen3-4B BatchedServer, "
+                               "use_flash_decode on"},
         "max_abs_err": fd_err,
         **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")},

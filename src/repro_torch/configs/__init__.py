@@ -1,21 +1,34 @@
-"""Architecture config registry: ``get_config(arch_id)``.
+"""Architecture config registry: ``get_config(arch_id)`` / ``list_archs()``.
 
-The port carries the paper's own OPT family; the other architectures of the
-reference's zoo wait for their model families (ROADMAP Queue 1 items 11-12).
+The port carries the paper's own OPT family and the dense architectures of
+the reference's zoo (RoPE, GQA, gated SwiGLU, qk-norm); the MoE, SSM,
+hybrid, encoder-decoder and vision architectures wait for their model
+families (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
-from repro_torch.configs import opt_paper
+import importlib
 
 _ARCHS = {
-    "opt-1.3b": opt_paper,
-    "opt-13b": opt_paper,
-    "opt-125m": opt_paper,
-    "opt-tiny": opt_paper,
+    "internlm2-1.8b": "internlm2_1_8b",
+    "qwen3-4b": "qwen3_4b",
+    "command-r-35b": "command_r_35b",
+    "yi-6b": "yi_6b",
+    "opt-1.3b": "opt_paper",
+    "opt-13b": "opt_paper",
+    "opt-125m": "opt_paper",
+    "opt-tiny": "opt_paper",
 }
+
+
+def list_archs(assigned_only: bool = True):
+    """The registered ids, without the OPT family if ``assigned_only``."""
+    ids = list(_ARCHS)
+    return [a for a in ids if not a.startswith("opt-")] if assigned_only else ids
 
 
 def get_config(arch: str):
     if arch not in _ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCHS)}")
-    return _ARCHS[arch].config(arch)
+    mod = importlib.import_module(f"repro_torch.configs.{_ARCHS[arch]}")
+    return mod.config(arch) if hasattr(mod, "config") else mod.CONFIG

@@ -10,9 +10,9 @@ quantizable linear:
     mlp_in   (L, B, S, D)     — input of up/gate
     mlp_mid  (L, B, S, F)     — input of down
 
-Dense pattern only (the paper's OPT family), as in the reference. The layers
-run one after another over views of the stacked weights, and each tap is
-written into a preallocated (L, ...) tensor, so no stack is copied.
+Dense pattern only, as in the reference. The layers run one after another
+over views of the stacked weights, and each tap is written into a
+preallocated (L, ...) tensor, so no stack is copied.
 """
 from __future__ import annotations
 
@@ -30,7 +30,8 @@ def capture_dense_taps(params, cfg: ModelConfig, tokens):
     check_supported(cfg)
     B, S = tokens.shape
     dt = getattr(torch, cfg.compute_dtype)
-    h = embed_tokens(params, cfg, tokens, torch.arange(S, device=tokens.device))
+    positions = torch.arange(S, device=tokens.device)
+    h = embed_tokens(params, cfg, tokens, positions)
     width = cfg.n_heads * cfg.resolved_head_dim
     taps = {name: torch.empty((cfg.n_layers, B, S, d), dtype=dt,
                               device=h.device)
@@ -40,7 +41,7 @@ def capture_dense_taps(params, cfg: ModelConfig, tokens):
     for i in range(cfg.n_layers):
         pl = dequant_tree(layer_slice(params["blocks"], i), dt)
         a_in = L.apply_norm(h, pl["ln1"], cfg.norm)
-        q, k, v = L.attn_qkv(pl["attn"], cfg, a_in)
+        q, k, v = L.attn_qkv(pl["attn"], cfg, a_in, positions)
         attn = L.blocked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
         attn_mid = attn.reshape(B, S, -1)
         a = attn_mid @ pl["attn"]["wo"]

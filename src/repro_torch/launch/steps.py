@@ -1,6 +1,6 @@
 """Step builders (the reference's ``repro.launch.steps``): the train step
-(forward, autograd, AdamW) and the serving steps over the contiguous KV
-cache.
+(forward, autograd, AdamW), the serving steps over the contiguous KV
+cache, and aliases of the paged serving steps in ``repro_torch.serving``.
 
 The steps are plain functions (PyTorch runs eagerly; the reference jits
 them). The dry-run ``*_structs`` builders and the remat policies, which
@@ -15,7 +15,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
                                      cosine_schedule, tree_leaves, tree_map)
 
-__all__ = ["make_train_step", "make_serve_step", "make_prefill_step"]
+__all__ = ["make_train_step", "make_serve_step", "make_paged_serve_step",
+           "make_paged_prefill_chunk_step", "make_page_copy_step",
+           "make_prefill_step"]
 
 
 def _value_and_grad(loss_of, params, tokens):
@@ -38,7 +40,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
     ``accum_steps > 1`` splits the batch into equal microbatches (rows
     ``i·B/n .. (i+1)·B/n``), sums their f32 losses and gradients in order
     and divides by ``accum_steps``: activation memory scales down at the
-    cost of ``accum_steps`` weight passes.
+    cost of ``accum_steps`` weight passes. A batch that ``accum_steps`` does
+    not divide raises ``ValueError`` (the reference's reshape raises too).
     """
     schedule = cosine_schedule(opt_cfg)
 
@@ -56,7 +59,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
         if accum_steps == 1:
             loss, grads = _value_and_grad(loss_of, params, tokens)
         else:
-            mb = tokens.shape[0] // accum_steps
+            B = tokens.shape[0]
+            if B % accum_steps:
+                raise ValueError(
+                    f"batch of {B} rows does not split into accum_steps="
+                    f"{accum_steps} equal microbatches")
+            mb = B // accum_steps
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                    device=p.device), params)
@@ -91,6 +99,30 @@ def make_serve_step(cfg: ModelConfig):
         return torch.argmax(logits[:, -1], dim=-1)[:, None], cache
 
     return serve_step
+
+
+def make_paged_serve_step(cfg: ModelConfig):
+    """(params_q, tokens (B, 1), pools, block_tables (B, P), seq_lens (B,))
+    -> (next_token (B, 1), pools): the continuous-batching decode step
+    (``serving.decode.make_paged_decode_step``), greedy."""
+    from repro_torch.serving.decode import make_paged_decode_step
+    return make_paged_decode_step(cfg)
+
+
+def make_paged_prefill_chunk_step(cfg: ModelConfig):
+    """(params_q, tokens (1, C), pools, block_tables (1, P), offset) ->
+    (logits (1, C, V), pools): one chunk of paged prefill
+    (``serving.prefill.make_paged_prefill_step``)."""
+    from repro_torch.serving.prefill import make_paged_prefill_step
+    return make_paged_prefill_step(cfg)
+
+
+def make_page_copy_step(cfg: ModelConfig):
+    """(pools, src, dst) -> pools with page ``dst`` <- page ``src`` on every
+    leaf, in place: the batcher's copy-on-write fork
+    (``serving.paged_cache.copy_page``)."""
+    from repro_torch.serving.paged_cache import copy_page
+    return copy_page
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):

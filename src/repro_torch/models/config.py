@@ -1,9 +1,9 @@
 """Model configuration for the port's dense path.
 
 The fields are the subset of the reference's ``repro.models.config``
-``ModelConfig`` that the dense forward reads, with the same names and
+``ModelConfig`` that the dense forward reads, with the same names, order and
 defaults; ``reduced()`` derives the same tiny configs the reference's tests
-use. Features the port does not carry yet (RoPE, qk-norm, MoE, SSM, hybrid,
+use. Features the port does not carry yet (MoE, SSM, hybrid,
 encoder-decoder) have no field here; :func:`check_supported` names the
 roadmap item for the block patterns that wait.
 """
@@ -26,9 +26,11 @@ class ModelConfig:
     head_dim: int = 0                 # 0 => d_model // n_heads
     activation: str = "silu"          # relu | silu | gelu
     gated_mlp: bool = True
+    qk_norm: bool = False
     use_bias: bool = False            # biases on mlp / attn out
     attn_qkv_bias: bool = False       # qwen2-style qkv bias
-    pos_emb: str = "learned"          # learned | none
+    pos_emb: str = "rope"             # rope | learned | none
+    rope_theta: float = 10000.0
     norm: str = "rmsnorm"             # rmsnorm | layernorm
     tie_embeddings: bool = False
     max_seq_len: int = 8192           # for learned positions
@@ -76,7 +78,3 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"block_pattern={cfg.block_pattern!r} is not ported yet "
             f"(ROADMAP Queue 1 item 12: other model families)")
-    if cfg.pos_emb not in ("learned", "none"):
-        raise NotImplementedError(
-            f"pos_emb={cfg.pos_emb!r} is not ported yet "
-            f"(ROADMAP Queue 1 item 11: other dense features)")

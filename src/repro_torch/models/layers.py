@@ -1,20 +1,25 @@
-"""Dense building blocks: norms, activation, self-attention, MLP.
+"""Dense building blocks: norms, activation, RoPE, self-attention, MLP.
 
 Plain functions on tensors with the reference's layout (``x @ W``
-orientation, (B, S, H, Dh) heads). Attention is the reference's
+orientation, (B, S, H, Dh) heads). RoPE and qk-norm are plain PyTorch, as
+they are jnp in the reference. Attention is the reference's
 ``blocked_attention`` online softmax in plain PyTorch (jnp there, not a
 Pallas kernel), except one-token decode over a contiguous cache with
 ``cfg.use_flash_decode``, which takes the ``flash_decode`` kernel.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["NEG_INF", "rmsnorm", "layernorm", "apply_norm", "init_norm",
-           "activation_fn", "attn_qkv", "attn_out", "blocked_attention",
-           "self_attention", "mlp", "quantize_kv"]
+           "activation_fn", "rope_cos_sin", "apply_rope", "attn_qkv",
+           "attn_out", "blocked_attention", "self_attention", "mlp",
+           "quantize_kv"]
 
 NEG_INF = -1e30
 
@@ -56,6 +61,37 @@ def activation_fn(name):
             "gelu": _gelu_tanh}[name]
 
 
+@functools.lru_cache(maxsize=16)
+def _rope_inv_freq(head_dim: int, theta: float, device: torch.device):
+    """The reference's ``1 / theta ** (arange(0, hd, 2) / hd)`` in f32. The
+    exponents are f32 quotients as there; the power is taken in float64
+    and rounded to f32, which gives XLA's f32 ``pow`` bit for bit (f32
+    ``torch.pow`` is off by an ulp at theta 1e6 and 5e6), and the
+    reciprocal is a division by a same-device f32 tensor (``core.quant``)."""
+    x = np.arange(0, head_dim, 2, dtype=np.float32) / np.float32(head_dim)
+    pw = (np.float64(theta) ** x.astype(np.float64)).astype(np.float32)
+    one = torch.ones((), dtype=torch.float32, device=device)
+    return one / torch.from_numpy(pw).to(device)
+
+
+def rope_cos_sin(positions, head_dim: int, theta: float):
+    """positions: (..., S) int -> cos/sin (..., S, head_dim // 2) f32."""
+    inv = _rope_inv_freq(head_dim, float(theta), positions.device)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, S, H, Dh); cos/sin: (B, S, Dh//2) or (S, Dh//2). Rotates the
+    two halves of Dh (not interleaved pairs), as the reference does."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    if cos.ndim == 2:
+        cos, sin = cos[None], sin[None]
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
 def quantize_kv(k, v):
     """int8 KV quantize-on-write: absmax scale per (..., head) over head_dim
     (the reference's ``quantize_kv``). Divisions are by same-device tensors,
@@ -70,8 +106,9 @@ def quantize_kv(k, v):
     return kq, vq, ks, vs
 
 
-def attn_qkv(p, cfg: ModelConfig, x):
-    """Project. Returns q, k, v as (B, S, H, Dh)."""
+def attn_qkv(p, cfg: ModelConfig, x, positions):
+    """Project, qk-norm over Dh, RoPE at ``positions`` ((S,) or (B, S)).
+    Returns q, k, v as (B, S, H, Dh)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q = x @ p["wq"]
@@ -79,9 +116,17 @@ def attn_qkv(p, cfg: ModelConfig, x):
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, cfg.n_heads, hd),
-            k.reshape(B, S, cfg.n_kv_heads, hd),
-            v.reshape(B, S, cfg.n_kv_heads, hd))
+    q = q.reshape(B, S, cfg.n_heads, hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    if cfg.pos_emb == "rope":
+        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
 
 
 def attn_out(p, x_attn):
@@ -149,9 +194,10 @@ def blocked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dh).to(q.dtype)
 
 
-def self_attention(p, cfg: ModelConfig, x, *, causal: bool = True,
+def self_attention(p, cfg: ModelConfig, x, positions, *, causal: bool = True,
                    cache=None, cache_index: int = 0):
     """Self-attention block body (no norm / residual). Returns (out, cache).
+    ``positions`` ((S,) or (B, S)) feed RoPE.
 
     ``cache``: optional one-layer dict {"k", "v": (B, Smax, Hkv, Dh)[,
     "k_scale", "v_scale": (B, Smax, Hkv)]}: this call's K/V are written at
@@ -159,10 +205,9 @@ def self_attention(p, cfg: ModelConfig, x, *, causal: bool = True,
     ``cfg.kv_cache_dtype == "int8"``; the reference returns a new cache) and
     the queries attend over the first ``cache_index + S`` positions. A
     one-token call with ``cfg.use_flash_decode`` takes the ``flash_decode``
-    kernel; every other call ``blocked_attention``. Positions only feed
-    RoPE, which the port does not carry (``check_supported``).
+    kernel; every other call ``blocked_attention``.
     """
-    q, k, v = attn_qkv(p, cfg, x)
+    q, k, v = attn_qkv(p, cfg, x, positions)
     if cache is None:
         out = blocked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
         return attn_out(p, out), None

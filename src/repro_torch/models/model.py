@@ -57,6 +57,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
         attn["bv"] = zeros((Lyr, hkv * hd))
     if cfg.use_bias:
         attn["bo"] = zeros((Lyr, D))
+    if cfg.qk_norm:
+        attn["q_norm"] = torch.ones((Lyr, hd), dtype=dt, device=dev)
+        attn["k_norm"] = torch.ones((Lyr, hd), dtype=dt, device=dev)
     mlp = {"up": normal((Lyr, D, F), D ** -0.5),
            "down": normal((Lyr, F, D), F ** -0.5)}
     if cfg.gated_mlp:
@@ -105,10 +108,11 @@ def _merge(tree, override):
     return out
 
 
-def _dense_body(pl, cfg: ModelConfig, h, cache=None, cache_index: int = 0):
+def _dense_body(pl, cfg: ModelConfig, h, positions, cache=None,
+                cache_index: int = 0):
     pl = dequant_tree(pl, _dtype(cfg.compute_dtype))
     a_in = L.apply_norm(h, pl["ln1"], cfg.norm)
-    a, cache = L.self_attention(pl["attn"], cfg, a_in, cache=cache,
+    a, cache = L.self_attention(pl["attn"], cfg, a_in, positions, cache=cache,
                                 cache_index=cache_index)
     h = h + a
     m_in = L.apply_norm(h, pl["ln2"], cfg.norm)
@@ -152,14 +156,15 @@ def forward(params, cfg: ModelConfig, tokens, *, collect_hidden=False,
     """
     check_supported(cfg)
     B, S = tokens.shape
-    h = embed_tokens(params, cfg, tokens, torch.arange(S, device=tokens.device))
+    positions = torch.arange(S, device=tokens.device)
+    h = embed_tokens(params, cfg, tokens, positions)
     blocks = params["blocks"]
     hidden = []
     for i in range(cfg.n_layers):
         pl = layer_slice(blocks, i)
         if layer_override is not None and layer_override[0] == i:
             pl = _merge(pl, layer_override[1])
-        h, _ = _dense_body(pl, cfg, h)
+        h, _ = _dense_body(pl, cfg, h, positions)
         if collect_hidden:
             hidden.append(h)
     logits = lm_head_logits(params, cfg, h)
@@ -212,9 +217,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
             for k, v in one.items()}
 
 
-def _cached_blocks(params, cfg: ModelConfig, h, cache, index: int):
+def _cached_blocks(params, cfg: ModelConfig, h, positions, cache, index: int):
     for i in range(cfg.n_layers):
-        h, _ = _dense_body(layer_slice(params["blocks"], i), cfg, h,
+        h, _ = _dense_body(layer_slice(params["blocks"], i), cfg, h, positions,
                            cache={k: v[i] for k, v in cache.items()},
                            cache_index=index)
     return h
@@ -227,13 +232,15 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, index: int):
     Each layer's K/V are written into ``cache`` (the ``init_cache`` tree) IN
     PLACE at ``index`` — the reference returns a new cache; the returned
     cache is the same object. Packed QTensor leaves are dequantized one
-    layer at a time, as in the paged step.
+    layer at a time, as in the paged step. Every row sits at position
+    ``index`` (RoPE included), as in the reference: left-padded rows of a
+    batch rotate their pads too.
     """
     check_supported(cfg)
     index = int(index)
     positions = index + torch.arange(1, device=tokens.device)
     h = embed_tokens(params, cfg, tokens, positions)
-    h = _cached_blocks(params, cfg, h, cache, index)
+    h = _cached_blocks(params, cfg, h, positions, cache, index)
     return lm_head_logits(params, cfg, h), cache
 
 
@@ -244,9 +251,9 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int):
     check_supported(cfg)
     B, S = tokens.shape
     cache = init_cache(cfg, B, max_len, device=tokens.device)
-    h = embed_tokens(params, cfg, tokens,
-                     torch.arange(S, device=tokens.device))
-    h = _cached_blocks(params, cfg, h, cache, 0)
+    positions = torch.arange(S, device=tokens.device)
+    h = embed_tokens(params, cfg, tokens, positions)
+    h = _cached_blocks(params, cfg, h, positions, cache, 0)
     return lm_head_logits(params, cfg, h), cache
 
 

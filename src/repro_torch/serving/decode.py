@@ -142,9 +142,10 @@ def paged_attention_block(p, cfg: ModelConfig, x, pools, block_tables,
 
     x: (B, 1, D) normed input; pools: {"k"/"v": (N, psz, Hkv, hd)[, scales]}
     written in place; block_tables (B, P) int32; seq_lens (B,) int32.
-    Returns (attn_out (B, 1, D), pools).
+    Returns (attn_out (B, 1, D), pools). Each sequence's token sits at its
+    write position ``seq_lens[b]`` (RoPE included).
     """
-    q, k, v = L.attn_qkv(p, cfg, x)
+    q, k, v = L.attn_qkv(p, cfg, x, seq_lens.long()[:, None])
     psz = pools["k"].shape[1]
     lens = seq_lens.long()
     phys = torch.gather(block_tables.long(), 1,

@@ -40,9 +40,18 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["PageAllocator", "PagedKVCache", "PrefixCache", "NULL_PAGE",
-           "chain_keys"]
+           "chain_keys", "copy_page"]
 
 NULL_PAGE = 0
+
+
+def copy_page(pools, src: int, dst: int):
+    """{leaf: (L, N, ...)} with row ``dst`` <- row ``src`` on every leaf, IN
+    PLACE; returns ``pools`` (the reference's ``_copy_page`` returns new
+    pools)."""
+    for pool in pools.values():
+        pool[:, dst].copy_(pool[:, src])
+    return pools
 
 
 class PageAllocator:
@@ -288,5 +297,4 @@ class PagedKVCache:
         """Copy page ``src``'s rows (every layer, every pool leaf) into
         ``dst`` — the copy-on-write fork run by the batcher before a decode
         write would mutate a page that still has other owners."""
-        for pool in self.pools.values():
-            pool[:, dst].copy_(pool[:, src])
+        copy_page(self.pools, src, dst)

@@ -80,12 +80,15 @@ def paged_prefill_block(p, cfg: ModelConfig, x, pools, block_tables,
 
     x: (1, C, D) normed input, C a page multiple, ``offset`` page-aligned.
     Writes the chunk's K/V into pages ``block_tables[0, offset//psz :
-    offset//psz + C//psz]`` in place, then attends over the pool. Returns
-    (attn_out, pools).
+    offset//psz + C//psz]`` in place, then attends over the pool. The
+    chunk's tokens sit at positions ``offset ..`` (RoPE included), so K in
+    an aliased prefix page was rotated at the same absolute positions.
+    Returns (attn_out, pools).
     """
     C = x.shape[1]
     psz = pools["k"].shape[1]
-    q, k, v = L.attn_qkv(p, cfg, x)
+    positions = offset + torch.arange(C, device=x.device)[None]   # (1, C)
+    q, k, v = L.attn_qkv(p, cfg, x, positions)
     ids = block_tables[0, offset // psz: offset // psz + C // psz].long()
 
     def rows(val):       # (1, C, ...) -> (n_pages, psz, ...)

@@ -14,6 +14,11 @@
 - Phase 9's parameter bar (``within``), its train-state leaves, 9c's launch
   counts on the bench model's shapes (held to the wrapper calls of a
   ``table1_main`` row on the CPU), and 9d run CPU against CPU.
+- Phase 10's reckoning (``dense_param_count`` held to ``init_params``'s
+  leaves; Qwen3-4B's parameters, bytes and forward operations), its launch
+  formulas at 36 layers and 3 FFN matrices (held to the wrapper calls of a
+  gated ``quantize_model`` on the CPU), OmniQuant's parting bar
+  (``omni_partings``), and 10d run CPU against CPU for each zoo config.
 """
 import importlib.util
 from pathlib import Path
@@ -370,3 +375,162 @@ def test_table1_row_launches_match_the_formula(monkeypatch, row):
 
 def test_phase_9d_runs_cpu_against_cpu():
     CS.phase_small_train(torch, devs=("cpu", "cpu"))
+
+
+# ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "yi-6b", "internlm2-1.8b",
+                                  "command-r-35b", "opt-tiny"])
+def test_dense_param_count_is_init_params_leaves(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert CS.dense_param_count(cfg) == sum(t.numel() for t in
+                                            tree_leaves(params))
+
+
+def test_qwen3_4b_reckoning():
+    """10a's sizes, from the shapes (PERF.md's predictions use them)."""
+    from repro_torch.configs import get_config
+
+    cfg = CS.zoo_config(get_config)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim, cfg.d_ff, cfg.padded_vocab) == (
+        36, 2560, 32, 8, 128, 9728, 152064)
+    assert cfg.param_dtype == cfg.compute_dtype == "float32"
+    assert get_config("qwen3-4b").param_dtype == "bfloat16"
+    per_layer = 2 * 2560 * 4096 + 2 * 2560 * 1024 + 3 * 2560 * 9728
+    assert CS.matmul_params(cfg) == 36 * per_layer + 2560 * 152064
+    assert CS.dense_param_count(cfg) == 4_412_079_616     # 17.6 GB in fp32
+    assert CS.matmul_params(cfg) == pytest.approx(4.02e9, rel=1e-3)
+    # 2 · 4.02 B · 2048 tokens, and 2 % more for causal attention
+    assert CS.forward_flops(cfg, 4, 512) == pytest.approx(16.79e12, rel=1e-3)
+    assert CS.ffn_stack_bytes(cfg) == 36 * 3 * 2560 * 9728 * 4
+
+
+def test_qwen3_4b_launch_formulas():
+    """36 layers and 3 FFN matrices: the counts 10a and 10b hold the
+    kernels to."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.kernels import ops
+
+    cfg = CS.zoo_config(get_config)
+    stats = {"tabu_skips": 0, "tabu_rebuilds": 0}
+    assert CS.search_launches(cfg, SearchConfig(steps=16, fused_kernel=True),
+                              stats) == {"group_quant": 3,
+                                         "transform_quant": 48}
+    assert CS.base_method_gq_launches("rtn", cfg) == 7
+    assert CS.base_method_gq_launches("awq", cfg) == 7 + 36 * (20 * 3 + 10 * 7)
+    assert CS.paged_launches(cfg, 21) == 756
+    assert ops.paged_decode_route(cfg.n_heads, cfg.n_kv_heads) == \
+        "paged_decode_gqa"
+    assert ops.paged_decode_route(cfg.n_heads, cfg.n_kv_heads,
+                                  gqa_pages_per_block=2) == \
+        "paged_decode_gqa_mp"
+    assert [mp for _, _, mp in CS.ZOO_SERVE] == [1, 1, 2]
+
+
+@pytest.mark.parametrize("method", ["rtn", "awq"])
+def test_gated_quantize_launches_match_the_formulas(monkeypatch, method):
+    """10a's counts on a gated RoPE model: the ``group_quant`` and
+    ``transform_quant`` wrapper calls of ``quantize_model`` with a fused
+    search on qwen3-4b reduced."""
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import init_params
+
+    calls = {"group_quant": 0, "transform_quant": 0}
+    for name in calls:
+        real = getattr(kernels, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(kernels, name, counted)
+    cfg = get_config("qwen3-4b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    calib = calibration_tensor(cfg.vocab_size, 2, 32, device="cpu")
+    scfg = SearchConfig(steps=3, fused_kernel=True, log_every=0)
+    res = quantize_model(params, cfg, QuantConfig(2, 32), method, calib, scfg,
+                         device="cpu")
+    assert calls == {
+        "group_quant": CS.base_method_gq_launches(method, cfg),
+        "transform_quant": CS.search_launches(cfg, scfg, res.search.stats)[
+            "transform_quant"]} and calls["transform_quant"] == 9
+
+
+def test_omni_partings_holds_a_parted_layer_by_the_calibration_ce():
+    """A layer whose block losses part (an STE near-tie flip) is held by its
+    first steps and by the quantized model's calibration CE against the
+    yardstick's one-ulp spread; a layer that parts at once, or a model whose
+    CE ends far off, fails."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import init_params
+
+    cfg = get_config("internlm2-1.8b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+    calib = calibration_tensor(cfg.vocab_size, 2, 32, device="cpu")
+    qcfg = QuantConfig(2, 32)
+    ref = quantize_model(params, cfg, qcfg, "omniquant", calib, device="cpu")
+    losses = ref.base["losses"]
+
+    def run(loss, params_q=ref.params_q):
+        return CS.omni_partings(torch, SimpleNamespace(
+            params_q=params_q, base={"losses": loss}), ref, params, cfg,
+            calib, qcfg)
+
+    assert run(losses.clone()) == {}
+    late = losses.clone()
+    late[1, 50:] *= 1 + 1e-4
+    out = run(late)
+    assert out["layers"] == [{"layer": 1, "first_step": 50}]
+    assert out["ce"] == out["ce_ref"] and out["bar"] >= 1e-3 * out["ce_ref"]
+    early = losses.clone()
+    early[0, 2:] *= 1.01
+    with pytest.raises(AssertionError, match="first steps"):
+        run(early)
+    mlp = ref.params_q["blocks"]["mlp"]
+    far = {**ref.params_q, "blocks": {**ref.params_q["blocks"], "mlp": {
+        **mlp, "down": mlp["down"] * 4}}}
+    with pytest.raises(AssertionError, match="calibration CE"):
+        run(late, far)
+
+
+def test_within_one_step_but_spares_only_parted_layers():
+    """The weight bar over every layer first; a layer that fails it is
+    left to the calibration-CE bar only if OmniQuant's losses parted
+    there."""
+    want = torch.linspace(-1, 1, 3 * 64 * 8).reshape(3, 64, 8)
+    step = float((want[0, :32, 0].max() - want[0, :32, 0].min()) / 3)
+    assert CS.within_one_step_but(want.clone(), want, 2, 32, {1}) == (0.0, [])
+    off = want.clone()
+    off[1] += 3 * step                      # layer 1 three steps away
+    frac, spared = CS.within_one_step_but(off, want, 2, 32, {1})
+    assert (frac, spared) == (0.0, [1])
+    with pytest.raises(AssertionError, match="more than one step"):
+        CS.within_one_step_but(off, want, 2, 32, {0})
+    with pytest.raises(AssertionError, match="more than one step"):
+        CS.within_one_step_but(off, want, 2, 32, set())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "yi-6b", "internlm2-1.8b",
+                                  "command-r-35b"])
+def test_phase_10d_runs_cpu_against_cpu(arch):
+    from repro_torch.kernels import ops
+    CS.phase_small_zoo(torch, ops, arch, devs=("cpu", "cpu"))

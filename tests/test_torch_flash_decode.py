@@ -196,7 +196,8 @@ def test_self_attention_flash_route_matches_reference(n_kv, kv_dtype,
                                          jnp.array([i]), cache=jcache,
                                          cache_index=i)
         tout, tcache = tL.self_attention(tp, tcfg_f, torch.from_numpy(x),
-                                         cache=tcache, cache_index=i)
+                                         torch.tensor([i]), cache=tcache,
+                                         cache_index=i)
         np.testing.assert_allclose(to_np(tout), np.asarray(jout), rtol=2e-3,
                                    atol=2e-3)
     assert flash_spy == [1, 2, 3]
@@ -211,10 +212,12 @@ def test_self_attention_flash_route_matches_reference(n_kv, kv_dtype,
     jout, _ = jL.self_attention(jp, jcfg_f, jnp.asarray(x), jnp.array([3]),
                                 cache=jcache, cache_index=3)
     t_on, _ = tL.self_attention(tp, tcfg_f, torch.from_numpy(x),
+                                torch.tensor([3]),
                                 cache={k: v.clone() for k, v in
                                        tcache.items()}, cache_index=3)
     t_off, _ = tL.self_attention(tp, tcfg, torch.from_numpy(x),
-                                 cache=tcache, cache_index=3)
+                                 torch.tensor([3]), cache=tcache,
+                                 cache_index=3)
     assert flash_spy == [1, 2, 3, 4]
     for got in (t_on, t_off):
         np.testing.assert_allclose(to_np(got), np.asarray(jout), rtol=2e-3,
@@ -233,7 +236,7 @@ def test_prefill_sized_calls_never_take_the_flash_route(flash_spy):
                                 cache=j_single_kv(jcfg, 2, 64, jnp.float32),
                                 cache_index=0)
     tout, cache = tL.self_attention(
-        tp, tcfg, torch.from_numpy(x),
+        tp, tcfg, torch.from_numpy(x), torch.arange(5),
         cache=t_single_kv(tcfg, 2, 64, torch.float32, torch.device("cpu")),
         cache_index=0)
     assert flash_spy == []

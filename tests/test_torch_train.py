@@ -235,6 +235,27 @@ def test_grad_accumulation_matches_full_batch(step_setup):
         np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-4, err_msg=k)
 
 
+def test_ragged_accum_steps_raises_in_both():
+    """B % accum_steps != 0: the reference's reshape raises (TypeError); the
+    port raises ValueError naming B and accum_steps instead of dropping the
+    last rows."""
+    jcfg = jget_config("opt-tiny").reduced()
+    tcfg = tget_config("opt-tiny").reduced()
+    jp = jinit_params(jax.random.PRNGKey(0), jcfg)
+    tokens = np.random.default_rng(0).integers(
+        0, jcfg.vocab_size, (5, 16)).astype(np.int32)
+    with pytest.raises(TypeError):
+        jmake_train_step(jcfg, ja.AdamWConfig(), accum_steps=2)(
+            jp, ja.adamw_init(jp), {"tokens": jnp.asarray(tokens)})
+    tp = params_from_numpy(_np_tree(jp), device="cpu")
+    step = make_train_step(tcfg, ta.AdamWConfig(), accum_steps=2)
+    with pytest.raises(ValueError, match=r"5 rows.*accum_steps=2"):
+        step(tp, ta.adamw_init(tp), {"tokens": torch.from_numpy(tokens)})
+    # B < accum_steps would have averaged empty microbatches into NaN
+    with pytest.raises(ValueError, match=r"1 rows.*accum_steps=2"):
+        step(tp, ta.adamw_init(tp), {"tokens": torch.from_numpy(tokens[:1])})
+
+
 def test_train_matches_reference_for_ten_steps():
     jcfg = jget_config("opt-tiny").reduced(**TINY)
     p0 = _np_tree(jinit_params(jax.random.PRNGKey(3), jcfg))
