@@ -46,7 +46,9 @@ source, started together, into ``build/kernels/``), then:
    to a greedy oracle (the full forward over the dequantized weights),
    0 leaked pages, saved_frac >= 0.5, obs counters equal to the stats,
    paged-decode launches = 24 x decode steps; TTFT, tokens/s, bytes and
-   peak memory; then a third sharing-on run under ``torch.profiler``:
+   peak memory; then a third sharing-on run, over the trace's first 8
+   requests (a cut: reading the profiler's events costs ≈ 0.2 ms each),
+   under ``torch.profiler``:
    device time by kernel family in the decode steps and prefills, and the
    decode step split into per-layer dequant, the paged-decode kernel, the
    other device work and device idle time; (d) the serving CLI's small configs
@@ -152,7 +154,26 @@ source, started together, into ``build/kernels/``), then:
    four dense configs' ``reduced()`` sizes on the card against the CPU:
    logits of the forward and of prefill + 3 decode steps, RTN + 4 fused
    steps (``histories_agree``), the base methods at 7c's bars, 5 train
-   steps at 9d's, PagedServer's greedy tokens identical.
+   steps at 9d's, PagedServer's greedy tokens identical;
+11. the MoE family: (a) Phi-3.5-MoE (``configs/phi3_5_moe.py``: d 4096,
+   32/8 heads × 128, 16 experts top-2, d_ff 6400, LayerNorm, vocab 32064)
+   at full width, 3 of its 32 layers deep, random-init, in fp32 (the cuts:
+   depth, and the config's own bf16): ``group_quant`` held to its plain
+   version at every shape the model gives it, then ``quantize_model`` RTN
+   alone and with 16 fused steps over the 48 expert units (launches held
+   to ``base_method_gq_launches`` and ``search_launches``), held-out ppl,
+   losses, accept rate, peak memory, and one candidate's forward beside
+   its operations over the E·C slots of the dispatch buffer
+   (``moe_forward_flops``); (b) the packed model through ``PagedServer``
+   with sharing off, on, and on with 2 pages per block (both GQA routes,
+   3 x decode steps each), each run held token for token to its plain
+   route (the same server with the paged decode's plain version: MoE
+   capacity follows each prefill chunk's S, so a full forward is not the
+   served computation), with the step split; (c) ``BatchedServer`` with
+   ``use_flash_decode`` off and on, the flag-on tokens held to the flag-off
+   run; (d) phi3.5-moe and Moonlight (E 64, top-6) reduced on the card
+   against the CPU: forward, prefill + decode, RTN + 4 fused steps, 5
+   train steps, PagedServer's tokens.
 
 Prints the ``nvidia-smi`` name/power-limit line, a ``{"kernels": [...]}``
 line (all seven ported kernels), and last ``{"ok": true, "device":
@@ -1037,7 +1058,8 @@ SERVE_VARIANTS = (("off", False, 1), ("on", True, 1))   # 5c: label, sharing, MP
 
 
 def phase_serving(torch, ops, kernel_rows, cfg, params_q, setup_s,
-                  variants=SERVE_VARIANTS, tag="", profile_requests=None):
+                  variants=SERVE_VARIANTS, tag="", profile_requests=None,
+                  oracle=None):
     """5c (and 10b): PagedServer on a packed model over the 8-tenant trace,
     one run per variant (label, prefix sharing, gqa_pages_per_block), then
     a profiled run of the second variant over the first
@@ -1046,7 +1068,14 @@ def phase_serving(torch, ops, kernel_rows, cfg, params_q, setup_s,
     model). Each run's outputs are held to the greedy oracle and to the
     first run's; each launches only the paged-decode route its heads and MP
     choose, n_layers x decode steps times. Returns (each run's launch
-    counts by label, the step split)."""
+    counts by label, the step split).
+
+    ``oracle(reqs, runs) -> (near ties by label, the oracle's name,
+    the labels each run may be held to)`` replaces the greedy full-forward
+    oracle: an MoE model routes each prefill chunk with the chunk's own
+    capacity, so a full forward over prompt + output (one S) is not the
+    served computation, and sharing changes the chunks (phase 11b holds
+    each run to its plain route instead, ``plain_route_oracle``)."""
     from repro_torch import obs
     from repro_torch.launch.serve import PagedServer, Request
     from repro_torch.models.model import dequant_tree, forward
@@ -1112,15 +1141,19 @@ def phase_serving(torch, ops, kernel_rows, cfg, params_q, setup_s,
                            pool=server.cache.pool_bytes(),
                            tokens=sum(len(o) for o in outs))
         del server
-    dense = dequant_tree(params_q)             # the oracle's weights
-    ties = {k: check_greedy(torch, forward, dense, cfg, reqs, r["outs"],
-                            f"{k} vs oracle") for k, r in runs.items()}
-    del dense
-    first = variants[0][0]
-    parted = {k: compare_runs(runs[first]["outs"], r["outs"],
+    if oracle is None:
+        dense = dequant_tree(params_q)             # the oracle's weights
+        ties = {k: check_greedy(torch, forward, dense, cfg, reqs, r["outs"],
+                                f"{k} vs oracle") for k, r in runs.items()}
+        del dense
+        oracle_name = "full forward over the dequantized weights"
+        peers = {k: variants[0][0] for k in runs}
+    else:
+        ties, oracle_name, peers = oracle(reqs, runs)
+    parted = {k: compare_runs(runs[peers[k]]["outs"], r["outs"],
                               {(i, j) for t in ties.values() for i, j, _ in t},
-                              f"{first} vs {k}")
-              for k, r in runs.items() if k != first}
+                              f"{peers[k]} vs {k}")
+              for k, r in runs.items() if peers[k] != k}
     # where one decode step's time goes: the second variant again under
     # torch.profiler, read against its unprofiled run's steps
     label, sharing, mp = variants[1]
@@ -1162,7 +1195,8 @@ def phase_serving(torch, ops, kernel_rows, cfg, params_q, setup_s,
             pool_bytes=r["pool"], near_ties=ties[k])
     log(tag + "serving_check", parted_at=parted,
         packed_bytes=packed_bytes(params_q), dense_bytes=dense_bytes(params_q),
-        setup_s=setup_s, outputs_identical=not any(parted.values()))
+        setup_s=setup_s, outputs_identical=not any(parted.values()),
+        oracle=oracle_name, compared_with=peers)
     log(tag + "decode_step_split", **split)
     return {k: r["counts"] for k, r in runs.items()}, split
 
@@ -1443,12 +1477,16 @@ def legacy_step_profile(torch, server, params_q, padded, steps,
     return step_ms, dict(sorted(by_family.items(), key=lambda kv: -kv[1]))
 
 
-def phase_legacy_serving(torch, ops, cfg, params_q, profile=True):
-    """6c (and 10c): BatchedServer on a 2-bit model at full width and depth
-    (opt-1.3b; Qwen3-4B) over phase 5's 24-request trace, use_flash_decode
-    off then on; with ``profile``, device time by kernel family over batch
-    0's prefill and steps. Returns the flag-on run's flash_decode
-    launches."""
+def phase_legacy_serving(torch, ops, cfg, params_q, profile=True,
+                         full_forward_oracle=True):
+    """6c (and 10c, 11c): BatchedServer on a 2-bit model (opt-1.3b;
+    Qwen3-4B; Phi-3.5-MoE) over phase 5's 24-request trace,
+    use_flash_decode off then on; with ``profile``, device time by kernel
+    family over batch 0's prefill and steps. Both runs are held to the
+    greedy full-forward oracle, or, without ``full_forward_oracle`` (MoE:
+    the prefill routes at the prompt's capacity, not the oracle's), the
+    flag-on run to the flag-off run, its plain route, token for token.
+    Returns the flag-on run's flash_decode launches."""
     import dataclasses
 
     from repro_torch.launch.serve import BatchedServer, Request
@@ -1490,11 +1528,17 @@ def phase_legacy_serving(torch, ops, cfg, params_q, profile=True):
                            live_before=live_before, step_ms=step_ms,
                            family=family, tokens=sum(len(o) for o in outs))
         del server
-    dense = dequant_tree(params_q)
-    ties = {f: check_greedy(torch, forward, dense, cfg, padded,
-                            runs[f]["outs"], f"use_flash_decode={f} vs "
-                            f"oracle") for f in runs}
-    del dense
+    if full_forward_oracle:
+        dense = dequant_tree(params_q)
+        ties = {f: check_greedy(torch, forward, dense, cfg, padded,
+                                runs[f]["outs"], f"use_flash_decode={f} vs "
+                                f"oracle") for f in runs}
+        del dense
+        oracle = ("full forward over the dequantized weights on the "
+                  "left-padded prompts")
+    else:
+        ties = {f: [] for f in runs}
+        oracle = "the flag-off run (blocked attention, plain PyTorch)"
     parted = compare_runs(runs[False]["outs"], runs[True]["outs"],
                           {(i, j) for t in ties.values() for i, j, _ in t},
                           "flash off vs on")
@@ -1508,9 +1552,8 @@ def phase_legacy_serving(torch, ops, cfg, params_q, profile=True):
             profile_ms_by_family=r["family"],
             profile_window=(f"prefill + {TRACE['max_new'] - 1} decode steps "
                             f"of batch 0" if profile else None))
-    log("serving_legacy_check", parted_at=parted, outputs_identical=not parted,
-        oracle="full forward over the dequantized weights on the "
-               "left-padded prompts")
+    log("serving_legacy_check", arch=cfg.name, parted_at=parted,
+        outputs_identical=not parted, oracle=oracle)
     return runs[True]["counts"]["flash_decode"]
 
 
@@ -2732,17 +2775,19 @@ def phase_table1(torch, ops):
     return dict(total)
 
 
-def phase_small_train(torch, devs=("cpu", "cuda"), arch="opt-tiny"):
-    """9d (and 10d): ``arch`` reduced, the same init (drawn on the CPU) and
-    batches, SMALL_TRAIN_STEPS steps of ``train()`` on each of ``devs`` (the
-    yardstick's device, then the device under test): losses within 1e-5
-    relative, params within 9a's accumulation bar."""
+def phase_small_train(torch, devs=("cpu", "cuda"), arch="opt-tiny",
+                      cfg=None):
+    """9d (and 10d, 11d): ``arch`` reduced (or ``cfg``), the same init
+    (drawn on the CPU) and batches, SMALL_TRAIN_STEPS steps of ``train()``
+    on each of ``devs`` (the yardstick's device, then the device under
+    test): losses within 1e-5 relative, params within 9a's accumulation
+    bar."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import train
     from repro_torch.models.model import init_params
     from repro_torch.optim.adamw import tree_leaves
 
-    cfg = get_config(arch).reduced()
+    cfg = cfg or get_config(arch).reduced()
     params = init_params(cfg, torch.Generator().manual_seed(11), device="cpu")
     out = []
     for d in devs:
@@ -2835,13 +2880,16 @@ def zoo_config(get_config, arch=ZOO_ARCH):
     return dataclasses.replace(get_config(arch), **ZOO_DTYPE)
 
 
-def phase_zoo_main(torch, ops, cfg, qcfg):
-    """10a: ``quantize_model`` on random-init Qwen3-4B at full width and
-    depth (fp32): RTN, RTN + STEPS fused steps, AWQ, AWQ + STEPS fused
-    steps on 4 x 512 calibration tokens, held-out ppl on 4 x 512 others;
-    then one search step's forward timed; last, the fp32 params packed at
-    2 bits / g32 for 10b and 10c. Returns (the packed params, the seconds
-    the packing took, the launch counts by kernel and run)."""
+def phase_zoo_main(torch, ops, cfg, qcfg, methods=ZOO_METHODS, tag="zoo"):
+    """10a (and 11a, ``tag="moe"``): ``quantize_model`` on random-init
+    ``cfg`` (Qwen3-4B at full width and depth; Phi-3.5-MoE at full width, 3
+    layers) in fp32: each of ``methods`` alone and + STEPS fused steps on 4
+    x 512 calibration tokens, held-out ppl on 4 x 512 others; then one
+    search step's forward timed beside its operations (``forward_flops``;
+    ``moe_forward_flops`` over the E·C slots of the dispatch buffer); last,
+    the fp32 params packed at 2 bits / g32 for the servers. Returns (the
+    packed params, the seconds the packing took, the launch counts by
+    kernel and run)."""
     from repro_torch.core.objective import activation_mse, calib_ce
     from repro_torch.core.pipeline import quantize_model
     from repro_torch.core.search import SearchConfig
@@ -2850,6 +2898,7 @@ def phase_zoo_main(torch, ops, cfg, qcfg):
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.quantized.qmodel import pack_model
 
+    moe = cfg.block_pattern == "moe"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -2860,15 +2909,23 @@ def phase_zoo_main(torch, ops, cfg, qcfg):
                               seed=123, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    if n_params != dense_param_count(cfg):
-        raise AssertionError(f"{n_params} params != {dense_param_count(cfg)}")
-    log("zoo_setup", arch=cfg.name, n_layers=cfg.n_layers,
+    want = moe_param_count(cfg) if moe else dense_param_count(cfg)
+    if n_params != want:
+        raise AssertionError(f"{n_params} params != {want}")
+    extra = dict(experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+                 capacity_factor=cfg.moe.capacity_factor,
+                 capacity_512=cfg.moe.capacity(512), norm=cfg.norm,
+                 param_count=cfg.param_count(),
+                 active_param_count=cfg.active_param_count(),
+                 cuts=[f"depth: {cfg.n_layers} of 32 layers",
+                       "fp32 where the config says bf16"]) if moe else {}
+    log(tag + "_setup", arch=cfg.name, n_layers=cfg.n_layers,
         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
         head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
         qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
         dtype=cfg.param_dtype, params=n_params,
         param_bytes=4 * n_params, calib=list(calib.shape),
-        seconds=time.perf_counter() - t0)
+        seconds=time.perf_counter() - t0, **extra)
 
     def ppl(p):
         logits = forward(p, cfg, held)
@@ -2877,9 +2934,11 @@ def phase_zoo_main(torch, ops, cfg, qcfg):
 
     ppl_fp = ppl(params)
     scfg = SearchConfig(steps=STEPS, fused_kernel=True, log_every=0)
+    n_units = cfg.n_layers * (cfg.moe.num_experts if moe else 1)
+    clone = expert_stack_bytes(cfg) if moe else ffn_stack_bytes(cfg)
     launches = {"group_quant": {}, "transform_quant": {}}
     step_ms = None
-    for method in ZOO_METHODS:
+    for method in methods:
         for search in (None, scfg):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2897,7 +2956,9 @@ def phase_zoo_main(torch, ops, cfg, qcfg):
             want_tq = search_launches(cfg, scfg, sr.stats)["transform_quant"] \
                 if sr else 0
             if counts["group_quant"] != want_gq or \
-                    counts["transform_quant"] != want_tq:
+                    counts["transform_quant"] != want_tq or \
+                    any(v for k, v in counts.items()
+                        if k not in ("group_quant", "transform_quant")):
                 raise AssertionError(f"{label}: launches {counts}, expected "
                                      f"group_quant {want_gq}, "
                                      f"transform_quant {want_tq}")
@@ -2909,15 +2970,21 @@ def phase_zoo_main(torch, ops, cfg, qcfg):
             if sr:
                 if not sr.final_loss <= sr.initial_loss:
                     raise AssertionError(f"{label}: final loss above initial")
+                if sr.transforms.pi.shape[0] != n_units:
+                    raise AssertionError(f"{label}: {sr.transforms.pi.shape[0]}"
+                                         f" units, expected {n_units}")
                 step_ms = 1e3 / sr.stats["proposals_per_sec"]
+                accepts = sum(1 for h in sr.history[1:] if h[4])
                 extra = dict(initial_loss=sr.initial_loss,
                              final_loss=sr.final_loss,
                              accept_rate=sr.accept_rate, steps=STEPS,
-                             step_ms=step_ms,
-                             search_s=STEPS / sr.stats["proposals_per_sec"])
-            log("zoo_quantize", arch=cfg.name, method=label, ppl_fp32=ppl_fp,
-                ppl=ppl_q, wall_s=wall, peak_bytes=peak, launches=counts,
-                group_quant_expected=want_gq,
+                             units=n_units, step_ms=step_ms,
+                             search_s=STEPS / sr.stats["proposals_per_sec"],
+                             accepts=accepts, stack_clone_bytes=clone,
+                             cloned_bytes=accepts * clone)
+            log(tag + "_quantize", arch=cfg.name, method=label,
+                ppl_fp32=ppl_fp, ppl=ppl_q, wall_s=wall, peak_bytes=peak,
+                launches=counts, group_quant_expected=want_gq,
                 transform_quant_expected=want_tq, **extra)
             for kernel in launches:
                 launches[kernel][label] = counts[kernel]
@@ -2932,13 +2999,20 @@ def phase_zoo_main(torch, ops, cfg, qcfg):
             activation_mse(hidden, hidden, 10)
 
     fwd_ms = time_ms(torch, eval_once, warmup=1, reps=3)
-    flops = forward_flops(cfg, B, S)
-    log("zoo_step", arch=cfg.name, forward_objective_ms=fwd_ms,
+    flops = (moe_forward_flops if moe else forward_flops)(cfg, B, S)
+    extra = {}
+    if moe:
+        C = cfg.moe.capacity(S)
+        extra = dict(expert_flops=cfg.n_layers * 2 * B * cfg.moe.num_experts
+                     * C * (2 + int(cfg.gated_mlp)) * cfg.d_model * cfg.d_ff,
+                     slots_per_row=cfg.moe.num_experts * C,
+                     routed_slots_per_row=S * cfg.moe.top_k)
+    log(tag + "_step", arch=cfg.name, forward_objective_ms=fwd_ms,
         step_ms=step_ms, forward_flops=flops,
         forward_tflops_per_s=flops / fwd_ms / 1e9,
         share_of_fp32_peak=flops / fwd_ms / 1e-3 / FP32_OPS_PER_S,
-        ffn_stack_clone_bytes=ffn_stack_bytes(cfg),
-        logits_bytes=B * S * cfg.padded_vocab * 4)
+        stack_clone_bytes=clone, logits_bytes=B * S * cfg.padded_vocab * 4,
+        **extra)
     del calib, held
     t0 = time.perf_counter()
     params_q = pack_model(params, qcfg)
@@ -2962,15 +3036,16 @@ def phase_zoo_serving(torch, ops, cfg, params_q, setup_s, pd_rows):
     return paged, flash
 
 
-def phase_small_zoo(torch, ops, arch, devs=("cpu", "cuda")):
-    """10d: ``arch``'s reduced config on ``devs`` (the yardstick's device,
-    then the device under test), from the same weights (drawn on the CPU),
-    tokens and proposals: the forward's logits (FWD_TOL), prefill + 3
-    decode steps (DECODE_TOL, logits and caches), RTN + SMALL_ZOO_STEPS
-    fused steps (``histories_agree``), the base methods
-    (``small_base_methods``), SMALL_TRAIN_STEPS train steps
-    (``phase_small_train``) and PagedServer's greedy tokens and stats
-    (identical)."""
+def phase_small_zoo(torch, ops, arch, devs=("cpu", "cuda"), cfg=None):
+    """10d (and 11d): ``arch``'s reduced config (or ``cfg``) on ``devs``
+    (the yardstick's device, then the device under test), from the same
+    weights (drawn on the CPU), tokens and proposals: the forward's logits
+    (FWD_TOL), prefill + 3 decode steps (DECODE_TOL, logits and caches),
+    RTN + SMALL_ZOO_STEPS fused steps (``histories_agree``; over the L·E
+    expert units on an MoE config), the base methods
+    (``small_base_methods``; a dense config only: they refuse MoE, as the
+    reference's do), SMALL_TRAIN_STEPS train steps (``phase_small_train``)
+    and PagedServer's greedy tokens and stats (identical)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2985,7 +3060,7 @@ def phase_small_zoo(torch, ops, arch, devs=("cpu", "cuda")):
     from repro_torch.search import run
 
     t0 = time.perf_counter()
-    cfg = get_config(arch).reduced()
+    cfg = cfg or get_config(arch).reduced()
     qcfg = QuantConfig(bits=2, group_size=32)
     params = init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
     calib = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=64,
@@ -3021,8 +3096,10 @@ def phase_small_zoo(torch, ops, arch, devs=("cpu", "cuda")):
     dec_err = within(torch, l_dev[1:] + c_dev, l_ref[1:] + c_ref,
                      what=f"{arch} prefill / decode", **DECODE_TOL)
     compared, parted = histories_agree(h_dev, h_ref, f"{arch} search")
-    small_base_methods(torch, cfg, params, calib, devs, f"{arch} (reduced)")
-    phase_small_train(torch, devs, arch=arch)
+    if cfg.block_pattern == "dense":
+        small_base_methods(torch, cfg, params, calib, devs,
+                           f"{arch} (reduced)")
+    phase_small_train(torch, devs, arch=arch, cfg=cfg)
     params_q = pack_model(params, qcfg)
     route = ops.paged_decode_route(cfg.n_heads, cfg.n_kv_heads)
     ref, dev = serve_on_devices(torch, ops, cfg, params_q, 1, devs)
@@ -3032,7 +3109,9 @@ def phase_small_zoo(torch, ops, arch, devs=("cpu", "cuda")):
             dev[2][route] != paged_launches(cfg, dev[1]["steps"])
             or any(dev[2][r] for r in PD_ROUTES if r != route)):
         raise AssertionError(f"{arch}: paged launches {dev[2]}")
-    log("small_zoo", arch=arch, devices=list(devs),
+    moe = dict(experts=cfg.moe.num_experts, top_k=cfg.moe.top_k) \
+        if cfg.moe else {}
+    log("small_zoo", arch=arch, devices=list(devs), **moe,
         heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.resolved_head_dim,
         qk_norm=cfg.qk_norm, norm=cfg.norm, rope_theta=cfg.rope_theta,
         forward_max_abs_diff=fwd_err, decode_max_abs_diff=dec_err,
@@ -3040,6 +3119,209 @@ def phase_small_zoo(torch, ops, arch, devs=("cpu", "cuda")):
         card_losses=[h[1] for h in h_dev], ref_losses=[h[1] for h in h_ref],
         serve_stats=dev[1], serve_launches=dev[2], tokens_identical=True,
         seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the MoE family; Phi-3.5-MoE at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b")
+# cuts: 3 of the config's 32 layers (4.17 B params, 16.66 GB in fp32, so
+# that the weights, the fake-quant model, the search's expert stack and the
+# clone an accept makes of it fit one card), and fp32 where it says bf16
+MOE_LAYERS = 3
+MOE_SERVE = (("off", False, 1), ("on", True, 1), ("on-mp2", True, 2))
+MOE_PROFILE_REQUESTS = 8
+# 11d runs Moonlight at its own fine-grained routing (reduced() keeps the
+# reference's E 4 / top-2)
+MOON_MOE = dict(num_experts=64, top_k=6)
+
+
+def moe_config(get_config, arch=MOE_ARCH, n_layers=MOE_LAYERS):
+    """``arch`` at full width, ``n_layers`` deep, in fp32."""
+    import dataclasses
+    return dataclasses.replace(get_config(arch), n_layers=n_layers,
+                               **ZOO_DTYPE)
+
+
+def moe_param_count(cfg) -> int:
+    """Parameters of the port's ``init_params`` tree for an MoE ``cfg``
+    (``ModelConfig.param_count``, the reference's analytic count, counts 2
+    D a block for the norms: a LayerNorm block holds 4 D, and the final
+    norm is not counted there)."""
+    D, F, V, E = cfg.d_model, cfg.d_ff, cfg.padded_vocab, cfg.moe.num_experts
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    attn = 2 * D * hq * hd + 2 * D * hkv * hd + (2 * hd if cfg.qk_norm else 0)
+    experts = E * (2 + int(cfg.gated_mlp)) * D * F
+    norm = D * (2 if cfg.norm == "layernorm" else 1)
+    n = cfg.n_layers * (attn + experts + D * E + 2 * norm) + norm + V * D
+    return n + (0 if cfg.tie_embeddings else D * V)
+
+
+def moe_forward_flops(cfg, B, S) -> int:
+    """Operations of one forward over (B, S) tokens as the port computes
+    it: per layer the attention projections and the router, 2 per weight
+    per token; causal attention's QK^T and PV over S(S+1)/2 pairs a head;
+    the expert GEMMs over all E·C slots of each row's dispatch buffer (C =
+    capacity(S); an empty slot costs what a full one does); and the LM
+    head."""
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    C = cfg.moe.capacity(S)
+    per_layer = 2 * B * S * (2 * D * hq * hd + 2 * D * hkv * hd + D * E) \
+        + 2 * B * E * C * (2 + int(cfg.gated_mlp)) * D * F \
+        + 2 * 2 * B * (S * (S + 1) // 2) * hq * hd
+    return cfg.n_layers * per_layer + 2 * B * S * D * cfg.padded_vocab
+
+
+def expert_stack_bytes(cfg, elem=4) -> int:
+    """The (L·E, ...) expert stack (up, gate, down) that an accepted move
+    clones (``install_unit``), and that each decode step dequantises."""
+    return cfg.n_layers * cfg.moe.num_experts * (2 + int(cfg.gated_mlp)) \
+        * cfg.d_model * cfg.d_ff * elem
+
+
+def moe_gq_shapes(cfg):
+    """The (K, N) shapes an MoE model gives ``group_quant``: ``fake_quant``
+    flattens the stacked attention leaves (L, K, N) to (L·K, N) and the
+    expert leaves (L, E, K, N) to (L·E·K, N)."""
+    L, D, F, E = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    hq = cfg.n_heads * cfg.resolved_head_dim
+    hkv = cfg.n_kv_heads * cfg.resolved_head_dim
+    return (("attn wq", (L * D, hq)), ("attn wk/wv", (L * D, hkv)),
+            ("attn wo", (L * hq, D)), ("experts up/gate", (L * E * D, F)),
+            ("experts down", (L * E * F, D)))
+
+
+def phase_moe_kernels(torch, ops, ref, cfg):
+    """11a's kernel check: ``group_quant`` against its plain version
+    (``torch.equal``) at every shape the MoE model gives it (2-bit g32), and
+    its time beside the bound at the expert stack's shape."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    err = 0.0
+    for name, shape in moe_gq_shapes(cfg):
+        w = torch.randn(shape, generator=gen, device=dev)
+        err = max(err, exact(torch, ops.group_quant(w, bits=2, group=32),
+                             ref.group_quant_ref(w, 2, 32),
+                             f"group_quant {name} {shape}"))
+        log("kernel_check", kernel="group_quant", arch=cfg.name, weight=name,
+            shape=list(shape), bits=2, group=32, max_abs_err=err)
+        if name == "experts up/gate":
+            K, N = shape
+            ms = time_ms(torch, lambda: ops.group_quant(w, bits=2, group=32),
+                         warmup=1, reps=5)
+            nbytes = 2 * K * N * 4 + 2 * (K // 32) * N * 4
+            bms, by = bound_ms(nbytes, GQ_OPS * K * N)
+            row = dict(shape=list(shape), ms=ms, bound_ms=bms, bound_by=by,
+                       share_of_bound=bms / ms)
+            log("kernel_time", kernel="group_quant", arch=cfg.name,
+                weight=name, **row)
+        del w
+    torch.cuda.empty_cache()
+    return err, row
+
+
+def plain_route_oracle(torch, ref, cfg, params_q, device="cuda"):
+    """11b's oracle: each PagedServer run against the same server and
+    options with the paged-decode kernel's plain version
+    (``kernels.ref.paged_decode_ref``, plain PyTorch on the card) in its
+    place: the served computation itself, chunking and MoE capacity
+    included. Tokens must be identical. Runs with the same sharing are
+    also held to each other (only the attention route differs)."""
+    from repro_torch.launch.serve import PagedServer
+    from repro_torch.serving import decode as dec
+
+    def plain(q, k_pages, v_pages, block_tables, seq_lens, k_scale=None,
+              v_scale=None, **_):
+        return ref.paged_decode_ref(q, k_pages, v_pages, block_tables,
+                                    seq_lens, k_scale, v_scale)
+
+    def oracle(reqs, runs):
+        plain_outs = {}
+        kernel = dec.paged_decode
+        dec.paged_decode = plain
+        try:
+            for sharing in sorted({r["sharing"] for r in runs.values()}):
+                plain_outs[sharing] = PagedServer(
+                    params_q, cfg, prefix_cache=sharing, device=device,
+                    **SERVE).generate(reqs)
+        finally:
+            dec.paged_decode = kernel
+        for k, r in runs.items():
+            if r["outs"] != plain_outs[r["sharing"]]:
+                i = next(i for i, (a, b) in enumerate(zip(
+                    r["outs"], plain_outs[r["sharing"]])) if a != b)
+                raise AssertionError(f"{k}: request {i} parts from the "
+                                     f"plain route")
+        first = {}
+        for k, r in runs.items():
+            first.setdefault(r["sharing"], k)
+        return ({k: [] for k in runs},
+                "the same server and options with the paged-decode kernel's "
+                "plain version (kernels.ref.paged_decode_ref)",
+                {k: first[r["sharing"]] for k, r in runs.items()})
+
+    return oracle
+
+
+def phase_moe_serving(torch, ops, ref, cfg, params_q, setup_s):
+    """11b and 11c: the packed model served over the 8-tenant trace by
+    PagedServer (sharing off, on, on with 2 pages per block: both GQA
+    routes) held to its plain route, and by BatchedServer
+    (use_flash_decode off, on). Returns the paged runs' launch counts by
+    label and the flash run's launches."""
+    t0 = time.perf_counter()
+    rows = {r: {"decode": {"ms": None}} for r in PD_ROUTES}
+    paged, split = phase_serving(
+        torch, ops, rows, cfg, params_q, setup_s, variants=MOE_SERVE,
+        tag="moe_", profile_requests=MOE_PROFILE_REQUESTS,
+        oracle=plain_route_oracle(torch, ref, cfg, params_q))
+    per_layer = expert_stack_bytes(cfg) // cfg.n_layers // 4
+    log("moe_dequant", arch=cfg.name, expert_weights_per_layer=per_layer,
+        dequant_per_layer_ms=split["dequant_per_layer_ms"],
+        us_per_million_weights=1e3 * split["dequant_per_layer_ms"]
+        / (per_layer / 1e6))
+    t1 = time.perf_counter()
+    flash = phase_legacy_serving(torch, ops, cfg, params_q, profile=False,
+                                 full_forward_oracle=False)
+    log("moe_serving_seconds", paged_s=t1 - t0,
+        batched_s=time.perf_counter() - t1)
+    return paged, flash
+
+
+def small_moe_config(get_config, arch):
+    """``arch``'s reduced config; Moonlight at E 64 / top-6."""
+    import dataclasses
+    cfg = get_config(arch).reduced()
+    if arch != MOE_ARCH:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **MOON_MOE))
+    return cfg
+
+
+def phase_moe(torch, ops, ref, get_config, qcfg):
+    """Phase 11 (11a-11d). Returns the launch counts the kernels line
+    carries: 11a's by kernel and run, 11b's paged runs by label, 11c's
+    flash_decode, and 11a's group_quant check (max abs err, timing row)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = moe_config(get_config)
+    gq_check = phase_moe_kernels(torch, ops, ref, cfg)
+    params_q, pack_s, launches = phase_zoo_main(torch, ops, cfg, qcfg,
+                                                methods=("rtn",), tag="moe")
+    t1 = time.perf_counter()
+    paged, flash = phase_moe_serving(torch, ops, ref, cfg, params_q, pack_s)
+    del params_q
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    for arch in MOE_ARCHS:
+        phase_small_zoo(torch, ops, arch, cfg=small_moe_config(get_config,
+                                                               arch))
+    t3 = time.perf_counter()
+    log("phase11", seconds=t3 - t0, a_s=t1 - t0, bc_s=t2 - t1, d_s=t3 - t2)
+    return dict(main=launches, paged=paged, flash=flash, gq_check=gq_check)
 
 
 def main() -> int:
@@ -3074,6 +3356,11 @@ def main() -> int:
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
+    marks, seconds = [time.perf_counter()], {}
+
+    def lap(name):          # seconds since the last lap, for the last line
+        marks.append(time.perf_counter())
+        seconds[name] = marks[-1] - marks[-2]
     log("env", torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0], device=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count())
@@ -3088,10 +3375,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas[{name}]: {line.strip()}", flush=True)
 
+    lap("build")
+
     # ---- phase 1: kernels vs plain versions ------------------------------
     cfg = get_config("opt-1.3b")
     rows = phase_kernels(torch, ops, ref, gq, tq, cfg)
     phase_small_reference(torch)
+
+    lap("phase1")
 
     # ---- phase 2: main path on opt-1.3b ----------------------------------
     dev = torch.device("cuda")
@@ -3153,6 +3444,8 @@ def main() -> int:
             raise AssertionError(f"non-finite weights at {path}")
     del rtn
 
+    lap("phase2")
+
     # ---- phase 3: fused lane vs unfused lane -----------------------------
     lanes = {}
     for fused in (True, False):
@@ -3171,6 +3464,8 @@ def main() -> int:
         fused_losses=[h[1] for h in lanes[True][0]],
         unfused_losses=[h[1] for h in lanes[False][0]],
         fused_launches=lanes[True][1], unfused_launches=lanes[False][1])
+
+    lap("phase3")
 
     # ---- phase 4: where one search step's time goes ----------------------
     adapter = DenseFFNAdapter(cfg)
@@ -3203,6 +3498,8 @@ def main() -> int:
     del params, res, sr, t, calib, held, adapter   # sr and t hold model leaves
     torch.cuda.empty_cache()
 
+    lap("phase4")
+
     # ---- phase 5: paged serving ------------------------------------------
     from repro_torch.serving import build_trace
     pd = importlib.import_module("repro_torch.kernels.paged_decode")
@@ -3213,9 +3510,12 @@ def main() -> int:
     gqa_vs_sdpa(pd_rows)
     params_q, setup_s = packed_opt(torch, cfg)
     serve_counts, split = phase_serving(torch, ops, pd_rows, cfg, params_q,
-                                        setup_s)
+                                        setup_s,
+                                        profile_requests=ZOO_PROFILE_REQUESTS)
     serve_counts = serve_counts["on"]
     small_counts = phase_small_serving(torch, ops)
+
+    lap("phase5")
 
     # ---- phase 6: contiguous-cache serving, quant_matmul -----------------
     fd = importlib.import_module("repro_torch.kernels.flash_decode")
@@ -3229,15 +3529,21 @@ def main() -> int:
     phase_small_legacy(torch, ops)
     qm_rows, qm_err, qm_launches = phase_quant_matmul(torch, ops, ref, qm)
 
+    lap("phase6")
+
     # ---- phase 7: the calibrated base methods, the other objectives ------
     base_launches = phase_base_methods(torch, ops, cfg, qcfg)
     phase_small_base_methods(torch)
+
+    lap("phase7")
 
     # ---- phase 8: the rest of the search engine, the search CLI ----------
     t0 = time.perf_counter()
     engine_launches = phase_search_engine(torch, ops, cfg, qcfg)
     phase_small_search_engine(torch)
     log("phase8", seconds=time.perf_counter() - t0)
+
+    lap("phase8")
 
     # ---- phase 9: training and checkpoints, Table 1 trained by the port --
     from repro_torch import obs
@@ -3248,6 +3554,8 @@ def main() -> int:
     table1_launches = phase_table1(torch, ops)
     phase_small_train(torch)
     log("phase9", seconds=time.perf_counter() - t0)
+
+    lap("phase9")
 
     # ---- phase 10: the dense zoo; Qwen3-4B at full width and depth -------
     torch.cuda.empty_cache()
@@ -3264,6 +3572,13 @@ def main() -> int:
         phase_small_zoo(torch, ops, arch)
     t3 = time.perf_counter()
     log("phase10", seconds=t3 - t0, a_s=t1 - t0, bc_s=t2 - t1, d_s=t3 - t2)
+
+    lap("phase10")
+
+    # ---- phase 11: the MoE family; Phi-3.5-MoE at full width -------------
+    moe = phase_moe(torch, ops, ref, get_config, qcfg)
+    lap("phase11")
+    log("script_seconds", total=marks[-1] - marks[0], **seconds)
 
     kernels = []
     for name, source, replaces in (
@@ -3298,6 +3613,15 @@ def main() -> int:
                 "launches_on": "phase 10a: quantize_model rtn / awq, alone "
                                "and with 16 fused steps, on Qwen3-4B (fp32, "
                                "full width and depth), each counted from 0"},
+            "moe": {
+                "launches": moe["main"][name],
+                "launches_on": "phase 11a: quantize_model rtn, alone and "
+                               "with 16 fused steps over the L·E expert "
+                               "units, on Phi-3.5-MoE (fp32, full width, 3 "
+                               "layers), each counted from 0",
+                **({"max_abs_err": moe["gq_check"][0],
+                    "expert_stack_time": moe["gq_check"][1]}
+                   if name == "group_quant" else {})},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
@@ -3326,7 +3650,15 @@ def main() -> int:
                                                route.endswith("_mp") else ""),
                 "small_serving": {
                     "launches": small_counts[route],
-                    "launches_on": "phase 5d: opt-tiny reduced serving"}}),
+                    "launches_on": "phase 5d: opt-tiny reduced serving"},
+                "moe": {
+                    "launches": moe["paged"]["on" if route ==
+                                             "paged_decode_gqa"
+                                             else "on-mp2"][route],
+                    "launches_on": "phase 11b: PagedServer on 2-bit "
+                                   "Phi-3.5-MoE (3 layers), sharing on"
+                                   + (", 2 pages per block" if
+                                      route.endswith("_mp") else "")}}),
             "max_abs_err": pd_errs[route],
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
@@ -3355,6 +3687,9 @@ def main() -> int:
         "zoo": {"launches": zoo_flash,
                 "launches_on": "phase 10c: Qwen3-4B BatchedServer, "
                                "use_flash_decode on"},
+        "moe": {"launches": moe["flash"],
+                "launches_on": "phase 11c: Phi-3.5-MoE (3 layers) "
+                               "BatchedServer, use_flash_decode on"},
         "max_abs_err": fd_err,
         **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")},

@@ -1,9 +1,9 @@
 """Architecture config registry: ``get_config(arch_id)`` / ``list_archs()``.
 
-The port carries the paper's own OPT family and the dense architectures of
-the reference's zoo (RoPE, GQA, gated SwiGLU, qk-norm); the MoE, SSM,
-hybrid, encoder-decoder and vision architectures wait for their model
-families (ROADMAP Queue 1 item 12).
+The port carries the paper's own OPT family and the dense and MoE
+architectures of the reference's zoo (RoPE, GQA, gated SwiGLU, qk-norm,
+top-k experts); the SSM, hybrid, encoder-decoder and vision architectures
+wait for their model families (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ _ARCHS = {
     "qwen3-4b": "qwen3_4b",
     "command-r-35b": "command_r_35b",
     "yi-6b": "yi_6b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b",
     "opt-1.3b": "opt_paper",
     "opt-13b": "opt_paper",
     "opt-125m": "opt_paper",

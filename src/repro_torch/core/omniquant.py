@@ -21,7 +21,8 @@ from repro_torch.core.taps import capture_dense_taps
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["fake_quant_lwc", "omniquant_process_dense"]
+__all__ = ["fake_quant_lwc", "block_problem", "omni_step",
+           "omniquant_process_dense"]
 
 
 def fake_quant_lwc(w, qcfg: QuantConfig, gamma, beta):
@@ -54,10 +55,12 @@ def _adam_update(g, m, v, t, lr, b1=0.9, b2=0.999, eps=1e-8):
     return -lr * mhat / (torch.sqrt(vhat) + eps), m, v
 
 
-def _optimize_block(w_up, w_down, w_gate, b_up, x, bits, group_size, steps,
-                    gated, act_name, lr=5e-3):
-    """LWC + LET on one FFN block. Returns (fake-quant up, fake-quant down,
-    scaled b_up, the per-step losses (steps,) before each update)."""
+def block_problem(w_up, w_down, w_gate, b_up, x, bits, group_size, gated,
+                  act_name):
+    """One FFN block's LWC + LET problem: (θ₀, ``loss_of(θ)``,
+    ``quantized(θ) -> (fake-quant up, fake-quant down, s)``), with θ the
+    dict ``g_up``, ``b_up_c``, ``g_dn``, ``b_dn_c``, ``log_s`` of the
+    reference's ``_optimize_block`` (same init, same loss)."""
     qcfg = QuantConfig(bits=bits, group_size=group_size)
     act = L.activation_fn(act_name)
     F = w_up.shape[1]
@@ -90,20 +93,40 @@ def _optimize_block(w_up, w_down, w_gate, b_up, x, bits, group_size, steps,
         wd = fake_quant_lwc(w_down / s[:, None], qcfg, theta["g_dn"], theta["b_dn_c"])
         return wu, wd, s
 
+    def loss_of(theta):
+        wu, wd, s = quantized(theta)
+        return torch.mean(torch.square(ffn(wu, wd, w_gate, b_up * s, x) - y_fp))
+
+    return theta, loss_of, quantized
+
+
+def omni_step(loss_of, theta, m, v, step: int, lr=5e-3):
+    """One Adam step of :func:`block_problem`'s loss from state (θ, m, v)
+    at 0-based ``step``: returns (the loss at θ, θ', m', v'); the inputs
+    are not modified."""
+    params = {k: p.detach().requires_grad_(True) for k, p in theta.items()}
+    loss = loss_of(params)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    t = torch.tensor(step + 1.0, dtype=torch.float32, device=loss.device)
+    theta2, m2, v2 = {}, {}, {}
+    with torch.no_grad():
+        for (k, p), gk in zip(params.items(), grads):
+            d, m2[k], v2[k] = _adam_update(gk, m[k], v[k], t, lr)
+            theta2[k] = p + d
+    return loss.detach(), theta2, m2, v2
+
+
+def _optimize_block(w_up, w_down, w_gate, b_up, x, bits, group_size, steps,
+                    gated, act_name, lr=5e-3):
+    """LWC + LET on one FFN block. Returns (fake-quant up, fake-quant down,
+    scaled b_up, the per-step losses (steps,) before each update)."""
+    theta, loss_of, quantized = block_problem(
+        w_up, w_down, w_gate, b_up, x, bits, group_size, gated, act_name)
     m = {k: torch.zeros_like(p) for k, p in theta.items()}
     v = {k: torch.zeros_like(p) for k, p in theta.items()}
-    losses = torch.empty(steps, dtype=torch.float32, device=dev)
+    losses = torch.empty(steps, dtype=torch.float32, device=w_up.device)
     for step in range(steps):
-        params = {k: p.detach().requires_grad_(True) for k, p in theta.items()}
-        wu, wd, s = quantized(params)
-        loss = torch.mean(torch.square(ffn(wu, wd, w_gate, b_up * s, x) - y_fp))
-        grads = torch.autograd.grad(loss, list(params.values()))
-        t = torch.tensor(step + 1.0, dtype=torch.float32, device=dev)
-        with torch.no_grad():
-            losses[step] = loss
-            for (k, p), gk in zip(params.items(), grads):
-                d, m[k], v[k] = _adam_update(gk, m[k], v[k], t, lr)
-                theta[k] = p + d
+        losses[step], theta, m, v = omni_step(loss_of, theta, m, v, step, lr)
     with torch.no_grad():
         wu, wd, s = quantized(theta)
         return wu, wd, b_up * s, losses

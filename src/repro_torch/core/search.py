@@ -1,8 +1,9 @@
-"""Search configuration, result and the dense FFN adapter (paper Algorithm 1).
+"""Search configuration, result and the FFN adapters (paper Algorithm 1).
 
 The loop lives in ``repro_torch.search.engine``; this module keeps what is
 model-family specific. :class:`DenseFFNAdapter` exposes each decoder
-block's FFN as a transformable unit, with two candidate builds:
+block's FFN as a transformable unit, :class:`MoEAdapter` each expert of
+each MoE block, with two candidate builds:
 
 - ``transform_unit`` + ``quant_unit``: the transformed fp32 weights are
   materialized, then ``fake_quant`` (the ``group_quant`` kernel on CUDA)
@@ -10,9 +11,9 @@ block's FFN as a transformable unit, with two candidate builds:
 - ``transform_quant_unit``: the fused lane, one ``transform_quant`` kernel
   launch per weight (up, down) reading the original weights once.
 
-Stacks are never modified in place: :meth:`DenseFFNAdapter.install_unit`
-returns a fresh stack (``search.install.tree_install_unit``), so a stack
-held as the elite snapshot stays what it was when it was taken.
+Stacks are never modified in place: ``install_unit`` returns a fresh stack
+(``search.install.tree_install_unit``), so a stack held as the elite
+snapshot stays what it was when it was taken.
 """
 from __future__ import annotations
 
@@ -24,10 +25,12 @@ import torch
 from repro_torch.core import invariance as inv
 from repro_torch.core.quant import QuantConfig, fake_quant
 from repro_torch.models.config import ModelConfig, check_supported
+from repro_torch.models.layers import EXPERT_OVERRIDE
 from repro_torch.models.model import layer_slice
 from repro_torch.search.install import tree_install_unit
 
-__all__ = ["SearchConfig", "SearchResult", "DenseFFNAdapter", "make_adapter"]
+__all__ = ["SearchConfig", "SearchResult", "DenseFFNAdapter", "MoEAdapter",
+           "make_adapter"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +152,69 @@ class DenseFFNAdapter:
         return tree_install_unit(fq_stack, u, unit)
 
 
+class MoEAdapter:
+    """MoE blocks: unit = one expert's FFN (up[/gate]/down, no biases).
+    n_units = L·E in unit-major order (u = l·E + e): ``base_stack`` views
+    the (L, E, ...) expert leaves as (L·E, ...)."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.E = cfg.moe.num_experts
+        self.n_units = cfg.n_layers * self.E
+        self.f_dim = cfg.d_ff
+
+    def base_stack(self, params):
+        moe = params["blocks"]["moe"]
+        return {k: moe[k].reshape((-1,) + tuple(moe[k].shape[2:]))
+                for k in ("up", "down", "gate") if k in moe}
+
+    def transform_unit(self, base, t: inv.FFNTransform, u: int):
+        b = layer_slice(base, u)
+        up, down, _, gate, _ = inv.apply_transform_ffn(
+            t, b["up"], b["down"], None, b.get("gate"), None)
+        out = {"up": up, "down": down}
+        if gate is not None:
+            out["gate"] = gate
+        return out
+
+    def quant_unit(self, unit, qcfg: QuantConfig):
+        """Every leaf is a weight (no biases): one ``fake_quant`` call each,
+        for one expert's (K, N) leaves and for the (L·E, K, N) stack alike
+        (``quant_stack``)."""
+        return {k: fake_quant(v, qcfg) for k, v in unit.items()}
+
+    quant_stack = quant_unit
+
+    # an expert carries a dense FFN's up/down[/gate] layout, so the fused
+    # lane (one transform_quant launch a weight) applies unchanged
+    transform_quant_unit = DenseFFNAdapter.transform_quant_unit
+
+    def install(self, params, fq_stack):
+        """``params`` with the expert leaves taken from ``fq_stack``
+        (viewed back as (L, E, ...); no copy)."""
+        params = dict(params)
+        blocks = dict(params["blocks"])
+        moe = dict(blocks["moe"])
+        for k, v in fq_stack.items():
+            moe[k] = v.reshape((self.cfg.n_layers, self.E) + tuple(v.shape[1:]))
+        blocks["moe"] = moe
+        params["blocks"] = blocks
+        return params
+
+    def unit_override(self, u: int, unit):
+        """``forward(layer_override=...)`` argument that makes expert e of
+        layer l (u = l·E + e) read the candidate ``unit``: ``moe_ffn`` takes
+        that one expert's leaves from it, so no expert stack is copied."""
+        layer, e = divmod(u, self.E)
+        return (layer, {"moe": {EXPERT_OVERRIDE: (e, unit)}})
+
+    install_unit = DenseFFNAdapter.install_unit
+
+
 def make_adapter(cfg: ModelConfig):
+    """The search adapter of ``cfg``'s block pattern (the reference's
+    dispatch): dense FFN units, or one unit per expert for MoE."""
     check_supported(cfg)
+    if cfg.block_pattern == "moe":
+        return MoEAdapter(cfg)
     return DenseFFNAdapter(cfg)

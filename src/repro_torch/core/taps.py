@@ -10,7 +10,9 @@ quantizable linear:
     mlp_in   (L, B, S, D)     — input of up/gate
     mlp_mid  (L, B, S, F)     — input of down
 
-Dense pattern only, as in the reference. The layers run one after another
+Dense pattern only, as in the reference (which asserts it): any other
+pattern raises ``ValueError`` here, so GPTQ, AWQ and OmniQuant refuse an
+MoE model before they touch its weights. The layers run one after another
 over views of the stacked weights, and each tap is written into a
 preallocated (L, ...) tensor, so no stack is copied.
 """
@@ -28,6 +30,11 @@ __all__ = ["capture_dense_taps"]
 def capture_dense_taps(params, cfg: ModelConfig, tokens):
     """tokens (B, S) int on the params' device -> dict of the four taps."""
     check_supported(cfg)
+    if cfg.block_pattern != "dense":
+        raise ValueError(
+            f"capture_dense_taps needs block_pattern='dense', got "
+            f"{cfg.block_pattern!r}: the calibrated base methods (GPTQ, AWQ, "
+            f"OmniQuant) run on dense FFN blocks only, as in the reference")
     B, S = tokens.shape
     dt = getattr(torch, cfg.compute_dtype)
     positions = torch.arange(S, device=tokens.device)

@@ -114,7 +114,9 @@ class PagedServer:
     ``n_pages`` bounds TOTAL cache memory across all live sequences;
     ``max_pages_per_seq`` (from ``max_len``) bounds a single sequence.
     ``prefix_cache`` (default on) shares pages between requests, outputs
-    token-identical to sharing disabled. ``scheduler`` is ``"fifo"``,
+    token-identical to sharing disabled on a dense model (an MoE model
+    routes each prefill chunk at that chunk's capacity, and sharing
+    changes the chunks, as in the reference). ``scheduler`` is ``"fifo"``,
     ``"slo"`` (with ``tenant_quota`` pages per tenant) or a
     ``serving.Scheduler``. The pools live on ``device`` (the card unless
     ``device="cpu"``), where ``params_q`` must already be.

@@ -1,17 +1,33 @@
-"""Model configuration for the port's dense path.
+"""Model configuration for the port's dense and MoE paths.
 
 The fields are the subset of the reference's ``repro.models.config``
-``ModelConfig`` that the dense forward reads, with the same names, order and
-defaults; ``reduced()`` derives the same tiny configs the reference's tests
-use. Features the port does not carry yet (MoE, SSM, hybrid,
+``ModelConfig`` that the dense and MoE forwards read, with the same names,
+order and defaults; ``reduced()`` derives the same tiny configs the
+reference's tests use. Features the port does not carry yet (SSM, hybrid,
 encoder-decoder) have no field here; :func:`check_supported` names the
 roadmap item for the block patterns that wait.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Optional
 
-__all__ = ["ModelConfig", "check_supported"]
+__all__ = ["MoEConfig", "ModelConfig", "check_supported"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+
+    def capacity(self, seq_len: int) -> int:
+        """Per-batch-row expert capacity (the reference's, on Python
+        floats): slots each expert takes from one row of ``seq_len``
+        tokens."""
+        c = math.ceil(seq_len * self.top_k / self.num_experts * self.capacity_factor)
+        return max(1, c)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +50,8 @@ class ModelConfig:
     norm: str = "rmsnorm"             # rmsnorm | layernorm
     tie_embeddings: bool = False
     max_seq_len: int = 8192           # for learned positions
-    block_pattern: str = "dense"
+    block_pattern: str = "dense"      # dense | moe
+    moe: Optional[MoEConfig] = None
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     attn_chunk: int = 1024            # kv-chunk for blocked online-softmax attention
@@ -53,6 +70,39 @@ class ModelConfig:
         m = self.vocab_pad_multiple
         return ((self.vocab_size + m - 1) // m) * m
 
+    def _attn_mlp_params(self):
+        d, f = self.d_model, self.d_ff
+        hd = self.resolved_head_dim
+        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d
+        mlp = d * f + f * d + (d * f if self.gated_mlp else 0)
+        return attn, mlp
+
+    def param_count(self) -> int:
+        """The reference's analytic parameter count (dense and MoE
+        patterns; the embedding once if tied; 2·d a block for its norms)."""
+        check_supported(self)
+        d, v = self.d_model, self.padded_vocab
+        attn, mlp = self._attn_mlp_params()
+        if self.block_pattern == "dense":
+            n = self.n_layers * (attn + mlp + 2 * d)
+        else:
+            e = self.moe.num_experts
+            n = self.n_layers * (attn + e * mlp + d * e + 2 * d)
+        n += v * d * (1 if self.tie_embeddings else 2)
+        if self.pos_emb == "learned":
+            n += self.max_seq_len * d
+        return n
+
+    def active_param_count(self) -> int:
+        """Activated params per token (= param_count for non-MoE)."""
+        if self.block_pattern != "moe":
+            return self.param_count()
+        attn, mlp = self._attn_mlp_params()
+        d = self.d_model
+        act = self.n_layers * (attn + self.moe.top_k * mlp + d * self.moe.num_experts + 2 * d)
+        act += self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        return act
+
     def reduced(self, **overrides) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the reference's sizes)."""
         base = dict(
@@ -64,6 +114,7 @@ class ModelConfig:
             vocab_size=512,
             head_dim=16 if self.head_dim else 0,
             max_seq_len=256,
+            moe=dataclasses.replace(self.moe, num_experts=4, top_k=2) if self.moe else None,
             attn_chunk=64,
             param_dtype="float32",
             compute_dtype="float32",
@@ -73,8 +124,13 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what the port's dense path cannot run."""
-    if cfg.block_pattern != "dense":
+    """Raise NotImplementedError for what the port cannot run: block
+    patterns other than dense and MoE (SSM, hybrid; encoder-decoder stacks
+    have no field here yet)."""
+    if cfg.block_pattern not in ("dense", "moe"):
         raise NotImplementedError(
             f"block_pattern={cfg.block_pattern!r} is not ported yet "
-            f"(ROADMAP Queue 1 item 12: other model families)")
+            f"(ROADMAP Queue 1 item 12: other model families; SSM, hybrid "
+            f"and encoder-decoder wait)")
+    if cfg.block_pattern == "moe" and cfg.moe is None:
+        raise ValueError("block_pattern='moe' needs cfg.moe (a MoEConfig)")

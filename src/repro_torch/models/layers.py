@@ -1,11 +1,13 @@
-"""Dense building blocks: norms, activation, RoPE, self-attention, MLP.
+"""Building blocks: norms, activation, RoPE, self-attention, MLP, MoE.
 
 Plain functions on tensors with the reference's layout (``x @ W``
 orientation, (B, S, H, Dh) heads). RoPE and qk-norm are plain PyTorch, as
 they are jnp in the reference. Attention is the reference's
 ``blocked_attention`` online softmax in plain PyTorch (jnp there, not a
 Pallas kernel), except one-token decode over a contiguous cache with
-``cfg.use_flash_decode``, which takes the ``flash_decode`` kernel.
+``cfg.use_flash_decode``, which takes the ``flash_decode`` kernel. The MoE
+FFN is the reference's top-k dispatch with per-row capacity; its expert
+products are plain matmuls, as they are ``jnp.einsum`` there.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ from repro_torch.models.config import ModelConfig
 __all__ = ["NEG_INF", "rmsnorm", "layernorm", "apply_norm", "init_norm",
            "activation_fn", "rope_cos_sin", "apply_rope", "attn_qkv",
            "attn_out", "blocked_attention", "self_attention", "mlp",
-           "quantize_kv"]
+           "quantize_kv", "init_moe", "moe_top_k", "moe_route", "moe_ffn",
+           "moe_aux_loss", "EXPERT_OVERRIDE"]
 
 NEG_INF = -1e30
 
@@ -258,3 +261,105 @@ def mlp(p, cfg: ModelConfig, x):
     if "b_down" in p:
         out = out + p["b_down"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k routing, per-row capacity, scatter dispatch)
+# ---------------------------------------------------------------------------
+
+# key of a one-layer MoE tree that names one expert's candidate leaves:
+# ``moe_ffn`` reads tree[EXPERT_OVERRIDE] = (e, {"up", "down"[, "gate"]}) in
+# place of expert e's slice of the stacks (the search's unit override)
+EXPERT_OVERRIDE = "expert_override"
+
+
+def init_moe(lead, cfg: ModelConfig, normal):
+    """The reference's ``init_moe`` shapes and scales with leading stack
+    dims ``lead`` (a tuple): router (D, E), up / gate (E, D, F), down (E,
+    F, D); ``normal(shape, scale)`` draws the values."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    p = {"router": normal(lead + (d, e), d ** -0.5),
+         "up": normal(lead + (e, d, f), d ** -0.5),
+         "down": normal(lead + (e, f, d), f ** -0.5)}
+    if cfg.gated_mlp:
+        p["gate"] = normal(lead + (e, d, f), d ** -0.5)
+    return p
+
+
+def moe_top_k(logits, k: int):
+    """``jax.lax.top_k`` over the last axis: the k largest values in
+    descending order, equal values in ascending index order (a stable
+    descending sort; ``torch.topk`` gives no order for ties)."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_route(p, cfg: ModelConfig, x):
+    """The reference's routing of x (B, S, D): top-k of the router logits,
+    softmax of the top-k logits in f32 cast to x's dtype, token-major slots
+    (slot s·K + k is token s's k-th choice), each slot's position in its
+    expert by a per-row cumsum, and ``keep = pos < C`` with C =
+    ``capacity(S)``. Returns (gate_w (B, S, K), e_idx (B, S·K), pos (B,
+    S·K), keep (B, S·K), C)."""
+    B, S, _ = x.shape
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    C = cfg.moe.capacity(S)
+    gate_w, gate_idx = moe_top_k(x @ p["router"], K)
+    gate_w = torch.softmax(gate_w.float(), dim=-1).to(x.dtype)
+    e_idx = gate_idx.reshape(B, S * K)
+    onehot = torch.nn.functional.one_hot(e_idx, E)
+    pos_all = torch.cumsum(onehot, dim=1) - 1
+    pos = torch.gather(pos_all, 2, e_idx[..., None])[..., 0]
+    return gate_w, e_idx, pos, pos < C, C
+
+
+def _expert(p, e: int):
+    """Expert e's leaves: the candidate's when the tree names one for e."""
+    over = p.get(EXPERT_OVERRIDE)
+    if over is not None and over[0] == e:
+        return over[1]
+    return {k: p[k][e] for k in ("up", "gate", "down") if k in p}
+
+
+def moe_ffn(p, cfg: ModelConfig, x):
+    """x (B, S, D) -> (B, S, D): the reference's ``moe_ffn``.
+
+    Each kept slot is written to its own (row, expert, position) of a (B,
+    E, C, D) buffer (unique positions, no accumulation; dropped slots go to
+    a spare position C that is never read), each expert's GEMMs run on its
+    C rows, and each slot gathers its output (0 for a dropped slot) for the
+    gate-weighted sum over its token's K choices. The experts run one after
+    another on their own weight slices, so a candidate for one expert
+    (``EXPERT_OVERRIDE``) computes exactly what a stack holding it would.
+    """
+    B, S, D = x.shape
+    K = cfg.moe.top_k
+    gate_w, e_idx, pos, keep, C = moe_route(p, cfg, x)
+    E = cfg.moe.num_experts
+    b_idx = torch.arange(B, device=x.device)[:, None].expand(B, S * K)
+    buf = x.new_zeros((B, E, C + 1, D))
+    buf[b_idx, e_idx, torch.where(keep, pos, C)] = torch.repeat_interleave(
+        x, K, dim=1)
+    act = activation_fn(cfg.activation)
+    out_buf = x.new_empty((B, E, C, D))
+    for e in range(E):
+        w = _expert(p, e)
+        xe = buf[:, e, :C]
+        up = xe @ w["up"]
+        h = act(xe @ w["gate"]) * up if cfg.gated_mlp else act(up)
+        out_buf[:, e] = h @ w["down"]
+    out_slots = out_buf[b_idx, e_idx, torch.clamp(pos, 0, C - 1)] \
+        * keep[..., None].to(x.dtype)
+    return torch.sum(out_slots.reshape(B, S, K, D) * gate_w[..., None], dim=2)
+
+
+def moe_aux_loss(p, cfg: ModelConfig, x):
+    """Load-balancing auxiliary loss (Switch-style), the reference's."""
+    logits = x @ p["router"]
+    probs = torch.softmax(logits.float(), dim=-1)
+    E = cfg.moe.num_experts
+    _, idx = moe_top_k(logits, cfg.moe.top_k)
+    frac_tokens = torch.mean(
+        torch.nn.functional.one_hot(idx, E).float(), dim=(0, 1, 2))
+    frac_probs = torch.mean(probs, dim=(0, 1))
+    return E * torch.sum(frac_tokens * frac_probs)

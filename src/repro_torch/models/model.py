@@ -1,5 +1,5 @@
-"""Dense model: init / forward / loss / contiguous-cache decode with the
-reference's param layout.
+"""Dense and MoE models: init / forward / loss / contiguous-cache decode
+with the reference's param layout.
 
 Params are plain nested dicts of tensors: stacked ``(L, ...)`` block leaves
 under ``params["blocks"]`` and ``x @ W`` orientation, exactly the JAX tree
@@ -8,6 +8,8 @@ leaf for leaf). The forward is a Python loop over the stacked layers; each
 layer reads views ``leaf[i]`` of the stack, so nothing is copied. Any weight
 leaf may be a packed ``QTensor``: it is dequantized per layer inside the
 loop (``dequant_tree``), so only one layer's dense weights exist at a time.
+An MoE block carries ``blocks["moe"]`` (router (L, D, E), experts (L, E,
+...)) in place of ``blocks["mlp"]``; a layer's slice of it is (E, ...).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from repro_torch.models.config import ModelConfig, check_supported
 
 __all__ = ["init_params", "embed_tokens", "lm_head_logits", "forward",
            "lm_loss", "quantizable_paths", "layer_slice", "dequant_tree",
-           "init_cache", "decode_step", "prefill"]
+           "init_cache", "decode_step", "prefill", "ffn_sublayer"]
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -29,8 +31,9 @@ def _dtype(name: str) -> torch.dtype:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     """Random init with the reference's shapes and scales
-    (``repro.models.model.init_params`` for the dense pattern). The draws do
-    not reproduce ``jax.random``; ``generator`` must live on ``device``."""
+    (``repro.models.model.init_params`` for the dense and MoE patterns). The
+    draws do not reproduce ``jax.random``; ``generator`` must live on
+    ``device``."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg.param_dtype)
@@ -60,21 +63,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     if cfg.qk_norm:
         attn["q_norm"] = torch.ones((Lyr, hd), dtype=dt, device=dev)
         attn["k_norm"] = torch.ones((Lyr, hd), dtype=dt, device=dev)
-    mlp = {"up": normal((Lyr, D, F), D ** -0.5),
-           "down": normal((Lyr, F, D), F ** -0.5)}
-    if cfg.gated_mlp:
-        mlp["gate"] = normal((Lyr, D, F), D ** -0.5)
-    if cfg.use_bias:
-        mlp["b_up"] = zeros((Lyr, F))
-        mlp["b_down"] = zeros((Lyr, D))
+    blocks = {"ln1": L.init_norm((Lyr,), D, cfg.norm, dt, dev),
+              "attn": attn,
+              "ln2": L.init_norm((Lyr,), D, cfg.norm, dt, dev)}
+    if cfg.block_pattern == "moe":
+        blocks["moe"] = L.init_moe((Lyr,), cfg, normal)
+    else:
+        mlp = {"up": normal((Lyr, D, F), D ** -0.5),
+               "down": normal((Lyr, F, D), F ** -0.5)}
         if cfg.gated_mlp:
-            mlp["b_gate"] = zeros((Lyr, F))
+            mlp["gate"] = normal((Lyr, D, F), D ** -0.5)
+        if cfg.use_bias:
+            mlp["b_up"] = zeros((Lyr, F))
+            mlp["b_down"] = zeros((Lyr, D))
+            if cfg.gated_mlp:
+                mlp["b_gate"] = zeros((Lyr, F))
+        blocks["mlp"] = mlp
     params = {
         "embed": {"tok": normal((V, D), 0.02)},
-        "blocks": {"ln1": L.init_norm((Lyr,), D, cfg.norm, dt, dev),
-                   "attn": attn,
-                   "ln2": L.init_norm((Lyr,), D, cfg.norm, dt, dev),
-                   "mlp": mlp},
+        "blocks": blocks,
         "final_norm": L.init_norm((), D, cfg.norm, dt, dev),
     }
     if cfg.pos_emb == "learned":
@@ -115,8 +122,16 @@ def _dense_body(pl, cfg: ModelConfig, h, positions, cache=None,
     a, cache = L.self_attention(pl["attn"], cfg, a_in, positions, cache=cache,
                                 cache_index=cache_index)
     h = h + a
+    return h + ffn_sublayer(pl, cfg, h), cache
+
+
+def ffn_sublayer(pl, cfg: ModelConfig, h):
+    """The block's FFN on the normed residual: ``moe_ffn`` when the layer's
+    tree holds ``"moe"``, else the dense ``mlp``."""
     m_in = L.apply_norm(h, pl["ln2"], cfg.norm)
-    return h + L.mlp(pl["mlp"], cfg, m_in), cache
+    if "moe" in pl:
+        return L.moe_ffn(pl["moe"], cfg, m_in)
+    return L.mlp(pl["mlp"], cfg, m_in)
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens, positions):
@@ -150,9 +165,10 @@ def forward(params, cfg: ModelConfig, tokens, *, collect_hidden=False,
     (L, B, S, D) per-block outputs when ``collect_hidden``.
 
     ``layer_override=(i, tree)`` makes layer ``i`` read the leaves of
-    ``tree`` (e.g. ``{"mlp": {"up": ..., "down": ...}}``) instead of its
-    slice of the stack — the search installs one candidate unit this way
-    without copying the stack.
+    ``tree`` (e.g. ``{"mlp": {"up": ..., "down": ...}}``, or for one expert
+    ``{"moe": {layers.EXPERT_OVERRIDE: (e, unit)}}``) instead of its slice
+    of the stack — the search installs one candidate unit this way without
+    copying the stack.
     """
     check_supported(cfg)
     B, S = tokens.shape

@@ -1,9 +1,10 @@
 """``repro_torch.search.run`` — the front door to the discrete search.
 
-Resolves the adapter from the model family (dense only in this slice) and
-the objective (``SearchConfig(objective=...)`` or the ``objective=``
-keyword, which wins), then runs the engine. Hybrid two-phase search waits
-for the hybrid model family (ROADMAP Queue 1 item 12).
+Resolves the adapter from the model family (``core.search.make_adapter``:
+dense FFN units, or one unit per expert for MoE) and the objective
+(``SearchConfig(objective=...)`` or the ``objective=`` keyword, which
+wins), then runs the engine. Hybrid two-phase search waits for the hybrid
+model family (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 

@@ -12,7 +12,8 @@ single-chain hill climb:
 
 - population K, and the memory model (``SearchConfig.install``):
   ``"unit"`` keeps ONE stack plus the K built units and runs each forward
-  with ``layer_override`` (only layer ``u`` reads the candidate; the stack
+  with the adapter's ``unit_override`` (only unit ``u`` reads the
+  candidate: a dense layer's FFN, or one expert of an MoE layer; the stack
   is not copied); ``"stack"`` installs each unit into a full copy of the
   stack (K stacks live at once) and runs the forward without an override.
 - temperature T under an annealing schedule (``search/anneal.py``).

@@ -10,6 +10,11 @@ Per layer the step
      hand-written CUDA kernel for a CUDA tensor, whose route follows the
      head layout (per query head for MHA, per KV head for GQA).
 
+The block's FFN is the dense MLP or, for an MoE config, the reference's
+MoE dispatch (``models.model.ffn_sublayer``); capacity is per row, so a
+one-token decode row never drops a slot (``capacity(1) = 1``, and a
+token's K experts are distinct).
+
 Positions are PER-SEQUENCE (``seq_lens`` (B,)). Idle slots carry
 ``seq_len == 0`` and a null-page block table: their write lands in the
 reserved page and their output is discarded.
@@ -32,7 +37,8 @@ from repro_torch import obs
 from repro_torch.kernels import paged_decode
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig, check_supported
-from repro_torch.models.model import (dequant_tree, embed_tokens, layer_slice,
+from repro_torch.models.model import (dequant_tree, embed_tokens,
+                                      ffn_sublayer, layer_slice,
                                       lm_head_logits)
 
 __all__ = ["make_paged_decode_step", "paged_decode_logits",
@@ -116,7 +122,7 @@ def sample_logits_per_seq(logits, keys, temperature, top_k):
 
 
 def paged_block_body(pl, cfg: ModelConfig, carry, pool_slice, attn_sublayer):
-    """One dense block over a paged pool slice, shared by the decode step
+    """One dense or MoE block over a paged pool slice, shared by the decode step
     and the prefill chunk step — ``attn_sublayer(attn_params, normed_x,
     pool_slice) -> (attn_out, pools)`` is the ONLY difference between them,
     so their numerics cannot drift (a re-admitted request resumes through
@@ -127,8 +133,7 @@ def paged_block_body(pl, cfg: ModelConfig, carry, pool_slice, attn_sublayer):
     a_in = L.apply_norm(carry, pl["ln1"], cfg.norm)
     a, pools = attn_sublayer(pl["attn"], a_in, pool_slice)
     hh = carry + a
-    m_in = L.apply_norm(hh, pl["ln2"], cfg.norm)
-    return hh + L.mlp(pl["mlp"], cfg, m_in), pools
+    return hh + ffn_sublayer(pl, cfg, hh), pools
 
 
 def write_rows(pool, idx, val):

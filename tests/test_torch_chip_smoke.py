@@ -19,6 +19,12 @@
   formulas at 36 layers and 3 FFN matrices (held to the wrapper calls of a
   gated ``quantize_model`` on the CPU), OmniQuant's parting bar
   (``omni_partings``), and 10d run CPU against CPU for each zoo config.
+- Phase 11's reckoning (``moe_param_count`` held to ``init_params``'s
+  leaves, the depth cut's 4,165,165,056 analytic params, the forward's
+  operations over the E·C slots of the dispatch buffer), its launch
+  formulas on Phi-3.5-MoE (held to the wrapper calls of an MoE
+  ``quantize_model`` on the CPU), the plain-route oracle's swap of the
+  paged-decode kernel, and 11d run CPU against CPU for both MoE configs.
 """
 import importlib.util
 from pathlib import Path
@@ -534,3 +540,172 @@ def test_within_one_step_but_spares_only_parted_layers():
 def test_phase_10d_runs_cpu_against_cpu(arch):
     from repro_torch.kernels import ops
     CS.phase_small_zoo(torch, ops, arch, devs=("cpu", "cpu"))
+
+
+# ---------------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "moonshot-v1-16b-a3b"])
+def test_moe_param_count_is_init_params_leaves(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import tree_leaves
+
+    for cfg in (get_config(arch).reduced(), CS.small_moe_config(get_config,
+                                                                arch)):
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        assert CS.moe_param_count(cfg) == sum(t.numel() for t in
+                                              tree_leaves(params))
+
+
+def test_phi_moe_reckoning():
+    """11a's sizes, from the shapes (PERF.md's predictions use them)."""
+    from repro_torch.configs import get_config
+
+    cfg = CS.moe_config(get_config)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim, cfg.d_ff, cfg.padded_vocab,
+            cfg.moe.num_experts, cfg.moe.top_k) == (
+        3, 4096, 32, 8, 128, 6400, 32256, 16, 2)
+    assert cfg.param_dtype == cfg.compute_dtype == "float32"
+    assert get_config("phi3.5-moe-42b-a6.6b").n_layers == 32
+    assert cfg.param_count() == 4_165_165_056          # 16.66 GB in fp32
+    # LayerNorm: 4 D a block and 2 D for the final norm beside the count
+    assert CS.moe_param_count(cfg) == 4_165_165_056 + 3 * 2 * 4096 + 2 * 4096
+    assert cfg.moe.capacity(512) == 80
+    B, S = 4, 512
+    experts = 2 * B * 16 * 80 * 3 * 4096 * 6400   # a layer: 16 x 80 slots a row
+    assert experts == pytest.approx(0.805e12, rel=1e-3)
+    proj = 2 * B * S * (2 * 4096 * 4096 + 2 * 4096 * 1024 + 4096 * 16)
+    assert proj == pytest.approx(0.172e12, rel=1e-2)
+    attn = 2 * 2 * B * (S * (S + 1) // 2) * 32 * 128
+    head = 2 * B * S * 4096 * 32256
+    assert head == pytest.approx(0.541e12, rel=1e-3)
+    assert CS.moe_forward_flops(cfg, B, S) == 3 * (experts + proj + attn) \
+        + head
+    assert CS.moe_forward_flops(cfg, B, S) == pytest.approx(3.50e12, rel=1e-2)
+    assert CS.expert_stack_bytes(cfg) == 3 * 16 * 3 * 4096 * 6400 * 4
+    assert [s for _, s in CS.moe_gq_shapes(cfg)] == [
+        (3 * 4096, 4096), (3 * 4096, 1024), (3 * 4096, 4096),
+        (3 * 16 * 4096, 6400), (3 * 16 * 6400, 4096)]
+
+
+def test_phi_moe_launch_formulas():
+    """The counts 11a-11c hold the kernels to: 7 ``group_quant`` a
+    quantize call, 3 x 16 ``transform_quant`` a fused search over the L·E
+    expert units, both GQA routes, 3 layers a decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.kernels import ops
+
+    cfg = CS.moe_config(get_config)
+    stats = {"tabu_skips": 0, "tabu_rebuilds": 0}
+    assert CS.search_launches(cfg, SearchConfig(steps=16, fused_kernel=True),
+                              stats) == {"group_quant": 3,
+                                         "transform_quant": 48}
+    assert CS.base_method_gq_launches("rtn", cfg) == 7
+    assert CS.paged_launches(cfg, 21) == 63
+    assert ops.paged_decode_route(cfg.n_heads, cfg.n_kv_heads) == \
+        "paged_decode_gqa"
+    assert [(sharing, mp) for _, sharing, mp in CS.MOE_SERVE] == [
+        (False, 1), (True, 1), (True, 2)]
+
+
+@pytest.mark.parametrize("search", [False, True], ids=["alone", "search"])
+def test_moe_quantize_launches_match_the_formulas(monkeypatch, search):
+    """11a's counts on an MoE model: the ``group_quant`` and
+    ``transform_quant`` wrapper calls of ``quantize_model`` rtn (with a
+    fused search) on phi3.5-moe reduced."""
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import init_params
+
+    calls = {"group_quant": 0, "transform_quant": 0}
+    for name in calls:
+        real = getattr(kernels, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(kernels, name, counted)
+    cfg = get_config("phi3.5-moe-42b-a6.6b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    calib = calibration_tensor(cfg.vocab_size, 2, 32, device="cpu")
+    scfg = SearchConfig(steps=3, fused_kernel=True, log_every=0) \
+        if search else None
+    res = quantize_model(params, cfg, QuantConfig(2, 32), "rtn", calib, scfg,
+                         device="cpu")
+    want_tq = CS.search_launches(cfg, scfg, res.search.stats)[
+        "transform_quant"] if search else 0
+    assert calls == {"group_quant": CS.base_method_gq_launches("rtn", cfg),
+                     "transform_quant": want_tq}
+    assert want_tq == (9 if search else 0)
+
+
+def test_plain_route_oracle_swaps_the_kernel_and_restores_it():
+    """11b's oracle serves with the plain paged decode in the kernel's
+    place, holds each run to it, pairs runs of the same sharing, and puts
+    the kernel back; a run that parts from its plain route fails."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import PagedServer, Request
+    from repro_torch.models.model import init_params
+    from repro_torch.quantized.qmodel import pack_model
+    from repro_torch.serving import build_trace
+    from repro_torch.serving import decode as dec
+
+    cfg = get_config("phi3.5-moe-42b-a6.6b").reduced()
+    params_q = pack_model(init_params(cfg, torch.Generator().manual_seed(3),
+                                      device="cpu"), QuantConfig(2, 32))
+    reqs = [Request(**t) for t in build_trace(
+        cfg.vocab_size, n_tenants=2, per_tenant=2, page_size=8, max_new=3)]
+    kernel, real_ref = dec.paged_decode, ref.paged_decode_ref
+    seen = []
+
+    def plain_seen(*a, **k):
+        seen.append(dec.paged_decode is not kernel)
+        return real_ref(*a, **k)
+
+    runs = {}
+    for label, sharing, mp in CS.MOE_SERVE:
+        outs = PagedServer(params_q, cfg, prefix_cache=sharing,
+                           gqa_pages_per_block=mp, device="cpu", max_batch=4,
+                           page_size=8, n_pages=64, max_len=64).generate(reqs)
+        runs[label] = dict(outs=outs, sharing=sharing)
+    serve = dict(CS.SERVE)
+    monkeypatch = pytest.MonkeyPatch()
+    monkeypatch.setattr(CS, "SERVE", dict(serve, page_size=8, n_pages=64,
+                                          max_len=64, max_batch=4))
+    monkeypatch.setattr(ref, "paged_decode_ref", plain_seen)
+    try:
+        oracle = CS.plain_route_oracle(torch, ref, cfg, params_q, "cpu")
+        ties, name, peers = oracle(reqs, runs)
+        assert dec.paged_decode is kernel and seen and all(seen)
+        assert ties == {k: [] for k in runs} and "plain version" in name
+        assert peers == {"off": "off", "on": "on", "on-mp2": "on"}
+        bad = dict(runs, on=dict(runs["on"], outs=[o[::-1] for o in
+                                                   runs["on"]["outs"]]))
+        with pytest.raises(AssertionError, match="plain route"):
+            oracle(reqs, bad)
+        assert dec.paged_decode is kernel
+    finally:
+        monkeypatch.undo()
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "moonshot-v1-16b-a3b"])
+def test_phase_11d_runs_cpu_against_cpu(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    cfg = CS.small_moe_config(get_config, arch)
+    assert cfg.moe.num_experts == (4 if arch.startswith("phi") else 64)
+    CS.phase_small_zoo(torch, ops, arch, devs=("cpu", "cpu"), cfg=cfg)
