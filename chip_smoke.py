@@ -78,8 +78,10 @@ source, started together, into ``build/kernels/``), then:
    with times (one call, and the kernels' device time under the profiler)
    beside the bound, the plain version and ``torch.matmul`` on the
    dequantised weights, then the public op once per case;
-7. the calibrated base methods and the other objectives: (a) on phase 2's
-   opt-1.3b weights and sets, ``quantize_model`` with ``gptq``, ``awq`` and
+7. the calibrated base methods and the other objectives: (a) on opt-1.3b
+   at full width, 12 of its 24 layers (a cut since phase 12: GPTQ's
+   host-bound row loop halves), seed 0, and phase 2's calibration and
+   held-out sets, ``quantize_model`` with ``gptq``, ``awq`` and
    ``omniquant`` (OmniQuant cut to 20 Adam steps a block from 200), each
    alone and then with 16 fused search steps: ppl for fp32 / base /
    base+search, the search's initial and final loss and accept rate,
@@ -173,7 +175,32 @@ source, started together, into ``build/kernels/``), then:
    ``use_flash_decode`` off and on, the flag-on tokens held to the flag-off
    run; (d) phi3.5-moe and Moonlight (E 64, top-6) reduced on the card
    against the CPU: forward, prefill + decode, RTN + 4 fused steps, 5
-   train steps, PagedServer's tokens.
+   train steps, PagedServer's tokens;
+12. the SSM and hybrid families: (a) Mamba2-2.7B
+   (``configs/mamba2_2_7b.py``: 64 blocks, d 2560, d_inner 5120, 80 SSD
+   heads x 64, d_state 128, chunk 128, vocab 50280) at full width and
+   depth, random-init, in fp32 (a cut: the config says bf16):
+   ``group_quant`` held to its plain version at the stacked Mamba shapes
+   and one block's, then ``quantize_model`` RTN alone and with 16 steps,
+   the fused flag asked for (the Mamba adapter has no fused build: one
+   warning, the unfused lane), on 4 x 512 calibration tokens: held-out
+   ppl, losses (each phase's accepted losses falling strictly), peak
+   memory, launches held to ``ssm_quantize_launches``, and one
+   candidate's forward beside its operations, the SSD scan's included
+   (``ssm_forward_flops``); (b) the packed model through ``BatchedServer``
+   over the trace's first 8 requests: greedy tokens held to the
+   full-forward oracle, tokens/s, step ms, device ms per decode step by
+   family (dequant, GEMM, the SSD state update, idle), and
+   ``PagedServer`` refusing the config; (c) Zamba2-7B
+   (``configs/zamba2_7b.py``: d 3584, 32/32 heads x 112, d_ff 14336, SSM
+   d_state 64) at full width, 13 of its 81 blocks (hybrid layout (11,
+   2)), fp32: as (a), with the two-phase search (8 unfused Mamba steps,
+   then 8 fused shared-FFN steps: 24 ``transform_quant``), then
+   ``BatchedServer`` with ``use_flash_decode`` off and on (tokens held to
+   the oracle and to each other; flash_decode launched 2 x decode steps);
+   (d) both configs reduced on the card against the CPU: forward and taps,
+   prefill + 3 decode steps, RTN + 4 steps on the same CPU-drawn proposals
+   (``histories_agree`` per phase), BatchedServer's tokens.
 
 Prints the ``nvidia-smi`` name/power-limit line, a ``{"kernels": [...]}``
 line (all seven ported kernels), and last ``{"ok": true, "device":
@@ -183,6 +210,7 @@ port's sources are missing.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import math
@@ -1266,12 +1294,14 @@ FD_TOL = dict(rtol=2e-4, atol=2e-4)   # tests/test_kernels.py flash_decode bar
 QM_TOL = dict(rtol=5e-4, atol=5e-4)   # tests/test_kernels.py quant_matmul bar
 LEGACY = dict(batch_size=8, max_len=128)
 # 6a layouts: (name, B, H, Hkv, Dh, S): opt-1.3b's decode layout in 6c's
-# 128-row cache, a full-width GQA one, the layouts 6d serves, and one
-# sequence of opt-1.3b's max_seq_len rows, MHA and GQA (split across CTAs)
+# 128-row cache, a full-width GQA one, the layouts 6d serves, one
+# sequence of opt-1.3b's max_seq_len rows, MHA and GQA (split across CTAs),
+# and the decode layout 12c serves (Zamba2-7B's shared attention, Dh 112)
 FD_LAYOUTS = (("mha", 8, 32, 32, 64, 128), ("gqa", 8, 32, 8, 128, 128),
               ("small-gqa", 4, 4, 2, 16, 64), ("small-mha", 4, 4, 4, 16, 64),
               ("long-mha", 1, 32, 32, 64, 2048),
-              ("long-gqa", 1, 32, 8, 128, 2048))
+              ("long-gqa", 1, 32, 8, 128, 2048),
+              ("zamba2", 8, 32, 32, 112, 128))
 # 6b contexts, MHA 32 heads of 64: (name, B, S, live rows or None for 6c's
 # decode length)
 FD_CONTEXTS = (("decode", 8, LEGACY["max_len"], None), ("long", 8, 2048, 2048),
@@ -1694,6 +1724,10 @@ def phase_quant_matmul(torch, ops, ref, qm):
 # ---------------------------------------------------------------------------
 
 BASE_METHODS = ("gptq", "awq", "omniquant")
+# 7a / 7b's depth: 12 of opt-1.3b's 24 layers (a cut since phase 12 was
+# added: GPTQ's host-bound row loop, run twice, took 124 s of the script's
+# 570-710 s at full depth)
+BASE_LAYERS = 12
 # 7a's OmniQuant runs 20 Adam steps a block, not the default 200 (cut: the
 # per-step ms is logged; 7c runs the default on opt-tiny)
 OMNI_STEPS = 20
@@ -1795,9 +1829,10 @@ def parts_only_at_ties(got, want, base, bits, group):
 
 
 def phase_base_methods(torch, ops, cfg, qcfg):
-    """7a and 7b on random-init opt-1.3b at full width and depth, with
-    phase 2's weights (seed 0), calibration and held-out sets. Returns
-    7a's launch counts by kernel and run ("awq", "awq+search", ...)."""
+    """7a and 7b on random-init ``cfg`` (opt-1.3b at full width,
+    BASE_LAYERS deep), seed 0, with phase 2's calibration and held-out
+    sets. Returns 7a's launch counts by kernel and run ("awq",
+    "awq+search", ...)."""
     from repro_torch.core.pipeline import quantize_model
     from repro_torch.core.search import SearchConfig
     from repro_torch.core.taps import capture_dense_taps
@@ -2158,12 +2193,13 @@ class StateProposals:
 
 
 class CpuProposals:
-    """Island ``index``'s native source drawn on the CPU, handed over on
-    ``device`` (as phase 1's card-against-CPU run does)."""
+    """Island ``index``'s native source drawn on the CPU (with ``proposer``,
+    ``inv.propose`` by default), handed over on ``device`` (as phase 1's
+    card-against-CPU run does)."""
 
-    def __init__(self, inv, seed, device):
-        self.src, self.inv, self.device = inv.NativeProposals(seed, "cpu"), \
-            inv, device
+    def __init__(self, inv, seed, device, proposer=None):
+        self.src, self.inv, self.device = inv.NativeProposals(
+            seed, "cpu", proposer), inv, device
 
     def __call__(self, t_u, k, pcfg):
         t_cpu = self.inv.FFNTransform(*(x.cpu() for x in t_u))
@@ -3324,6 +3360,641 @@ def phase_moe(torch, ops, ref, get_config, qcfg):
     return dict(main=launches, paged=paged, flash=flash, gq_check=gq_check)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the SSM and hybrid families; Mamba2-2.7B at full width and depth
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2-2.7b"
+HYBRID_ARCH = "zamba2-7b"
+SSM_ARCHS = (SSM_ARCH, HYBRID_ARCH)
+# 12c's cut: 13 of Zamba2-7B's 81 blocks, so that hybrid_layout() is
+# (11, 2): two applications of the shared block and one tail SSM block
+# (1.29 B params, 5.2 GB in fp32; the full 81 blocks with the search's
+# three Mamba stacks of 21 GB each would not fit one card)
+HYBRID_LAYERS = 13
+SSM_SERVE_REQUESTS = 8        # 12b / 12c: one batch of the trace's first 8
+MAMBA_KEYS = ("w_z", "w_x", "out_proj")
+SCAN_RANGE, DEQUANT_RANGE = "ssm.scan", "model.dequant"
+
+
+def ssm_config(get_config, arch=SSM_ARCH):
+    """``arch`` at full width in fp32 (Zamba2-7B HYBRID_LAYERS deep)."""
+    cfg = dataclasses.replace(get_config(arch), **ZOO_DTYPE)
+    if cfg.block_pattern == "hybrid":
+        cfg = dataclasses.replace(cfg, n_layers=HYBRID_LAYERS)
+    return cfg
+
+
+def ssm_dims(cfg):
+    """(Mamba blocks, shared-block applications, d_inner, SSD heads, state
+    width, groups x state) of an SSM or hybrid ``cfg``."""
+    s = cfg.ssm
+    n_m, n_a = cfg.hybrid_layout() if cfg.block_pattern == "hybrid" \
+        else (cfg.n_layers, 0)
+    return (n_m, n_a, s.d_inner(cfg.d_model), s.n_heads(cfg.d_model),
+            s.d_state, s.n_groups * s.d_state)
+
+
+def ssm_param_count(cfg) -> int:
+    """Parameters of the port's ``init_params`` tree for an SSM or hybrid
+    ``cfg``: ``ModelConfig.param_count`` (the reference's analytic count)
+    plus what it leaves out, each block's three conv biases and the final
+    norm."""
+    n_m, _, di, _, _, gn = ssm_dims(cfg)
+    return cfg.param_count() + n_m * (di + 2 * gn) + cfg.d_model
+
+
+def mamba_stack_bytes(cfg, elem=4) -> int:
+    """The search's Mamba unit stack (w_z, w_x, out_proj; the conv and norm
+    leaves are small): what an accepted move clones."""
+    n_m, _, di, _, _, _ = ssm_dims(cfg)
+    return n_m * 3 * cfg.d_model * di * elem
+
+
+def ssd_flops(cfg, B, S) -> int:
+    """Operations of one block's chunked SSD scan over (B, S) as the port
+    computes it (``models/ssm.py::_ssd_chunked``): over nc chunks of Q =
+    min(chunk, S) positions (S padded to a multiple of Q), C·B^T and the
+    decay-weighted product with x over the full Q x Q square, the
+    chunk-final states and the inter-chunk term, 2 operations a
+    multiply-add; the state carry across chunks."""
+    _, _, _, H, N, _ = ssm_dims(cfg)
+    P = cfg.ssm.head_dim
+    Q = min(cfg.ssm.chunk, S)
+    nc = -(-S // Q)
+    quad = 2 * B * nc * Q * Q * H * (N + P)       # C·B^T, then (·dec)·x
+    states = 2 * 2 * B * nc * Q * H * P * N        # S_c, and y_off
+    return quad + states + 2 * B * nc * H * P * N
+
+
+def ssm_matmul_params(cfg) -> int:
+    """Weights a forward multiplies by: each Mamba block's projections, the
+    shared block once per application (its attention and MLP), and the LM
+    head."""
+    n_m, n_a, di, H, _, gn = ssm_dims(cfg)
+    D = cfg.d_model
+    n = n_m * (D * (2 * di + 2 * gn + H) + di * D) + D * cfg.padded_vocab
+    if n_a:
+        hd = cfg.resolved_head_dim
+        attn = 2 * D * cfg.n_heads * hd + 2 * D * cfg.n_kv_heads * hd
+        n += n_a * (attn + (2 + int(cfg.gated_mlp)) * D * cfg.d_ff)
+    return n
+
+
+def ssm_forward_flops(cfg, B, S) -> int:
+    """Operations of one forward over (B, S) tokens: 2 per weight per token
+    (``ssm_matmul_params``), each Mamba block's SSD scan (``ssd_flops``),
+    and the shared block's causal attention (QK^T and PV over S(S+1)/2
+    pairs a head) at each application."""
+    n_m, n_a, _, _, _, _ = ssm_dims(cfg)
+    attn = 2 * 2 * n_a * B * (S * (S + 1) // 2) * cfg.n_heads \
+        * cfg.resolved_head_dim if n_a else 0
+    return 2 * ssm_matmul_params(cfg) * B * S + n_m * ssd_flops(cfg, B, S) \
+        + attn
+
+
+def ssm_quantize_launches(cfg, scfg=None):
+    """Kernel launches of one ``quantize_model(method="rtn", search=scfg)``
+    on an SSM or hybrid ``cfg`` (one island, no tabu):
+
+    - the freeze: one ``group_quant`` per stacked attention leaf of the
+      shared block (4 in hybrid, none in an SSM stack);
+    - RTN alone: one per search leaf: w_z, w_x, out_proj (stacked), and
+      the shared FFN's up, down[, gate];
+    - with the search: the Mamba phase's initial stack (3) and 3 per
+      built unit (a Mamba block has no fused build: the unfused lane);
+      in hybrid the shared phase's initial stack (3 gated) and 3 per
+      built unit, ``transform_quant`` on the fused lane, else
+      ``group_quant``. A hybrid run gives the Mamba phase ``steps // 2``
+      steps and the shared phase the rest."""
+    hybrid = cfg.block_pattern == "hybrid"
+    n_ffn = 2 + int(cfg.gated_mlp) if hybrid else 0
+    freeze = 4 if hybrid else 0
+    if scfg is None:
+        return {"group_quant": freeze + 3 + n_ffn, "transform_quant": 0}
+    K = max(int(scfg.population), 1)
+    n1 = scfg.steps // 2 if hybrid else scfg.steps
+    n2 = scfg.steps - n1
+    fused = bool(scfg.fused_kernel)
+    gq = freeze + 3 + 3 * K * n1
+    tq = 0
+    if hybrid:
+        gq += n_ffn + (0 if fused else n_ffn * K * n2)
+        tq = n_ffn * K * n2 if fused else 0
+    return {"group_quant": gq, "transform_quant": tq}
+
+
+def ssm_gq_shapes(cfg):
+    """The (K, N) shapes the SSM path gives ``group_quant``: the stacked
+    Mamba projections flattened ((L·D, d_inner) for w_z and w_x,
+    (L·d_inner, D) for out_proj), one block's unit, and in hybrid the
+    shared block's attention and FFN."""
+    n_m, n_a, di, _, _, _ = ssm_dims(cfg)
+    D = cfg.d_model
+    shapes = [("w_z/w_x stack", (n_m * D, di)), ("out_proj stack", (n_m * di, D)),
+              ("w_z/w_x unit", (D, di)), ("out_proj unit", (di, D))]
+    if n_a:
+        hq = cfg.n_heads * cfg.resolved_head_dim
+        shapes += [("shared wq", (D, hq)), ("shared up/gate", (D, cfg.d_ff)),
+                   ("shared down", (cfg.d_ff, D))]
+    return tuple(shapes)
+
+
+def history_phases(history):
+    """A search history cut into its phases (each starts at a step-0
+    baseline): one for an SSM run, two for the hybrid run."""
+    cuts = [i for i, h in enumerate(history) if h[0] == 0] + [len(history)]
+    return [history[a:b] for a, b in zip(cuts, cuts[1:])]
+
+
+def phases_monotone(history, final_loss, what):
+    """At T = 0 each phase accepts a move only when it lowers the phase's
+    current loss strictly, so the accepted losses of a phase (its step-0
+    baseline first) fall strictly, and the final loss is the last phase's
+    last accepted one. (The merged initial loss of a hybrid run is phase
+    1's, taken with the shared FFN still continuous, as in the reference:
+    the final loss can lie above it.)"""
+    for i, ph in enumerate(history_phases(history)):
+        acc = [h[1] for h in ph if h[4]]
+        if any(b >= a for a, b in zip(acc, acc[1:])):
+            raise AssertionError(f"{what}: phase {i} accepted a move that "
+                                 f"did not lower its loss: {acc}")
+    if final_loss != acc[-1]:
+        raise AssertionError(f"{what}: final loss {final_loss} is not the "
+                             f"last accepted {acc[-1]}")
+
+
+def phase_ssm_kernels(torch, ops, ref, cfg):
+    """12a's (and 12c's) kernel check: ``group_quant`` against its plain
+    version (``torch.equal``) at every shape the SSM path gives it (2-bit
+    g32), timed beside its bound at the stacked w_z shape. Returns (max abs
+    err, the timing row)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4322)
+    err, row = 0.0, None
+    for name, shape in ssm_gq_shapes(cfg):
+        w = torch.randn(shape, generator=gen, device=dev)
+        e = exact(torch, ops.group_quant(w, bits=2, group=32),
+                  ref.group_quant_ref(w, 2, 32), f"group_quant {name} {shape}")
+        err = max(err, e)
+        log("kernel_check", kernel="group_quant", arch=cfg.name, weight=name,
+            shape=list(shape), bits=2, group=32, max_abs_err=e)
+        if name == "w_z/w_x stack":
+            K, N = shape
+            ms = time_ms(torch, lambda: ops.group_quant(w, bits=2, group=32),
+                         warmup=1, reps=5)
+            plain = time_ms(torch, lambda: ref.group_quant_ref(w, 2, 32),
+                            warmup=1, reps=3)
+            nbytes = 2 * K * N * 4 + 2 * (K // 32) * N * 4
+            bms, by = bound_ms(nbytes, GQ_OPS * K * N)
+            row = dict(shape=list(shape), ms=ms, plain_ms=plain, bound_ms=bms,
+                       bound_by=by, share_of_bound=bms / ms)
+            log("kernel_time", kernel="group_quant", arch=cfg.name,
+                weight=name, **row)
+        del w
+    torch.cuda.empty_cache()
+    return err, row
+
+
+def phase_ssm_main(torch, ops, cfg, qcfg):
+    """12a (and 12c's search): ``quantize_model`` RTN alone and with STEPS
+    steps (the fused flag asked for: the Mamba phase falls back to the
+    unfused lane with a warning; the hybrid's shared phase runs fused) on
+    random-init ``cfg`` in fp32, 4 x 512 calibration tokens, held-out ppl
+    on 4 x 512 others; each run's launches held to
+    ``ssm_quantize_launches``; then one candidate's forward + objective
+    timed beside its operations (``ssm_forward_flops``), and the fp32
+    params packed at 2 bits / g32. Returns (the packed params, the packing
+    seconds, the launch counts by run)."""
+    import warnings
+
+    from repro_torch.core.objective import activation_mse, calib_ce
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import forward, init_params, lm_loss
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.quantized.qmodel import pack_model
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    calib = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=512,
+                               seed=99, device="cuda")
+    held = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=512,
+                              seed=123, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if n_params != ssm_param_count(cfg):
+        raise AssertionError(f"{n_params} params != {ssm_param_count(cfg)}")
+    n_m, n_a, di, H, N, _ = ssm_dims(cfg)
+    hybrid = cfg.block_pattern == "hybrid"
+    cuts = ["fp32 where the config says bf16"] + (
+        [f"depth: {cfg.n_layers} of 81 blocks"] if hybrid else [])
+    log("ssm_setup", arch=cfg.name, n_layers=cfg.n_layers,
+        mamba_blocks=n_m, shared_applications=n_a, d_model=cfg.d_model,
+        d_inner=di, ssd_heads=H, d_state=N, chunk=cfg.ssm.chunk,
+        vocab=cfg.vocab_size, padded_vocab=cfg.padded_vocab,
+        params=n_params, param_count=cfg.param_count(),
+        param_bytes=4 * n_params, mamba_stack_bytes=mamba_stack_bytes(cfg),
+        calib=list(calib.shape), peak_bytes=torch.cuda.max_memory_allocated(),
+        cuts=cuts, seconds=time.perf_counter() - t0)
+
+    def ppl(p):
+        logits = forward(p, cfg, held)
+        return math.exp(float(lm_loss(logits[:, :-1], held[:, 1:],
+                                      cfg.vocab_size)))
+
+    ppl_fp = ppl(params)
+    scfg = SearchConfig(steps=STEPS, fused_kernel=True, log_every=0)
+    launches = {"group_quant": {}, "transform_quant": {}}
+    step_ms = None
+    for search in (None, scfg):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = quantize_model(params, cfg, qcfg, "rtn", calib, search,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, peak = dict(ops.LAUNCHES), torch.cuda.max_memory_allocated()
+        ppl_q = ppl(res.params_q)
+        sr, label = res.search, res.method
+        del res
+        want = ssm_quantize_launches(cfg, search)
+        if any(counts[k] != want.get(k, 0) for k in counts):
+            raise AssertionError(f"{cfg.name} {label}: launches {counts}, "
+                                 f"expected {want}")
+        fallback = [str(w.message) for w in caught
+                    if "falling back to the unfused" in str(w.message)]
+        nums = [ppl_q] + ([sr.initial_loss, sr.final_loss]
+                          + [h[1] for h in sr.history] if sr else [])
+        if not all(math.isfinite(x) for x in nums):
+            raise AssertionError(f"{label}: non-finite numbers {nums}")
+        extra = {}
+        if sr:
+            if len(fallback) != 1 or sr.stats["fused"] != hybrid:
+                raise AssertionError(f"{label}: the Mamba phase did not fall "
+                                     f"back once ({fallback}; fused "
+                                     f"{sr.stats['fused']})")
+            phases_monotone(sr.history, sr.final_loss, label)
+            if not hybrid and not sr.final_loss <= sr.initial_loss:
+                raise AssertionError(f"{label}: final loss above initial")
+            step_ms = 1e3 / sr.stats["proposals_per_sec"]
+            phases = history_phases(sr.history)
+            extra = dict(initial_loss=sr.initial_loss,
+                         final_loss=sr.final_loss,
+                         final_le_initial=sr.final_loss <= sr.initial_loss,
+                         phase_baselines=[p[0][1] for p in phases],
+                         phase_final=[[h[1] for h in p if h[4]][-1]
+                                      for p in phases],
+                         accept_rate=sr.accept_rate, steps=STEPS,
+                         step_ms=step_ms, fused=sr.stats["fused"],
+                         fallback_warning=fallback[0],
+                         accepts=sum(1 for h in sr.history if h[0] and h[4]),
+                         stack_clone_bytes=mamba_stack_bytes(cfg))
+        log("ssm_quantize", arch=cfg.name, method=label, ppl_fp32=ppl_fp,
+            ppl=ppl_q, wall_s=wall, peak_bytes=peak, launches=counts,
+            expected=want, **extra)
+        for kernel in launches:
+            launches[kernel][label] = counts[kernel]
+        del sr
+    B, S = calib.shape
+
+    def eval_once():
+        logits, hidden = forward(params, cfg, calib, collect_hidden=True)
+        return calib_ce(logits, calib, cfg.vocab_size), \
+            activation_mse(hidden, hidden, 10)
+
+    fwd_ms = time_ms(torch, eval_once, warmup=1, reps=3)
+    flops = ssm_forward_flops(cfg, B, S)
+    log("ssm_step", arch=cfg.name, forward_objective_ms=fwd_ms,
+        step_ms=step_ms, forward_flops=flops,
+        ssd_flops=n_m * ssd_flops(cfg, B, S),
+        forward_tflops_per_s=flops / fwd_ms / 1e9,
+        share_of_fp32_peak=flops / fwd_ms / 1e-3 / FP32_OPS_PER_S,
+        stack_clone_bytes=mamba_stack_bytes(cfg),
+        logits_bytes=B * S * cfg.padded_vocab * 4)
+    del calib, held
+    t0 = time.perf_counter()
+    params_q = pack_model(params, qcfg)
+    del params
+    torch.cuda.synchronize()
+    return params_q, time.perf_counter() - t0, launches
+
+
+SSM_FAMILIES = (("gemm", "GEMM (cuBLAS)"), ("gemv", "GEMM (cuBLAS)"),
+                ("cutlass", "GEMM (cuBLAS)"),
+                ("split_decode", "flash_decode (port kernel)"))
+
+
+def ssm_decode_profile(torch, obs, server, params_q, toks, steps):
+    """Host ms per decode step of ``server`` over ``steps`` steps after a
+    prefill of ``toks`` (ending in one synchronize), then the same steps
+    under ``torch.profiler`` with the model's profiler ranges: device ms of
+    the kernels launched inside the ``model.dequant`` ranges (dequant) and
+    the ``ssm.scan`` ranges (the SSD state update), the GEMMs elsewhere,
+    the other kernels, and the idle time: the unprofiled step's ms less
+    the kernels' device ms (the profiler slows the launching host, so its
+    own window overstates idle; its span is logged beside). A kernel
+    belongs to a range whose device-side copy (on the GPU's clock) holds
+    its start; without those, to none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    plen = toks.shape[1]
+
+    def run():
+        logits, cache = server.prefill_fn(params_q, {"tokens": toks})
+        tok = torch.argmax(logits[:, -1, :server.cfg.vocab_size],
+                           dim=-1)[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(steps):
+            tok, cache = server.step_fn(params_q, tok, cache, plen + t)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    step_ms = run()
+    ranges = (DEQUANT_RANGE, SCAN_RANGE)
+    logits, cache = server.prefill_fn(params_q, {"tokens": toks})
+    tok = torch.argmax(logits[:, -1, :server.cfg.vocab_size], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    obs.enable_profiler(True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for t in range(steps):
+                tok, cache = server.step_fn(params_q, tok, cache, plen + t)
+            torch.cuda.synchronize()
+    finally:
+        obs.enable_profiler(False)
+    windows = {n: [] for n in ranges}
+    kernels = []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        rng = (ev.time_range.start, ev.time_range.end)
+        if ev.name in windows:
+            windows[ev.name].append(rng)
+        else:
+            kernels.append((rng[0], rng[1], ev.name))
+    if not kernels:
+        return step_ms, None
+    fam = defaultdict(float)
+    for start, end, name in kernels:
+        where = next((n for n in ranges
+                      if any(a <= start <= b for a, b in windows[n])), None)
+        label = {DEQUANT_RANGE: "dequant", SCAN_RANGE: "SSD state update"}.get(
+            where) or _family(name, SSM_FAMILIES)
+        fam[label] += (end - start) / 1e3
+    span = (max(e for _, e, _ in kernels) - min(s for s, _, _ in kernels)) \
+        / 1e3 / steps
+    busy = sum(fam.values()) / steps
+    out = {k: v / steps for k, v in sorted(fam.items(), key=lambda kv: -kv[1])}
+    # idle against the unprofiled step (the profiler slows the host that
+    # launches the kernels: its own window's idle share is not the run's)
+    out["idle"] = max(step_ms - busy, 0.0)
+    return step_ms, dict(per_step_ms=out, busy_ms=busy,
+                         idle_share=out["idle"] / step_ms,
+                         profiled_span_ms=span,
+                         kernels_per_step=len(kernels) / steps,
+                         device_windows={n: len(w) for n, w in
+                                         windows.items()})
+
+
+def phase_ssm_serving(torch, ops, cfg, params_q, flash_flags=(False,)):
+    """12b (and 12c): BatchedServer on the packed model over the trace's
+    first SSM_SERVE_REQUESTS requests (one batch, max_new TRACE's), once
+    per ``use_flash_decode`` flag: tokens/s, step ms, device ms per decode
+    step by family (flag off), peak bytes; every run held to the greedy
+    full-forward oracle on the left-padded prompts (or parting at a near
+    tie), the flag-on run to the flag-off run, flash_decode launched once
+    per shared-block application per decode step with the flag on and
+    never otherwise; then PagedServer must refuse the config. Returns the
+    flag-on run's flash_decode launches (None without it)."""
+    from repro_torch import obs
+    from repro_torch.launch.serve import BatchedServer, PagedServer, Request
+    from repro_torch.models.model import dequant_tree, forward, init_cache
+    from repro_torch.quantized.qmodel import cache_bytes
+    from repro_torch.serving import build_trace
+
+    _, n_a, _, _, _, _ = ssm_dims(cfg)
+    reqs = [Request(**t) for t in build_trace(cfg.vocab_size, **TRACE)[
+        :SSM_SERVE_REQUESTS]]
+    B = LEGACY["batch_size"]
+    padded = padded_requests(Request, reqs, B)
+    steps = TRACE["max_new"] - 1
+    cache = init_cache(cfg, B, LEGACY["max_len"], device="cuda")
+    state_bytes = cache_bytes(cache)
+    del cache
+    runs = {}
+    for flash in flash_flags:
+        scfg = dataclasses.replace(cfg, use_flash_decode=flash)
+        server = BatchedServer(params_q, scfg, device="cuda", **LEGACY)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = server.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        want = n_a * steps if flash else 0
+        if counts["flash_decode"] != want or \
+                any(v for k, v in counts.items() if k != "flash_decode"):
+            raise AssertionError(f"{cfg.name} use_flash_decode={flash}: "
+                                 f"launches {counts}, expected flash_decode "
+                                 f"{want}")
+        peak = torch.cuda.max_memory_allocated()
+        toks = torch.tensor([list(r.prompt) for r in padded[:B]],
+                            device="cuda")
+        step_ms, family = ssm_decode_profile(
+            torch, obs, server, params_q, toks, steps) if not flash else \
+            (legacy_step_profile(torch, server, params_q, padded, steps,
+                                 False)[0], None)
+        runs[flash] = dict(outs=outs, wall=wall, counts=counts, peak=peak,
+                           step_ms=step_ms, family=family,
+                           tokens=sum(len(o) for o in outs))
+        del server
+    dense = dequant_tree(params_q)
+    ties = {f: check_greedy(torch, forward, dense, cfg, padded,
+                            runs[f]["outs"], f"{cfg.name} flash={f} vs oracle")
+            for f in runs}
+    del dense
+    torch.cuda.empty_cache()
+    parted = compare_runs(runs[False]["outs"], runs[True]["outs"],
+                          {(i, j) for t in ties.values() for i, j, _ in t},
+                          f"{cfg.name} flash off vs on") if True in runs else []
+    for f, r in runs.items():
+        log("ssm_serving", arch=cfg.name, use_flash_decode=f,
+            requests=len(reqs), decode_steps=steps, tokens=r["tokens"],
+            wall_s=r["wall"], tokens_per_s=r["tokens"] / r["wall"],
+            step_ms=r["step_ms"], launches=r["counts"],
+            state_and_kv_bytes=state_bytes, peak_bytes=r["peak"],
+            near_ties=ties[f], device_ms_by_family=r["family"],
+            profile_window=f"{steps} decode steps of the batch"
+            if r["family"] else None)
+    try:
+        PagedServer(params_q, cfg, device="cuda", **SERVE)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError(f"{cfg.name}: PagedServer did not refuse")
+    log("ssm_serving_check", arch=cfg.name, parted_at=parted,
+        oracle="full forward over the dequantized weights on the "
+               "left-padded prompts", paged_refusal=refusal)
+    return runs[True]["counts"]["flash_decode"] if True in runs else None
+
+
+def ssm_proposals(inv, cfg, seed, device):
+    """CPU-drawn native proposals handed over on ``device`` for a search
+    on ``cfg``: the Mamba adapter's within-head moves, and for a hybrid
+    stack one source per phase (each from the seed)."""
+    from repro_torch.core.search import MambaAdapter
+
+    mamba = CpuProposals(inv, seed, device, MambaAdapter(cfg).propose)
+    if cfg.block_pattern == "hybrid":
+        return {"mamba": mamba, "shared": CpuProposals(inv, seed, device)}
+    return mamba
+
+
+def phase_small_ssm(torch, ops, arch, devs=("cpu", "cuda")):
+    """12d: ``arch``'s reduced config on ``devs`` (the yardstick's device,
+    then the device under test), from the same weights (drawn on the CPU),
+    tokens and proposals: the forward's logits and taps (FWD_TOL), prefill
+    + 3 decode steps (DECODE_TOL, logits and caches), RTN +
+    SMALL_ZOO_STEPS steps with the fused flag (``histories_agree`` per
+    phase), and BatchedServer's greedy tokens (identical; flash_decode on
+    for the hybrid stack)."""
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import invariance as inv
+    from repro_torch.core import rtn
+    from repro_torch.core.quant import QuantConfig, fake_quant
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models.model import (decode_step, forward, init_params,
+                                          prefill)
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.quantized.qmodel import pack_model
+    from repro_torch.search import run
+    from repro_torch.serving import build_trace
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch).reduced()
+    # group 8: at the reduced head_dim 16 a within-head move then changes
+    # the codes; at 32 every move ties (tests/test_torch_ssm_search_serve.py)
+    qcfg = QuantConfig(bits=2, group_size=8)
+    params = init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+    calib = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=64,
+                               device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (3, 12)))
+    scfg = SearchConfig(steps=SMALL_ZOO_STEPS, fused_kernel=True, log_every=0,
+                        proposal=inv.ProposalConfig(subset_frac=0.5))
+    hybrid = cfg.block_pattern == "hybrid"
+    scfg_cfg = dataclasses.replace(cfg, use_flash_decode=hybrid)
+    trace = build_trace(cfg.vocab_size, n_tenants=2, per_tenant=2,
+                        page_size=8, max_new=5)
+    params_q = pack_model(params, QuantConfig(2, 32))
+    outs = []
+    for d in map(torch.device, devs):
+        p = to_device(params, d)
+        lg, hid = forward(p, cfg, calib.to(d), collect_hidden=True)
+        logits = [lg.cpu(), hid.cpu()]
+        lg, cache = prefill(p, cfg, toks[:, :9].to(d), 32)
+        logits.append(lg.cpu())
+        for t in range(9, 12):
+            lg, cache = decode_step(p, cfg, toks[:, t:t + 1].to(d), cache, t)
+            logits.append(lg.cpu())
+        base = rtn.map_quantizable(p, lambda w, _: fake_quant(w, qcfg),
+                                   only=lambda q: q[-1] not in
+                                   FFN_KEYS + MAMBA_KEYS)
+        ops.reset_launch_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)   # the Mamba fallback
+            res = run(p, base, cfg, qcfg, calib.to(d), scfg,
+                      proposals=ssm_proposals(inv, cfg, 3, d))
+        counts = dict(ops.LAUNCHES)
+        want = ssm_quantize_launches(cfg, scfg) if d.type == "cuda" else {}
+        if d.type == "cuda":       # the search alone: no freeze, no RTN pass
+            want = dict(want, group_quant=want["group_quant"]
+                        - (4 if hybrid else 0))
+        if any(counts[k] != want.get(k, 0) for k in counts):
+            raise AssertionError(f"{arch}: search launches {counts} != {want}")
+        ops.reset_launch_counts()
+        served = BatchedServer(to_device(params_q, d), scfg_cfg, batch_size=4,
+                               max_len=64, device=d).generate(
+            [Request(**t) for t in trace])
+        serve_counts = dict(ops.LAUNCHES)
+        outs.append((logits, [x.cpu() for x in tree_leaves(cache)],
+                     res.history, served, serve_counts))
+        del p, base, res, cache
+    (l_ref, c_ref, h_ref, s_ref, _), (l_dev, c_dev, h_dev, s_dev, n_dev) = outs
+    fwd_err = within(torch, l_dev[:2], l_ref[:2], what=f"{arch} forward",
+                     **FWD_TOL)
+    dec_err = within(torch, l_dev[2:] + c_dev, l_ref[2:] + c_ref,
+                     what=f"{arch} prefill / decode", **DECODE_TOL)
+    compared, parted = [], []
+    for ha, hb in zip(history_phases(h_dev), history_phases(h_ref)):
+        c, p_ = histories_agree(ha, hb, f"{arch} search")
+        compared.append(c)
+        parted.append(p_)
+    if s_dev != s_ref:
+        raise AssertionError(f"{arch}: served tokens differ")
+    if devs[1] == "cuda":     # one batch of 4, 4 decode steps
+        want = ssm_dims(cfg)[1] * (-(-len(trace) // 4)) * (5 - 1) \
+            if hybrid else 0
+        if n_dev["flash_decode"] != want or any(
+                v for k, v in n_dev.items() if k != "flash_decode"):
+            raise AssertionError(f"{arch}: serve launches {n_dev}")
+    log("small_ssm", arch=arch, devices=list(devs), pattern=cfg.block_pattern,
+        layout=list(cfg.hybrid_layout()) if hybrid else None,
+        forward_max_abs_diff=fwd_err, decode_max_abs_diff=dec_err,
+        search_compared=compared, search_parted_at=parted,
+        card_losses=[h[1] for h in h_dev], ref_losses=[h[1] for h in h_ref],
+        serve_launches=n_dev, tokens_identical=True,
+        seconds=time.perf_counter() - t0)
+
+
+def phase_ssm(torch, ops, ref, get_config, qcfg):
+    """Phase 12 (12a-12d). Returns the launch counts the kernels line
+    carries: 12a's and 12c's by kernel and run, 12c's flash_decode, and
+    12a's group_quant check (max abs err, timing row)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = ssm_config(get_config)
+    gq_check = phase_ssm_kernels(torch, ops, ref, cfg)
+    params_q, pack_s, mamba = phase_ssm_main(torch, ops, cfg, qcfg)
+    t1 = time.perf_counter()
+    phase_ssm_serving(torch, ops, cfg, params_q)
+    del params_q
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    hcfg = ssm_config(get_config, HYBRID_ARCH)
+    phase_ssm_kernels(torch, ops, ref, hcfg)
+    params_q, _, hybrid = phase_ssm_main(torch, ops, hcfg, qcfg)
+    flash = phase_ssm_serving(torch, ops, hcfg, params_q, (False, True))
+    del params_q
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    for arch in SSM_ARCHS:
+        phase_small_ssm(torch, ops, arch)
+    t4 = time.perf_counter()
+    log("phase12", seconds=t4 - t0, a_s=t1 - t0, b_s=t2 - t1, c_s=t3 - t2,
+        d_s=t4 - t3, pack_s=pack_s)
+    return dict(mamba=mamba, hybrid=hybrid, flash=flash, gq_check=gq_check)
+
+
 def main() -> int:
     import torch
 
@@ -3532,7 +4203,8 @@ def main() -> int:
     lap("phase6")
 
     # ---- phase 7: the calibrated base methods, the other objectives ------
-    base_launches = phase_base_methods(torch, ops, cfg, qcfg)
+    base_launches = phase_base_methods(
+        torch, ops, dataclasses.replace(cfg, n_layers=BASE_LAYERS), qcfg)
     phase_small_base_methods(torch)
 
     lap("phase7")
@@ -3578,6 +4250,10 @@ def main() -> int:
     # ---- phase 11: the MoE family; Phi-3.5-MoE at full width -------------
     moe = phase_moe(torch, ops, ref, get_config, qcfg)
     lap("phase11")
+
+    # ---- phase 12: the SSM and hybrid families; Mamba2-2.7B --------------
+    ssm = phase_ssm(torch, ops, ref, get_config, qcfg)
+    lap("phase12")
     log("script_seconds", total=marks[-1] - marks[0], **seconds)
 
     kernels = []
@@ -3595,8 +4271,9 @@ def main() -> int:
             "base_methods": {
                 "launches": base_launches[name],
                 "launches_on": "phase 7a: quantize_model gptq / awq / "
-                               "omniquant on opt-1.3b, alone and with 16 "
-                               "fused steps, each counted from 0"},
+                               "omniquant on opt-1.3b (12 of its 24 "
+                               "layers), alone and with 16 fused steps, "
+                               "each counted from 0"},
             "search_engine": {
                 "launches": engine_launches[name],
                 "launches_on": "phase 8a-8d: repro_torch.search.run on "
@@ -3621,6 +4298,19 @@ def main() -> int:
                                "layers), each counted from 0",
                 **({"max_abs_err": moe["gq_check"][0],
                     "expert_stack_time": moe["gq_check"][1]}
+                   if name == "group_quant" else {})},
+            "ssm": {
+                "launches": {"mamba2-2.7b": ssm["mamba"][name],
+                             "zamba2-7b": ssm["hybrid"][name]},
+                "launches_on": "phase 12a / 12c: quantize_model rtn, alone "
+                               "and with 16 steps (the fused flag asked "
+                               "for: the Mamba phase runs unfused, the "
+                               "hybrid's shared-FFN phase fused), on "
+                               "Mamba2-2.7B (fp32, full width and depth) and "
+                               "Zamba2-7B (fp32, full width, 13 blocks), "
+                               "each counted from 0",
+                **({"max_abs_err": ssm["gq_check"][0],
+                    "mamba_stack_time": ssm["gq_check"][1]}
                    if name == "group_quant" else {})},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -3689,6 +4379,10 @@ def main() -> int:
                                "use_flash_decode on"},
         "moe": {"launches": moe["flash"],
                 "launches_on": "phase 11c: Phi-3.5-MoE (3 layers) "
+                               "BatchedServer, use_flash_decode on"},
+        "ssm": {"launches": ssm["flash"],
+                "launches_on": "phase 12c: Zamba2-7B (13 blocks: 2 "
+                               "applications of the shared block, Dh 112) "
                                "BatchedServer, use_flash_decode on"},
         "max_abs_err": fd_err,
         **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,19 +1,22 @@
 """Architecture config registry: ``get_config(arch_id)`` / ``list_archs()``.
 
-The port carries the paper's own OPT family and the dense and MoE
-architectures of the reference's zoo (RoPE, GQA, gated SwiGLU, qk-norm,
-top-k experts); the SSM, hybrid, encoder-decoder and vision architectures
-wait for their model families (ROADMAP Queue 1 item 12).
+The port carries the paper's own OPT family and the dense, MoE, SSM and
+hybrid architectures of the reference's zoo (RoPE, GQA, gated SwiGLU,
+qk-norm, top-k experts, Mamba2 / SSD blocks, a shared attention block);
+the encoder-decoder and vision architectures wait for their model families
+(ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
 import importlib
 
 _ARCHS = {
+    "zamba2-7b": "zamba2_7b",
     "internlm2-1.8b": "internlm2_1_8b",
     "qwen3-4b": "qwen3_4b",
     "command-r-35b": "command_r_35b",
     "yi-6b": "yi_6b",
+    "mamba2-2.7b": "mamba2_2_7b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b",
     "opt-1.3b": "opt_paper",

@@ -30,9 +30,11 @@ __all__ = [
     "apply_rotation_rows",
     "apply_rotation_cols",
     "apply_transform_ffn",
+    "apply_transform_mamba",
     "invert_permutation",
     "ProposalConfig",
     "propose",
+    "propose_within_head",
     "NativeProposals",
 ]
 
@@ -127,6 +129,18 @@ def apply_transform_ffn(
     return up, down, out_b_up, out_gate, out_b_gate
 
 
+def apply_transform_mamba(pi, w_in_x, w_in_z, conv_x, w_out, head_dim: int):
+    """Within-head channel permutation of a Mamba2 block (the reference's
+    ``apply_transform_mamba``). ``pi`` must permute channels only within
+    each head of ``head_dim`` channels (``propose_within_head`` draws it
+    so): the x and z columns, the depthwise conv filters and the out_proj
+    rows then move together and the block is exactly invariant.
+
+    Shapes: w_in_x / w_in_z (D, d_inner); conv_x (width, d_inner); w_out
+    (d_inner, D)."""
+    return w_in_x[:, pi], w_in_z[:, pi], conv_x[:, pi], w_out[pi, :]
+
+
 def invert_permutation(pi: torch.Tensor) -> torch.Tensor:
     inv = torch.zeros_like(pi)
     inv[pi] = torch.arange(pi.shape[0], dtype=pi.dtype, device=pi.device)
@@ -194,18 +208,41 @@ def propose(gen: torch.Generator, t: FFNTransform,
     return FFNTransform(pi=pi, s=s, phi=phi)
 
 
+def propose_within_head(gen: torch.Generator, t: FFNTransform,
+                        cfg: ProposalConfig, head_dim: int) -> FFNTransform:
+    """The reference's ``MambaAdapter.propose`` with ``gen`` in place of a
+    ``jax.random`` key: a head drawn uniformly, then a partial shuffle of
+    ``n_move = max(2, round(subset_frac · head_dim))`` of its channels
+    (the first n_move of a random permutation of the head's positions
+    exchange their values through a second random permutation). s and φ
+    are kept: the move is permutation only, within one head."""
+    dev = t.pi.device
+    n_heads = t.pi.shape[0] // head_dim
+    n_move = max(2, int(round(cfg.subset_frac * head_dim)))
+    head = torch.randint(n_heads, (1,), generator=gen, device=dev)
+    pos = torch.randperm(head_dim, generator=gen, device=dev)[:n_move] \
+        + head * head_dim
+    order = torch.randperm(n_move, generator=gen, device=dev)
+    pi = t.pi.clone()
+    pi[pos] = t.pi[pos][order]
+    return FFNTransform(pi=pi, s=t.s, phi=t.phi)
+
+
 class NativeProposals:
     """The default proposal source: one ``torch.Generator`` seeded with the
-    search seed, K draws of :func:`propose` per step.
+    search seed, K draws of ``proposer`` per step — :func:`propose`, or the
+    adapter's own (``MambaAdapter.propose``), as the reference's engine
+    takes the adapter's proposer when it has one.
 
     A proposal source is any callable ``(t_u, k, pcfg) -> [FFNTransform] * k``
     called once per search step with the current transform of the step's
     unit; it owns its random stream.
     """
 
-    def __init__(self, seed: int, device):
+    def __init__(self, seed: int, device, proposer=None):
         self.gen = torch.Generator(device=device)
         self.gen.manual_seed(int(seed))
+        self.proposer = proposer or propose
 
     def __call__(self, t_u: FFNTransform, k: int, pcfg: ProposalConfig):
-        return [propose(self.gen, t_u, pcfg) for _ in range(k)]
+        return [self.proposer(self.gen, t_u, pcfg) for _ in range(k)]

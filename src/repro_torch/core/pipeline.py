@@ -31,9 +31,10 @@ from repro_torch.search.api import run as run_invar_search
 
 __all__ = ["quantize_model", "PTQResult"]
 
-# the dense FFN leaves the search transforms (kept continuous until the
-# search quantizes them)
-_FFN_KEYS = ("up", "gate", "down")
+# leaves the search transforms (kept continuous until the search quantizes
+# them): dense / MoE FFNs plus the Mamba projections (within-head
+# permutation targets), as in the reference
+_FFN_KEYS = ("up", "gate", "down", "w_z", "w_x", "out_proj")
 
 
 def _is_ffn(path):

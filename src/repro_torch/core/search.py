@@ -1,15 +1,19 @@
-"""Search configuration, result and the FFN adapters (paper Algorithm 1).
+"""Search configuration, result and the unit adapters (paper Algorithm 1).
 
 The loop lives in ``repro_torch.search.engine``; this module keeps what is
 model-family specific. :class:`DenseFFNAdapter` exposes each decoder
 block's FFN as a transformable unit, :class:`MoEAdapter` each expert of
-each MoE block, with two candidate builds:
+each MoE block, :class:`MambaAdapter` each Mamba2 block (within-head
+permutations only) and :class:`SharedFFNAdapter` the FFN of a hybrid
+stack's one shared block, with two candidate builds:
 
 - ``transform_unit`` + ``quant_unit``: the transformed fp32 weights are
   materialized, then ``fake_quant`` (the ``group_quant`` kernel on CUDA)
   quantizes them — the plain, unfused lane;
 - ``transform_quant_unit``: the fused lane, one ``transform_quant`` kernel
-  launch per weight (up, down) reading the original weights once.
+  launch per weight (up, down[, gate]) reading the original weights once.
+  A Mamba block has no fused build (as in the reference): the engine warns
+  and takes the unfused lane.
 
 Stacks are never modified in place: ``install_unit`` returns a fresh stack
 (``search.install.tree_install_unit``), so a stack held as the elite
@@ -30,7 +34,7 @@ from repro_torch.models.model import layer_slice
 from repro_torch.search.install import tree_install_unit
 
 __all__ = ["SearchConfig", "SearchResult", "DenseFFNAdapter", "MoEAdapter",
-           "make_adapter"]
+           "MambaAdapter", "SharedFFNAdapter", "make_adapter"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,10 +215,132 @@ class MoEAdapter:
     install_unit = DenseFFNAdapter.install_unit
 
 
-def make_adapter(cfg: ModelConfig):
+class MambaAdapter:
+    """Mamba2 blocks: unit = one block, moved by a within-head permutation
+    only (exact invariance): w_z / w_x / conv_x columns, conv_b_x and
+    norm_w entries and out_proj rows permute together. In a hybrid stack
+    only the Mamba blocks are units (unit u is the u-th block of the
+    ``params["blocks"]`` stack). Its ``f_dim`` is d_inner; no fused build."""
+
+    _UNIT_KEYS = ("w_z", "w_x", "conv_x", "conv_b_x", "norm_w", "out_proj")
+    _QUANT_KEYS = ("w_z", "w_x", "out_proj")
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.n_units = (cfg.hybrid_layout()[0] if cfg.block_pattern == "hybrid"
+                        else cfg.n_layers)
+        self.di = cfg.ssm.d_inner(cfg.d_model)
+        self.head_dim = cfg.ssm.head_dim
+        self.f_dim = self.di
+
+    def base_stack(self, params):
+        ssm = params["blocks"]["ssm"]
+        return {k: ssm[k] for k in self._UNIT_KEYS}
+
+    def transform_unit(self, base, t: inv.FFNTransform, u: int):
+        b = layer_slice(base, u)
+        pi = t.pi      # within-head block structured (self.propose)
+        w_x, w_z, conv_x, out_proj = inv.apply_transform_mamba(
+            pi, b["w_x"], b["w_z"], b["conv_x"], b["out_proj"], self.head_dim)
+        return {"w_z": w_z, "w_x": w_x, "conv_x": conv_x,
+                "conv_b_x": b["conv_b_x"][pi], "norm_w": b["norm_w"][pi],
+                "out_proj": out_proj}
+
+    def quant_unit(self, unit, qcfg: QuantConfig):
+        """Fake-quant the three projections, one ``fake_quant`` call each,
+        for one block's (K, N) leaves and the (L, K, N) stack alike
+        (``quant_stack``); the conv and norm leaves pass through."""
+        return {k: fake_quant(v, qcfg) if k in self._QUANT_KEYS else v
+                for k, v in unit.items()}
+
+    quant_stack = quant_unit
+
+    def install(self, params, fq_stack):
+        """``params`` with the unit leaves taken from ``fq_stack`` (no copy)."""
+        params = dict(params)
+        blocks = dict(params["blocks"])
+        blocks["ssm"] = {**blocks["ssm"], **fq_stack}
+        params["blocks"] = blocks
+        return params
+
+    def unit_override(self, u: int, unit):
+        """``forward(layer_override=...)`` argument that makes the u-th SSM
+        block read the candidate ``unit``."""
+        return (u, {"ssm": unit})
+
+    install_unit = DenseFFNAdapter.install_unit
+
+    def propose(self, gen: torch.Generator, t: inv.FFNTransform,
+                pcfg: inv.ProposalConfig) -> inv.FFNTransform:
+        """Within-head partial shuffle (``inv.propose_within_head``)."""
+        return inv.propose_within_head(gen, t, pcfg, self.head_dim)
+
+
+class SharedFFNAdapter:
+    """Hybrid (Zamba2): the FFN of the ONE shared block as a single unit —
+    its weights serve every application, so one transform covers them all
+    exactly. The stack has one unit (a leading axis of 1); the builds are
+    the dense FFN's, the fused ``transform_quant`` lane included."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.n_units = 1
+        self.f_dim = cfg.d_ff
+
+    def base_stack(self, params):
+        mlp = params["shared"]["mlp"]
+        return {k: mlp[k][None] for k in ("up", "down", "gate", "b_up",
+                                          "b_gate") if k in mlp}
+
+    transform_unit = DenseFFNAdapter.transform_unit
+    quant_unit = DenseFFNAdapter.quant_unit
+    quant_stack = DenseFFNAdapter.quant_stack
+    transform_quant_unit = DenseFFNAdapter.transform_quant_unit
+    install_unit = DenseFFNAdapter.install_unit
+
+    def install(self, params, fq_stack):
+        """``params`` with the shared FFN's leaves taken from ``fq_stack``
+        (views of its one unit; no copy)."""
+        params = dict(params)
+        shared = dict(params["shared"])
+        shared["mlp"] = {**shared["mlp"],
+                         **{k: v[0] for k, v in fq_stack.items()}}
+        params["shared"] = shared
+        return params
+
+    def unit_override(self, u: int, unit):
+        """``forward(layer_override=...)`` argument that makes every
+        application of the shared block read the candidate ``unit``."""
+        return ("shared", {"mlp": unit})
+
+
+def make_adapter(cfg: ModelConfig, phase: str = None):
     """The search adapter of ``cfg``'s block pattern (the reference's
-    dispatch): dense FFN units, or one unit per expert for MoE."""
+    dispatch): dense FFN units, one unit per expert for MoE, Mamba blocks
+    for SSM; for hybrid the Mamba blocks, or with ``phase="shared"`` the
+    shared block's FFN (the two phases of ``search.api``'s hybrid run)."""
     check_supported(cfg)
     if cfg.block_pattern == "moe":
         return MoEAdapter(cfg)
+    if cfg.block_pattern == "ssm":
+        return MambaAdapter(cfg)
+    if cfg.block_pattern == "hybrid":
+        return SharedFFNAdapter(cfg) if phase == "shared" else MambaAdapter(cfg)
     return DenseFFNAdapter(cfg)
+
+
+def _merge_phase_stats(s1, s2):
+    """Sum the counters of two engine stats dicts (the reference's three,
+    and the tabu counters); proposals_per_sec recombines as TOTAL proposals
+    over TOTAL wall time; fused if either phase ran fused."""
+    if s1 is None or s2 is None:
+        return s2 or s1
+    out = dict(s2)
+    for k in ("migrations", "uphill_accepts", "proposals", "tabu_hits",
+              "tabu_skips", "tabu_rebuilds"):
+        out[k] = s1.get(k, 0) + s2.get(k, 0)
+    t1 = s1.get("proposals", 0) / max(s1.get("proposals_per_sec", 0.0), 1e-9)
+    t2 = s2.get("proposals", 0) / max(s2.get("proposals_per_sec", 0.0), 1e-9)
+    out["proposals_per_sec"] = out["proposals"] / max(t1 + t2, 1e-9)
+    out["fused"] = s1.get("fused", False) or s2.get("fused", False)
+    return out

@@ -17,7 +17,9 @@ dequantized one layer at a time inside each step.
 comparison: it left-pads every batch to its longest prompt and holds
 max_len-deep contiguous cache slots whether used or not; with
 ``cfg.use_flash_decode`` each decode step's attention takes the CUDA
-``flash_decode`` kernel.
+``flash_decode`` kernel. It is the only server of the SSM and hybrid
+stacks (``--arch mamba2-2.7b`` / ``zamba2-7b --legacy``): their blocks keep
+O(1) state, so the paged cache refuses them, as the reference's does.
 """
 from __future__ import annotations
 
@@ -56,7 +58,9 @@ class Request:
 
 class BatchedServer:
     """Fixed-batch greedy decoding server with slot recycling over a
-    contiguous KV cache (the reference's ``BatchedServer``).
+    contiguous cache (the reference's ``BatchedServer``): K/V slots, and
+    for SSM and hybrid stacks each SSM block's state (``models.model``'s
+    ``prefill`` / ``decode_step``).
 
     Each batch of up to ``batch_size`` requests is left-padded with token 0
     to its longest prompt and padded to ``batch_size`` rows with copies of
@@ -113,6 +117,7 @@ class PagedServer:
 
     ``n_pages`` bounds TOTAL cache memory across all live sequences;
     ``max_pages_per_seq`` (from ``max_len``) bounds a single sequence.
+    SSM and hybrid configs raise ``ValueError`` (``PagedKVCache``).
     ``prefix_cache`` (default on) shares pages between requests, outputs
     token-identical to sharing disabled on a dense model (an MoE model
     routes each prefill chunk at that chunk's capacity, and sharing

@@ -1,19 +1,19 @@
-"""Model configuration for the port's dense and MoE paths.
+"""Model configuration for the port's dense, MoE, SSM and hybrid paths.
 
 The fields are the subset of the reference's ``repro.models.config``
-``ModelConfig`` that the dense and MoE forwards read, with the same names,
-order and defaults; ``reduced()`` derives the same tiny configs the
-reference's tests use. Features the port does not carry yet (SSM, hybrid,
-encoder-decoder) have no field here; :func:`check_supported` names the
-roadmap item for the block patterns that wait.
+``ModelConfig`` that these forwards read, with the same names, order and
+defaults; ``reduced()`` derives the same tiny configs the reference's tests
+use. Features the port does not carry yet (encoder-decoder stacks and the
+vision / audio front ends) have no field here; :func:`check_supported`
+names the roadmap item for what waits.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
-__all__ = ["MoEConfig", "ModelConfig", "check_supported"]
+__all__ = ["MoEConfig", "SSMConfig", "ModelConfig", "check_supported"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +28,24 @@ class MoEConfig:
         tokens."""
         c = math.ceil(seq_len * self.top_k / self.num_experts * self.capacity_factor)
         return max(1, c)
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD block shape (the reference's ``SSMConfig``)."""
+
+    d_state: int = 128
+    head_dim: int = 64
+    conv_width: int = 4
+    expand: int = 2
+    n_groups: int = 1
+    chunk: int = 128
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,8 +68,10 @@ class ModelConfig:
     norm: str = "rmsnorm"             # rmsnorm | layernorm
     tie_embeddings: bool = False
     max_seq_len: int = 8192           # for learned positions
-    block_pattern: str = "dense"      # dense | moe
+    block_pattern: str = "dense"      # dense | moe | ssm | hybrid
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    hybrid_period: int = 6            # hybrid: every Nth block = shared attn+mlp
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     attn_chunk: int = 1024            # kv-chunk for blocked online-softmax attention
@@ -70,6 +90,17 @@ class ModelConfig:
         m = self.vocab_pad_multiple
         return ((self.vocab_size + m - 1) // m) * m
 
+    @property
+    def attn_free(self) -> bool:
+        return self.block_pattern == "ssm"
+
+    def hybrid_layout(self) -> Tuple[int, int]:
+        """(n_mamba_blocks, n_attn_applications) for hybrid stacks: block
+        i in [0, n_layers) is an application of the shared attention block
+        iff i % period == period - 1."""
+        n_attn = self.n_layers // self.hybrid_period
+        return self.n_layers - n_attn, n_attn
+
     def _attn_mlp_params(self):
         d, f = self.d_model, self.d_ff
         hd = self.resolved_head_dim
@@ -78,16 +109,22 @@ class ModelConfig:
         return attn, mlp
 
     def param_count(self) -> int:
-        """The reference's analytic parameter count (dense and MoE
-        patterns; the embedding once if tied; 2·d a block for its norms)."""
+        """The reference's analytic parameter count (the embedding once if
+        tied; 2·d a dense block for its norms; one shared dense block in a
+        hybrid stack)."""
         check_supported(self)
         d, v = self.d_model, self.padded_vocab
         attn, mlp = self._attn_mlp_params()
         if self.block_pattern == "dense":
             n = self.n_layers * (attn + mlp + 2 * d)
-        else:
+        elif self.block_pattern == "moe":
             e = self.moe.num_experts
             n = self.n_layers * (attn + e * mlp + d * e + 2 * d)
+        elif self.block_pattern == "ssm":
+            n = self.n_layers * self._ssm_block_params()
+        else:
+            n_m, _ = self.hybrid_layout()
+            n = n_m * self._ssm_block_params() + attn + mlp + 2 * d
         n += v * d * (1 if self.tie_embeddings else 2)
         if self.pos_emb == "learned":
             n += self.max_seq_len * d
@@ -103,10 +140,24 @@ class ModelConfig:
         act += self.padded_vocab * d * (1 if self.tie_embeddings else 2)
         return act
 
+    def _ssm_block_params(self) -> int:
+        d = self.d_model
+        s = self.ssm
+        di = s.d_inner(d)
+        h = s.n_heads(d)
+        g = s.n_groups
+        in_proj = d * (2 * di + 2 * g * s.d_state + h)
+        conv = s.conv_width * (di + 2 * g * s.d_state)
+        out_proj = di * d
+        return in_proj + conv + out_proj + 3 * h + di + d
+
     def reduced(self, **overrides) -> "ModelConfig":
-        """Tiny same-family config for CPU tests (the reference's sizes)."""
+        """Tiny same-family config for CPU tests (the reference's sizes; a
+        hybrid stack keeps one group and a tail block)."""
         base = dict(
-            n_layers=min(self.n_layers, 2),
+            n_layers=min(self.n_layers,
+                         2 if self.block_pattern != "hybrid"
+                         else self.hybrid_period + 1),
             d_model=64,
             n_heads=min(self.n_heads, 4) if self.n_heads else 0,
             n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads else 0,
@@ -115,6 +166,8 @@ class ModelConfig:
             head_dim=16 if self.head_dim else 0,
             max_seq_len=256,
             moe=dataclasses.replace(self.moe, num_experts=4, top_k=2) if self.moe else None,
+            ssm=(dataclasses.replace(self.ssm, d_state=16, head_dim=16,
+                                     chunk=32) if self.ssm else None),
             attn_chunk=64,
             param_dtype="float32",
             compute_dtype="float32",
@@ -124,13 +177,17 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what the port cannot run: block
-    patterns other than dense and MoE (SSM, hybrid; encoder-decoder stacks
-    have no field here yet)."""
-    if cfg.block_pattern not in ("dense", "moe"):
+    """Raise NotImplementedError for a block pattern the port cannot run
+    (the dense, MoE, SSM and hybrid patterns run; encoder-decoder and
+    vision stacks have no field here yet), ValueError for a family config
+    without its sub-config."""
+    if cfg.block_pattern not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"block_pattern={cfg.block_pattern!r} is not ported yet "
-            f"(ROADMAP Queue 1 item 12: other model families; SSM, hybrid "
-            f"and encoder-decoder wait)")
+            f"(ROADMAP Queue 1 item 12: other model families; "
+            f"encoder-decoder and vision wait)")
     if cfg.block_pattern == "moe" and cfg.moe is None:
         raise ValueError("block_pattern='moe' needs cfg.moe (a MoEConfig)")
+    if cfg.block_pattern in ("ssm", "hybrid") and cfg.ssm is None:
+        raise ValueError(f"block_pattern={cfg.block_pattern!r} needs cfg.ssm "
+                         f"(an SSMConfig)")

@@ -1,5 +1,5 @@
-"""Dense and MoE models: init / forward / loss / contiguous-cache decode
-with the reference's param layout.
+"""Dense, MoE, SSM and hybrid models: init / forward / loss /
+contiguous-cache decode with the reference's param layout.
 
 Params are plain nested dicts of tensors: stacked ``(L, ...)`` block leaves
 under ``params["blocks"]`` and ``x @ W`` orientation, exactly the JAX tree
@@ -10,80 +10,107 @@ leaf may be a packed ``QTensor``: it is dequantized per layer inside the
 loop (``dequant_tree``), so only one layer's dense weights exist at a time.
 An MoE block carries ``blocks["moe"]`` (router (L, D, E), experts (L, E,
 ...)) in place of ``blocks["mlp"]``; a layer's slice of it is (E, ...).
+An SSM stack's blocks are ``{"ln1", "ssm"}`` (``models/ssm.py``); a hybrid
+(Zamba2) stack holds its Mamba blocks there and ONE dense block under
+``params["shared"]``, applied after every ``hybrid_period - 1`` Mamba
+blocks (:func:`block_order`).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.quant import QTensor
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig, check_supported
 
 __all__ = ["init_params", "embed_tokens", "lm_head_logits", "forward",
            "lm_loss", "quantizable_paths", "layer_slice", "dequant_tree",
-           "init_cache", "decode_step", "prefill", "ffn_sublayer"]
+           "init_cache", "decode_step", "prefill", "ffn_sublayer",
+           "block_order"]
 
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+def _init_dense_block(lead, cfg: ModelConfig, normal, dt, dev):
+    """One dense (or MoE) block's params with leading stack dims ``lead``
+    (a tuple): the attention projections, then the FFN, drawn in that
+    order."""
+    D, F = cfg.d_model, cfg.d_ff
+    hd = cfg.resolved_head_dim
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+
+    def zeros(shape):
+        return torch.zeros(lead + shape, dtype=dt, device=dev)
+
+    attn = {
+        "wq": normal(lead + (D, hq * hd), D ** -0.5),
+        "wk": normal(lead + (D, hkv * hd), D ** -0.5),
+        "wv": normal(lead + (D, hkv * hd), D ** -0.5),
+        "wo": normal(lead + (hq * hd, D), (hq * hd) ** -0.5),
+    }
+    if cfg.attn_qkv_bias or cfg.use_bias:
+        attn["bq"] = zeros((hq * hd,))
+        attn["bk"] = zeros((hkv * hd,))
+        attn["bv"] = zeros((hkv * hd,))
+    if cfg.use_bias:
+        attn["bo"] = zeros((D,))
+    if cfg.qk_norm:
+        attn["q_norm"] = torch.ones(lead + (hd,), dtype=dt, device=dev)
+        attn["k_norm"] = torch.ones(lead + (hd,), dtype=dt, device=dev)
+    block = {"ln1": L.init_norm(lead, D, cfg.norm, dt, dev),
+             "attn": attn,
+             "ln2": L.init_norm(lead, D, cfg.norm, dt, dev)}
+    if cfg.block_pattern == "moe":
+        block["moe"] = L.init_moe(lead, cfg, normal)
+    else:
+        mlp = {"up": normal(lead + (D, F), D ** -0.5),
+               "down": normal(lead + (F, D), F ** -0.5)}
+        if cfg.gated_mlp:
+            mlp["gate"] = normal(lead + (D, F), D ** -0.5)
+        if cfg.use_bias:
+            mlp["b_up"] = zeros((F,))
+            mlp["b_down"] = zeros((D,))
+            if cfg.gated_mlp:
+                mlp["b_gate"] = zeros((F,))
+        block["mlp"] = mlp
+    return block
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     """Random init with the reference's shapes and scales
-    (``repro.models.model.init_params`` for the dense and MoE patterns). The
-    draws do not reproduce ``jax.random``; ``generator`` must live on
+    (``repro.models.model.init_params``): stacked dense / MoE blocks, or
+    stacked SSM blocks (``ln1`` + ``ssm``) — in a hybrid stack one per
+    Mamba block, with the one shared dense block under ``params["shared"]``.
+    The draws do not reproduce ``jax.random``; ``generator`` must live on
     ``device``."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg.param_dtype)
-    V, D, F, Lyr = cfg.padded_vocab, cfg.d_model, cfg.d_ff, cfg.n_layers
-    hd = cfg.resolved_head_dim
-    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    V, D = cfg.padded_vocab, cfg.d_model
 
     def normal(shape, scale):
         return torch.randn(shape, generator=generator, dtype=dt,
                            device=dev) * scale
 
-    def zeros(shape):
-        return torch.zeros(shape, dtype=dt, device=dev)
-
-    attn = {
-        "wq": normal((Lyr, D, hq * hd), D ** -0.5),
-        "wk": normal((Lyr, D, hkv * hd), D ** -0.5),
-        "wv": normal((Lyr, D, hkv * hd), D ** -0.5),
-        "wo": normal((Lyr, hq * hd, D), (hq * hd) ** -0.5),
-    }
-    if cfg.attn_qkv_bias or cfg.use_bias:
-        attn["bq"] = zeros((Lyr, hq * hd))
-        attn["bk"] = zeros((Lyr, hkv * hd))
-        attn["bv"] = zeros((Lyr, hkv * hd))
-    if cfg.use_bias:
-        attn["bo"] = zeros((Lyr, D))
-    if cfg.qk_norm:
-        attn["q_norm"] = torch.ones((Lyr, hd), dtype=dt, device=dev)
-        attn["k_norm"] = torch.ones((Lyr, hd), dtype=dt, device=dev)
-    blocks = {"ln1": L.init_norm((Lyr,), D, cfg.norm, dt, dev),
-              "attn": attn,
-              "ln2": L.init_norm((Lyr,), D, cfg.norm, dt, dev)}
-    if cfg.block_pattern == "moe":
-        blocks["moe"] = L.init_moe((Lyr,), cfg, normal)
+    params = {}
+    if cfg.block_pattern in ("dense", "moe"):
+        params["blocks"] = _init_dense_block((cfg.n_layers,), cfg, normal, dt,
+                                             dev)
     else:
-        mlp = {"up": normal((Lyr, D, F), D ** -0.5),
-               "down": normal((Lyr, F, D), F ** -0.5)}
-        if cfg.gated_mlp:
-            mlp["gate"] = normal((Lyr, D, F), D ** -0.5)
-        if cfg.use_bias:
-            mlp["b_up"] = zeros((Lyr, F))
-            mlp["b_down"] = zeros((Lyr, D))
-            if cfg.gated_mlp:
-                mlp["b_gate"] = zeros((Lyr, F))
-        blocks["mlp"] = mlp
-    params = {
-        "embed": {"tok": normal((V, D), 0.02)},
-        "blocks": blocks,
-        "final_norm": L.init_norm((), D, cfg.norm, dt, dev),
-    }
+        n = cfg.n_layers if cfg.block_pattern == "ssm" \
+            else cfg.hybrid_layout()[0]
+        params["blocks"] = {
+            "ln1": L.init_norm((n,), D, cfg.norm, dt, dev),
+            "ssm": SSM.init_ssm((n,), cfg, generator, dt, dev)}
+        if cfg.block_pattern == "hybrid":
+            params["shared"] = _init_dense_block((), cfg, normal, dt, dev)
+    params = {"embed": {"tok": normal((V, D), 0.02)}, **params,
+              "final_norm": L.init_norm((), D, cfg.norm, dt, dev)}
     if cfg.pos_emb == "learned":
         params["embed"]["pos"] = normal((cfg.max_seq_len, D), 0.02)
     if not cfg.tie_embeddings:
@@ -115,9 +142,16 @@ def _merge(tree, override):
     return out
 
 
+def _dequant_block(pl, cfg: ModelConfig):
+    """One block's leaves with QTensors dequantized to the compute dtype (a
+    ``model.dequant`` profiler range when ``obs.enable_profiler()`` is on)."""
+    with obs.profile_range("model.dequant"):
+        return dequant_tree(pl, _dtype(cfg.compute_dtype))
+
+
 def _dense_body(pl, cfg: ModelConfig, h, positions, cache=None,
                 cache_index: int = 0):
-    pl = dequant_tree(pl, _dtype(cfg.compute_dtype))
+    pl = _dequant_block(pl, cfg)
     a_in = L.apply_norm(h, pl["ln1"], cfg.norm)
     a, cache = L.self_attention(pl["attn"], cfg, a_in, positions, cache=cache,
                                 cache_index=cache_index)
@@ -132,6 +166,52 @@ def ffn_sublayer(pl, cfg: ModelConfig, h):
     if "moe" in pl:
         return L.moe_ffn(pl["moe"], cfg, m_in)
     return L.mlp(pl["mlp"], cfg, m_in)
+
+
+def _copy_into(dst, src):
+    """Write the tree ``src`` into the tree of views ``dst`` in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    else:
+        dst.copy_(src)
+
+
+def _ssm_body(pl, cfg: ModelConfig, h, state=None, decode: bool = False):
+    """One SSM block (pre-norm, residual). ``state``: this block's views of
+    the decode state, written in place — the state after the sequence
+    (prefill) or after the one token (``decode``); None for a plain
+    full-sequence forward."""
+    pl = _dequant_block(pl, cfg)
+    s_in = L.apply_norm(h, pl["ln1"], cfg.norm)
+    if state is None:
+        return h + SSM.ssm_forward(pl["ssm"], cfg, s_in)
+    if decode:
+        out, new = SSM.ssm_decode_step(pl["ssm"], cfg, s_in, state)
+    else:
+        out, new = SSM.ssm_forward(pl["ssm"], cfg, s_in, return_state=True)
+    _copy_into(state, new)
+    return h + out
+
+
+def block_order(cfg: ModelConfig):
+    """The blocks in the order they run, as (kind, index): ("dense", i) and
+    ("ssm", u) name entry i / u of the ``params["blocks"]`` stack;
+    ("shared", a) is the a-th application of a hybrid stack's shared
+    block. A hybrid stack runs groups of ``hybrid_period - 1`` SSM blocks,
+    each followed by the shared block, then the tail SSM blocks (the
+    reference's ``_hybrid_forward``)."""
+    if cfg.block_pattern in ("dense", "moe"):
+        return [("dense", i) for i in range(cfg.n_layers)]
+    if cfg.block_pattern == "ssm":
+        return [("ssm", u) for u in range(cfg.n_layers)]
+    per_group = cfg.hybrid_period - 1
+    n_m, n_a = cfg.hybrid_layout()
+    order = []
+    for a in range(n_a):
+        order += [("ssm", u) for u in range(a * per_group, (a + 1) * per_group)]
+        order.append(("shared", a))
+    return order + [("ssm", u) for u in range(n_a * per_group, n_m)]
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens, positions):
@@ -159,33 +239,54 @@ def lm_head_logits(params, cfg: ModelConfig, h, *, mask_vocab: bool = False):
     return logits
 
 
+def _block_params(params, kind, i, layer_override):
+    """The params block (kind, i) reads: its slice of the stack, or the
+    shared block, with ``layer_override``'s leaves merged in where it names
+    this block."""
+    if kind == "shared":
+        pl, key = params["shared"], "shared"
+    else:
+        pl, key = layer_slice(params["blocks"], i), i
+    if layer_override is not None and layer_override[0] == key:
+        pl = _merge(pl, layer_override[1])
+    return pl
+
+
 def forward(params, cfg: ModelConfig, tokens, *, collect_hidden=False,
             layer_override=None):
     """Full-sequence causal forward -> logits (B, S, V_padded), plus the
-    (L, B, S, D) per-block outputs when ``collect_hidden``.
+    per-block outputs (n, B, S, D) when ``collect_hidden``: one per block
+    of a dense, MoE or SSM stack, one per application of the shared block
+    in a hybrid stack (the reference's taps).
 
-    ``layer_override=(i, tree)`` makes layer ``i`` read the leaves of
-    ``tree`` (e.g. ``{"mlp": {"up": ..., "down": ...}}``, or for one expert
-    ``{"moe": {layers.EXPERT_OVERRIDE: (e, unit)}}``) instead of its slice
-    of the stack — the search installs one candidate unit this way without
-    copying the stack.
+    ``layer_override=(key, tree)`` makes one block read the leaves of
+    ``tree`` instead of its own — the search installs one candidate unit
+    this way without copying the stack. An int key is an index into the
+    ``params["blocks"]`` stack: layer i of a dense or MoE stack (e.g.
+    ``{"mlp": {"up": ..., "down": ...}}``, or for one expert ``{"moe":
+    {layers.EXPERT_OVERRIDE: (e, unit)}}``), the u-th SSM block of an SSM
+    or hybrid stack (``{"ssm": {...}}``; in a hybrid stack that is not
+    layer u). The key ``"shared"`` overrides a hybrid stack's shared block
+    at every application (``{"mlp": {...}}``).
     """
     check_supported(cfg)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)
     h = embed_tokens(params, cfg, tokens, positions)
-    blocks = params["blocks"]
     hidden = []
-    for i in range(cfg.n_layers):
-        pl = layer_slice(blocks, i)
-        if layer_override is not None and layer_override[0] == i:
-            pl = _merge(pl, layer_override[1])
-        h, _ = _dense_body(pl, cfg, h, positions)
-        if collect_hidden:
+    for kind, i in block_order(cfg):
+        pl = _block_params(params, kind, i, layer_override)
+        if kind == "ssm":
+            h = _ssm_body(pl, cfg, h)
+        else:
+            h, _ = _dense_body(pl, cfg, h, positions)
+        if collect_hidden and (kind == "shared"
+                               or cfg.block_pattern != "hybrid"):
             hidden.append(h)
     logits = lm_head_logits(params, cfg, h)
     if collect_hidden:
-        return logits, torch.stack(hidden)
+        return logits, (torch.stack(hidden) if hidden
+                        else h.new_zeros((0,) + tuple(h.shape)))
     return logits
 
 
@@ -223,20 +324,44 @@ def _single_kv(cfg: ModelConfig, batch: int, max_len: int, dt, device):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda"):
-    """Empty contiguous KV cache for every layer: the ``_single_kv`` leaves
-    with a leading n_layers axis, on ``device`` (the card unless
-    ``device="cpu"``). ``dtype`` defaults to the compute dtype."""
+    """Empty decode cache on ``device`` (the card unless ``device="cpu"``);
+    ``dtype`` defaults to the compute dtype. Dense / MoE: the
+    ``_single_kv`` leaves with a leading n_layers axis. SSM: every block's
+    ``ssm.init_ssm_state`` stacked (f32 SSD state, conv windows in
+    ``dtype``). Hybrid: {"ssm": the same over the Mamba blocks, "attn":
+    one KV cache per application of the shared block}."""
     check_supported(cfg)
     dt = dtype or _dtype(cfg.compute_dtype)
-    one = _single_kv(cfg, batch, max_len, dt, resolve_device(device))
-    return {k: v[None].repeat((cfg.n_layers,) + (1,) * v.ndim)
-            for k, v in one.items()}
+    dev = resolve_device(device)
+
+    def kv(n):
+        one = _single_kv(cfg, batch, max_len, dt, dev)
+        return {k: v[None].repeat((n,) + (1,) * v.ndim)
+                for k, v in one.items()}
+
+    if cfg.block_pattern in ("dense", "moe"):
+        return kv(cfg.n_layers)
+    if cfg.block_pattern == "ssm":
+        return SSM.init_ssm_state(cfg, batch, dt, dev, lead=(cfg.n_layers,))
+    n_m, n_a = cfg.hybrid_layout()
+    return {"ssm": SSM.init_ssm_state(cfg, batch, dt, dev, lead=(n_m,)),
+            "attn": kv(n_a)}
 
 
-def _cached_blocks(params, cfg: ModelConfig, h, positions, cache, index: int):
-    for i in range(cfg.n_layers):
-        h, _ = _dense_body(layer_slice(params["blocks"], i), cfg, h, positions,
-                           cache={k: v[i] for k, v in cache.items()},
+def _cached_blocks(params, cfg: ModelConfig, h, positions, cache, index: int,
+                   decode: bool):
+    """Run every block against ``cache``, writing it in place: K/V at
+    ``index`` onwards, the SSM state after the prompt (prefill) or after
+    the one token (``decode``)."""
+    ssm_cache = cache["ssm"] if cfg.block_pattern == "hybrid" else cache
+    for kind, i in block_order(cfg):
+        pl = _block_params(params, kind, i, None)
+        if kind == "ssm":
+            h = _ssm_body(pl, cfg, h, layer_slice(ssm_cache, i), decode)
+            continue
+        kv = cache["attn"] if kind == "shared" else cache
+        h, _ = _dense_body(pl, cfg, h, positions,
+                           cache={k: v[i] for k, v in kv.items()},
                            cache_index=index)
     return h
 
@@ -245,10 +370,11 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, index: int):
     """One decode step. tokens (B, 1) at position ``index`` (a host int);
     returns (logits (B, 1, V), cache).
 
-    Each layer's K/V are written into ``cache`` (the ``init_cache`` tree) IN
-    PLACE at ``index`` — the reference returns a new cache; the returned
+    Each attention block's K/V are written into ``cache`` (the
+    ``init_cache`` tree) IN PLACE at ``index``, and each SSM block's state
+    is advanced in place — the reference returns a new cache; the returned
     cache is the same object. Packed QTensor leaves are dequantized one
-    layer at a time, as in the paged step. Every row sits at position
+    block at a time, as in the paged step. Every row sits at position
     ``index`` (RoPE included), as in the reference: left-padded rows of a
     batch rotate their pads too.
     """
@@ -256,20 +382,20 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, index: int):
     index = int(index)
     positions = index + torch.arange(1, device=tokens.device)
     h = embed_tokens(params, cfg, tokens, positions)
-    h = _cached_blocks(params, cfg, h, positions, cache, index)
+    h = _cached_blocks(params, cfg, h, positions, cache, index, decode=True)
     return lm_head_logits(params, cfg, h), cache
 
 
 def prefill(params, cfg: ModelConfig, tokens, max_len: int):
     """Process a prompt (B, S) into a fresh ``init_cache(cfg, B, max_len)``
-    on the tokens' device, written at positions 0..S-1. Returns (logits
-    (B, S, V), cache)."""
+    on the tokens' device: K/V written at positions 0..S-1, SSM states
+    after position S-1. Returns (logits (B, S, V), cache)."""
     check_supported(cfg)
     B, S = tokens.shape
     cache = init_cache(cfg, B, max_len, device=tokens.device)
     positions = torch.arange(S, device=tokens.device)
     h = embed_tokens(params, cfg, tokens, positions)
-    h = _cached_blocks(params, cfg, h, positions, cache, 0)
+    h = _cached_blocks(params, cfg, h, positions, cache, 0, decode=False)
     return lm_head_logits(params, cfg, h), cache
 
 

@@ -42,6 +42,8 @@ island per device) wait for the multi-GPU port and raise.
 """
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -107,7 +109,12 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
     continuous domain, every other quantizable weight already fake-quantized.
     ``proposals``: one proposal source ``(t_u, k, pcfg) -> [FFNTransform]``
     per island, or None for the native per-island sources on the tokens'
-    device (``search.islands.make_island_streams``).
+    device (``search.islands.make_island_streams``), which draw with the
+    adapter's own ``propose`` where it has one (``MambaAdapter``).
+
+    ``fused_kernel`` on an adapter without ``transform_quant_unit`` (a Mamba
+    block has no fused build) warns and runs the unfused lane;
+    ``stats["fused"]`` then says False, as in the reference.
 
     ``measure_memory`` (CUDA only; the CPU has no allocator statistics and
     raises ``ValueError``): after set-up the engine synchronises, empties
@@ -126,6 +133,12 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
     n_islands = max(int(scfg.islands), 1)
     migrate_every = int(scfg.migrate_every)
     fused = bool(scfg.fused_kernel)
+    if fused and not hasattr(adapter, "transform_quant_unit"):
+        warnings.warn(
+            f"fused_kernel=True but adapter {type(adapter).__name__} has no "
+            f"transform_quant_unit; falling back to the unfused "
+            f"transform->quantize path", stacklevel=2)
+        fused = False
     install_mode = _resolve_install(scfg)
     tabu_cap = int(scfg.tabu)
     shard_calib = bool(scfg.shard_calib)
@@ -230,7 +243,8 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
 
     islands, tabus = [], []
     for i in range(n_islands):
-        rng, native = make_island_streams(scfg.seed, i, dev)
+        rng, native = make_island_streams(scfg.seed, i, dev,
+                                          getattr(adapter, "propose", None))
         islands.append(IslandState(
             index=i, rng=rng,
             proposals=native if proposals is None else proposals[i],

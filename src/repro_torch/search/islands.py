@@ -58,12 +58,13 @@ def island_seed(seed: int, index: int) -> int:
                .generate_state(1, np.uint64)[0])
 
 
-def make_island_streams(seed: int, index: int, device):
-    """(host rng, native proposal source on ``device``) for island
+def make_island_streams(seed: int, index: int, device, proposer=None):
+    """(host rng, native proposal source on ``device`` drawing with
+    ``proposer``, :func:`core.invariance.propose` by default) for island
     ``index``; island 0 reproduces the single-chain streams exactly."""
     rng = (np.random.default_rng(seed) if index == 0
            else np.random.default_rng([seed, index]))
-    return rng, NativeProposals(island_seed(seed, index), device)
+    return rng, NativeProposals(island_seed(seed, index), device, proposer)
 
 
 def migrate(islands: List[IslandState]) -> bool:

@@ -199,9 +199,14 @@ def make_paged_decode_step(cfg: ModelConfig, *, per_request: bool = False,
     writes its views ``leaf[i]``. ``per_request=True`` appends ``seeds``,
     ``token_indices``, ``temperatures`` and ``top_ks`` (host arrays, (B,)):
     keys come from ``request_key`` per sampled slot and selection routes
-    through ``sample_logits_per_seq``.
+    through ``sample_logits_per_seq``. SSM and hybrid stacks raise
+    ``ValueError``, as in the reference: they keep O(1) state per block,
+    not pages.
     """
     check_supported(cfg)
+    if cfg.block_pattern not in ("dense", "moe"):
+        raise ValueError(f"paged decode requires attention blocks, "
+                         f"got {cfg.block_pattern!r}")
 
     def logits_step(params_q, tokens, pools, block_tables, seq_lens):
         return paged_decode_logits(params_q, cfg, tokens, pools, block_tables,

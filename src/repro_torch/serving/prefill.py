@@ -145,9 +145,13 @@ def make_paged_prefill_step(cfg: ModelConfig):
     One prefill CHUNK: C must be a ``page_size`` multiple and ``offset``
     page aligned. Padded tail positions write garbage into the chunk's own
     allocated pages, masked at every later read by causality and
-    per-sequence lengths.
+    per-sequence lengths. SSM and hybrid stacks raise ``ValueError``, as in
+    the reference.
     """
     check_supported(cfg)
+    if cfg.block_pattern not in ("dense", "moe"):
+        raise ValueError(f"paged prefill requires attention blocks, "
+                         f"got {cfg.block_pattern!r}")
 
     def chunk_step(params_q, tokens, pools, block_tables, offset: int):
         C = tokens.shape[1]

@@ -709,3 +709,130 @@ def test_phase_11d_runs_cpu_against_cpu(arch):
     cfg = CS.small_moe_config(get_config, arch)
     assert cfg.moe.num_experts == (4 if arch.startswith("phi") else 64)
     CS.phase_small_zoo(torch, ops, arch, devs=("cpu", "cpu"), cfg=cfg)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_ssm_param_count_is_init_params_leaves(arch):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import tree_leaves
+    for cfg in (get_config(arch).reduced(),
+                dataclasses.replace(get_config(arch).reduced(), n_layers=13)):
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        assert sum(t.numel() for t in tree_leaves(params)) == \
+            CS.ssm_param_count(cfg)
+
+
+def test_ssm_reckoning():
+    """12a's and 12c's models: Mamba2-2.7B at full width and depth, 2.83 B
+    params (11.3 GB in fp32) of which the searched Mamba stack is 10.07 GB;
+    Zamba2-7B at 13 blocks, (11, 2), 1.29 B params; one forward's
+    operations over 4 x 512 tokens."""
+    from repro_torch.configs import get_config
+
+    cfg = CS.ssm_config(get_config)
+    assert (cfg.n_layers, cfg.d_model, cfg.param_dtype) == (64, 2560,
+                                                            "float32")
+    assert cfg.param_count() == 2_831_727_616
+    assert CS.ssm_param_count(cfg) == 2_831_727_616 + 64 * (5120 + 256) + 2560
+    assert CS.mamba_stack_bytes(cfg) == 64 * 3 * 2560 * 5120 * 4
+    assert CS.ssm_dims(cfg) == (64, 0, 5120, 80, 128, 128)
+    # per block: the quadratic chunk terms over 4 chunks of 128, then the
+    # states; 2 per weight per token over the projections and the head
+    quad = 2 * 4 * 4 * 128 * 128 * 80 * (128 + 64)
+    states = 4 * 4 * 4 * 128 * 80 * 64 * 128 + 2 * 4 * 4 * 80 * 64 * 128
+    assert CS.ssd_flops(cfg, 4, 512) == quad + states
+    mm = 64 * (2560 * (2 * 5120 + 256 + 80) + 5120 * 2560) + 2560 * 50432
+    assert CS.ssm_matmul_params(cfg) == mm
+    assert CS.ssm_forward_flops(cfg, 4, 512) == \
+        2 * mm * 2048 + 64 * (quad + states)
+    hcfg = CS.ssm_config(get_config, "zamba2-7b")
+    assert hcfg.n_layers == 13 and hcfg.hybrid_layout() == (11, 2)
+    assert hcfg.param_count() == 1_292_582_512
+    assert CS.ssm_dims(hcfg) == (11, 2, 7168, 112, 64, 64)
+    assert hcfg.resolved_head_dim == 112
+    assert ("out_proj stack", (11 * 7168, 3584)) in CS.ssm_gq_shapes(hcfg)
+
+
+def test_ssm_launch_formulas():
+    """12a: 3 ``group_quant`` for RTN, 3 + 3 x 16 with 16 unfused Mamba
+    steps; 12c: 10 and 4 + 3 + 3 x 8 + 3 = 34 with 24 ``transform_quant``
+    (the shared FFN's 8 fused steps, 3 weights each)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.search import SearchConfig
+
+    scfg = SearchConfig(steps=16, fused_kernel=True)
+    cfg = CS.ssm_config(get_config)
+    assert CS.ssm_quantize_launches(cfg) == {"group_quant": 3,
+                                             "transform_quant": 0}
+    assert CS.ssm_quantize_launches(cfg, scfg) == {"group_quant": 51,
+                                                   "transform_quant": 0}
+    hcfg = CS.ssm_config(get_config, "zamba2-7b")
+    assert CS.ssm_quantize_launches(hcfg) == {"group_quant": 10,
+                                              "transform_quant": 0}
+    assert CS.ssm_quantize_launches(hcfg, scfg) == {"group_quant": 34,
+                                                    "transform_quant": 24}
+
+
+@pytest.mark.parametrize("run", ["alone", "unfused", "fused"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_ssm_quantize_launches_match_the_formulas(monkeypatch, arch, run):
+    """12a's and 12c's counts: the ``group_quant`` and ``transform_quant``
+    wrapper calls of ``quantize_model`` rtn (with 5 search steps: an odd
+    budget, 2 + 3 in hybrid) on the reduced configs."""
+    import warnings
+
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import init_params
+
+    search, fused = run != "alone", run == "fused"
+    calls = {"group_quant": 0, "transform_quant": 0}
+    for name in calls:
+        real = getattr(kernels, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(kernels, name, counted)
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    calib = calibration_tensor(cfg.vocab_size, 2, 32, device="cpu")
+    scfg = SearchConfig(steps=5, fused_kernel=fused, log_every=0) \
+        if search else None
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        res = quantize_model(params, cfg, QuantConfig(2, 32), "rtn", calib,
+                             scfg, device="cpu")
+    assert calls == CS.ssm_quantize_launches(cfg, scfg)
+    if search:
+        CS.phases_monotone(res.search.history, res.search.final_loss, arch)
+
+
+def test_history_phases_and_the_phase_invariant():
+    h = [(0, 5.0, 0, 0, True), (1, 4.0, 0, 0, True), (2, 4.5, 0, 0, False),
+         (0, 6.0, 0, 0, True), (1, 5.5, 0, 0, True)]
+    assert CS.history_phases(h) == [h[:3], h[3:]]
+    CS.phases_monotone(h, 5.5, "ok")
+    with pytest.raises(AssertionError, match="last accepted"):
+        CS.phases_monotone(h, 4.0, "final")
+    bad = h[:2] + [(2, 4.5, 0, 0, True)]
+    with pytest.raises(AssertionError, match="did not lower"):
+        CS.phases_monotone(bad, 4.5, "bad")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_phase_12d_runs_cpu_against_cpu(arch):
+    from repro_torch.kernels import ops
+    CS.phase_small_ssm(torch, ops, arch, devs=("cpu", "cpu"))

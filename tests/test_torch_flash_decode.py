@@ -268,7 +268,7 @@ FD_CONTEXTS = _CS.FD_CONTEXTS     # the contexts it times (6b)
 # n_split at kv_len = S on an H100: only one long sequence splits (its
 # CTAs span 32 query heads, or 8 KV heads, against 132 SMs)
 SPLIT_AT_S = {"mha": 1, "gqa": 1, "small-gqa": 1, "small-mha": 1,
-              "long-mha": 8, "long-gqa": 16}
+              "long-mha": 8, "long-gqa": 16, "zamba2": 1}
 SPLIT_BY_CONTEXT = {"decode": 1, "long": 1, "long-b1": 8}
 
 
