@@ -200,7 +200,41 @@ source, started together, into ``build/kernels/``), then:
    the oracle and to each other; flash_decode launched 2 x decode steps);
    (d) both configs reduced on the card against the CPU: forward and taps,
    prefill + 3 decode steps, RTN + 4 steps on the same CPU-drawn proposals
-   (``histories_agree`` per phase), BatchedServer's tokens.
+   (``histories_agree`` per phase), BatchedServer's tokens;
+13. the encoder-decoder and vision families, at full width and depth in
+   fp32 (a cut: the configs say bf16), after ``group_quant`` is held to
+   its plain version at every stacked shape both models give it
+   (``encdec_gq_shapes``) and timed at the largest: (a) SeamlessM4T-medium
+   (``configs/seamless_m4t_medium.py``: 12 encoder + 12 decoder layers, d
+   1024, 16/16 heads x 64, ReLU d_ff 4096, biases, LayerNorm, learned
+   positions, vocab 256206 -> 256256), random-init: ``quantize_model`` RTN
+   alone and with 16 fused steps on 4 x 512 calibration tokens with 4 x
+   4096 stub encoder frames through ``forward_kwargs`` (the encoder's FFN
+   leaves unchanged by the search, changed by RTN; launches held to
+   ``encdec_quantize_launches``), held-out ppl, losses, accept rate, peak
+   memory, one candidate's forward beside its operations
+   (``encdec_forward_flops``: the encoder runs at every evaluation), and
+   GPTQ / AWQ / OmniQuant refusing the stack; (b) the packed model through
+   ``make_prefill_step`` + ``make_serve_step`` (B 8 of the trace's prompts,
+   8 x 4096 frames, 16 greedy tokens) with ``use_flash_decode`` off and on:
+   tokens held to a full-forward oracle and to each other, the cross
+   cache's bytes, flash_decode launched 12 x 15 times with the flag on, a
+   decode step's device time by family and idle share; PagedServer and
+   BatchedServer raising; (c) InternVL2-1B (``configs/internvl2_1b.py``: 24
+   layers, d 896, 14/2 heads x 64 (GQA rep 7), SwiGLU d_ff 4864, qkv
+   biases, RoPE 1e6, tied embeddings, vocab 151655): RTN and AWQ, each
+   alone and with 16 fused steps, on text (as 10a); the packed model
+   through the steps with 8 x 256 stub patches (decode from P+S, tokens
+   held to the full forward with the same patches, flash_decode at rep 7);
+   PagedServer over the trace with sharing off, on and MP 2 and
+   BatchedServer flag off / on (as 10b-c); the two GQA paged routes and
+   flash_decode at (B 8, 14/2, Dh 64) against their plain versions at the
+   trace's lengths and at 1024, timed beside their bounds; the CE search
+   with patches raising ValueError; (d) 3 train steps of each at B 2 x 512
+   tokens (512 frames; 256 patches): finite losses, step ms, peak; (e)
+   both reduced configs on the card against the CPU: forward and taps,
+   prefill + 3 decode steps, RTN + 4 fused steps (``histories_agree``),
+   3 train steps.
 
 Prints the ``nvidia-smi`` name/power-limit line, a ``{"kernels": [...]}``
 line (all seven ported kernels), and last ``{"ok": true, "device":
@@ -942,17 +976,23 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
-def check_greedy(torch, forward, dense, cfg, reqs, outs, what):
+def check_greedy(torch, forward, dense, cfg, reqs, outs, what, kw=None,
+                 device="cuda"):
     """Hold each request's tokens to the greedy oracle (one full forward
-    over prompt + generated tokens, dense weights): a token may differ from
-    the oracle's argmax only where the oracle's top-2 gap is < NEAR_TIE of
-    the top logit, and that request's comparison ends there. Returns the
-    near ties met as (request, position, relative gap)."""
+    over prompt + generated tokens, dense weights, and with the request's
+    row of the frontend input ``kw``, whose P vision patches come first): a
+    token may differ from the oracle's argmax only where the oracle's top-2
+    gap is < NEAR_TIE of the top logit, and that request's comparison ends
+    there. Returns the near ties met as (request, position, relative
+    gap)."""
+    kw = kw or {}
+    P = kw["vision_embeds"].shape[1] if "vision_embeds" in kw else 0
     ties = []
     V = cfg.vocab_size
     for i, (r, out) in enumerate(zip(reqs, outs)):
-        seq = torch.tensor([list(r.prompt) + out[:-1]], device="cuda")
-        logits = forward(dense, cfg, seq)[0, len(r.prompt) - 1:, :V]
+        seq = torch.tensor([list(r.prompt) + out[:-1]], device=device)
+        row = {k: v[i:i + 1] for k, v in kw.items()}
+        logits = forward(dense, cfg, seq, **row)[0, P + len(r.prompt) - 1:, :V]
         top2 = torch.topk(logits, 2, dim=-1).values
         gap = ((top2[:, 0] - top2[:, 1]) / top2[:, 0].abs()).tolist()
         pred = torch.argmax(logits, dim=-1).tolist()
@@ -2861,9 +2901,11 @@ DECODE_TOL = dict(rtol=1e-4, atol=1e-4)   # tests/test_torch_legacy_serve.py
 FFN_KEYS = ("up", "gate", "down")
 
 
-def dense_param_count(cfg) -> int:
-    """Parameters of the port's ``init_params`` tree for a dense ``cfg``."""
-    D, F, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+def dense_parts(cfg):
+    """(attention, FFN, norm) parameters of one dense block of the port's
+    tree: projections with their biases (and qk-norm), the FFN's weights and
+    biases, one norm's weight (and bias under LayerNorm)."""
+    D, F = cfg.d_model, cfg.d_ff
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     attn = 2 * D * hq * hd + 2 * D * hkv * hd
     if cfg.attn_qkv_bias or cfg.use_bias:
@@ -2874,7 +2916,13 @@ def dense_param_count(cfg) -> int:
         attn += 2 * hd
     n_ffn = 2 + int(cfg.gated_mlp)
     mlp = n_ffn * D * F + ((n_ffn - 1) * F + D if cfg.use_bias else 0)
-    norm = D * (2 if cfg.norm == "layernorm" else 1)
+    return attn, mlp, D * (2 if cfg.norm == "layernorm" else 1)
+
+
+def dense_param_count(cfg) -> int:
+    """Parameters of the port's ``init_params`` tree for a dense ``cfg``."""
+    D, V = cfg.d_model, cfg.padded_vocab
+    attn, mlp, norm = dense_parts(cfg)
     n = cfg.n_layers * (attn + mlp + 2 * norm) + norm + V * D
     if cfg.pos_emb == "learned":
         n += cfg.max_seq_len * D
@@ -3230,30 +3278,32 @@ def moe_gq_shapes(cfg):
             ("experts down", (L * E * F, D)))
 
 
-def phase_moe_kernels(torch, ops, ref, cfg):
-    """11a's kernel check: ``group_quant`` against its plain version
-    (``torch.equal``) at every shape the MoE model gives it (2-bit g32), and
-    its time beside the bound at the expert stack's shape."""
+def gq_shapes_check(torch, ops, ref, cfg, shapes, timed, seed):
+    """``group_quant`` against its plain version (``torch.equal``) at each
+    named (K, N) of ``shapes`` (2-bit g32, the path's setting), and at the
+    shape named ``timed`` its time beside its bound and its plain version's.
+    Returns (max abs err, the timing row)."""
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(4321)
-    err = 0.0
-    for name, shape in moe_gq_shapes(cfg):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    err, row = 0.0, None
+    for name, shape in shapes:
         w = torch.randn(shape, generator=gen, device=dev)
-        err = max(err, exact(torch, ops.group_quant(w, bits=2, group=32),
-                             ref.group_quant_ref(w, 2, 32),
-                             f"group_quant {name} {shape}"))
+        e = exact(torch, ops.group_quant(w, bits=2, group=32),
+                  ref.group_quant_ref(w, 2, 32), f"group_quant {name} {shape}")
+        err = max(err, e)
         log("kernel_check", kernel="group_quant", arch=cfg.name, weight=name,
-            shape=list(shape), bits=2, group=32, max_abs_err=err)
-        if name == "experts up/gate":
+            shape=list(shape), bits=2, group=32, max_abs_err=e)
+        if name == timed:
             K, N = shape
             ms = time_ms(torch, lambda: ops.group_quant(w, bits=2, group=32),
                          warmup=1, reps=5)
+            plain = time_ms(torch, lambda: ref.group_quant_ref(w, 2, 32),
+                            warmup=1, reps=3)
             nbytes = 2 * K * N * 4 + 2 * (K // 32) * N * 4
             bms, by = bound_ms(nbytes, GQ_OPS * K * N)
-            row = dict(shape=list(shape), ms=ms, bound_ms=bms, bound_by=by,
-                       share_of_bound=bms / ms)
-            log("kernel_time", kernel="group_quant", arch=cfg.name,
-                weight=name, **row)
+            row = dict(weight=name, shape=list(shape), ms=ms, plain_ms=plain,
+                       bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
+            log("kernel_time", kernel="group_quant", arch=cfg.name, **row)
         del w
     torch.cuda.empty_cache()
     return err, row
@@ -3344,7 +3394,8 @@ def phase_moe(torch, ops, ref, get_config, qcfg):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cfg = moe_config(get_config)
-    gq_check = phase_moe_kernels(torch, ops, ref, cfg)
+    gq_check = gq_shapes_check(torch, ops, ref, cfg, moe_gq_shapes(cfg),
+                               "experts up/gate", 4321)
     params_q, pack_s, launches = phase_zoo_main(torch, ops, cfg, qcfg,
                                                 methods=("rtn",), tag="moe")
     t1 = time.perf_counter()
@@ -3522,38 +3573,6 @@ def phases_monotone(history, final_loss, what):
     if final_loss != acc[-1]:
         raise AssertionError(f"{what}: final loss {final_loss} is not the "
                              f"last accepted {acc[-1]}")
-
-
-def phase_ssm_kernels(torch, ops, ref, cfg):
-    """12a's (and 12c's) kernel check: ``group_quant`` against its plain
-    version (``torch.equal``) at every shape the SSM path gives it (2-bit
-    g32), timed beside its bound at the stacked w_z shape. Returns (max abs
-    err, the timing row)."""
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(4322)
-    err, row = 0.0, None
-    for name, shape in ssm_gq_shapes(cfg):
-        w = torch.randn(shape, generator=gen, device=dev)
-        e = exact(torch, ops.group_quant(w, bits=2, group=32),
-                  ref.group_quant_ref(w, 2, 32), f"group_quant {name} {shape}")
-        err = max(err, e)
-        log("kernel_check", kernel="group_quant", arch=cfg.name, weight=name,
-            shape=list(shape), bits=2, group=32, max_abs_err=e)
-        if name == "w_z/w_x stack":
-            K, N = shape
-            ms = time_ms(torch, lambda: ops.group_quant(w, bits=2, group=32),
-                         warmup=1, reps=5)
-            plain = time_ms(torch, lambda: ref.group_quant_ref(w, 2, 32),
-                            warmup=1, reps=3)
-            nbytes = 2 * K * N * 4 + 2 * (K // 32) * N * 4
-            bms, by = bound_ms(nbytes, GQ_OPS * K * N)
-            row = dict(shape=list(shape), ms=ms, plain_ms=plain, bound_ms=bms,
-                       bound_by=by, share_of_bound=bms / ms)
-            log("kernel_time", kernel="group_quant", arch=cfg.name,
-                weight=name, **row)
-        del w
-    torch.cuda.empty_cache()
-    return err, row
 
 
 def phase_ssm_main(torch, ops, cfg, qcfg):
@@ -3973,7 +3992,8 @@ def phase_ssm(torch, ops, ref, get_config, qcfg):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cfg = ssm_config(get_config)
-    gq_check = phase_ssm_kernels(torch, ops, ref, cfg)
+    gq_check = gq_shapes_check(torch, ops, ref, cfg, ssm_gq_shapes(cfg),
+                               "w_z/w_x stack", 4322)
     params_q, pack_s, mamba = phase_ssm_main(torch, ops, cfg, qcfg)
     t1 = time.perf_counter()
     phase_ssm_serving(torch, ops, cfg, params_q)
@@ -3981,7 +4001,8 @@ def phase_ssm(torch, ops, ref, get_config, qcfg):
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
     hcfg = ssm_config(get_config, HYBRID_ARCH)
-    phase_ssm_kernels(torch, ops, ref, hcfg)
+    gq_shapes_check(torch, ops, ref, hcfg, ssm_gq_shapes(hcfg),
+                    "w_z/w_x stack", 4322)
     params_q, _, hybrid = phase_ssm_main(torch, ops, hcfg, qcfg)
     flash = phase_ssm_serving(torch, ops, hcfg, params_q, (False, True))
     del params_q
@@ -3993,6 +4014,697 @@ def phase_ssm(torch, ops, ref, get_config, qcfg):
     log("phase12", seconds=t4 - t0, a_s=t1 - t0, b_s=t2 - t1, c_s=t3 - t2,
         d_s=t4 - t3, pack_s=pack_s)
     return dict(mamba=mamba, hybrid=hybrid, flash=flash, gq_check=gq_check)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the encoder-decoder and vision families; SeamlessM4T-medium and
+# InternVL2-1B at full width and depth
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "seamless-m4t-medium"
+VLM_ARCH = "internvl2-1b"
+ENCDEC_ARCHS = (ENCDEC_ARCH, VLM_ARCH)
+ENC_FFN = (("enc_blocks", "mlp", "up"), ("enc_blocks", "mlp", "down"))
+ENCDEC_SERVE = dict(batch=8, steps=16)  # 13b / 13c: B 8, 16 greedy tokens
+# 13c profiles PagedServer over 2 requests (8 took 37 s on the H100: the
+# profiler's events cost ≈ 0.2 ms each to read)
+VLM_PROFILE_REQUESTS = 2
+TRAIN13 = dict(batch=2, seq=512, frames=512, steps=3)    # 13d
+
+
+def encdec_config(get_config, arch=ENCDEC_ARCH):
+    """``arch`` at full width and depth in fp32 (the config says bf16)."""
+    return dataclasses.replace(get_config(arch), **ZOO_DTYPE)
+
+
+def encdec_param_count(cfg) -> int:
+    """Parameters of the port's ``init_params`` tree: the dense decoder
+    (``dense_param_count``), and for an encoder-decoder stack each decoder
+    block's cross-attention and ``ln_x``, the encoder blocks and
+    ``enc_norm``."""
+    n = dense_param_count(cfg)
+    if cfg.is_enc_dec:
+        attn, mlp, norm = dense_parts(cfg)
+        n += cfg.n_layers * (attn + norm) \
+            + cfg.encoder_layers * (attn + mlp + 2 * norm) + norm
+    return n
+
+
+def encdec_forward_flops(cfg, B, S, T=0) -> int:
+    """Operations of one forward over (B, S) tokens (S counts a vision
+    stack's patches): the decoder (``forward_flops``), and for an
+    encoder-decoder stack over T frames the encoder's projections and its
+    non-causal attention over T x T pairs a head, and each decoder block's
+    cross-attention: q and o over the S tokens, k and v over the T frames,
+    QK^T and PV over S x T pairs a head."""
+    n = forward_flops(cfg, B, S)
+    if cfg.is_enc_dec:
+        D, F = cfg.d_model, cfg.d_ff
+        hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+        proj = 2 * D * hq * hd + 2 * D * hkv * hd
+        n_ffn = 2 + int(cfg.gated_mlp)
+        n += 2 * B * T * cfg.encoder_layers * (proj + n_ffn * D * F) \
+            + 2 * 2 * cfg.encoder_layers * B * T * T * hq * hd
+        n += cfg.n_layers * (2 * B * S * 2 * D * hq * hd
+                             + 2 * B * T * 2 * D * hkv * hd
+                             + 2 * 2 * B * S * T * hq * hd)
+    return n
+
+
+def cross_cache_bytes(cfg, B, T, elem=4) -> int:
+    """The cross-attention K/V ``prefill`` caches: (L, B, T, Hkv, Dh) twice."""
+    return 2 * cfg.n_layers * B * T * cfg.n_kv_heads \
+        * cfg.resolved_head_dim * elem
+
+
+def encdec_gq_shapes(cfg):
+    """The distinct (K, N) shapes a dense stack with or without an encoder
+    gives ``group_quant`` (each stacked (L, K, N) leaf flattened to (L·K,
+    N)): the attention leaves of the decoder, of its cross-attention (the
+    same shapes) and of the encoder, and the FFN stacks of both (RTN; the
+    search's initial stack is the decoder's). Shapes that coincide are
+    named together."""
+    D, F = cfg.d_model, cfg.d_ff
+    hq = cfg.n_heads * cfg.resolved_head_dim
+    hkv = cfg.n_kv_heads * cfg.resolved_head_dim
+    up = "up/gate" if cfg.gated_mlp else "up"
+    stacks = [("", cfg.n_layers)]
+    if cfg.is_enc_dec:
+        stacks.append(("enc ", cfg.encoder_layers))
+    named = {}
+    for pre, L in stacks:
+        for name, shape in (("wq", (L * D, hq)), ("wk/wv", (L * D, hkv)),
+                            ("wo", (L * hq, D)), (up, (L * D, F)),
+                            ("down", (L * F, D))):
+            named.setdefault(shape, []).append(pre + name)
+    return tuple((" ".join(n), shape) for shape, n in named.items())
+
+
+def encdec_gq_check(torch, ops, ref, cfg):
+    """13a's and 13c's kernel check (``gq_shapes_check``) at every shape of
+    ``encdec_gq_shapes``, timed at the largest."""
+    shapes = encdec_gq_shapes(cfg)
+    timed = max(shapes, key=lambda s: s[1][0] * s[1][1])[0]
+    return gq_shapes_check(torch, ops, ref, cfg, shapes, timed, 4323)
+
+
+def encdec_quantize_launches(cfg, scfg=None, stats=None):
+    """``group_quant`` / ``transform_quant`` launches of one
+    ``quantize_model(method="rtn", search=scfg)`` on a dense config with or
+    without an encoder: the freeze takes one launch per stacked attention
+    leaf (wq, wk, wv, wo) of the decoder, the cross-attention and the
+    encoder; then RTN alone one per stacked FFN weight of the decoder and
+    the encoder, or the search (``search_launches``) on the decoder's FFNs
+    alone — the encoder's FFN stays at full precision."""
+    n_attn = 1 + 2 * int(cfg.is_enc_dec)
+    n_w = 2 + int(cfg.gated_mlp)
+    if scfg is None:
+        return {"group_quant": 4 * n_attn + n_w * (1 + int(cfg.is_enc_dec)),
+                "transform_quant": 0}
+    want = search_launches(cfg, scfg, stats)
+    return {"group_quant": 4 * n_attn + want["group_quant"],
+            "transform_quant": want["transform_quant"]}
+
+
+def frontend_kw(torch, cfg, batch, seed, n=None, device="cuda"):
+    """{"enc_embeds" | "vision_embeds": the stub frontend's (batch, n, D)
+    draw from a generator seeded with ``seed`` on ``device``}; n defaults to
+    ``cfg.frontend_len``."""
+    from repro_torch.models import frontends
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if cfg.is_enc_dec:
+        return {"enc_embeds": frontends.stub_audio_frames(
+            gen, cfg, batch, n or cfg.frontend_len, device=device)}
+    return {"vision_embeds": frontends.stub_vision_embeds(
+        gen, cfg, batch, n, device=device)}
+
+
+def serve_with_frontend(torch, ops, cfg, params_q, toks, kw, steps):
+    """``make_prefill_step`` on {tokens, frontend input} then ``steps - 1``
+    greedy ``make_serve_step`` calls from position P+S: (tokens (B,
+    steps), host ms per decode step, launch counts, the cache's cross K/V
+    bytes)."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    P = kw["vision_embeds"].shape[1] if "vision_embeds" in kw else 0
+    S = toks.shape[1]
+    prefill = make_prefill_step(cfg, P + S + steps)
+    serve = make_serve_step(cfg)
+    ops.reset_launch_counts()
+    logits, cache = prefill(params_q, {"tokens": toks, **kw})
+    out = [torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)[:, None]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps - 1):
+        nxt, cache = serve(params_q, out[-1], cache, P + S + t)
+        out.append(nxt)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / max(steps - 1, 1)
+    xbytes = sum(x.numel() * x.element_size() for x in cache["cross"]) \
+        if cache.get("cross") is not None else 0
+    return torch.cat(out, dim=1), step_ms, dict(ops.LAUNCHES), xbytes
+
+
+def frontend_serving(torch, ops, cfg, params_q, toks, kw, tag):
+    """13b / 13c: the packed model served through the steps with the
+    frontend input, ``use_flash_decode`` off and on: tokens held to the
+    full-forward oracle and to each other, flash_decode launched
+    n_layers x (steps - 1) times with the flag on and never with it off.
+    Returns (the flag-on run's launches, the runs)."""
+    from types import SimpleNamespace
+
+    from repro_torch.models.model import dequant_tree, forward
+
+    steps = ENCDEC_SERVE["steps"]
+    runs = {}
+    for flash in (False, True):
+        c = dataclasses.replace(cfg, use_flash_decode=flash)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gen, step_ms, counts, xbytes = serve_with_frontend(
+            torch, ops, c, params_q, toks, kw, steps)
+        want = cfg.n_layers * (steps - 1) if flash else 0
+        if counts["flash_decode"] != want or \
+                any(v for k, v in counts.items() if k != "flash_decode"):
+            raise AssertionError(f"{cfg.name} flash={flash}: launches "
+                                 f"{counts}, expected flash_decode {want}")
+        runs[flash] = dict(gen=gen, step_ms=step_ms, counts=counts,
+                           cross_bytes=xbytes,
+                           peak=torch.cuda.max_memory_allocated())
+    dense = dequant_tree(params_q)
+    prompts = [SimpleNamespace(prompt=p) for p in toks.tolist()]
+    ties = {f: check_greedy(torch, forward, dense, cfg, prompts,
+                            r["gen"].tolist(), f"{cfg.name} flash={f} vs "
+                            f"oracle", kw=kw)
+            for f, r in runs.items()}
+    del dense
+    torch.cuda.empty_cache()
+    parted = compare_runs(runs[False]["gen"].tolist(),
+                          runs[True]["gen"].tolist(),
+                          {(i, j) for t in ties.values() for i, j, _ in t},
+                          f"{cfg.name} flash off vs on")
+    for f, r in runs.items():
+        log(tag, arch=cfg.name, use_flash_decode=f, batch=toks.shape[0],
+            prompt_len=toks.shape[1],
+            frontend={k: list(v.shape) for k, v in kw.items()},
+            tokens=int(r["gen"].numel()), step_ms=r["step_ms"],
+            launches=r["counts"], cross_cache_bytes=r["cross_bytes"],
+            peak_bytes=r["peak"], near_ties=ties[f])
+    log(tag + "_check", arch=cfg.name, parted_at=parted,
+        outputs_identical=not parted,
+        oracle="full forward over the dequantized weights with the same "
+               "frontend input")
+    return runs[True]["counts"]["flash_decode"], runs
+
+
+def trace_prompts(torch, Request, cfg, n):
+    """The trace's first ``n`` prompts left-padded with 0 to the longest
+    (as ``BatchedServer`` pads a batch), on the card."""
+    from repro_torch.serving import build_trace
+
+    reqs = [Request(**t) for t in build_trace(cfg.vocab_size, **TRACE)[:n]]
+    padded = padded_requests(Request, reqs, n)
+    return torch.tensor([list(r.prompt) for r in padded], device="cuda")
+
+
+def phase_encdec_main(torch, ops, cfg, qcfg):
+    """13a: Seamless at full width and depth, fp32: ``quantize_model`` RTN
+    alone and with STEPS fused steps on 4 x 512 calibration tokens and 4 x
+    ``frontend_len`` stub frames through ``forward_kwargs``; held-out ppl on
+    4 x 512 other tokens with their own frames. The encoder's FFN leaves
+    must be unchanged by the search and changed by RTN; launches held to
+    ``encdec_quantize_launches``; GPTQ, AWQ and OmniQuant must raise
+    ValueError. Then one candidate's forward + objective beside its
+    operations (``encdec_forward_flops``), and the fp32 params packed at 2
+    bits / g32. Returns (the packed params, the launch counts by run)."""
+    from repro_torch.core.objective import activation_mse, calib_ce
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.rtn import get_by_path
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import forward, init_params, lm_loss
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.quantized.qmodel import pack_model
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    calib = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=512,
+                               seed=99, device="cuda")
+    held = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=512,
+                              seed=123, device="cuda")
+    kw = frontend_kw(torch, cfg, 4, seed=1)
+    held_kw = frontend_kw(torch, cfg, 4, seed=2)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if n_params != encdec_param_count(cfg):
+        raise AssertionError(f"{n_params} params != "
+                             f"{encdec_param_count(cfg)}")
+    log("encdec_setup", arch=cfg.name, n_layers=cfg.n_layers,
+        encoder_layers=cfg.encoder_layers, d_model=cfg.d_model,
+        heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.resolved_head_dim,
+        d_ff=cfg.d_ff, vocab=cfg.vocab_size, padded_vocab=cfg.padded_vocab,
+        frontend=cfg.frontend, frames=list(kw["enc_embeds"].shape),
+        params=n_params, param_count=cfg.param_count(),
+        param_bytes=4 * n_params, calib=list(calib.shape),
+        cuts=["fp32 where the config says bf16"],
+        seconds=time.perf_counter() - t0)
+
+    def ppl(p):
+        logits = forward(p, cfg, held, **held_kw)
+        return math.exp(float(lm_loss(logits[:, :-1], held[:, 1:],
+                                      cfg.vocab_size)))
+
+    ppl_fp = ppl(params)
+    scfg = SearchConfig(steps=STEPS, fused_kernel=True, log_every=0)
+    launches = {"group_quant": {}, "transform_quant": {}}
+    results = {}
+    for search in (None, scfg):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = quantize_model(params, cfg, qcfg, "rtn", calib, search,
+                             forward_kwargs=kw, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, peak = dict(ops.LAUNCHES), torch.cuda.max_memory_allocated()
+        sr, label = res.search, res.method
+        want = encdec_quantize_launches(cfg, search, sr.stats if sr else None)
+        if any(counts[k] != want.get(k, 0) for k in counts):
+            raise AssertionError(f"{label}: launches {counts}, expected "
+                                 f"{want}")
+        enc_ffn_equal = [bool(torch.equal(get_by_path(res.params_q, p),
+                                          get_by_path(params, p)))
+                         for p in ENC_FFN]
+        if enc_ffn_equal != [search is not None] * len(ENC_FFN):
+            raise AssertionError(f"{label}: encoder FFN leaves equal to the "
+                                 f"FP weights: {enc_ffn_equal} (the search "
+                                 f"leaves them, RTN quantizes them)")
+        ppl_q = ppl(res.params_q)
+        nums = [ppl_q] + ([sr.initial_loss, sr.final_loss]
+                          + [h[1] for h in sr.history] if sr else [])
+        if not all(math.isfinite(x) for x in nums):
+            raise AssertionError(f"{label}: non-finite numbers {nums}")
+        extra = {}
+        if sr:
+            if not sr.final_loss <= sr.initial_loss:
+                raise AssertionError(f"{label}: final loss above initial")
+            extra = dict(initial_loss=sr.initial_loss,
+                         final_loss=sr.final_loss,
+                         accept_rate=sr.accept_rate, steps=STEPS,
+                         units=sr.transforms.pi.shape[0],
+                         step_ms=1e3 / sr.stats["proposals_per_sec"])
+            results["step_ms"] = extra["step_ms"]
+        log("encdec_quantize", arch=cfg.name, method=label, ppl_fp32=ppl_fp,
+            ppl=ppl_q, wall_s=wall, peak_bytes=peak, launches=counts,
+            expected=want, encoder_ffn_at_full_precision=enc_ffn_equal[0],
+            **extra)
+        for kernel in launches:
+            launches[kernel][label] = counts[kernel]
+        del res, sr
+    refusals = {}
+    for method in BASE_METHODS:
+        try:
+            quantize_model(params, cfg, qcfg, method, calib, device="cuda")
+        except ValueError as e:
+            refusals[method] = str(e)
+        else:
+            raise AssertionError(f"{method} did not refuse {cfg.name}")
+    B, S = calib.shape
+    T = kw["enc_embeds"].shape[1]
+
+    def eval_once():
+        logits, hidden = forward(params, cfg, calib, collect_hidden=True,
+                                 **kw)
+        return calib_ce(logits, calib, cfg.vocab_size), \
+            activation_mse(hidden, hidden, 10)
+
+    fwd_ms = time_ms(torch, eval_once, warmup=1, reps=3)
+    flops = encdec_forward_flops(cfg, B, S, T)
+    log("encdec_step", arch=cfg.name, forward_objective_ms=fwd_ms,
+        step_ms=results.get("step_ms"), forward_flops=flops,
+        forward_tflops_per_s=flops / fwd_ms / 1e9,
+        share_of_fp32_peak=flops / fwd_ms / 1e-3 / FP32_OPS_PER_S,
+        frames=T, refusals=refusals)
+    del calib, held, kw, held_kw
+    params_q = pack_model(params, qcfg)
+    del params
+    torch.cuda.empty_cache()
+    return params_q, launches
+
+
+def phase_encdec_serving(torch, ops, cfg, params_q):
+    """13b: the packed Seamless through ``make_prefill_step`` (B 8 of the
+    trace's first prompts, left-padded, with 8 x ``frontend_len`` stub
+    frames) and 15 ``make_serve_step`` calls (``frontend_serving``); one
+    decode step's device time by family and idle share under the profiler
+    (``ssm_decode_profile``); then PagedServer and BatchedServer must raise
+    ValueError. Returns the flag-on run's flash_decode launches."""
+    from types import SimpleNamespace
+
+    from repro_torch import obs
+    from repro_torch.launch.serve import BatchedServer, PagedServer, Request
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    B = ENCDEC_SERVE["batch"]
+    toks = trace_prompts(torch, Request, cfg, B)
+    kw = frontend_kw(torch, cfg, B, seed=3)
+    flash, runs = frontend_serving(torch, ops, cfg, params_q, toks, kw,
+                                   "encdec_steps")
+    if runs[True]["cross_bytes"] != cross_cache_bytes(
+            cfg, B, kw["enc_embeds"].shape[1]):
+        raise AssertionError(f"cross cache {runs[True]['cross_bytes']} bytes")
+    steps = ENCDEC_SERVE["steps"] - 1
+    prefill = make_prefill_step(cfg, toks.shape[1] + steps + 1)
+    server = SimpleNamespace(
+        cfg=cfg, step_fn=make_serve_step(cfg),
+        prefill_fn=lambda p, batch: prefill(p, {**batch, **kw}))
+    step_ms, family = ssm_decode_profile(torch, obs, server, params_q, toks,
+                                         steps)
+    refusals = {}
+    for name, make in (("PagedServer", lambda: PagedServer(
+            params_q, cfg, device="cuda", **SERVE)),
+            ("BatchedServer", lambda: BatchedServer(
+                params_q, cfg, device="cuda", **LEGACY))):
+        try:
+            make()
+        except ValueError as e:
+            refusals[name] = str(e)
+        else:
+            raise AssertionError(f"{name} did not refuse {cfg.name}")
+    log("encdec_serving_profile", arch=cfg.name, step_ms=step_ms,
+        decode_steps=steps, **family, refusals=refusals)
+    return flash
+
+
+def rep7_kernels(torch, ops, ref, pd, fd, cfg, decode_lens):
+    """13c: the GQA paged routes and flash_decode at InternVL2's head layout
+    (B 8, 14 query / 2 KV heads of 64: rep 7, not a power of two) against
+    their plain versions (PD_TOL / FD_TOL; f32 and int8), at the trace's
+    decode lengths and at 1024 tokens, each timed (one call, and device
+    time under the profiler) beside its bound and plain version. Returns
+    {kernel: {"max_abs_err", context: row}}."""
+    B, H, Hkv, Dh = 8, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    out = {}
+    for route, mp in (("paged_decode_gqa", 1), ("paged_decode_gqa_mp", 2),
+                      ("flash_decode", None)):
+        rows, err = {}, 0.0
+        for ctx, lens in (("decode", decode_lens), ("1024", [1024] * B)):
+            P = -(-max(lens) // PSZ)
+            for dt in (torch.float32, torch.int8):
+                before = ops.LAUNCHES[route]
+                if route == "flash_decode":
+                    args = flash_case(torch, B=B, S=max(lens), H=H, Hkv=Hkv,
+                                      Dh=Dh, dtype=dt, seed=13)
+                    n = max(lens)
+                    want = ref.flash_decode_ref(*args, kv_len=n)
+                    got = ops.flash_decode(*args, kv_len=n)
+                    torch.testing.assert_close(got, want, **FD_TOL)
+                else:
+                    args = paged_case(torch, B=B, H=H, Hkv=Hkv, Dh=Dh, P=P,
+                                      lens=lens, dtype=dt, seed=13)
+                    want = ref.paged_decode_ref(*args)
+                    got = ops.paged_decode(*args, **route_kw(route, mp))
+                    torch.testing.assert_close(got, want, **PD_TOL)
+                torch.cuda.synchronize()
+                if ops.LAUNCHES[route] != before + 1:
+                    raise AssertionError(f"{route} did not launch at rep "
+                                         f"{H // Hkv}")
+                e = float((got - want).abs().max())
+                err = max(err, e)
+                log("kernel_check", kernel=route, arch=cfg.name, context=ctx,
+                    heads=[H, Hkv], head_dim=Dh, batch=B, dtype=str(dt),
+                    lens=lens, max_abs_err=e)
+                if dt != torch.float32:
+                    continue
+                if route == "flash_decode":
+                    q, k, v, _, _ = args
+                    o = torch.empty((B, H, Dh), device=q.device)
+
+                    def run():
+                        fd.launch(q, k, v, None, None, o, kv_len=n)
+
+                    def plain():
+                        return ref.flash_decode_ref(q, k, v, kv_len=n)
+                    nbytes = 2 * B * n * Hkv * Dh * 4 + 2 * q.numel() * 4
+                    ops_n = 4 * B * H * Dh * n
+                else:
+                    q, kp, vp, bt, ln, ks, _ = args
+                    o = torch.empty((B, H, Dh), device=q.device)
+                    m = torch.empty((B, H), device=q.device)
+                    l_ = torch.empty_like(m)
+
+                    def run():
+                        pd.launch(route, q, kp, vp, bt, ln, None, None, o, m,
+                                  l_, normalize=True, pages_per_block=mp)
+
+                    def plain():
+                        return ref.paged_decode_ref(q, kp, vp, bt, ln)
+                    nbytes = paged_bytes(q, kp, ks, lens, H, Hkv)
+                    ops_n = 4 * H * Dh * sum(lens)
+                t, spread = time_stats(torch, run, reps=50)
+                dev = device_ms(torch, run, PD_KERNEL_NAMES)
+                b, by = bound_ms(nbytes, ops_n)
+                rows[ctx] = dict(ms=t, ms_range=spread, device_ms=dev,
+                                 plain_ms=time_ms(torch, plain, reps=20),
+                                 bound_ms=b, bound_by=by,
+                                 device_share_of_bound=b / dev, batch=B,
+                                 heads=[H, Hkv], head_dim=Dh, lens=lens)
+                log("kernel_time", kernel=route, arch=cfg.name, context=ctx,
+                    **rows[ctx])
+        out[route] = dict(max_abs_err=err, **rows)
+    return out
+
+
+def phase_vlm(torch, ops, ref, cfg, qcfg, pd_rows):
+    """13c: InternVL2 at full width and depth, fp32 (14/2 heads: GQA rep 7;
+    qkv biases; tied embeddings). RTN and AWQ, each alone and with STEPS
+    fused steps, on text (``phase_zoo_main``); the packed model through the
+    steps with 8 x 256 stub patches (``frontend_serving``: decode from
+    P+S, flash_decode at rep 7), PagedServer over the trace with sharing
+    off, on and MP 2 (``phase_serving``, profiled over
+    VLM_PROFILE_REQUESTS requests), and BatchedServer flag off / on
+    (``phase_legacy_serving``); the rep-7 kernels (``rep7_kernels``); and the
+    CE search with patches must raise ValueError. Returns the launch counts
+    and the rep-7 rows."""
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.launch.serve import Request
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import build_trace
+
+    params_q, pack_s, launches = phase_zoo_main(torch, ops, cfg, qcfg,
+                                                tag="vlm")
+    B = ENCDEC_SERVE["batch"]
+    toks = trace_prompts(torch, Request, cfg, B)
+    kw = frontend_kw(torch, cfg, B, seed=4)
+    flash, _ = frontend_serving(torch, ops, cfg, params_q, toks, kw,
+                                "vlm_steps")
+    paged, _ = phase_serving(torch, ops, pd_rows, cfg, params_q, pack_s,
+                             variants=ZOO_SERVE, tag="vlm_",
+                             profile_requests=VLM_PROFILE_REQUESTS)
+    legacy = phase_legacy_serving(torch, ops, cfg, params_q, profile=False)
+    del params_q
+    torch.cuda.empty_cache()
+    pd = importlib.import_module("repro_torch.kernels.paged_decode")
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+    decode_lens = [len(t["prompt"]) + TRACE["max_new"] // 2
+                   for t in build_trace(cfg.vocab_size, **TRACE)[:8]]
+    rep7 = rep7_kernels(torch, ops, ref, pd, fd, cfg, decode_lens)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    calib = calibration_tensor(cfg.vocab_size, n_seqs=2, seq_len=64, seed=99,
+                               device="cuda")
+    try:
+        quantize_model(params, cfg, qcfg, "rtn", calib,
+                       SearchConfig(steps=1, log_every=0),
+                       forward_kwargs=frontend_kw(torch, cfg, 2, seed=5),
+                       device="cuda")
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("the CE search with vision_embeds did not raise")
+    del params
+    torch.cuda.empty_cache()
+    log("vlm_search_refusal", arch=cfg.name, error=refusal)
+    return dict(main=launches, flash=flash, legacy_flash=legacy,
+                paged=paged, rep7=rep7)
+
+
+def phase_encdec_train(torch, cfg):
+    """13d: TRAIN13["steps"] train steps (``make_train_step``, AdamW) at full
+    width and depth, fp32, B 2 x 512 tokens with the stub frontend input
+    (512 encoder frames, or 256 patches): finite losses, step ms (the last
+    step) and peak bytes."""
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    B, S = TRAIN13["batch"], TRAIN13["seq"]
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    state = adamw_init(params)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-4, total_steps=10,
+                                            warmup_steps=1))
+    kw = frontend_kw(torch, cfg, B, seed=6,
+                     n=TRAIN13["frames"] if cfg.is_enc_dec else None)
+    losses, times = [], []
+    for i in range(TRAIN13["steps"]):
+        tokens = calibration_tensor(cfg.vocab_size, n_seqs=B, seq_len=S,
+                                    seed=200 + i, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, {"tokens": tokens, **kw})
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{cfg.name}: train losses {losses}")
+    T = kw["enc_embeds"].shape[1] if cfg.is_enc_dec else 0
+    P = kw["vision_embeds"].shape[1] if "vision_embeds" in kw else 0
+    flops = 3 * encdec_forward_flops(cfg, B, P + S, T)
+    log("encdec_train", arch=cfg.name, batch=B, seq=S,
+        frontend={k: list(v.shape) for k, v in kw.items()}, losses=losses,
+        step_ms=times, tflops_per_s=flops / times[-1] / 1e9,
+        train_flops=flops, peak_bytes=torch.cuda.max_memory_allocated())
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def phase_small_encdec(torch, ops, arch, devs=("cpu", "cuda")):
+    """13e: ``arch``'s reduced config on ``devs`` (the yardstick's device,
+    then the device under test), from the same weights, tokens, frontend
+    input (drawn on the CPU) and proposals: the forward's logits and taps
+    with the frontend input (FWD_TOL), prefill + 3 decode steps (DECODE_TOL,
+    logits and caches, the cross K/V included), RTN + SMALL_ZOO_STEPS fused
+    steps (Seamless with its frames through ``forward_kwargs``, InternVL2 on
+    text: ``histories_agree``; launches held to ``search_launches``), and 3
+    train steps with the frontend input (9d's bars)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import invariance as inv
+    from repro_torch.core import rtn
+    from repro_torch.core.quant import QuantConfig, fake_quant
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import (decode_step, forward, init_params,
+                                          prefill)
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_leaves
+    from repro_torch.search import run
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch).reduced()
+    qcfg = QuantConfig(bits=2, group_size=32)
+    params = init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+    calib = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=64,
+                               device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (3, 12)))
+    kw_cal = frontend_kw(torch, cfg, 4, seed=8, device="cpu")
+    kw_dec = frontend_kw(torch, cfg, 3, seed=9, device="cpu")
+    P = cfg.frontend_len if cfg.frontend == "vision" else 0
+    scfg = SearchConfig(steps=SMALL_ZOO_STEPS, fused_kernel=True, log_every=0)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, total_steps=10,
+                                            warmup_steps=1))
+    outs = []
+    for d in map(torch.device, devs):
+        p = to_device(params, d)
+        kc = {k: v.to(d) for k, v in kw_cal.items()}
+        kd = {k: v.to(d) for k, v in kw_dec.items()}
+        lg, hid = forward(p, cfg, calib.to(d), collect_hidden=True, **kc)
+        logits = [lg.cpu(), hid.cpu()]
+        lg, cache = prefill(p, cfg, toks[:, :9].to(d), 32, **kd)
+        logits.append(lg.cpu())
+        for t in range(9, 12):
+            lg, cache = decode_step(p, cfg, toks[:, t:t + 1].to(d), cache,
+                                    P + t)
+            logits.append(lg.cpu())
+        caches = [x.cpu() for k in sorted(cache) for x in (
+            cache[k] if isinstance(cache[k], tuple) else (cache[k],))]
+        base = rtn.map_quantizable(p, lambda w, _: fake_quant(w, qcfg),
+                                   only=lambda q: q[-1] not in FFN_KEYS)
+        ops.reset_launch_counts()
+        res = run(p, base, cfg, qcfg, calib.to(d), scfg,
+                  proposals=CpuProposals(inv, 3, d),
+                  forward_kwargs=kc if cfg.is_enc_dec else None)
+        counts = dict(ops.LAUNCHES)
+        want = search_launches(cfg, scfg, res.stats) if d.type == "cuda" \
+            else {}
+        if any(counts[k] != want.get(k, 0) for k in counts):
+            raise AssertionError(f"{arch}: search launches {counts} != {want}")
+        state, losses = (p, adamw_init(p)), []
+        for i in range(3):
+            batch = {"tokens": calibration_tensor(
+                cfg.vocab_size, 2, 32, seed=300 + i, device=d),
+                **{k: v[:2] for k, v in kc.items()}}
+            new_p, new_o, m = step(*state, batch)
+            state = (new_p, new_o)
+            losses.append(float(m["loss"]))
+        outs.append((logits, caches, res.history, losses,
+                     [x.cpu() for x in tree_leaves(state[0])]))
+        del p, base, res, cache, state
+    (l_ref, c_ref, h_ref, t_ref, p_ref), (l_dev, c_dev, h_dev, t_dev,
+                                          p_dev) = outs
+    fwd_err = within(torch, l_dev[:2], l_ref[:2], what=f"{arch} forward",
+                     **FWD_TOL)
+    dec_err = within(torch, l_dev[2:] + c_dev, l_ref[2:] + c_ref,
+                     what=f"{arch} prefill / decode", **DECODE_TOL)
+    compared, parted = histories_agree(h_dev, h_ref, f"{arch} search")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(t_dev, t_ref))
+    if rel > 1e-5:
+        raise AssertionError(f"{arch}: train losses {t_dev} vs {t_ref}")
+    train_err = within(torch, p_dev, p_ref, what=f"{arch} train params",
+                       **ACCUM_TOL)
+    log("small_encdec", arch=arch, devices=list(devs),
+        frontend=cfg.frontend, frontend_len=cfg.frontend_len,
+        encoder_layers=cfg.encoder_layers, forward_max_abs_diff=fwd_err,
+        decode_max_abs_diff=dec_err, search_compared=compared,
+        search_parted_at=parted, card_losses=[h[1] for h in h_dev],
+        ref_losses=[h[1] for h in h_ref], train_losses=t_dev,
+        train_max_rel_loss_diff=rel, train_params_max_abs_diff=train_err,
+        seconds=time.perf_counter() - t0)
+
+
+def phase_encdec(torch, ops, ref, get_config, qcfg, pd_rows):
+    """Phase 13 (13a-13e), after ``group_quant`` is held to its plain
+    version at both models' shapes (``encdec_gq_check``). Returns the
+    launch counts and rows the kernels line carries."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = encdec_config(get_config)
+    vcfg = encdec_config(get_config, VLM_ARCH)
+    checks = {c.name: encdec_gq_check(torch, ops, ref, c) for c in (cfg, vcfg)}
+    gq_check = (max(e for e, _ in checks.values()),
+                {arch: row for arch, (_, row) in checks.items()})
+    params_q, seamless = phase_encdec_main(torch, ops, cfg, qcfg)
+    t1 = time.perf_counter()
+    seamless_flash = phase_encdec_serving(torch, ops, cfg, params_q)
+    del params_q
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    vlm = phase_vlm(torch, ops, ref, vcfg, qcfg, pd_rows)
+    t3 = time.perf_counter()
+    for c in (cfg, vcfg):
+        phase_encdec_train(torch, c)
+    t4 = time.perf_counter()
+    for arch in ENCDEC_ARCHS:
+        phase_small_encdec(torch, ops, arch)
+    t5 = time.perf_counter()
+    log("phase13", seconds=t5 - t0, a_s=t1 - t0, b_s=t2 - t1, c_s=t3 - t2,
+        d_s=t4 - t3, e_s=t5 - t4)
+    return dict(seamless=seamless, seamless_flash=seamless_flash,
+                gq_check=gq_check, **vlm)
 
 
 def main() -> int:
@@ -4254,6 +4966,10 @@ def main() -> int:
     # ---- phase 12: the SSM and hybrid families; Mamba2-2.7B --------------
     ssm = phase_ssm(torch, ops, ref, get_config, qcfg)
     lap("phase12")
+
+    # ---- phase 13: the encoder-decoder and vision families ---------------
+    encdec = phase_encdec(torch, ops, ref, get_config, qcfg, pd_rows)
+    lap("phase13")
     log("script_seconds", total=marks[-1] - marks[0], **seconds)
 
     kernels = []
@@ -4312,6 +5028,19 @@ def main() -> int:
                 **({"max_abs_err": ssm["gq_check"][0],
                     "mamba_stack_time": ssm["gq_check"][1]}
                    if name == "group_quant" else {})},
+            "encdec": {
+                "launches": {"seamless-m4t-medium": encdec["seamless"][name],
+                             "internvl2-1b": encdec["main"][name]},
+                "launches_on": "phase 13a / 13c: quantize_model rtn alone "
+                               "and with 16 fused steps on SeamlessM4T-medium "
+                               "(fp32, full width and depth, 4 x 4096 stub "
+                               "frames through forward_kwargs), rtn / awq "
+                               "alone and with 16 fused steps on InternVL2-1B "
+                               "(fp32, full width and depth, text), each "
+                               "counted from 0",
+                **({"max_abs_err": encdec["gq_check"][0],
+                    "largest_stack_time": encdec["gq_check"][1]}
+                   if name == "group_quant" else {})},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
@@ -4348,7 +5077,17 @@ def main() -> int:
                     "launches_on": "phase 11b: PagedServer on 2-bit "
                                    "Phi-3.5-MoE (3 layers), sharing on"
                                    + (", 2 pages per block" if
-                                      route.endswith("_mp") else "")}}),
+                                      route.endswith("_mp") else "")},
+                "encdec": {
+                    "launches": encdec["paged"]["on" if route ==
+                                                "paged_decode_gqa"
+                                                else "on-mp2"][route],
+                    "launches_on": "phase 13c: PagedServer on 2-bit "
+                                   "InternVL2-1B (14/2 heads: rep 7), "
+                                   "sharing on" + (", 2 pages per block" if
+                                                   route.endswith("_mp")
+                                                   else ""),
+                    "rep7": encdec["rep7"][route]}}),
             "max_abs_err": pd_errs[route],
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
@@ -4384,6 +5123,17 @@ def main() -> int:
                 "launches_on": "phase 12c: Zamba2-7B (13 blocks: 2 "
                                "applications of the shared block, Dh 112) "
                                "BatchedServer, use_flash_decode on"},
+        "encdec": {"launches": {
+            "seamless-m4t-medium steps": encdec["seamless_flash"],
+            "internvl2-1b steps": encdec["flash"],
+            "internvl2-1b BatchedServer": encdec["legacy_flash"]},
+            "launches_on": "phase 13b / 13c: make_prefill_step + 15 "
+                           "make_serve_step calls (B 8, use_flash_decode "
+                           "on) on SeamlessM4T-medium (decoder "
+                           "self-attention, 16/16 heads) and on "
+                           "InternVL2-1B after 256 patches (14/2 heads: rep "
+                           "7); BatchedServer on InternVL2-1B, flag on",
+            "rep7": encdec["rep7"]["flash_decode"]},
         "max_abs_err": fd_err,
         **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")},

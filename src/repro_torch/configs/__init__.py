@@ -1,10 +1,10 @@
 """Architecture config registry: ``get_config(arch_id)`` / ``list_archs()``.
 
-The port carries the paper's own OPT family and the dense, MoE, SSM and
-hybrid architectures of the reference's zoo (RoPE, GQA, gated SwiGLU,
-qk-norm, top-k experts, Mamba2 / SSD blocks, a shared attention block);
-the encoder-decoder and vision architectures wait for their model families
-(ROADMAP Queue 1 item 12).
+The port registers every id of the reference's registry, in its order: the
+paper's own OPT family and the zoo's dense, vision, encoder-decoder, MoE,
+SSM and hybrid architectures (RoPE, GQA, gated SwiGLU, qk-norm, qkv biases,
+tied embeddings, stub frontends, cross-attention, top-k experts, Mamba2 /
+SSD blocks, a shared attention block).
 """
 from __future__ import annotations
 
@@ -17,6 +17,8 @@ _ARCHS = {
     "command-r-35b": "command_r_35b",
     "yi-6b": "yi_6b",
     "mamba2-2.7b": "mamba2_2_7b",
+    "internvl2-1b": "internvl2_1b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b",
     "opt-1.3b": "opt_paper",

@@ -65,6 +65,7 @@ def quantize_model(
     calib_tokens=None,
     search: Optional[SearchConfig] = None,
     *,
+    forward_kwargs: Optional[dict] = None,
     omniquant_steps: int = 200,
     device="cuda",
 ) -> PTQResult:
@@ -72,8 +73,16 @@ def quantize_model(
 
     ``method``: "rtn", "awq", "gptq" or "omniquant". ``calib_tokens``
     (numpy or tensor, (B, S)) is needed by every method but RTN, and by the
-    search. ``omniquant_steps``: Adam steps per block for ``omniquant``
-    (the reference's 200; read by no other method)."""
+    search. ``forward_kwargs`` (``enc_embeds`` / ``vision_embeds`` tensors
+    on ``device``) go to the search's forwards only, as in the reference:
+    the base methods calibrate on text. ``omniquant_steps``: Adam steps per
+    block for ``omniquant`` (the reference's 200; read by no other
+    method).
+
+    On an encoder-decoder stack the search transforms the decoder's FFNs
+    only, so the encoder's FFN leaves come back at full precision from a
+    search run, while RTN alone fake-quantizes them (the reference's
+    semantics)."""
     dev = resolve_device(device)
     check_on_device(params_fp, dev)
     if method != "rtn" and calib_tokens is None:
@@ -81,6 +90,8 @@ def quantize_model(
     if search is not None and calib_tokens is None:
         raise ValueError("the InvarExplore search needs calib_tokens")
     tokens = None if calib_tokens is None else _as_tokens(calib_tokens, dev)
+    if forward_kwargs:
+        check_on_device(forward_kwargs, dev, "forward_kwargs")
 
     # 1) base-method processing (continuous-domain FFN weights)
     base = None
@@ -106,7 +117,7 @@ def quantize_model(
     # 3) InvarExplore search or plain FFN fake-quant
     if search is not None:
         result = run_invar_search(params_fp, params_base, cfg, qcfg, tokens,
-                                  search)
+                                  search, forward_kwargs=forward_kwargs)
         return PTQResult(result.params_q, method + "+invarexplore", result,
                          base)
 

@@ -22,6 +22,7 @@ snapshot stays what it was when it was taken.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Optional
 
 import torch
@@ -34,7 +35,8 @@ from repro_torch.models.model import layer_slice
 from repro_torch.search.install import tree_install_unit
 
 __all__ = ["SearchConfig", "SearchResult", "DenseFFNAdapter", "MoEAdapter",
-           "MambaAdapter", "SharedFFNAdapter", "make_adapter"]
+           "MambaAdapter", "SharedFFNAdapter", "make_adapter", "run_search",
+           "run_search_hybrid"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -318,7 +320,9 @@ def make_adapter(cfg: ModelConfig, phase: str = None):
     """The search adapter of ``cfg``'s block pattern (the reference's
     dispatch): dense FFN units, one unit per expert for MoE, Mamba blocks
     for SSM; for hybrid the Mamba blocks, or with ``phase="shared"`` the
-    shared block's FFN (the two phases of ``search.api``'s hybrid run)."""
+    shared block's FFN (the two phases of ``search.api``'s hybrid run). An
+    encoder-decoder stack is dense: its units are the decoder's FFNs
+    (``params["blocks"]``), so the encoder's FFNs are never searched."""
     check_supported(cfg)
     if cfg.block_pattern == "moe":
         return MoEAdapter(cfg)
@@ -344,3 +348,32 @@ def _merge_phase_stats(s1, s2):
     out["proposals_per_sec"] = out["proposals"] / max(t1 + t2, 1e-9)
     out["fused"] = s1.get("fused", False) or s2.get("fused", False)
     return out
+
+
+def run_search_hybrid(params_fp, params_base, cfg, qcfg, calib_tokens,
+                      scfg: SearchConfig = SearchConfig(),
+                      forward_kwargs=None):
+    """Deprecated (the reference's shim): warns with ``DeprecationWarning``
+    and runs ``repro_torch.search.run``, which two-phases hybrid block
+    patterns automatically."""
+    warnings.warn(
+        "core.search.run_search_hybrid is deprecated; use "
+        "repro_torch.search.run(...) (hybrid configs two-phase "
+        "automatically)", DeprecationWarning, stacklevel=2)
+    from repro_torch.search import run
+    return run(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
+               forward_kwargs=forward_kwargs, hybrid=True)
+
+
+def run_search(params_fp, params_base, cfg, qcfg, calib_tokens,
+               scfg: SearchConfig = SearchConfig(), adapter=None,
+               forward_kwargs: Optional[dict] = None) -> SearchResult:
+    """Deprecated (the reference's shim): warns with ``DeprecationWarning``
+    and runs ``repro_torch.search.run`` with the legacy single-phase
+    semantics — on a hybrid config it searches the Mamba blocks only."""
+    warnings.warn(
+        "core.search.run_search is deprecated; use repro_torch.search.run(...)",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.search import run
+    return run(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
+               adapter=adapter, forward_kwargs=forward_kwargs, hybrid=False)

@@ -10,9 +10,11 @@ quantizable linear:
     mlp_in   (L, B, S, D)     — input of up/gate
     mlp_mid  (L, B, S, F)     — input of down
 
-Dense pattern only, as in the reference (which asserts it): any other
-pattern raises ``ValueError`` here, so GPTQ, AWQ and OmniQuant refuse an
-MoE model before they touch its weights. The layers run one after another
+Dense decoder-only stacks, as in the reference (which asserts it): any
+other pattern, and an encoder-decoder stack, raises ``ValueError`` here, so
+GPTQ, AWQ and OmniQuant refuse an MoE, SSM, hybrid or encoder-decoder model
+before they touch its weights. A vision stack's taps run on text (no
+patches), as the reference's do. The layers run one after another
 over views of the stacked weights, and each tap is written into a
 preallocated (L, ...) tensor, so no stack is copied.
 """
@@ -35,6 +37,11 @@ def capture_dense_taps(params, cfg: ModelConfig, tokens):
             f"capture_dense_taps needs block_pattern='dense', got "
             f"{cfg.block_pattern!r}: the calibrated base methods (GPTQ, AWQ, "
             f"OmniQuant) run on dense FFN blocks only, as in the reference")
+    if cfg.is_enc_dec:
+        raise ValueError(
+            f"capture_dense_taps does not cover encoder-decoder stacks "
+            f"({cfg.name}: encoder_layers={cfg.encoder_layers}): GPTQ, AWQ "
+            f"and OmniQuant refuse them, as in the reference")
     B, S = tokens.shape
     dt = getattr(torch, cfg.compute_dtype)
     positions = torch.arange(S, device=tokens.device)

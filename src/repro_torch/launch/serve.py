@@ -35,8 +35,8 @@ from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.core.quant import QuantConfig
 from repro_torch.device import check_on_device, resolve_device
-from repro_torch.launch.steps import make_prefill_step, make_serve_step
-from repro_torch.models.model import init_params
+from repro_torch.launch.steps import make_serve_step
+from repro_torch.models.model import init_params, prefill
 from repro_torch.quantized.qmodel import dense_bytes, pack_model, packed_bytes
 from repro_torch.serving import (ContinuousBatcher, PagedKVCache,
                                  PagedRequest, make_scheduler)
@@ -68,10 +68,22 @@ class BatchedServer:
     ``max_new - 1`` decode steps follow. The cache (``batch_size`` x
     ``max_len``) lives on ``device`` (the card unless ``device="cpu"``),
     where ``params_q`` must already be.
+
+    Prompts are text: a vision stack is served without patches, as the
+    reference's server serves it. An encoder-decoder stack raises
+    ``ValueError`` (the reference's server prefills without the encoder's
+    input and fails there): serve it with ``launch.steps.make_prefill_step``
+    (``enc_embeds`` in the batch) and ``make_serve_step``.
     """
 
     def __init__(self, params_q, cfg, batch_size: int = 4, max_len: int = 512,
                  device="cuda"):
+        if cfg.is_enc_dec:
+            raise ValueError(
+                f"BatchedServer prefills text prompts only; {cfg.name} is an "
+                f"encoder-decoder stack: serve it with "
+                f"launch.steps.make_prefill_step (enc_embeds in the batch) "
+                f"and make_serve_step over the cross-attention cache")
         self.device = resolve_device(device)
         check_on_device(params_q, self.device)
         self.cfg = cfg
@@ -79,7 +91,8 @@ class BatchedServer:
         self.B = batch_size
         self.max_len = max_len
         self.step_fn = make_serve_step(cfg)
-        self.prefill_fn = make_prefill_step(cfg, max_len)
+        self.prefill_fn = lambda p, batch: prefill(p, cfg, batch["tokens"],
+                                                   max_len)
 
     def generate(self, requests: List[Request]):
         """Serve all requests; returns list of generated-token lists."""
@@ -117,7 +130,9 @@ class PagedServer:
 
     ``n_pages`` bounds TOTAL cache memory across all live sequences;
     ``max_pages_per_seq`` (from ``max_len``) bounds a single sequence.
-    SSM and hybrid configs raise ``ValueError`` (``PagedKVCache``).
+    SSM and hybrid configs raise ``ValueError`` (``PagedKVCache``), and
+    encoder-decoder configs too (the paged steps keep no cross-attention
+    cache), as in the reference; a vision stack is served on text.
     ``prefix_cache`` (default on) shares pages between requests, outputs
     token-identical to sharing disabled on a dense model (an MoE model
     routes each prefill chunk at that chunk's capacity, and sharing

@@ -1,11 +1,13 @@
-"""Model configuration for the port's dense, MoE, SSM and hybrid paths.
+"""Model configuration for the port's dense, encoder-decoder, vision, MoE,
+SSM and hybrid paths.
 
 The fields are the subset of the reference's ``repro.models.config``
 ``ModelConfig`` that these forwards read, with the same names, order and
 defaults; ``reduced()`` derives the same tiny configs the reference's tests
-use. Features the port does not carry yet (encoder-decoder stacks and the
-vision / audio front ends) have no field here; :func:`check_supported`
-names the roadmap item for what waits.
+use. Every block pattern of the reference runs: dense (with an encoder
+stack and cross-attention when ``encoder_layers > 0``, and stub vision /
+audio front ends), MoE, SSM and hybrid; :func:`check_supported` refuses a
+pattern outside these and a family config without its sub-config.
 """
 from __future__ import annotations
 
@@ -72,6 +74,9 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid_period: int = 6            # hybrid: every Nth block = shared attn+mlp
+    encoder_layers: int = 0           # >0 => encoder-decoder
+    frontend: str = "none"            # none | vision | audio (stub embeddings)
+    frontend_len: int = 0             # patches / frames prepended (vlm) or enc len
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     attn_chunk: int = 1024            # kv-chunk for blocked online-softmax attention
@@ -89,6 +94,10 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         m = self.vocab_pad_multiple
         return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def is_enc_dec(self) -> bool:
+        return self.encoder_layers > 0
 
     @property
     def attn_free(self) -> bool:
@@ -111,7 +120,9 @@ class ModelConfig:
     def param_count(self) -> int:
         """The reference's analytic parameter count (the embedding once if
         tied; 2·d a dense block for its norms; one shared dense block in a
-        hybrid stack)."""
+        hybrid stack; an encoder-decoder stack adds its encoder blocks, with
+        4·d² attention whatever the head layout, and each decoder block's
+        cross-attention and its norm, as the reference counts them)."""
         check_supported(self)
         d, v = self.d_model, self.padded_vocab
         attn, mlp = self._attn_mlp_params()
@@ -125,6 +136,10 @@ class ModelConfig:
         else:
             n_m, _ = self.hybrid_layout()
             n = n_m * self._ssm_block_params() + attn + mlp + 2 * d
+        if self.is_enc_dec:
+            f = self.d_ff
+            n += self.encoder_layers * (4 * d * d + 2 * d * f + 2 * d)
+            n += self.n_layers * (attn + 2 * d)    # cross-attention blocks
         n += v * d * (1 if self.tie_embeddings else 2)
         if self.pos_emb == "learned":
             n += self.max_seq_len * d
@@ -153,7 +168,8 @@ class ModelConfig:
 
     def reduced(self, **overrides) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the reference's sizes; a
-        hybrid stack keeps one group and a tail block)."""
+        hybrid stack keeps one group and a tail block; at most 2 encoder
+        layers, 8 frontend positions)."""
         base = dict(
             n_layers=min(self.n_layers,
                          2 if self.block_pattern != "hybrid"
@@ -165,6 +181,8 @@ class ModelConfig:
             vocab_size=512,
             head_dim=16 if self.head_dim else 0,
             max_seq_len=256,
+            frontend_len=8 if self.frontend != "none" else 0,
+            encoder_layers=min(self.encoder_layers, 2),
             moe=dataclasses.replace(self.moe, num_experts=4, top_k=2) if self.moe else None,
             ssm=(dataclasses.replace(self.ssm, d_state=16, head_dim=16,
                                      chunk=32) if self.ssm else None),
@@ -177,15 +195,21 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a block pattern the port cannot run
-    (the dense, MoE, SSM and hybrid patterns run; encoder-decoder and
-    vision stacks have no field here yet), ValueError for a family config
-    without its sub-config."""
+    """Raise ValueError for a block pattern outside the reference's four
+    (dense — with an encoder stack when ``encoder_layers > 0`` — MoE, SSM
+    and hybrid), for a family config without its sub-config, and for a
+    frontend the reference does not name."""
     if cfg.block_pattern not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"block_pattern={cfg.block_pattern!r} is not ported yet "
-            f"(ROADMAP Queue 1 item 12: other model families; "
-            f"encoder-decoder and vision wait)")
+        raise ValueError(
+            f"unknown block_pattern={cfg.block_pattern!r}: the reference's "
+            f"patterns are dense, moe, ssm and hybrid (an encoder-decoder "
+            f"stack is dense with encoder_layers > 0)")
+    if cfg.is_enc_dec and cfg.block_pattern != "dense":
+        raise ValueError(f"an encoder-decoder stack is dense; got "
+                         f"block_pattern={cfg.block_pattern!r}")
+    if cfg.frontend not in ("none", "vision", "audio"):
+        raise ValueError(f"unknown frontend={cfg.frontend!r}: none, vision "
+                         f"or audio")
     if cfg.block_pattern == "moe" and cfg.moe is None:
         raise ValueError("block_pattern='moe' needs cfg.moe (a MoEConfig)")
     if cfg.block_pattern in ("ssm", "hybrid") and cfg.ssm is None:

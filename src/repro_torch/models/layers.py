@@ -1,11 +1,15 @@
-"""Building blocks: norms, activation, RoPE, self-attention, MLP, MoE.
+"""Building blocks: norms, activation, RoPE, self- and cross-attention, MLP,
+MoE.
 
 Plain functions on tensors with the reference's layout (``x @ W``
 orientation, (B, S, H, Dh) heads). RoPE and qk-norm are plain PyTorch, as
 they are jnp in the reference. Attention is the reference's
 ``blocked_attention`` online softmax in plain PyTorch (jnp there, not a
 Pallas kernel), except one-token decode over a contiguous cache with
-``cfg.use_flash_decode``, which takes the ``flash_decode`` kernel. The MoE
+``cfg.use_flash_decode``, which takes the ``flash_decode`` kernel.
+Cross-attention (an encoder-decoder's decoder over the encoder's K/V) is
+non-causal ``blocked_attention`` on every call, decode included: the
+reference routes none of it through its flash kernel. The MoE
 FFN is the reference's top-k dispatch with per-row capacity; its expert
 products are plain matmuls, as they are ``jnp.einsum`` there.
 """
@@ -20,7 +24,8 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = ["NEG_INF", "rmsnorm", "layernorm", "apply_norm", "init_norm",
            "activation_fn", "rope_cos_sin", "apply_rope", "attn_qkv",
-           "attn_out", "blocked_attention", "self_attention", "mlp",
+           "attn_out", "blocked_attention", "self_attention",
+           "cross_attention", "cross_kv", "mlp",
            "quantize_kv", "init_moe", "moe_top_k", "moe_route", "moe_ffn",
            "moe_aux_loss", "EXPERT_OVERRIDE"]
 
@@ -243,6 +248,33 @@ def _flash_decode_step(q, cache, kv_len: int):
     out = flash_decode(q[:, 0], cache["k"], cache["v"], cache.get("k_scale"),
                        cache.get("v_scale"), kv_len=kv_len)
     return out[:, None].to(q.dtype)
+
+
+def cross_attention(p, cfg: ModelConfig, x, enc_kv):
+    """Decoder cross-attention (no norm / residual): queries from x (B, S,
+    D), keys and values ``enc_kv = (k, v)`` (B, T, Hkv, Dh) precomputed
+    from the encoder's output (:func:`cross_kv`); non-causal, no RoPE."""
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    q = q.reshape(B, S, cfg.n_heads, cfg.resolved_head_dim)
+    k, v = enc_kv
+    out = blocked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    return attn_out(p, out)
+
+
+def cross_kv(p, cfg: ModelConfig, enc_h):
+    """The cross-attention's (k, v), each (B, T, Hkv, Dh), from the
+    encoder's output enc_h (B, T, D)."""
+    B, T, _ = enc_h.shape
+    hd = cfg.resolved_head_dim
+    k = enc_h @ p["wk"]
+    v = enc_h @ p["wv"]
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return (k.reshape(B, T, cfg.n_kv_heads, hd),
+            v.reshape(B, T, cfg.n_kv_heads, hd))
 
 
 def mlp(p, cfg: ModelConfig, x):

@@ -1,5 +1,5 @@
-"""Dense, MoE, SSM and hybrid models: init / forward / loss /
-contiguous-cache decode with the reference's param layout.
+"""Dense, encoder-decoder, vision, MoE, SSM and hybrid models: init /
+forward / loss / contiguous-cache decode with the reference's param layout.
 
 Params are plain nested dicts of tensors: stacked ``(L, ...)`` block leaves
 under ``params["blocks"]`` and ``x @ W`` orientation, exactly the JAX tree
@@ -13,7 +13,11 @@ An MoE block carries ``blocks["moe"]`` (router (L, D, E), experts (L, E,
 An SSM stack's blocks are ``{"ln1", "ssm"}`` (``models/ssm.py``); a hybrid
 (Zamba2) stack holds its Mamba blocks there and ONE dense block under
 ``params["shared"]``, applied after every ``hybrid_period - 1`` Mamba
-blocks (:func:`block_order`).
+blocks (:func:`block_order`). An encoder-decoder stack (``encoder_layers
+> 0``) adds non-causal dense encoder blocks under ``params["enc_blocks"]``
+(+ ``enc_norm``) and a cross-attention (``xattn``, normed by ``ln_x``) to
+each decoder block; a vision stack prepends patch embeddings to the tokens
+(``forward(vision_embeds=...)``).
 """
 from __future__ import annotations
 
@@ -36,11 +40,10 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _init_dense_block(lead, cfg: ModelConfig, normal, dt, dev):
-    """One dense (or MoE) block's params with leading stack dims ``lead``
-    (a tuple): the attention projections, then the FFN, drawn in that
-    order."""
-    D, F = cfg.d_model, cfg.d_ff
+def _init_attn(lead, cfg: ModelConfig, normal, dt, dev):
+    """One attention's params (self- or cross-) with leading stack dims
+    ``lead``: the reference's shapes, scales and biases."""
+    D = cfg.d_model
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
 
@@ -62,8 +65,21 @@ def _init_dense_block(lead, cfg: ModelConfig, normal, dt, dev):
     if cfg.qk_norm:
         attn["q_norm"] = torch.ones(lead + (hd,), dtype=dt, device=dev)
         attn["k_norm"] = torch.ones(lead + (hd,), dtype=dt, device=dev)
+    return attn
+
+
+def _init_dense_block(lead, cfg: ModelConfig, normal, dt, dev, cross=False):
+    """One dense (or MoE) block's params with leading stack dims ``lead``
+    (a tuple): the attention projections, then the FFN, then with
+    ``cross`` (an encoder-decoder's decoder block) the cross-attention and
+    its norm ``ln_x``, drawn in that order."""
+    D, F = cfg.d_model, cfg.d_ff
+
+    def zeros(shape):
+        return torch.zeros(lead + shape, dtype=dt, device=dev)
+
     block = {"ln1": L.init_norm(lead, D, cfg.norm, dt, dev),
-             "attn": attn,
+             "attn": _init_attn(lead, cfg, normal, dt, dev),
              "ln2": L.init_norm(lead, D, cfg.norm, dt, dev)}
     if cfg.block_pattern == "moe":
         block["moe"] = L.init_moe(lead, cfg, normal)
@@ -78,6 +94,9 @@ def _init_dense_block(lead, cfg: ModelConfig, normal, dt, dev):
             if cfg.gated_mlp:
                 mlp["b_gate"] = zeros((F,))
         block["mlp"] = mlp
+    if cross:
+        block["ln_x"] = L.init_norm(lead, D, cfg.norm, dt, dev)
+        block["xattn"] = _init_attn(lead, cfg, normal, dt, dev)
     return block
 
 
@@ -86,6 +105,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     (``repro.models.model.init_params``): stacked dense / MoE blocks, or
     stacked SSM blocks (``ln1`` + ``ssm``) — in a hybrid stack one per
     Mamba block, with the one shared dense block under ``params["shared"]``.
+    An encoder-decoder stack's decoder blocks carry ``ln_x`` / ``xattn``,
+    and its encoder blocks (dense, no cross-attention) sit under
+    ``params["enc_blocks"]`` with their final norm ``params["enc_norm"]``.
     The draws do not reproduce ``jax.random``; ``generator`` must live on
     ``device``."""
     check_supported(cfg)
@@ -100,7 +122,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     params = {}
     if cfg.block_pattern in ("dense", "moe"):
         params["blocks"] = _init_dense_block((cfg.n_layers,), cfg, normal, dt,
-                                             dev)
+                                             dev, cross=cfg.is_enc_dec)
     else:
         n = cfg.n_layers if cfg.block_pattern == "ssm" \
             else cfg.hybrid_layout()[0]
@@ -109,6 +131,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
             "ssm": SSM.init_ssm((n,), cfg, generator, dt, dev)}
         if cfg.block_pattern == "hybrid":
             params["shared"] = _init_dense_block((), cfg, normal, dt, dev)
+    if cfg.is_enc_dec:
+        params["enc_blocks"] = _init_dense_block((cfg.encoder_layers,), cfg,
+                                                 normal, dt, dev)
+        params["enc_norm"] = L.init_norm((), D, cfg.norm, dt, dev)
     params = {"embed": {"tok": normal((V, D), 0.02)}, **params,
               "final_norm": L.init_norm((), D, cfg.norm, dt, dev)}
     if cfg.pos_emb == "learned":
@@ -150,12 +176,25 @@ def _dequant_block(pl, cfg: ModelConfig):
 
 
 def _dense_body(pl, cfg: ModelConfig, h, positions, cache=None,
-                cache_index: int = 0):
+                cache_index: int = 0, *, causal: bool = True, enc_h=None,
+                cross=None):
+    """One dense block (pre-norm, residuals). A decoder block of an
+    encoder-decoder stack (it holds ``xattn``) attends over the encoder
+    between its self-attention and its FFN: over ``cross``, the (k, v)
+    ``prefill`` cached, or over K/V computed here from the encoder's output
+    ``enc_h`` (the full forward); with neither it skips cross-attention, as
+    the reference's does."""
     pl = _dequant_block(pl, cfg)
     a_in = L.apply_norm(h, pl["ln1"], cfg.norm)
-    a, cache = L.self_attention(pl["attn"], cfg, a_in, positions, cache=cache,
+    a, cache = L.self_attention(pl["attn"], cfg, a_in, positions,
+                                causal=causal, cache=cache,
                                 cache_index=cache_index)
     h = h + a
+    if "xattn" in pl and (cross is not None or enc_h is not None):
+        x_in = L.apply_norm(h, pl["ln_x"], cfg.norm)
+        kv = cross if cross is not None else L.cross_kv(pl["xattn"], cfg,
+                                                        enc_h)
+        h = h + L.cross_attention(pl["xattn"], cfg, x_in, kv)
     return h + ffn_sublayer(pl, cfg, h), cache
 
 
@@ -252,12 +291,46 @@ def _block_params(params, kind, i, layer_override):
     return pl
 
 
-def forward(params, cfg: ModelConfig, tokens, *, collect_hidden=False,
-            layer_override=None):
-    """Full-sequence causal forward -> logits (B, S, V_padded), plus the
-    per-block outputs (n, B, S, D) when ``collect_hidden``: one per block
-    of a dense, MoE or SSM stack, one per application of the shared block
-    in a hybrid stack (the reference's taps).
+def _run_encoder(params, cfg: ModelConfig, enc_embeds):
+    """An encoder-decoder stack's encoder: the frames ``enc_embeds`` (B, T,
+    D) in the compute dtype, through the ``enc_blocks`` non-causally (no
+    position embedding is added to the frames), then ``enc_norm``."""
+    if enc_embeds is None:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder stack: pass enc_embeds (B, T, "
+            f"D), e.g. models.frontends.stub_audio_frames")
+    h = enc_embeds.to(_dtype(cfg.compute_dtype))
+    positions = torch.arange(h.shape[1], device=h.device)
+    for i in range(cfg.encoder_layers):
+        h, _ = _dense_body(layer_slice(params["enc_blocks"], i), cfg, h,
+                           positions, causal=False)
+    return L.apply_norm(h, params["enc_norm"], cfg.norm)
+
+
+def _embed_inputs(params, cfg: ModelConfig, tokens, vision_embeds):
+    """Token embeddings (learned positions over the S tokens), with the
+    patches ``vision_embeds`` (B, P, D) prepended; returns (h (B, P+S, D),
+    positions arange(P+S)) — RoPE and the cache run over P+S."""
+    S = tokens.shape[1]
+    h = embed_tokens(params, cfg, tokens,
+                     torch.arange(S, device=tokens.device))
+    if vision_embeds is not None:
+        h = torch.cat([vision_embeds.to(h.dtype), h], dim=1)
+    return h, torch.arange(h.shape[1], device=tokens.device)
+
+
+def forward(params, cfg: ModelConfig, tokens, *, enc_embeds=None,
+            vision_embeds=None, collect_hidden=False, layer_override=None):
+    """Full-sequence causal forward -> logits (B, P+S, V_padded), plus the
+    per-block outputs (n, B, P+S, D) when ``collect_hidden``: one per block
+    of a dense, MoE or SSM stack (an encoder-decoder's decoder blocks), one
+    per application of the shared block in a hybrid stack (the reference's
+    taps).
+
+    ``vision_embeds`` (B, P, D) are prepended to the token embeddings (P =
+    0 without them); ``enc_embeds`` (B, T, D) feed the encoder of an
+    encoder-decoder stack (required there), whose output every decoder
+    block attends over.
 
     ``layer_override=(key, tree)`` makes one block read the leaves of
     ``tree`` instead of its own — the search installs one candidate unit
@@ -270,16 +343,15 @@ def forward(params, cfg: ModelConfig, tokens, *, collect_hidden=False,
     at every application (``{"mlp": {...}}``).
     """
     check_supported(cfg)
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)
-    h = embed_tokens(params, cfg, tokens, positions)
+    h, positions = _embed_inputs(params, cfg, tokens, vision_embeds)
+    enc_h = _run_encoder(params, cfg, enc_embeds) if cfg.is_enc_dec else None
     hidden = []
     for kind, i in block_order(cfg):
         pl = _block_params(params, kind, i, layer_override)
         if kind == "ssm":
             h = _ssm_body(pl, cfg, h)
         else:
-            h, _ = _dense_body(pl, cfg, h, positions)
+            h, _ = _dense_body(pl, cfg, h, positions, enc_h=enc_h)
         if collect_hidden and (kind == "shared"
                                or cfg.block_pattern != "hybrid"):
             hidden.append(h)
@@ -292,7 +364,14 @@ def forward(params, cfg: ModelConfig, tokens, *, collect_hidden=False,
 
 def lm_loss(logits, labels, vocab_size: int, ignore_id: int = -1):
     """Mean next-token CE; positions with label == ignore_id are masked;
-    padded vocab ids are masked out of the softmax."""
+    padded vocab ids are masked out of the softmax. Logits whose (B, S) do
+    not match the labels' raise ``ValueError`` (the reference's
+    ``take_along_axis`` refuses to broadcast them): e.g. a vision forward's
+    P+S-1 next-token logits against S-1 labels."""
+    if tuple(logits.shape[:-1]) != tuple(labels.shape):
+        raise ValueError(
+            f"Incompatible shapes: logits {tuple(logits.shape[:-1])} (+ "
+            f"vocab) against labels {tuple(labels.shape)}")
     V = logits.shape[-1]
     if V > vocab_size:
         keep = torch.arange(V, device=logits.device) < vocab_size
@@ -329,7 +408,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     ``_single_kv`` leaves with a leading n_layers axis. SSM: every block's
     ``ssm.init_ssm_state`` stacked (f32 SSD state, conv windows in
     ``dtype``). Hybrid: {"ssm": the same over the Mamba blocks, "attn":
-    one KV cache per application of the shared block}."""
+    one KV cache per application of the shared block}. An encoder-decoder
+    stack's cache also holds ``"cross": None``, which ``prefill`` fills with
+    the decoder blocks' cross-attention (k, v), each (L, B, T, Hkv, Dh)."""
     check_supported(cfg)
     dt = dtype or _dtype(cfg.compute_dtype)
     dev = resolve_device(device)
@@ -340,7 +421,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                 for k, v in one.items()}
 
     if cfg.block_pattern in ("dense", "moe"):
-        return kv(cfg.n_layers)
+        cache = kv(cfg.n_layers)
+        if cfg.is_enc_dec:
+            cache["cross"] = None
+        return cache
     if cfg.block_pattern == "ssm":
         return SSM.init_ssm_state(cfg, batch, dt, dev, lead=(cfg.n_layers,))
     n_m, n_a = cfg.hybrid_layout()
@@ -352,8 +436,11 @@ def _cached_blocks(params, cfg: ModelConfig, h, positions, cache, index: int,
                    decode: bool):
     """Run every block against ``cache``, writing it in place: K/V at
     ``index`` onwards, the SSM state after the prompt (prefill) or after
-    the one token (``decode``)."""
+    the one token (``decode``). A decoder block of an encoder-decoder stack
+    attends over its slice of ``cache["cross"]`` (skipped while that is
+    None, as in the reference)."""
     ssm_cache = cache["ssm"] if cfg.block_pattern == "hybrid" else cache
+    cross = cache.get("cross") if cfg.is_enc_dec else None
     for kind, i in block_order(cfg):
         pl = _block_params(params, kind, i, None)
         if kind == "ssm":
@@ -361,8 +448,11 @@ def _cached_blocks(params, cfg: ModelConfig, h, positions, cache, index: int,
             continue
         kv = cache["attn"] if kind == "shared" else cache
         h, _ = _dense_body(pl, cfg, h, positions,
-                           cache={k: v[i] for k, v in kv.items()},
-                           cache_index=index)
+                           cache={k: v[i] for k, v in kv.items()
+                                  if k != "cross"},
+                           cache_index=index,
+                           cross=None if cross is None
+                           else (cross[0][i], cross[1][i]))
     return h
 
 
@@ -386,15 +476,30 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, index: int):
     return lm_head_logits(params, cfg, h), cache
 
 
-def prefill(params, cfg: ModelConfig, tokens, max_len: int):
+def prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
+            enc_embeds=None, vision_embeds=None):
     """Process a prompt (B, S) into a fresh ``init_cache(cfg, B, max_len)``
-    on the tokens' device: K/V written at positions 0..S-1, SSM states
-    after position S-1. Returns (logits (B, S, V), cache)."""
+    on the tokens' device: K/V written at positions 0..P+S-1 (P patches of
+    ``vision_embeds`` first, as in ``forward``; a decode then starts at
+    index P+S), SSM states after the last position. An encoder-decoder
+    stack runs its encoder on ``enc_embeds`` once and caches each decoder
+    block's cross-attention (k, v) under ``cache["cross"]``, computed from
+    that block's dequantized ``xattn`` leaves. Returns (logits (B, P+S,
+    V), cache)."""
     check_supported(cfg)
-    B, S = tokens.shape
+    B = tokens.shape[0]
     cache = init_cache(cfg, B, max_len, device=tokens.device)
-    positions = torch.arange(S, device=tokens.device)
-    h = embed_tokens(params, cfg, tokens, positions)
+    h, positions = _embed_inputs(params, cfg, tokens, vision_embeds)
+    if cfg.is_enc_dec:
+        enc_h = _run_encoder(params, cfg, enc_embeds)
+        shape = (cfg.n_layers, B, enc_h.shape[1], cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        ks, vs = (h.new_empty(shape) for _ in range(2))
+        dt = _dtype(cfg.compute_dtype)
+        for i in range(cfg.n_layers):
+            xattn = dequant_tree(layer_slice(params["blocks"]["xattn"], i), dt)
+            ks[i], vs[i] = L.cross_kv(xattn, cfg, enc_h)
+        cache["cross"] = (ks, vs)
     h = _cached_blocks(params, cfg, h, positions, cache, 0, decode=False)
     return lm_head_logits(params, cfg, h), cache
 

@@ -58,7 +58,7 @@ from repro_torch.search.install import (stack_unit_batch, tree_bytes,
 from repro_torch.search.islands import IslandState, make_island_streams, migrate
 from repro_torch.search.tabu import TabuMemory, transform_bytes
 
-__all__ = ["_run_engine"]
+__all__ = ["_run_engine", "run_population_search"]
 
 def _resolve_install(scfg) -> str:
     mode = str(scfg.install)
@@ -101,8 +101,21 @@ def _unit_transform(ts: inv.FFNTransform, u: int) -> inv.FFNTransform:
     return inv.FFNTransform(*(x[u] for x in ts))
 
 
+def run_population_search(params_fp, params_base, cfg, qcfg, calib_tokens,
+                          scfg, adapter, forward_kwargs=None):
+    """Deprecated alias of the engine loop (the reference's shim): warns with
+    ``DeprecationWarning`` and runs ``_run_engine`` — call
+    ``repro_torch.search.run``, which adds objective resolution and the
+    hybrid two-phase dispatch."""
+    warnings.warn(
+        "repro_torch.search.engine.run_population_search is deprecated; use "
+        "repro_torch.search.run(...)", DeprecationWarning, stacklevel=2)
+    return _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
+                       adapter, forward_kwargs=forward_kwargs)
+
+
 def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
-                adapter, proposals=None):
+                adapter, proposals=None, forward_kwargs=None):
     """Run the engine; returns a ``core.search.SearchResult``.
 
     ``params_fp``: FP reference model. ``params_base``: FFN weights in the
@@ -111,6 +124,11 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
     per island, or None for the native per-island sources on the tokens'
     device (``search.islands.make_island_streams``), which draw with the
     adapter's own ``propose`` where it has one (``MambaAdapter``).
+    ``forward_kwargs`` go to every ``forward`` (``enc_embeds`` /
+    ``vision_embeds`` over the full batch). With ``shard_calib`` over more
+    than one island the reference slices the tokens but not these, so its
+    per-island forwards fail on the batch; here that raises ``ValueError``
+    before the search starts.
 
     ``fused_kernel`` on an adapter without ``transform_quant_unit`` (a Mamba
     block has no fused build) warns and runs the unfused lane;
@@ -152,6 +170,13 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
         raise NotImplementedError(
             "SearchConfig.mapped=True is not ported yet: ROADMAP Queue 1 "
             "item 14 (mapped islands)")
+    fwd_kw = dict(forward_kwargs or {})
+    if shard_calib and fwd_kw and n_islands > 1:
+        raise ValueError(
+            f"shard_calib slices the calibration tokens but not "
+            f"forward_kwargs {sorted(fwd_kw)} (the reference's semantics: "
+            f"its per-island forwards then fail on the batch); run the "
+            f"islands on the full batch (shard_calib=False)")
     objv = obj.get_objective(scfg.objective)
     dev = calib_tokens.device
     if measure and dev.type != "cuda":
@@ -167,7 +192,7 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
     # FP reference forward on the FULL batch; per-island slices are views
     # into these (batch axis 0 for tokens/logits, axis 1 for the taps)
     logits_fp, hidden_fp = forward(params_fp, cfg, calib_tokens,
-                                   collect_hidden=True)
+                                   collect_hidden=True, **fwd_kw)
     hidden_fp = hidden_fp[:n_match].clone() if n_match else None
 
     def make_env(tokens, lfp, hfp):
@@ -181,7 +206,7 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
         def evaluate(fq_stack, override=None):
             logits, hidden = forward(adapter.install(params_base, fq_stack),
                                      cfg, env.calib, collect_hidden=True,
-                                     layer_override=override)
+                                     layer_override=override, **fwd_kw)
             return objv.evaluate(logits, hidden, state, env)
 
         return evaluate

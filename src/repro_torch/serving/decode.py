@@ -207,6 +207,8 @@ def make_paged_decode_step(cfg: ModelConfig, *, per_request: bool = False,
     if cfg.block_pattern not in ("dense", "moe"):
         raise ValueError(f"paged decode requires attention blocks, "
                          f"got {cfg.block_pattern!r}")
+    if cfg.is_enc_dec:
+        raise ValueError("paged decode does not cover cross-attention caches")
 
     def logits_step(params_q, tokens, pools, block_tables, seq_lens):
         return paged_decode_logits(params_q, cfg, tokens, pools, block_tables,

@@ -152,6 +152,8 @@ def make_paged_prefill_step(cfg: ModelConfig):
     if cfg.block_pattern not in ("dense", "moe"):
         raise ValueError(f"paged prefill requires attention blocks, "
                          f"got {cfg.block_pattern!r}")
+    if cfg.is_enc_dec:
+        raise ValueError("paged prefill does not cover cross-attention caches")
 
     def chunk_step(params_q, tokens, pools, block_tables, offset: int):
         C = tokens.shape[1]

@@ -25,6 +25,12 @@
   formulas on Phi-3.5-MoE (held to the wrapper calls of an MoE
   ``quantize_model`` on the CPU), the plain-route oracle's swap of the
   paged-decode kernel, and 11d run CPU against CPU for both MoE configs.
+- Phase 12's reckoning, launch formulas and 12d CPU against CPU.
+- Phase 13's reckoning (``encdec_param_count`` held to ``init_params``'s
+  leaves; SeamlessM4T-medium's and InternVL2-1B's parameters, forward
+  operations and cross-cache bytes), its launch formula (held to the
+  wrapper calls of ``quantize_model`` with ``forward_kwargs`` on the
+  CPU), its greedy oracle, and 13e run CPU against CPU for both configs.
 """
 import importlib.util
 from pathlib import Path
@@ -836,3 +842,161 @@ def test_history_phases_and_the_phase_invariant():
 def test_phase_12d_runs_cpu_against_cpu(arch):
     from repro_torch.kernels import ops
     CS.phase_small_ssm(torch, ops, arch, devs=("cpu", "cpu"))
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the encoder-decoder and vision families
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-1b"])
+def test_encdec_param_count_is_init_params_leaves(arch):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import tree_leaves
+    for cfg in (get_config(arch).reduced(),
+                dataclasses.replace(get_config(arch).reduced(), n_layers=3,
+                                    d_ff=96)):
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        assert sum(t.numel() for t in tree_leaves(params)) == \
+            CS.encdec_param_count(cfg)
+
+
+def test_encdec_reckoning():
+    """13a's and 13c's models at full width and depth in fp32: their
+    analytic and tree parameter counts, one forward's operations over 4 x
+    512 tokens (Seamless with 4 x 4096 frames), and 13b's cross cache."""
+    from repro_torch.configs import get_config
+
+    s = CS.encdec_config(get_config)
+    assert (s.n_layers, s.encoder_layers, s.d_model, s.param_dtype) == (
+        12, 12, 1024, "float32")
+    assert s.param_count() == 910_761_984 and s.padded_vocab == 256256
+    # biases (q, k, v, o of 3 attentions; up, down), LayerNorm biases, the
+    # final norm: what the analytic count leaves out
+    assert CS.encdec_param_count(s) == 911_085_568
+    D, F, L, T, S, B = 1024, 4096, 12, 4096, 512, 4
+    enc = 2 * B * T * L * (4 * D * D + 2 * D * F) + 4 * L * B * T * T * D
+    cross = L * (2 * B * S * 2 * D * D + 2 * B * T * 2 * D * D
+                 + 4 * B * S * T * D)
+    dec = 2 * (L * (4 * D * D + 2 * D * F) + D * 256256) * B * S \
+        + 4 * L * B * (S * (S + 1) // 2) * D
+    assert CS.encdec_forward_flops(s, B, S, T) == enc + cross + dec
+    assert CS.cross_cache_bytes(s, 8, T) == 2 * L * 8 * T * 16 * 64 * 4
+    v = CS.encdec_config(get_config, "internvl2-1b")
+    assert v.param_count() == 493_889_536 and v.padded_vocab == 151808
+    assert CS.encdec_param_count(v) == CS.dense_param_count(v) == 493_918_080
+    assert v.n_heads // v.n_kv_heads == 7 and v.tie_embeddings
+    assert CS.encdec_forward_flops(v, 4, 512) == CS.forward_flops(v, 4, 512)
+    assert [s for _, s in CS.encdec_gq_shapes(s)] == [
+        (12 * 1024, 1024), (12 * 1024, 4096), (12 * 4096, 1024)]
+    assert [s for _, s in CS.encdec_gq_shapes(v)] == [
+        (24 * 896, 896), (24 * 896, 128), (24 * 896, 4864), (24 * 4864, 896)]
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-1b"])
+def test_encdec_gq_shapes_are_the_quantizable_leaves(arch):
+    """``encdec_gq_shapes`` names each shape ``fake_quant`` gives
+    ``group_quant`` over the quantizable leaves, and no other."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.rtn import get_by_path
+    from repro_torch.models.model import init_params, quantizable_paths
+    cfg = get_config(arch).reduced()
+    if cfg.is_enc_dec:   # an encoder as deep as the decoder hides its shapes
+        cfg = dataclasses.replace(cfg, encoder_layers=cfg.n_layers + 1)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    leaves = {(w.numel() // w.shape[-1], w.shape[-1])
+              for w in (get_by_path(params, p)
+                        for p in quantizable_paths(params))}
+    assert {s for _, s in CS.encdec_gq_shapes(cfg)} == leaves
+
+
+def test_encdec_launch_formulas():
+    """13a: RTN freezes 12 attention stacks (decoder, cross, encoder) and
+    quantizes 4 FFN stacks; with the search the encoder FFN is left alone:
+    12 + 2 ``group_quant`` and 2 x 16 ``transform_quant``. 13c (InternVL2,
+    gated): RTN 7, AWQ 7 + 24 x 130."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.search import SearchConfig
+
+    s = CS.encdec_config(get_config)
+    none = {"tabu_skips": 0, "tabu_rebuilds": 0}
+    assert CS.encdec_quantize_launches(s) == {"group_quant": 16,
+                                              "transform_quant": 0}
+    assert CS.encdec_quantize_launches(
+        s, SearchConfig(steps=16, fused_kernel=True), none) == {
+            "group_quant": 14, "transform_quant": 32}
+    v = CS.encdec_config(get_config, "internvl2-1b")
+    assert CS.encdec_quantize_launches(v) == {"group_quant": 7,
+                                              "transform_quant": 0}
+    assert CS.base_method_gq_launches("rtn", v) == 7
+    assert CS.base_method_gq_launches("awq", v) == 7 + 24 * 130
+
+
+@pytest.mark.parametrize("run", ["alone", "unfused", "fused"])
+def test_encdec_quantize_launches_match_the_formulas(monkeypatch, run):
+    """13a's counts: the wrapper calls of ``quantize_model`` rtn with the
+    frames through ``forward_kwargs`` (and 3 search steps) on the reduced
+    Seamless."""
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import init_params
+
+    calls = {"group_quant": 0, "transform_quant": 0}
+    for name in calls:
+        real = getattr(kernels, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(kernels, name, counted)
+    cfg = get_config("seamless-m4t-medium").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    calib = calibration_tensor(cfg.vocab_size, 2, 16, device="cpu")
+    kw = CS.frontend_kw(torch, cfg, 2, seed=1, device="cpu")
+    scfg = None if run == "alone" else SearchConfig(
+        steps=3, fused_kernel=run == "fused", log_every=0)
+    res = quantize_model(params, cfg, QuantConfig(2, 32), "rtn", calib, scfg,
+                         forward_kwargs=kw, device="cpu")
+    stats = res.search.stats if res.search else None
+    assert calls == CS.encdec_quantize_launches(cfg, scfg, stats)
+
+
+def test_check_greedy_with_a_frontend_takes_the_oracles_tokens_and_refuses_others():
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import forward, init_params
+
+    cfg = get_config("internvl2-1b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    kw = CS.frontend_kw(torch, cfg, 2, seed=1, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 5),
+                         generator=torch.Generator().manual_seed(2))
+    seq = toks
+    for _ in range(4):
+        logits = forward(params, cfg, seq, **kw)[:, -1, :cfg.vocab_size]
+        seq = torch.cat([seq, logits.argmax(-1)[:, None]], dim=1)
+    reqs = [SimpleNamespace(prompt=p) for p in toks.tolist()]
+    gen = seq[:, 5:].tolist()
+    assert CS.check_greedy(torch, forward, params, cfg, reqs, gen, "ok",
+                           kw=kw, device="cpu") == []
+    bad = [list(g) for g in gen]
+    bad[1][2] = (bad[1][2] + 1) % cfg.vocab_size
+    with pytest.raises(AssertionError, match="request 1 token 2"):
+        CS.check_greedy(torch, forward, params, cfg, reqs, bad, "bad",
+                        kw=kw, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-1b"])
+def test_phase_13e_runs_cpu_against_cpu(arch):
+    from repro_torch.kernels import ops
+    CS.phase_small_encdec(torch, ops, arch, devs=("cpu", "cpu"))

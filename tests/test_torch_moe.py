@@ -160,13 +160,14 @@ def test_phi_depth_cut_param_count():
 
 
 def test_check_supported_admits_moe_only_among_the_families():
-    """Each family needs its own sub-config; the patterns the port does
-    not run yet (encoder-decoder, vision) name ROADMAP item 12."""
+    """Each family needs its own sub-config; a pattern outside the
+    reference's four raises (an encoder-decoder stack is dense with
+    encoder layers)."""
     check_supported(tget_config(PHI))
     for pattern in ("ssm", "hybrid"):
         with pytest.raises(ValueError, match="SSMConfig"):
             check_supported(TModelConfig(block_pattern=pattern))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="unknown block_pattern"):
         check_supported(TModelConfig(block_pattern="encoder_decoder"))
     with pytest.raises(ValueError, match="MoEConfig"):
         check_supported(TModelConfig(block_pattern="moe"))

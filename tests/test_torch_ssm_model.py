@@ -118,7 +118,7 @@ def test_check_supported_admits_ssm_and_hybrid():
     for pattern in ("ssm", "hybrid"):
         with pytest.raises(ValueError, match="SSMConfig"):
             check_supported(ModelConfig(block_pattern=pattern))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="unknown block_pattern"):
         check_supported(ModelConfig(block_pattern="encoder_decoder"))
 
 
