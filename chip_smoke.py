@@ -141,8 +141,8 @@ source, started together, into ``build/kernels/``), then:
    within 1e-5 relative, params within (a)'s bar);
 10. the dense zoo (RoPE, qk-norm, gated SwiGLU, GQA): (a) Qwen3-4B
    (``configs/qwen3_4b.py``: 36 layers, d 2560, 32/8 heads, Dh 128, d_ff
-   9728, vocab 151936) at full width and depth, random-init, in fp32 (a
-   cut: the config's own dtype is bf16): ``quantize_model`` RTN and AWQ,
+   9728, vocab 151936) at full width, 12 of its 36 layers, random-init, in
+   fp32 (phase 14 runs it in its own bf16 at full depth): ``quantize_model`` RTN and AWQ,
    each alone and with 16 fused steps (``transform_quant``'s gate call
    included), on 4 x 512 calibration tokens: held-out ppl, losses, accept
    rate, seconds, peak memory, launches held to ``base_method_gq_launches``
@@ -234,7 +234,23 @@ source, started together, into ``build/kernels/``), then:
    tokens (512 frames; 256 patches): finite losses, step ms, peak; (e)
    both reduced configs on the card against the CPU: forward and taps,
    prefill + 3 decode steps, RTN + 4 fused steps (``histories_agree``),
-   3 train steps.
+   3 train steps;
+14. Qwen3-4B in its config's own bf16 at full width and depth,
+   random-init, with ``torch.backends.cuda.matmul.
+   allow_bf16_reduced_precision_reduction`` off: (a) ``transform_quant``'s
+   bf16 branch up (2560, 9728) and down (9728, 2560) and ``group_quant``
+   (``round_range``, as ``fake_quant`` calls it) at every stacked
+   attention and FFN shape, each held to its plain version with ``torch.equal`` and
+   timed (ms, device ms) beside its bound; (b) as 10a in bf16: RTN and AWQ
+   alone and with 16 fused steps, ppl, losses, launches held to the
+   formulas, peaks, a forward's ms and TFLOP/s; (c) from the same bf16
+   weights, 16 fused steps in bf16 and 16 in fp32 (the weights widened)
+   on the same CPU-drawn proposals: the accept decisions that differ; (d)
+   the RTN weights packed at 2 bits through ``PagedServer`` (sharing off,
+   on, MP 2) and ``BatchedServer`` (flag off, on) as 10b-c, on bf16 pools
+   and caches, tokens held to a bf16 greedy oracle (a bf16 near tie: the
+   served token's oracle logit within NEAR_TIE_BF16 of the top logit; each
+   check logs the share of positions whose top-2 gap is under the bar).
 
 Prints the ``nvidia-smi`` name/power-limit line, a ``{"kernels": [...]}``
 line (all seven ported kernels), and last ``{"ok": true, "device":
@@ -259,6 +275,7 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 # fp32 operations per output element (from the kernels' arithmetic):
 # min, max, divide, rint, add, 2 clamps, subtract, multiply
 GQ_OPS = 9
@@ -447,10 +464,17 @@ def make_pi(torch, kind, f, gen, dev):
     return pi
 
 
-def tq_bytes(K, N, group, f):
-    """Bytes transform_quant must move: w read and fq written once, scale
-    and zero written, pi (int64), s, cos and sin read once."""
-    return 2 * K * N * 4 + 2 * (K // group) * N * 4 + f * (8 + 4) + f * 4
+def tq_bytes(K, N, group, f, elem=4):
+    """Bytes transform_quant must move: w read and fq written once
+    (``elem`` bytes a value), scale and zero written (f32), pi (int64), s,
+    cos and sin read once."""
+    return 2 * K * N * elem + 2 * (K // group) * N * 4 + f * (8 + 4) + f * 4
+
+
+def gq_bytes(K, N, group, elem=4):
+    """Bytes group_quant must move: w read and fq written once, scale and
+    zero (f32) written once."""
+    return 2 * K * N * elem + 2 * (K // group) * N * 4
 
 
 def phase_kernels(torch, ops, ref, gq, tq, cfg):
@@ -725,7 +749,24 @@ PD_ROUTES = ("paged_decode", "paged_decode_gqa", "paged_decode_gqa_mp")
 PSZ = 16
 SERVE = dict(max_batch=8, page_size=PSZ, n_pages=96, max_len=128)
 TRACE = dict(n_tenants=8, per_tenant=3, page_size=PSZ, max_new=8)
-NEAR_TIE = 1e-4          # relative top-2 logit gap under which tokens may part
+NEAR_TIE = 1e-4          # relative logit gap under which tokens may part
+# the same in a bf16 model (a cached decode and a full forward round 36
+# layers' outputs differently): 2^-5 of the top logit, 4-8 bf16 ulps,
+# 2.1x the largest gap seen at a parting on Qwen3-4B (0.0149)
+NEAR_TIE_BF16 = 2.0 ** -5
+
+
+def near_tie(cfg) -> float:
+    return NEAR_TIE if cfg.compute_dtype == "float32" else NEAR_TIE_BF16
+
+
+def oracle_weights(params_q, cfg):
+    """The greedy oracle's dense weights: the packed ones dequantised to
+    the compute dtype (a bf16 model's oracle forward runs in bf16)."""
+    import torch
+
+    from repro_torch.models.model import dequant_tree
+    return dequant_tree(params_q, getattr(torch, cfg.compute_dtype))
 
 
 def paged_case(torch, *, B, H, Hkv, Dh, P, lens, dtype, seed, psz=PSZ):
@@ -980,30 +1021,46 @@ def check_greedy(torch, forward, dense, cfg, reqs, outs, what, kw=None,
                  device="cuda"):
     """Hold each request's tokens to the greedy oracle (one full forward
     over prompt + generated tokens, dense weights, and with the request's
-    row of the frontend input ``kw``, whose P vision patches come first): a
-    token may differ from the oracle's argmax only where the oracle's top-2
-    gap is < NEAR_TIE of the top logit, and that request's comparison ends
-    there. Returns the near ties met as (request, position, relative
-    gap)."""
+    row of the frontend input ``kw``, whose P vision patches come first):
+    every token is held to the oracle's argmax after the run's own earlier
+    tokens (the forward is causal), and may differ from it only where the
+    oracle's logit of the token served is within ``near_tie(cfg)`` of its
+    top logit, relative (a near tie: the token is the oracle's runner-up
+    or as close, not any token). Logs how many positions were held, how
+    many of them have a top-2 gap under the bar (the share the rule could
+    excuse) and how many parted. Returns every near tie met as (request,
+    position, relative gap of the token served): two runs that part first
+    at (i, j) share their earlier tokens, so one of them left the oracle
+    there and (i, j) is in the list (``compare_runs``)."""
     kw = kw or {}
     P = kw["vision_embeds"].shape[1] if "vision_embeds" in kw else 0
-    ties = []
-    V = cfg.vocab_size
+    ties, n_pos, n_under = [], 0, 0
+    V, bar = cfg.vocab_size, near_tie(cfg)
     for i, (r, out) in enumerate(zip(reqs, outs)):
         seq = torch.tensor([list(r.prompt) + out[:-1]], device=device)
         row = {k: v[i:i + 1] for k, v in kw.items()}
-        logits = forward(dense, cfg, seq, **row)[0, P + len(r.prompt) - 1:, :V]
+        logits = forward(dense, cfg, seq, **row)[0, P + len(r.prompt) - 1:,
+                                                 :V].float()
         top2 = torch.topk(logits, 2, dim=-1).values
-        gap = ((top2[:, 0] - top2[:, 1]) / top2[:, 0].abs()).tolist()
+        gap2 = (top2[:, 0] - top2[:, 1]) / top2[:, 0].abs()
+        served = logits.gather(1, torch.tensor(out, device=logits.device)[
+            :, None])[:, 0]
+        gap = ((top2[:, 0] - served) / top2[:, 0].abs()).tolist()
         pred = torch.argmax(logits, dim=-1).tolist()
+        n_pos += len(out)
+        n_under += int((gap2 < bar).sum())
         for j, (tok, want) in enumerate(zip(out, pred)):
             if tok != want:
-                if gap[j] >= NEAR_TIE:
+                if gap[j] >= bar:
                     raise AssertionError(
                         f"{what}: request {i} token {j} = {tok}, oracle "
-                        f"{want}, top-2 gap {gap[j]:.3g} (not a near tie)")
+                        f"{want}, its gap to the top {gap[j]:.3g} (not a "
+                        f"near tie)")
                 ties.append((i, j, gap[j]))
-                break
+    log("greedy_oracle", what=what, near_tie=bar, positions=n_pos,
+        top2_under_bar=n_under, share_under_bar=n_under / max(n_pos, 1),
+        parted=len(ties), largest_parted_gap=max((t[2] for t in ties),
+                                                 default=None))
     return ties
 
 
@@ -1210,7 +1267,7 @@ def phase_serving(torch, ops, kernel_rows, cfg, params_q, setup_s,
                            tokens=sum(len(o) for o in outs))
         del server
     if oracle is None:
-        dense = dequant_tree(params_q)             # the oracle's weights
+        dense = oracle_weights(params_q, cfg)
         ties = {k: check_greedy(torch, forward, dense, cfg, reqs, r["outs"],
                                 f"{k} vs oracle") for k, r in runs.items()}
         del dense
@@ -1599,7 +1656,7 @@ def phase_legacy_serving(torch, ops, cfg, params_q, profile=True,
                            family=family, tokens=sum(len(o) for o in outs))
         del server
     if full_forward_oracle:
-        dense = dequant_tree(params_q)
+        dense = oracle_weights(params_q, cfg)
         ties = {f: check_greedy(torch, forward, dense, cfg, padded,
                                 runs[f]["outs"], f"use_flash_decode={f} vs "
                                 f"oracle") for f in runs}
@@ -2888,8 +2945,10 @@ def phase_small_train(torch, devs=("cpu", "cuda"), arch="opt-tiny",
 
 ZOO_ARCH = "qwen3-4b"
 ZOO_ARCHS = ("qwen3-4b", "yi-6b", "internlm2-1.8b", "command-r-35b")
-# cut: the configs' own dtype is bf16; the port's parity runs are fp32
+# phase 10's fp32 run (the configs' own dtype is bf16, which phase 14 runs
+# at full depth): 12 of Qwen3-4B's 36 layers, to pay for phase 14
 ZOO_DTYPE = dict(param_dtype="float32", compute_dtype="float32")
+ZOO_FP32_LAYERS = 12
 ZOO_METHODS = ("rtn", "awq")     # each alone, then + STEPS fused steps
 ZOO_SERVE = (("off", False, 1), ("on", True, 1), ("on-mp2", True, 2))
 # 10b profiles the first request of each tenant (a third of the trace's
@@ -2959,9 +3018,12 @@ def paged_launches(cfg, steps) -> int:
     return cfg.n_layers * steps
 
 
-def zoo_config(get_config, arch=ZOO_ARCH):
+def zoo_config(get_config, arch=ZOO_ARCH, n_layers=None):
+    """``arch`` in fp32, ``n_layers`` deep (its own depth by default)."""
     import dataclasses
-    return dataclasses.replace(get_config(arch), **ZOO_DTYPE)
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
+                               **ZOO_DTYPE)
 
 
 def phase_zoo_main(torch, ops, cfg, qcfg, methods=ZOO_METHODS, tag="zoo"):
@@ -2983,6 +3045,7 @@ def phase_zoo_main(torch, ops, cfg, qcfg, methods=ZOO_METHODS, tag="zoo"):
     from repro_torch.quantized.qmodel import pack_model
 
     moe = cfg.block_pattern == "moe"
+    elem = torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -3008,7 +3071,7 @@ def phase_zoo_main(torch, ops, cfg, qcfg, methods=ZOO_METHODS, tag="zoo"):
         head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
         qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
         dtype=cfg.param_dtype, params=n_params,
-        param_bytes=4 * n_params, calib=list(calib.shape),
+        param_bytes=elem * n_params, calib=list(calib.shape),
         seconds=time.perf_counter() - t0, **extra)
 
     def ppl(p):
@@ -3019,7 +3082,8 @@ def phase_zoo_main(torch, ops, cfg, qcfg, methods=ZOO_METHODS, tag="zoo"):
     ppl_fp = ppl(params)
     scfg = SearchConfig(steps=STEPS, fused_kernel=True, log_every=0)
     n_units = cfg.n_layers * (cfg.moe.num_experts if moe else 1)
-    clone = expert_stack_bytes(cfg) if moe else ffn_stack_bytes(cfg)
+    clone = expert_stack_bytes(cfg, elem) if moe else ffn_stack_bytes(cfg,
+                                                                      elem)
     launches = {"group_quant": {}, "transform_quant": {}}
     step_ms = None
     for method in methods:
@@ -3091,12 +3155,14 @@ def phase_zoo_main(torch, ops, cfg, qcfg, methods=ZOO_METHODS, tag="zoo"):
                      * C * (2 + int(cfg.gated_mlp)) * cfg.d_model * cfg.d_ff,
                      slots_per_row=cfg.moe.num_experts * C,
                      routed_slots_per_row=S * cfg.moe.top_k)
+    peak_name, peak_rate = ("share_of_fp32_peak", FP32_OPS_PER_S) \
+        if elem == 4 else ("share_of_bf16_peak", BF16_OPS_PER_S)
     log(tag + "_step", arch=cfg.name, forward_objective_ms=fwd_ms,
         step_ms=step_ms, forward_flops=flops,
         forward_tflops_per_s=flops / fwd_ms / 1e9,
-        share_of_fp32_peak=flops / fwd_ms / 1e-3 / FP32_OPS_PER_S,
-        stack_clone_bytes=clone, logits_bytes=B * S * cfg.padded_vocab * 4,
-        **extra)
+        **{peak_name: flops / fwd_ms / 1e-3 / peak_rate},
+        stack_clone_bytes=clone,
+        logits_bytes=B * S * cfg.padded_vocab * elem, **extra)
     del calib, held
     t0 = time.perf_counter()
     params_q = pack_model(params, qcfg)
@@ -3104,18 +3170,20 @@ def phase_zoo_main(torch, ops, cfg, qcfg, methods=ZOO_METHODS, tag="zoo"):
     return params_q, time.perf_counter() - t0, launches
 
 
-def phase_zoo_serving(torch, ops, cfg, params_q, setup_s, pd_rows):
-    """10b and 10c: the packed model served over the 8-tenant trace by
-    PagedServer (sharing off, on, on with 2 pages per block: the two GQA
-    routes) and by BatchedServer (use_flash_decode off, on). Returns the
-    paged runs' launch counts by label and the flash run's launches."""
+def phase_zoo_serving(torch, ops, cfg, params_q, setup_s, pd_rows,
+                      tag="zoo_"):
+    """10b and 10c (and 14d): the packed model served over the 8-tenant
+    trace by PagedServer (sharing off, on, on with 2 pages per block: the
+    two GQA routes) and by BatchedServer (use_flash_decode off, on).
+    Returns the paged runs' launch counts by label and the flash run's
+    launches."""
     t0 = time.perf_counter()
     paged, _ = phase_serving(torch, ops, pd_rows, cfg, params_q, setup_s,
-                             variants=ZOO_SERVE, tag="zoo_",
+                             variants=ZOO_SERVE, tag=tag,
                              profile_requests=ZOO_PROFILE_REQUESTS)
     t1 = time.perf_counter()
     flash = phase_legacy_serving(torch, ops, cfg, params_q, profile=False)
-    log("zoo_serving_seconds", paged_s=t1 - t0,
+    log(tag + "serving_seconds", paged_s=t1 - t0,
         batched_s=time.perf_counter() - t1)
     return paged, flash
 
@@ -3278,31 +3346,41 @@ def moe_gq_shapes(cfg):
             ("experts down", (L * E * F, D)))
 
 
-def gq_shapes_check(torch, ops, ref, cfg, shapes, timed, seed):
+def gq_shapes_check(torch, ops, ref, cfg, shapes, timed, seed, dtype=None,
+                    round_range=False):
     """``group_quant`` against its plain version (``torch.equal``) at each
-    named (K, N) of ``shapes`` (2-bit g32, the path's setting), and at the
-    shape named ``timed`` its time beside its bound and its plain version's.
-    Returns (max abs err, the timing row)."""
+    named (K, N) of ``shapes`` (2-bit g32, the path's setting; w in
+    ``dtype``, f32 by default, with ``round_range`` as ``fake_quant`` calls
+    it on a bf16 w), and at the shape named ``timed`` its time and device
+    time beside its bound and its plain version's. Returns (max abs err,
+    the timing row)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     err, row = 0.0, None
+    kw = dict(bits=2, group=32, round_range=round_range)
     for name, shape in shapes:
-        w = torch.randn(shape, generator=gen, device=dev)
-        e = exact(torch, ops.group_quant(w, bits=2, group=32),
-                  ref.group_quant_ref(w, 2, 32), f"group_quant {name} {shape}")
+        w = torch.randn(shape, generator=gen, device=dev).to(
+            dtype or torch.float32)
+        e = exact(torch, ops.group_quant(w, **kw),
+                  ref.group_quant_ref(w, 2, 32, round_range=round_range),
+                  f"group_quant {name} {shape}")
         err = max(err, e)
         log("kernel_check", kernel="group_quant", arch=cfg.name, weight=name,
-            shape=list(shape), bits=2, group=32, max_abs_err=e)
+            shape=list(shape), dtype=str(w.dtype), round_range=round_range,
+            bits=2, group=32, max_abs_err=e)
         if name == timed:
             K, N = shape
-            ms = time_ms(torch, lambda: ops.group_quant(w, bits=2, group=32),
-                         warmup=1, reps=5)
-            plain = time_ms(torch, lambda: ref.group_quant_ref(w, 2, 32),
-                            warmup=1, reps=3)
-            nbytes = 2 * K * N * 4 + 2 * (K // 32) * N * 4
-            bms, by = bound_ms(nbytes, GQ_OPS * K * N)
-            row = dict(weight=name, shape=list(shape), ms=ms, plain_ms=plain,
-                       bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
+            ms = time_ms(torch, lambda: ops.group_quant(w, **kw), warmup=1,
+                         reps=5)
+            dms = device_ms(torch, lambda: ops.group_quant(w, **kw),
+                            ("group_quant",), calls=5)
+            plain = time_ms(torch, lambda: ref.group_quant_ref(
+                w, 2, 32, round_range=round_range), warmup=1, reps=3)
+            bms, by = bound_ms(gq_bytes(K, N, 32, w.element_size()),
+                               GQ_OPS * K * N)
+            row = dict(weight=name, shape=list(shape), dtype=str(w.dtype),
+                       ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms,
+                       bound_by=by, share_of_bound=bms / dms)
             log("kernel_time", kernel="group_quant", arch=cfg.name, **row)
         del w
     torch.cuda.empty_cache()
@@ -4707,6 +4785,160 @@ def phase_encdec(torch, ops, ref, get_config, qcfg, pd_rows):
                 gq_check=gq_check, **vlm)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: Qwen3-4B in its own bf16 at full width and depth
+# ---------------------------------------------------------------------------
+
+BF16_ARCH = "qwen3-4b"
+
+
+def phase_bf16_kernels(torch, ops, ref, cfg, qcfg):
+    """14a: ``transform_quant``'s bf16 branch at the model's FFN, up (D, F)
+    and down (F, D) with a random π, each held to its plain version with
+    ``torch.equal`` and timed beside its bound, and ``group_quant``
+    (``round_range``) at every stacked shape RTN, AWQ and the search give
+    it (``encdec_gq_shapes``: the attention and FFN stacks), timed at the
+    largest (``gq_shapes_check``).
+    Returns the two kernels' rows for the kernels line."""
+    D, F, G = cfg.d_model, cfg.d_ff, qcfg.group_size
+    gen = torch.Generator(device="cuda").manual_seed(1414)
+    rows = {"transform_quant": {}, "group_quant": {}}
+    pi = make_pi(torch, "random", F, gen, "cuda")
+    s = 1.0 + 0.05 * torch.randn(F, generator=gen, device="cuda")
+    phi = 0.3 * torch.randn(F // 2, generator=gen, device="cuda")
+    for mode, shape in (("up", (D, F)), ("down", (F, D))):
+        w = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        got = ops.transform_quant(w, pi, s, phi, bits=qcfg.bits, group=G,
+                                  mode=mode)
+        want = ref.transform_quant_ref(w, pi, s, phi, bits=qcfg.bits,
+                                       group=G, mode=mode)
+        err = exact(torch, got, want, f"transform_quant bf16 {mode}")
+
+        def kern(w=w, mode=mode):
+            return ops.transform_quant(w, pi, s, phi, bits=qcfg.bits,
+                                       group=G, mode=mode)
+
+        ms = time_ms(torch, kern)
+        dev = device_ms(torch, kern, ("transform_quant",))
+        plain = time_ms(torch, lambda w=w, mode=mode: ref.transform_quant_ref(
+            w, pi, s, phi, bits=qcfg.bits, group=G, mode=mode), reps=5)
+        K, N = shape
+        nbytes = tq_bytes(K, N, G, F, 2)
+        bound, by = bound_ms(nbytes, TQ_OPS * K * N)
+        row = dict(shape=[K, N], ms=ms, device_ms=dev, plain_ms=plain,
+                   bound_ms=bound, bound_by=by, bytes=nbytes,
+                   share_of_bound=bound / dev, max_abs_err=err,
+                   plan=list(importlib.import_module(
+                       "repro_torch.kernels.transform_quant").plan(
+                           K, N, G, mode, 2)))
+        rows["transform_quant"][mode] = row
+        log("bf16_kernel_check", kernel="transform_quant", mode=mode,
+            dtype="bfloat16", pi="random", equal=True, **row)
+        del w, got, want
+    shapes = encdec_gq_shapes(cfg)
+    timed = max(shapes, key=lambda s: s[1][0] * s[1][1])[0]
+    err, row = gq_shapes_check(torch, ops, ref, cfg, shapes, timed, 1415,
+                               dtype=torch.bfloat16, round_range=True)
+    rows["group_quant"] = dict(max_abs_err=err, **row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_bf16_accepts(torch, ops, cfg, qcfg):
+    """14c: PERF.md's open question, whether bf16 keeps the search's accept
+    decisions: from the same bf16 initial weights (random-init, seed 0),
+    RTN on every non-FFN leaf and STEPS fused steps in bf16, and the same
+    in fp32 on the weights widened, each from a fresh CPU-drawn proposal
+    source of one seed. The decisions are compared step by step (after the
+    first that differs, the two runs search from different points)."""
+    from repro_torch.core import invariance as inv
+    from repro_torch.core import rtn
+    from repro_torch.core.quant import fake_quant
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import init_params
+    from repro_torch.search import run
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    calib = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=512,
+                               seed=99, device="cuda")
+    scfg = SearchConfig(steps=STEPS, fused_kernel=True, log_every=0)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    runs = {}
+    for label, c in (("bf16", cfg), ("fp32", cfg32)):
+        p = params if label == "bf16" else _widen(torch, params)
+        base = rtn.map_quantizable(p, lambda w, _: fake_quant(w, qcfg),
+                                   only=lambda q: q[-1] not in FFN_KEYS)
+        ops.reset_launch_counts()
+        res = run(p, base, c, qcfg, calib, scfg,
+                  proposals=CpuProposals(inv, 5, "cuda"))
+        runs[label] = dict(history=res.history, final=res.final_loss,
+                           initial=res.initial_loss,
+                           launches=dict(ops.LAUNCHES),
+                           step_ms=1e3 / res.stats["proposals_per_sec"])
+        del p, base, res
+        torch.cuda.empty_cache()
+    hb, hf = runs["bf16"]["history"], runs["fp32"]["history"]
+    differ = [b[0] for b, f in zip(hb[1:], hf[1:]) if b[4] != f[4]]
+    for r in runs.values():
+        if not r["final"] <= r["initial"]:
+            raise AssertionError("bf16 vs fp32: final loss above initial")
+    log("bf16_vs_fp32_accepts", arch=cfg.name, steps=STEPS,
+        bf16_accepts=[h[4] for h in hb[1:]],
+        fp32_accepts=[h[4] for h in hf[1:]], differing=len(differ),
+        differ_at=differ, first_parting=differ[0] if differ else None,
+        bf16_losses=[h[1] for h in hb], fp32_losses=[h[1] for h in hf],
+        bf16_step_ms=runs["bf16"]["step_ms"],
+        fp32_step_ms=runs["fp32"]["step_ms"],
+        launches={k: r["launches"] for k, r in runs.items()},
+        seconds=time.perf_counter() - t0)
+    del params, calib
+    torch.cuda.empty_cache()
+    return len(differ)
+
+
+def _widen(torch, tree):
+    """A param tree with every floating leaf in f32 (fresh tensors)."""
+    if isinstance(tree, dict):
+        return {k: _widen(torch, v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def phase_bf16(torch, ops, ref, get_config, qcfg, pd_rows):
+    """Phase 14 (14a-14d). Returns what the kernels line carries: 14a's
+    rows, 14b's launches by kernel and run, 14d's paged runs' launches by
+    label and the flash run's."""
+    torch.cuda.empty_cache()
+    old = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        t0 = time.perf_counter()
+        cfg = get_config(BF16_ARCH)
+        if cfg.param_dtype != "bfloat16" or cfg.compute_dtype != "bfloat16":
+            raise AssertionError(f"{cfg.name} is not a bf16 config")
+        rows = phase_bf16_kernels(torch, ops, ref, cfg, qcfg)
+        t1 = time.perf_counter()
+        params_q, pack_s, launches = phase_zoo_main(torch, ops, cfg, qcfg,
+                                                    tag="bf16")
+        t2 = time.perf_counter()
+        differing = phase_bf16_accepts(torch, ops, cfg, qcfg)
+        t3 = time.perf_counter()
+        paged, flash = phase_zoo_serving(torch, ops, cfg, params_q, pack_s,
+                                         pd_rows, tag="bf16_")
+        del params_q
+        torch.cuda.empty_cache()
+        t4 = time.perf_counter()
+        log("phase14", seconds=t4 - t0, a_s=t1 - t0, b_s=t2 - t1,
+            c_s=t3 - t2, d_s=t4 - t3, accept_decisions_differing=differing)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = old
+    return dict(rows=rows, main=launches, paged=paged, flash=flash,
+                differing=differing)
+
+
 def main() -> int:
     import torch
 
@@ -4944,7 +5176,7 @@ def main() -> int:
     # ---- phase 10: the dense zoo; Qwen3-4B at full width and depth -------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    zcfg = zoo_config(get_config)
+    zcfg = zoo_config(get_config, n_layers=ZOO_FP32_LAYERS)
     zoo_q, pack_s, zoo_launches = phase_zoo_main(torch, ops, zcfg, qcfg)
     t1 = time.perf_counter()
     zoo_paged, zoo_flash = phase_zoo_serving(torch, ops, zcfg, zoo_q, pack_s,
@@ -4970,6 +5202,10 @@ def main() -> int:
     # ---- phase 13: the encoder-decoder and vision families ---------------
     encdec = phase_encdec(torch, ops, ref, get_config, qcfg, pd_rows)
     lap("phase13")
+
+    # ---- phase 14: Qwen3-4B in its own bf16 at full width and depth ------
+    bf16 = phase_bf16(torch, ops, ref, get_config, qcfg, pd_rows)
+    lap("phase14")
     log("script_seconds", total=marks[-1] - marks[0], **seconds)
 
     kernels = []
@@ -5005,7 +5241,15 @@ def main() -> int:
                 "launches": zoo_launches[name],
                 "launches_on": "phase 10a: quantize_model rtn / awq, alone "
                                "and with 16 fused steps, on Qwen3-4B (fp32, "
-                               "full width and depth), each counted from 0"},
+                               "full width, 12 of 36 layers), each counted "
+                               "from 0"},
+            "bf16": {
+                "launches": bf16["main"][name],
+                "launches_on": "phase 14b: quantize_model rtn / awq, alone "
+                               "and with 16 fused steps, on Qwen3-4B in its "
+                               "own bf16 (full width and depth), each "
+                               "counted from 0",
+                "kernel": bf16["rows"][name]},
             "moe": {
                 "launches": moe["main"][name],
                 "launches_on": "phase 11a: quantize_model rtn, alone and "
@@ -5064,9 +5308,19 @@ def main() -> int:
                if route == "paged_decode" else
                {"launches": zoo_paged["on" if route == "paged_decode_gqa"
                                       else "on-mp2"][route],
-                "launches_on": "phase 10b: PagedServer on 2-bit Qwen3-4B, "
-                               "sharing on" + (", 2 pages per block" if
-                                               route.endswith("_mp") else ""),
+                "launches_on": "phase 10b: PagedServer on 2-bit Qwen3-4B "
+                               "(fp32, 12 layers), sharing on"
+                               + (", 2 pages per block" if
+                                  route.endswith("_mp") else ""),
+                "bf16": {
+                    "launches": bf16["paged"]["on" if route ==
+                                              "paged_decode_gqa"
+                                              else "on-mp2"][route],
+                    "launches_on": "phase 14d: PagedServer on 2-bit "
+                                   "Qwen3-4B, bf16 pools (full depth), "
+                                   "sharing on" + (", 2 pages per block" if
+                                                   route.endswith("_mp")
+                                                   else "")},
                 "small_serving": {
                     "launches": small_counts[route],
                     "launches_on": "phase 5d: opt-tiny reduced serving"},
@@ -5114,8 +5368,11 @@ def main() -> int:
         "launches": fd_launches,
         "launches_on": "opt-1.3b BatchedServer, use_flash_decode on",
         "zoo": {"launches": zoo_flash,
-                "launches_on": "phase 10c: Qwen3-4B BatchedServer, "
-                               "use_flash_decode on"},
+                "launches_on": "phase 10c: Qwen3-4B (fp32, 12 layers) "
+                               "BatchedServer, use_flash_decode on"},
+        "bf16": {"launches": bf16["flash"],
+                 "launches_on": "phase 14d: Qwen3-4B (bf16 cache, full "
+                                "depth) BatchedServer, use_flash_decode on"},
         "moe": {"launches": moe["flash"],
                 "launches_on": "phase 11c: Phi-3.5-MoE (3 layers) "
                                "BatchedServer, use_flash_decode on"},

@@ -70,12 +70,19 @@ class GridChoice:
     losses: List[float]
 
 
+def _mm(a, b):
+    """a @ b in the wider of the two dtypes (jnp's promotion: the reference
+    multiplies bf16 activations by f32 scaled weights in f32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
 def _ffn(act, wu, wd, bu, wg, x):
-    up = x @ wu
+    up = _mm(x, wu)
     if bu is not None:
         up = up + bu
     h = act(x @ wg) * up if wg is not None else act(up)
-    return h @ wd
+    return _mm(h, wd)
 
 
 def _mse(y, y_fp):
@@ -95,7 +102,9 @@ def awq_alpha_search(w_up, w_down, b_up, w_gate, x_mlp, qcfg: QuantConfig,
     alphas = f32_linspace(0.0, 1.0, n_grid)
     wg, best, best_s, losses = None, None, None, []
     for i, alpha in enumerate(alphas):
-        s = torch.pow(act_mag, alpha)
+        # α is an f32 array in the reference's grid map, so s is f32 in a
+        # bf16 model too
+        s = torch.pow(act_mag.float(), alpha)
         s = s / torch.sqrt(torch.amax(s) * torch.amin(s) + 1e-12)
         s = torch.clamp(s, 1e-4, 1e4)
         wu = fake_quant(w_up * s[None, :], qcfg)
@@ -125,16 +134,18 @@ def awq_scale_ffn(w_up, w_down, b_up, w_gate, x_mlp, qcfg: QuantConfig,
 
 def clip_grid_search(w, x, qcfg: QuantConfig, n_grid: int = CLIP_GRID):
     """Per-group clip-ratio grid search minimizing ||x@w − x@fq(clip(w))||²
-    -> (the clipped, still continuous-domain weights, :class:`GridChoice`)."""
-    y_fp = x @ w
-    wg = _grouped(w, qcfg.resolve_group(w.shape[0]))
+    -> (the clipped, still continuous-domain weights, :class:`GridChoice`).
+    The ratios are f32 arrays in the reference's grid map, so the clipped
+    candidates (and the result) are f32 whatever w's dtype."""
+    y_fp = _mm(x, w)
+    wg = _grouped(w, qcfg.resolve_group(w.shape[0])).float()
     wmax = torch.amax(wg, dim=1, keepdim=True)
     wmin = torch.amin(wg, dim=1, keepdim=True)
     ratios = f32_linspace(0.5, 1.0, n_grid)
     best, best_w, losses = None, None, []
     for i, r in enumerate(ratios):
         wc = torch.clamp(wg, wmin * r, wmax * r).reshape(w.shape)
-        loss = float(_mse(x @ fake_quant(wc, qcfg), y_fp))
+        loss = float(_mse(_mm(x, fake_quant(wc, qcfg)), y_fp))
         losses.append(loss)
         if best is None or loss < losses[best]:
             best, best_w = i, wc
@@ -157,6 +168,12 @@ def awq_process_dense(params, cfg: ModelConfig, calib_tokens,
     layer i's {"alpha": GridChoice, "clip": {weight: GridChoice}} (the
     reference returns the params only; the choices are what a card run is
     compared on).
+
+    The searches run in the reference's dtypes, and the result has them:
+    in a bf16 model the scaled up / down (and b_up) and every clipped
+    weight come back f32, as jnp promotes them by the f32 scales and
+    ratios (``core.pipeline`` rounds them to the model's dtype after the
+    fake-quant).
     """
     taps = capture_dense_taps(params, cfg, calib_tokens)
 
@@ -165,21 +182,26 @@ def awq_process_dense(params, cfg: ModelConfig, calib_tokens,
         return t.reshape(-1, t.shape[-1])
 
     blocks = dict(params["blocks"])
-    mlp = {k: v.clone() for k, v in blocks["mlp"].items()}
-    attn = dict(blocks["attn"])
-    if do_clip:
-        attn = {k: v.clone() if k in CLIP_WEIGHTS else v
-                for k, v in attn.items()}
+    # f32 copies of what the searches write (see above); the rest as it is
+    f32 = ("up", "down", "b_up") + (CLIP_WEIGHTS if do_clip else ())
+    dtypes = {k: v.dtype for k, v in {**blocks["mlp"],
+                                      **blocks["attn"]}.items()}
+    mlp = {k: v.to(torch.float32, copy=True) if k in f32 else v
+           for k, v in blocks["mlp"].items()}
+    attn = {k: v.to(torch.float32, copy=True) if k in f32 else v
+            for k, v in blocks["attn"].items()}
     inputs = {"up": "mlp_in", "gate": "mlp_in", "down": "mlp_mid",
               "wq": "attn_in", "wk": "attn_in", "wv": "attn_in",
               "wo": "attn_mid"}
     choices = []
     for i in range(cfg.n_layers):
         x_mlp = flat("mlp_in", i)
-        s, alpha = awq_alpha_search(
-            mlp["up"][i], mlp["down"][i],
-            mlp["b_up"][i] if "b_up" in mlp else None,
-            mlp["gate"][i] if "gate" in mlp else None, x_mlp, qcfg, cfg)
+        # layer i's leaves are still the originals here: the α search reads
+        # them in their own dtype, as the reference's does
+        orig = {k: mlp[k][i].to(dtypes[k])
+                for k in ("up", "down", "b_up", "gate") if k in mlp}
+        s, alpha = awq_alpha_search(orig["up"], orig["down"], orig.get("b_up"),
+                                    orig.get("gate"), x_mlp, qcfg, cfg)
         mlp["up"][i] = mlp["up"][i] * s[None, :]
         mlp["down"][i] = mlp["down"][i] / s[:, None]
         if "b_up" in mlp:

@@ -10,6 +10,14 @@ Contract between stages (as in the reference):
     (attention projections), which stay frozen during the search;
   * InvarExplore then hill-climbs fq(T(θ_base)) per unit (Algorithm 1);
   * without the search, the FFN weights are simply fake-quantized.
+
+Every leaf of the result has the dtype ``params_fp`` gives it. Where a
+base method returns a leaf in a wider dtype (AWQ on a bf16 model returns
+f32 weights, as the reference's does: jnp promotes them by its f32 scales
+and clip ratios), the fake-quant is computed in that dtype, with the
+reference's values, and rounded once to the model's dtype; the search
+casts its stack and candidates so (``search.engine``). The reference keeps
+those leaves f32, and its forward then runs partly in f32.
 """
 from __future__ import annotations
 
@@ -23,7 +31,7 @@ from repro_torch.core.awq import awq_process_dense
 from repro_torch.core.gptq import gptq_process_dense
 from repro_torch.core.omniquant import omniquant_process_dense
 from repro_torch.core.quant import QuantConfig, fake_quant
-from repro_torch.core.rtn import map_quantizable
+from repro_torch.core.rtn import get_by_path, map_quantizable
 from repro_torch.core.search import SearchConfig
 from repro_torch.device import check_on_device, resolve_device
 from repro_torch.models.config import ModelConfig
@@ -49,6 +57,14 @@ class PTQResult:
     # what the base method reports: AWQ's per-layer grid choices
     # ({"choices": [...]}), OmniQuant's block losses ({"losses": (L, steps)})
     base: Optional[dict] = None
+
+
+def _like(tree, like):
+    """``tree`` with every tensor leaf in the dtype of ``like``'s leaf at the
+    same path (the same tensor where they agree)."""
+    if isinstance(tree, dict):
+        return {k: _like(v, like[k]) for k, v in tree.items()}
+    return tree.to(like.dtype) if isinstance(tree, torch.Tensor) else tree
 
 
 def _as_tokens(tokens, dev: torch.device) -> torch.Tensor:
@@ -110,9 +126,12 @@ def quantize_model(
     else:
         raise ValueError(f"unknown method {method!r}")
 
-    # 2) freeze non-FFN quantizable weights at their fake-quant values
+    # 2) freeze non-FFN quantizable weights at their fake-quant values, each
+    #    in the dtype params_fp gives it (module docstring)
     params_base = map_quantizable(
-        params_base, lambda w, p: fake_quant(w, qcfg), only=lambda p: not _is_ffn(p))
+        params_base,
+        lambda w, p: fake_quant(w, qcfg).to(get_by_path(params_fp, p).dtype),
+        only=lambda p: not _is_ffn(p))
 
     # 3) InvarExplore search or plain FFN fake-quant
     if search is not None:
@@ -123,4 +142,4 @@ def quantize_model(
 
     params_q = map_quantizable(
         params_base, lambda w, p: fake_quant(w, qcfg), only=_is_ffn)
-    return PTQResult(params_q, method, None, base)
+    return PTQResult(_like(params_q, params_fp), method, None, base)

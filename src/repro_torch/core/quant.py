@@ -112,19 +112,22 @@ def fake_quant(w: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
     axis -2 for matrices (the K axis of ``x @ W``) and axis -1 for vectors,
     independently per leading index. A stacked (L, K, N) input is one
     ``group_quant`` call over (L·K, N): groups never straddle two matrices
-    because G divides K. The arithmetic is fp32 (bf16 inputs are widened,
-    as ``kernels.ref.group_quant_ref`` does); for fp32 inputs it is the
-    reference's ``fake_quant`` exactly.
+    because G divides K. The result is in w's dtype. As in the reference,
+    a bf16 w's group range and scale are computed in bf16
+    (``compute_qparams`` on w: two roundings), then the codes and the
+    dequantised values in f32 (``group_quant(round_range=True)``); for
+    fp32 inputs it is the reference's ``fake_quant`` exactly.
     """
     from repro_torch.kernels import group_quant
 
     if w.ndim == 1:
         g = w.shape[0] if cfg.group_size == -1 else cfg.group_size
         return group_quant(w.reshape(-1, 1).contiguous(), bits=cfg.bits,
-                           group=g)[0].reshape(w.shape)
+                           group=g, round_range=True)[0].reshape(w.shape)
     g = cfg.resolve_group(w.shape[-2])
     flat = w.reshape(-1, w.shape[-1]).contiguous()
-    return group_quant(flat, bits=cfg.bits, group=g)[0].reshape(w.shape)
+    return group_quant(flat, bits=cfg.bits, group=g,
+                       round_range=True)[0].reshape(w.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -220,8 +223,13 @@ class QTensor:
         lead, n = codes.shape[:-2], codes.shape[-1]
         g = self.group_size
         qg = codes.float().reshape(lead + (k_pad // g, g, n))
-        w = (qg - self.zero.unsqueeze(-2)) * self.scale.unsqueeze(-2).float()
-        w = w.reshape(lead + (k_pad, n))[..., :k, :].to(out_dtype)
+        d = qg - self.zero.unsqueeze(-2)
+        # the product in f32, rounded to out_dtype as it is written (no f32
+        # copy of the result); the codes and d are full-size f32 tensors all
+        # the same, so a bf16 dequant moves no fewer bytes than an f32 one
+        w = torch.empty(d.shape, dtype=out_dtype, device=d.device)
+        torch.mul(d, self.scale.unsqueeze(-2).float(), out=w)
+        w = w.reshape(lead + (k_pad, n))[..., :k, :]
         if len(self.shape) == 1:
             w = w[..., 0]
         return w

@@ -61,8 +61,7 @@ def capture_dense_taps(params, cfg: ModelConfig, tokens):
         a = attn_mid @ pl["attn"]["wo"]
         if "bo" in pl["attn"]:
             a = a + pl["attn"]["bo"]
-        h = h + a
-        m_in = L.apply_norm(h, pl["ln2"], cfg.norm)
+        h, m_in = L.add_norm(h, a, pl["ln2"], cfg.norm)
         mlp = pl["mlp"]
         up = m_in @ mlp["up"]
         if "b_up" in mlp:

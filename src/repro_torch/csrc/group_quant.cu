@@ -12,6 +12,11 @@
 // scale and zero are written once. Device memory sees one read of w, one
 // write of fq and the small scale/zero planes. The TPU kernel tiled
 // (bg*G, bn) blocks through VMEM; here no staging is needed.
+//
+// round_range: the group's range and scale are rounded to w's dtype (bf16)
+// as they are computed, as the reference's jnp fake_quant
+// (src/repro/core/quant.py compute_qparams) computes them on a bf16 w; the
+// TPU kernel computes them in f32 (round_range 0). Identical for f32 w.
 #include <cstdint>
 
 #include "quant_common.cuh"
@@ -23,7 +28,7 @@ __global__ void group_quant_kernel(const T* __restrict__ w,
                                    T* __restrict__ fq,
                                    float* __restrict__ scale,
                                    float* __restrict__ zero, int64_t n,
-                                   int group, float qmax) {
+                                   int group, float qmax, bool round_range) {
   const int64_t col = (int64_t)blockIdx.y * blockDim.x + threadIdx.x;
   if (col >= n) return;
   const int64_t g = blockIdx.x;
@@ -38,7 +43,10 @@ __global__ void group_quant_kernel(const T* __restrict__ w,
     wmax = fmaxf(wmax, v);
   }
   float s, z;
-  rq::group_params(wmin, wmax, qmax, &s, &z);
+  if (round_range)
+    rq::group_params_rounded<T>(wmin, wmax, qmax, &s, &z);
+  else
+    rq::group_params(wmin, wmax, qmax, &s, &z);
   for (int r = 0; r < group; ++r) {
     const float v = rq::to_f32(src[(int64_t)r * n]);
     dst[(int64_t)r * n] = rq::from_f32<T>(rq::fake_quant_value(v, s, z, qmax));
@@ -49,25 +57,31 @@ __global__ void group_quant_kernel(const T* __restrict__ w,
 
 template <typename T>
 int launch(const void* w, void* fq, void* scale, void* zero, int64_t k,
-           int64_t n, int group, int bits, cudaStream_t stream) {
+           int64_t n, int group, int bits, bool round_range,
+           cudaStream_t stream) {
   const int threads = n >= 256 ? 256 : (int)((n + 31) / 32 * 32);
   const dim3 grid((unsigned)(k / group), (unsigned)((n + threads - 1) / threads));
   const float qmax = (float)((1 << bits) - 1);
   group_quant_kernel<T><<<grid, threads, 0, stream>>>(
       static_cast<const T*>(w), static_cast<T*>(fq),
-      static_cast<float*>(scale), static_cast<float*>(zero), n, group, qmax);
+      static_cast<float*>(scale), static_cast<float*>(zero), n, group, qmax,
+      round_range);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
+// dtype: 0 = float32, 1 = bfloat16; round_range: 1 rounds the range and
+// the scale to the dtype (see above). Returns cudaGetLastError() after the
 // launch (0 = cudaSuccess).
 extern "C" int rq_group_quant(const void* w, void* fq, void* scale,
                               void* zero, int64_t k, int64_t n, int group,
-                              int bits, int dtype, void* stream) {
+                              int bits, int dtype, int round_range,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(w, fq, scale, zero, k, n, group, bits, s);
-  return launch<float>(w, fq, scale, zero, k, n, group, bits, s);
+    return launch<__nv_bfloat16>(w, fq, scale, zero, k, n, group, bits,
+                                 round_range != 0, s);
+  return launch<float>(w, fq, scale, zero, k, n, group, bits,
+                       round_range != 0, s);
 }

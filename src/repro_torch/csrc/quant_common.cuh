@@ -43,6 +43,21 @@ __device__ __forceinline__ void group_params(float wmin, float wmax,
   *zero = fminf(fmaxf(rintf(-wmin / s), 0.0f), qmax);
 }
 
+// Eqns. 2-3 with the range (max - min), the scale and its 1e-8 floor each
+// rounded to T as they are computed: the reference's compute_qparams on a
+// w of dtype T (bf16 arithmetic there), then widened to f32 as its
+// scale_dtype. For T = float it is group_params.
+template <typename T>
+__device__ __forceinline__ void group_params_rounded(float wmin, float wmax,
+                                                     float qmax, float* scale,
+                                                     float* zero) {
+  const float range = to_f32(from_f32<T>(wmax - wmin));
+  const float s = fmaxf(to_f32(from_f32<T>(range / qmax)),
+                        to_f32(from_f32<T>(1e-8f)));
+  *scale = s;
+  *zero = fminf(fmaxf(rintf(-wmin / s), 0.0f), qmax);
+}
+
 // Eqn. 1: the code q = clip(round(w / scale) + zero, 0, q_max), an integer
 // in [0, q_max] held exactly as a float (and in a byte, q_max <= 255).
 __device__ __forceinline__ float quant_code(float w, float scale, float zero,

@@ -18,9 +18,15 @@
 // keeps c*a - s*b as two rounded products and a rounded difference, like
 // the plain version's separate tensor operations.
 //
+// w and fq are f32 or bf16 (the TPU kernel's w.dtype): a bf16 value is
+// widened to f32 as it is loaded, every operation is the f32 one in the
+// same order, and fq is rounded to bf16 once as it is stored; scale and
+// zero are f32 either way (the TPU kernel's out_shape).
+//
 // Bound: bytes. About fifteen operations per element against 8 bytes moved
-// (one read of w, one write of fq). The launch parameters come from the
-// pure-Python planner kernels/transform_quant.py::plan.
+// in f32 (one read of w, one write of fq), 4 in bf16. The launch
+// parameters come from the pure-Python planner
+// kernels/transform_quant.py::plan.
 //
 // "up" design. A column's group statistics depend only on its source column:
 // pi moves whole quantised columns. So each quant band (G rows) is one thread
@@ -46,13 +52,15 @@
 // "down" design. One CTA per (group, column tile). It loads the group's pi,
 // cos, sin and scale entries into shared memory once, stages the G source
 // rows and their pair-partner rows of its tile with cp.async (16-byte
-// copies, all in flight together), computes each transformed value once
-// into shared memory, reduces min/max over row slices, and writes fq 16
-// bytes at a time.
+// copies of 4 f32 or 8 bf16 values, all in flight together), computes each
+// transformed value once into shared memory (f32; a bf16 tile keeps its
+// staged rows and computes each value again for the write), reduces
+// min/max over row slices, and writes fq 16 bytes at a time.
 #include <cooperative_groups.h>
 #include <math_constants.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "quant_common.cuh"
 
@@ -92,11 +100,12 @@ __device__ __forceinline__ unsigned code_byte(float v, float s, float z,
 // codes [ceil(rows / 16)][slice] 16-byte words (word h of a column holds
 // rows 16h .. 16h + 15, one byte each), (scale, zero) per column, then pi
 // of the CTA's output columns.
+template <typename T>
 __global__ void __launch_bounds__(kUpThreads, kUpBlocks)
 transform_quant_up_kernel(
-    const float* __restrict__ w, const int64_t* __restrict__ pi,
+    const T* __restrict__ w, const int64_t* __restrict__ pi,
     const float* __restrict__ svec, const float* __restrict__ cosv,
-    const float* __restrict__ sinv, float* __restrict__ fq,
+    const float* __restrict__ sinv, T* __restrict__ fq,
     float* __restrict__ scale, float* __restrict__ zero, int f, int group,
     int slice, int rows, float qmax) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -112,7 +121,7 @@ transform_quant_up_kernel(
 
   const int c0 = rank * slice;
   const int ncols = max(0, min(slice, f - c0));   // even: f and slice are
-  const float* wband = w + band * group * f;
+  const T* wband = w + band * group * f;
 
   for (int jl = threadIdx.x; jl < ncols; jl += blockDim.x)
     srcs[jl] = (int)pi[c0 + jl];   // read after the first cluster barrier
@@ -130,13 +139,13 @@ transform_quant_up_kernel(
       sn = sinv[col >> 1];
       sv = svec[col];
     }
-    const float* src = wband + col;
+    const T* src = wband + col;
     float lo = CUDART_INF_F, hi = -CUDART_INF_F;
     if (one_pass) {   // the group in registers: values, statistics, codes
       float x[kHoldRows];
 #pragma unroll
       for (int i = 0; i < kHoldRows; ++i)
-        x[i] = live && i < group ? src[(int64_t)i * f] : 0.0f;
+        x[i] = live && i < group ? rq::to_f32(src[(int64_t)i * f]) : 0.0f;
 #pragma unroll
       for (int i = 0; i < kHoldRows; ++i)
         if (i < group) {
@@ -165,7 +174,8 @@ transform_quant_up_kernel(
         float x[16];
 #pragma unroll
         for (int i = 0; i < 16; ++i)
-          x[i] = live && r0 + i < group ? src[(int64_t)(r0 + i) * f] : 0.0f;
+          x[i] = live && r0 + i < group
+                     ? rq::to_f32(src[(int64_t)(r0 + i) * f]) : 0.0f;
 #pragma unroll
         for (int i = 0; i < 16; ++i)
           if (r0 + i < group) {
@@ -200,13 +210,13 @@ transform_quant_up_kernel(
           sv = svec[col];
           q = sz[cl];
         }
-        const float* src = wband + (int64_t)b0 * f + col;
+        const T* src = wband + (int64_t)b0 * f + col;
         for (int h = 0; h < chunks; ++h) {
           float x[16];
 #pragma unroll
           for (int i = 0; i < 16; ++i)
             x[i] = live && 16 * h + i < nrows
-                       ? src[(int64_t)(16 * h + i) * f] : 0.0f;
+                       ? rq::to_f32(src[(int64_t)(16 * h + i) * f]) : 0.0f;
           unsigned a[4] = {0, 0, 0, 0};
 #pragma unroll
           for (int i = 0; i < 16; ++i)
@@ -232,7 +242,7 @@ transform_quant_up_kernel(
         scale[band * f + j] = q.x;
         zero[band * f + j] = q.y;
       }
-      float* out = fq + (band * group + b0) * (int64_t)f + j;
+      T* out = fq + (band * group + b0) * (int64_t)f + j;
       for (int h0 = 0; h0 < chunks; h0 += 2) {   // 32 rows: 2 words
         uint4 cw[2];
 #pragma unroll
@@ -246,8 +256,8 @@ transform_quant_up_kernel(
           for (int i = 0; i < 16; ++i) {
             const int r = 16 * (h0 + m) + i;
             if (h0 + m < chunks && r < nrows)
-              out[(int64_t)r * f] = rq::dequant_code(
-                  (float)((wd[i / 4] >> (8 * (i % 4))) & 0xffu), q.x, q.y);
+              out[(int64_t)r * f] = rq::from_f32<T>(rq::dequant_code(
+                  (float)((wd[i / 4] >> (8 * (i % 4))) & 0xffu), q.x, q.y));
           }
         }
       }
@@ -256,61 +266,92 @@ transform_quant_up_kernel(
   }
 }
 
-// 16-byte (VEC 4) or 4-byte (VEC 1) asynchronous copy to shared memory.
-template <int VEC>
-__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+// Stage VEC values of T from device to shared memory: a 16-byte or 4-byte
+// cp.async, or a plain load for a 2-byte single value.
+template <typename T, int VEC>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  constexpr int kBytes = (int)sizeof(T) * VEC;
+  static_assert(kBytes == 16 || kBytes == 4 || kBytes == 2, "copy size");
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (VEC == 4) {
+  if constexpr (kBytes == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                  "l"(src));
-  } else {
+  } else if constexpr (kBytes == 4) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
                  "l"(src));
+  } else {
+    *dst = *src;
   }
 }
 
-template <int VEC>
-struct Vec;
-template <>
-struct Vec<4> { using T = float4; };
-template <>
-struct Vec<1> { using T = float; };
+// VEC values of T in one aligned access (16 bytes at most).
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC < 16 ? sizeof(T) * VEC : 16) Pack {
+  T v[VEC];
+};
 
-template <int VEC>
-__device__ __forceinline__ void load_vec(float (&x)[VEC], const float* p) {
-  using T = typename Vec<VEC>::T;
-  const T t = *reinterpret_cast<const T*>(p);
-  if constexpr (VEC == 4) {
-    x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
-  } else {
-    x[0] = t;
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(float (&x)[VEC], const T* p) {
+  if constexpr (sizeof(T) * VEC <= 16) {
+    const Pack<T, VEC> t = *reinterpret_cast<const Pack<T, VEC>*>(p);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) x[e] = rq::to_f32(t.v[e]);
+  } else {   // f32 VEC 8: two 16-byte loads
+#pragma unroll
+    for (int h = 0; h < VEC; h += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + h);
+      x[h] = t.x; x[h + 1] = t.y; x[h + 2] = t.z; x[h + 3] = t.w;
+    }
   }
 }
 
-template <int VEC>
-__device__ __forceinline__ void store_vec(float* p, const float (&x)[VEC]) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+template <typename T, int VEC>
+__device__ __forceinline__ void store_vec(T* p, const float (&x)[VEC]) {
+  if constexpr (sizeof(T) * VEC <= 16) {
+    Pack<T, VEC> t;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) t.v[e] = rq::from_f32<T>(x[e]);
+    *reinterpret_cast<Pack<T, VEC>*>(p) = t;
   } else {
-    *p = x[0];
+#pragma unroll
+    for (int h = 0; h < VEC; h += 4)
+      *reinterpret_cast<float4*>(p + h) =
+          make_float4(x[h], x[h + 1], x[h + 2], x[h + 3]);
   }
+}
+
+// The transformed value of staged row r's VEC columns from its source row
+// x and the pair partner p: the source row is the pair's second member
+// when it is odd.
+template <int VEC>
+__device__ __forceinline__ void transform_row(float (&x)[VEC],
+                                             const float (&p)[VEC], bool odd,
+                                             float cr, float sr, float vr) {
+#pragma unroll
+  for (int e = 0; e < VEC; ++e)
+    x[e] = (odd ? rotate(p[e], x[e], cr, sr, true)
+                : rotate(x[e], p[e], cr, sr, false)) * vr;
 }
 
 // One CTA per (group g, tile of units * VEC columns); kDownThreads threads
-// = units column units x (kDownThreads / units) row slices.
-template <int VEC>
+// = units column units x (kDownThreads / units) row slices. An f32 tile
+// keeps the transformed values in the staged rows (written over the source
+// row); a bf16 tile cannot, so it transforms each value again for the
+// write, from the same staged inputs by the same operations.
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kDownThreads) transform_quant_down_kernel(
-    const float* __restrict__ w, const int64_t* __restrict__ pi,
+    const T* __restrict__ w, const int64_t* __restrict__ pi,
     const float* __restrict__ svec, const float* __restrict__ cosv,
-    const float* __restrict__ sinv, float* __restrict__ fq,
+    const float* __restrict__ sinv, T* __restrict__ fq,
     float* __restrict__ scale, float* __restrict__ zero, int64_t n,
     int group, int units, int tiles, float qmax) {
+  constexpr bool kKeep = std::is_same<T, float>::value;
   const int tw = units * VEC;                      // tile width, columns
   const int slices = blockDim.x / units;
   extern __shared__ float4 smem_down[];
-  float* xs = reinterpret_cast<float*>(smem_down); // [group][tw] source rows
-  float* ps = xs + group * tw;                     // [group][tw] partners
-  float* mn = ps + group * tw;                     // [slices][tw]
+  T* xs = reinterpret_cast<T*>(smem_down);         // [group][tw] source rows
+  T* ps = xs + group * tw;                         // [group][tw] partners
+  float* mn = reinterpret_cast<float*>(ps + group * tw);  // [slices][tw]
   float* mx = mn + slices * tw;                    // [slices][tw]
   float* cs = mx + slices * tw;                    // [group] cos, sin, scale
   float* ss = cs + group;
@@ -334,8 +375,9 @@ __global__ void __launch_bounds__(kDownThreads) transform_quant_down_kernel(
     const int64_t col = col0 + c * VEC;
     if (col < n) {
       const int src = rsrc[r];
-      copy_async<VEC>(xs + r * tw + c * VEC, w + (int64_t)src * n + col);
-      copy_async<VEC>(ps + r * tw + c * VEC, w + (int64_t)(src ^ 1) * n + col);
+      copy_async<T, VEC>(xs + r * tw + c * VEC, w + (int64_t)src * n + col);
+      copy_async<T, VEC>(ps + r * tw + c * VEC,
+                         w + (int64_t)(src ^ 1) * n + col);
     }
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -355,23 +397,20 @@ __global__ void __launch_bounds__(kDownThreads) transform_quant_down_kernel(
   if (live) {
     for (int r = r_lo; r < r_hi; ++r) {
       float x[VEC], p[VEC];
-      load_vec<VEC>(x, xs + r * tw + c * VEC);
-      load_vec<VEC>(p, ps + r * tw + c * VEC);
-      const bool odd = (rsrc[r] & 1) != 0;
-      const float cr = cs[r], sr = ss[r], vr = vs[r];
+      load_vec<T, VEC>(x, xs + r * tw + c * VEC);
+      load_vec<T, VEC>(p, ps + r * tw + c * VEC);
+      transform_row<VEC>(x, p, (rsrc[r] & 1) != 0, cs[r], ss[r], vs[r]);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
-        // the source row is the pair's second member when it is odd
-        x[e] = (odd ? rotate(p[e], x[e], cr, sr, true)
-                    : rotate(x[e], p[e], cr, sr, false)) * vr;
         lo[e] = fminf(lo[e], x[e]);
         hi[e] = fmaxf(hi[e], x[e]);
       }
-      store_vec<VEC>(xs + r * tw + c * VEC, x);   // kept for the write
+      if constexpr (kKeep)
+        store_vec<T, VEC>(xs + r * tw + c * VEC, x);   // kept for the write
     }
   }
-  store_vec<VEC>(mn + sl * tw + c * VEC, lo);
-  store_vec<VEC>(mx + sl * tw + c * VEC, hi);
+  store_vec<float, VEC>(mn + sl * tw + c * VEC, lo);
+  store_vec<float, VEC>(mx + sl * tw + c * VEC, hi);
   __syncthreads();
   if (!live) return;
 
@@ -383,8 +422,8 @@ __global__ void __launch_bounds__(kDownThreads) transform_quant_down_kernel(
   }
   for (int k = 0; k < slices; ++k) {
     float a[VEC], b[VEC];
-    load_vec<VEC>(a, mn + k * tw + c * VEC);
-    load_vec<VEC>(b, mx + k * tw + c * VEC);
+    load_vec<float, VEC>(a, mn + k * tw + c * VEC);
+    load_vec<float, VEC>(b, mx + k * tw + c * VEC);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
       lo[e] = fminf(lo[e], a[e]);
@@ -396,31 +435,30 @@ __global__ void __launch_bounds__(kDownThreads) transform_quant_down_kernel(
     rq::group_params(lo[e], hi[e], qmax, &s[e], &z[e]);
   for (int r = r_lo; r < r_hi; ++r) {
     float x[VEC];
-    load_vec<VEC>(x, xs + r * tw + c * VEC);
+    load_vec<T, VEC>(x, xs + r * tw + c * VEC);
+    if constexpr (!kKeep) {
+      float p[VEC];
+      load_vec<T, VEC>(p, ps + r * tw + c * VEC);
+      transform_row<VEC>(x, p, (rsrc[r] & 1) != 0, cs[r], ss[r], vs[r]);
+    }
 #pragma unroll
     for (int e = 0; e < VEC; ++e)
       x[e] = rq::fake_quant_value(x[e], s[e], z[e], qmax);
-    store_vec<VEC>(fq + (g * group + r) * n + col, x);
+    store_vec<T, VEC>(fq + (g * group + r) * n + col, x);
   }
   if (sl == 0) {
-    store_vec<VEC>(scale + g * n + col, s);
-    store_vec<VEC>(zero + g * n + col, z);
+    store_vec<float, VEC>(scale + g * n + col, s);
+    store_vec<float, VEC>(zero + g * n + col, z);
   }
 }
 
-}  // namespace
-
-// "up": w (d, f) float32, pi (f,) int64, svec/cosv/sinv float32. One cluster
-// of `cluster` CTAs per band of `group` rows, `slice` columns and `threads`
-// threads per CTA, sub-bands of `rows` rows, `smem` bytes of dynamic shared
-// memory (kernels/transform_quant.py::plan). Returns cudaGetLastError()
-// after the launch (0 = cudaSuccess) or the launch's own error.
-extern "C" int rq_transform_quant_up(
-    const void* w, const void* pi, const void* svec, const void* cosv,
-    const void* sinv, void* fq, void* scale, void* zero, int64_t d,
-    int64_t f, int group, int bits, int cluster, int slice, int rows,
-    int threads, int smem, void* stream) {
-  auto kernel = transform_quant_up_kernel;
+template <typename T>
+int launch_up(const void* w, const void* pi, const void* svec,
+              const void* cosv, const void* sinv, void* fq, void* scale,
+              void* zero, int64_t d, int64_t f, int group, int bits,
+              int cluster, int slice, int rows, int threads, int smem,
+              cudaStream_t stream) {
+  auto kernel = transform_quant_up_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && cluster > 8)
@@ -431,7 +469,7 @@ extern "C" int rq_transform_quant_up(
   cfg.gridDim = dim3((unsigned)(d / group * cluster));
   cfg.blockDim = dim3((unsigned)threads);
   cfg.dynamicSmemBytes = (size_t)smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = (unsigned)cluster;
@@ -440,52 +478,82 @@ extern "C" int rq_transform_quant_up(
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const float*>(w),
+      &cfg, kernel, static_cast<const T*>(w),
       static_cast<const int64_t*>(pi), static_cast<const float*>(svec),
       static_cast<const float*>(cosv), static_cast<const float*>(sinv),
-      static_cast<float*>(fq), static_cast<float*>(scale),
+      static_cast<T*>(fq), static_cast<float*>(scale),
       static_cast<float*>(zero), (int)f, group, slice, rows,
       (float)((1 << bits) - 1));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// "down": w (f, n) float32. One CTA per (group, tile of units * vec
-// columns), kDownThreads threads, `smem` bytes of dynamic shared memory;
-// vec is 4 (16-byte copies and stores; n % 4 == 0) or 1.
+template <typename T, int VEC>
+int launch_down(const void* w, const void* pi, const void* svec,
+                const void* cosv, const void* sinv, void* fq, void* scale,
+                void* zero, int64_t f, int64_t n, int group, int bits,
+                int units, int smem, cudaStream_t stream) {
+  const int tw = units * VEC;
+  const int tiles = (int)((n + tw - 1) / tw);
+  const dim3 grid((unsigned)(f / group * tiles));
+  auto kernel = transform_quant_down_kernel<T, VEC>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kDownThreads, smem, stream>>>(
+      static_cast<const T*>(w), static_cast<const int64_t*>(pi),
+      static_cast<const float*>(svec), static_cast<const float*>(cosv),
+      static_cast<const float*>(sinv), static_cast<T*>(fq),
+      static_cast<float*>(scale), static_cast<float*>(zero), n, group, units,
+      tiles, (float)((1 << bits) - 1));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// "up": w (d, f) float32 (dtype 0) or bfloat16 (dtype 1), fq the same;
+// pi (f,) int64, svec/cosv/sinv float32. One cluster of `cluster` CTAs per
+// band of `group` rows, `slice` columns and `threads` threads per CTA,
+// sub-bands of `rows` rows, `smem` bytes of dynamic shared memory
+// (kernels/transform_quant.py::plan). Returns cudaGetLastError() after the
+// launch (0 = cudaSuccess) or the launch's own error.
+extern "C" int rq_transform_quant_up(
+    const void* w, const void* pi, const void* svec, const void* cosv,
+    const void* sinv, void* fq, void* scale, void* zero, int64_t d,
+    int64_t f, int group, int bits, int dtype, int cluster, int slice,
+    int rows, int threads, int smem, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_up<__nv_bfloat16>(w, pi, svec, cosv, sinv, fq, scale, zero,
+                                    d, f, group, bits, cluster, slice, rows,
+                                    threads, smem, st);
+  return launch_up<float>(w, pi, svec, cosv, sinv, fq, scale, zero, d, f,
+                          group, bits, cluster, slice, rows, threads, smem,
+                          st);
+}
+
+// "down": w (f, n) float32 (dtype 0) or bfloat16 (dtype 1). One CTA per
+// (group, tile of units * vec columns), kDownThreads threads, `smem` bytes
+// of dynamic shared memory; vec is the values of one 16-byte copy (4 f32,
+// 8 bf16; n % vec == 0) or 1.
 extern "C" int rq_transform_quant_down(
     const void* w, const void* pi, const void* svec, const void* cosv,
     const void* sinv, void* fq, void* scale, void* zero, int64_t f,
-    int64_t n, int group, int bits, int units, int vec, int smem,
+    int64_t n, int group, int bits, int dtype, int units, int vec, int smem,
     void* stream) {
-  const int tw = units * vec;
-  const int tiles = (int)((n + tw - 1) / tw);
-  const dim3 grid((unsigned)(f / group * tiles));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float qmax = (float)((1 << bits) - 1);
-  const float* wf = static_cast<const float*>(w);
-  const int64_t* p = static_cast<const int64_t*>(pi);
-  const float* sv = static_cast<const float*>(svec);
-  const float* cv = static_cast<const float*>(cosv);
-  const float* snv = static_cast<const float*>(sinv);
-  float* out = static_cast<float*>(fq);
-  float* sc = static_cast<float*>(scale);
-  float* zr = static_cast<float*>(zero);
-  cudaError_t err;
-  if (vec == 4) {
-    err = cudaFuncSetAttribute(transform_quant_down_kernel<4>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    transform_quant_down_kernel<4><<<grid, kDownThreads, smem, st>>>(
-        wf, p, sv, cv, snv, out, sc, zr, n, group, units, tiles, qmax);
-  } else {
-    err = cudaFuncSetAttribute(transform_quant_down_kernel<1>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    transform_quant_down_kernel<1><<<grid, kDownThreads, smem, st>>>(
-        wf, p, sv, cv, snv, out, sc, zr, n, group, units, tiles, qmax);
+  if (dtype == 1) {
+    if (vec == 8)
+      return launch_down<__nv_bfloat16, 8>(w, pi, svec, cosv, sinv, fq,
+                                           scale, zero, f, n, group, bits,
+                                           units, smem, st);
+    return launch_down<__nv_bfloat16, 1>(w, pi, svec, cosv, sinv, fq, scale,
+                                         zero, f, n, group, bits, units,
+                                         smem, st);
   }
-  return (int)cudaGetLastError();
+  if (vec == 4)
+    return launch_down<float, 4>(w, pi, svec, cosv, sinv, fq, scale, zero,
+                                 f, n, group, bits, units, smem, st);
+  return launch_down<float, 1>(w, pi, svec, cosv, sinv, fq, scale, zero, f,
+                               n, group, bits, units, smem, st);
 }

@@ -63,12 +63,19 @@ def _check_quant_args(K: int, N: int, bits: int, group: int) -> None:
     _require(0 < N <= _MAX_GRID_Y, f"N={N} out of the kernel's range")
 
 
-def group_quant(w: torch.Tensor, *, bits: int, group: int):
+def group_quant(w: torch.Tensor, *, bits: int, group: int,
+                round_range: bool = False):
     """Fused fake-quant roundtrip of w (K, N) fp32 or bf16, groups of
     ``group`` rows along K. Returns (fq (K, N) in w's dtype, scale (K/G, N)
-    f32, zero (K/G, N) f32)."""
+    f32, zero (K/G, N) f32).
+
+    The arithmetic is f32 (the TPU kernel's). ``round_range`` rounds each
+    group's range, scale and its 1e-8 floor to w's dtype as they are
+    computed: the reference's ``core.quant.fake_quant`` on a bf16 w
+    (``core.quant.compute_qparams`` in bf16). For an f32 w it changes
+    nothing."""
     if w.device.type == "cpu":
-        return ref.group_quant_ref(w, bits, group)
+        return ref.group_quant_ref(w, bits, group, round_range=round_range)
     _require(w.device.type == "cuda",
              f"group_quant runs on CUDA or CPU tensors, got {w.device}")
     _require(w.ndim == 2, f"w must be 2-D, got shape {tuple(w.shape)}")
@@ -78,7 +85,8 @@ def group_quant(w: torch.Tensor, *, bits: int, group: int):
     fq = torch.empty_like(w)
     scale = torch.empty((K // group, N), dtype=torch.float32, device=w.device)
     zero = torch.empty_like(scale)
-    _gq.launch(w, fq, scale, zero, bits=bits, group=group)
+    _gq.launch(w, fq, scale, zero, bits=bits, group=group,
+               round_range=round_range)
     LAUNCHES["group_quant"] += 1
     return fq, scale, zero
 
@@ -89,9 +97,11 @@ def transform_quant(w: torch.Tensor, pi: torch.Tensor, s: torch.Tensor,
 
     mode="up":   w (D, F) -> (fq (D, F), scale (D/G, F), zero (D/G, F))
     mode="down": w (F, D) -> (fq (F, D), scale (F/G, D), zero (F/G, D))
-    w f32; pi (F,) int64, a gather index into [0, F) (a permutation on the
-    search's path); s (F,) f32; phi (F/2,) f32. A CUDA call launches the
-    kernel by ``transform_quant.plan`` or raises.
+    w f32 or bf16, computed in f32 either way, fq in w's dtype (the TPU
+    kernel's ``out_shape``), scale and zero f32; pi (F,) int64, a gather
+    index into [0, F) (a permutation on the search's path); s (F,) f32; phi
+    (F/2,) f32. A CUDA call launches the kernel by ``transform_quant.plan``
+    or raises.
     """
     _require(mode in _tq.MODES, f"mode must be 'up' or 'down', got {mode!r}")
     if w.device.type == "cpu":
@@ -103,12 +113,13 @@ def transform_quant(w: torch.Tensor, pi: torch.Tensor, s: torch.Tensor,
     K, N = w.shape
     f = N if mode == "up" else K
     _require(f % 2 == 0, f"transformed axis f={f} must be even")
-    _check_cuda("w", w, w.device, (torch.float32,), (K, N))
+    _check_cuda("w", w, w.device, (torch.float32, torch.bfloat16), (K, N))
     _check_cuda("pi", pi, w.device, (torch.int64,), (f,))
     _check_cuda("s", s, w.device, (torch.float32,), (f,))
     _check_cuda("phi", phi, w.device, (torch.float32,), (f // 2,))
     _check_quant_args(K, N, bits, group)
-    plan = _tq.plan(K, N, group, mode)   # raises for a shape it cannot take
+    # raises for a shape it cannot take
+    plan = _tq.plan(K, N, group, mode, w.element_size())
     _require(mode == "up" or plan.vec == 1 or w.data_ptr() % 16 == 0,
              "w must start on a 16-byte boundary (the down kernel copies 16 "
              "bytes at a time)")

@@ -18,11 +18,15 @@ __all__ = ["group_quant_ref", "transform_quant_ref", "paged_decode_ref",
 NEG = -1e30
 
 
-def group_quant_ref(w, bits: int, group_size: int):
-    """Fused quant->dequant roundtrip; returns (fq, scale, zero)."""
+def group_quant_ref(w, bits: int, group_size: int, *,
+                    round_range: bool = False):
+    """Fused quant->dequant roundtrip; returns (fq in w's dtype, scale,
+    zero). The range and scale are computed in f32, or in w's dtype with
+    ``round_range`` (``core.quant.compute_qparams`` on w itself, the
+    reference's ``fake_quant``); the codes and fq in f32."""
     cfg = QuantConfig(bits=bits, group_size=group_size)
     wf = w.float()
-    scale, zero = compute_qparams(wf, cfg)
+    scale, zero = compute_qparams(w if round_range else wf, cfg)
     codes = quantize_codes(wf, scale, zero, cfg)
     fq = dequantize_codes(codes, scale, zero, cfg, out_dtype=w.dtype)
     return fq, scale, zero
@@ -31,8 +35,10 @@ def group_quant_ref(w, bits: int, group_size: int):
 def transform_quant_ref(w, pi, s, phi, *, bits: int, group: int, mode: str):
     """Materialize-then-quantize composition of ``apply_transform_ffn``'s
     up/down branches with the group fake-quant roundtrip — the plain version
-    of the fused ``transform_quant`` kernel. Returns (fq, scale, zero)."""
-    w = w.float()
+    of the fused ``transform_quant`` kernel. Returns (fq, scale, zero): the
+    arithmetic f32, fq in w's dtype (the TPU kernel's ``out_shape``; the
+    reference's own oracle returns f32 for a bf16 w), scale and zero f32."""
+    dtype, w = w.dtype, w.float()
     if mode == "up":        # w (D, F): rotate -> x s -> permute on columns
         t = apply_rotation_cols(w, phi) * s[None, :]
         t = t[:, pi]
@@ -41,7 +47,8 @@ def transform_quant_ref(w, pi, s, phi, *, bits: int, group: int, mode: str):
         t = t[pi, :]
     else:
         raise ValueError(f"mode must be 'up' or 'down', got {mode!r}")
-    return group_quant_ref(t, bits, group)
+    fq, scale, zero = group_quant_ref(t, bits, group)
+    return fq.to(dtype), scale, zero
 
 
 def paged_decode_ref(q, k_pages, v_pages, block_tables, seq_lens,

@@ -5,7 +5,9 @@
 :func:`plan` is the launch planner, pure Python over the shapes: for "up"
 the thread block cluster of a quant band (cluster size, the source-column
 slice of each CTA, the sub-band height and so one pass or two), for "down"
-the column tile of a CTA. A shape it cannot take raises ``ValueError``.
+the column tile of a CTA (its 16-byte copies hold 4 f32 or 8 bf16
+values, so the tile follows the element size). A shape it cannot take
+raises ``ValueError``.
 :func:`launch` is the raw launch of a plan on PyTorch's current stream: it
 checks nothing and counts nothing. Callers go through
 ``kernels.ops.transform_quant``, which validates the tensors, plans,
@@ -39,13 +41,14 @@ MAX_GRID_X = 2 ** 31 - 1
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIG = {
-    # pointers, d f group bits, cluster slice rows threads smem, stream
-    "rq_transform_quant_up": (_I, [_P] * 8 + [_L, _L, _I, _I] + [_I] * 5
+    # pointers, d f group bits, dtype cluster slice rows threads smem, stream
+    "rq_transform_quant_up": (_I, [_P] * 8 + [_L, _L, _I, _I] + [_I] * 6
                               + [_P]),
-    # pointers, f n group bits, units vec smem, stream
-    "rq_transform_quant_down": (_I, [_P] * 8 + [_L, _L, _I, _I] + [_I] * 3
+    # pointers, f n group bits, dtype units vec smem, stream
+    "rq_transform_quant_down": (_I, [_P] * 8 + [_L, _L, _I, _I] + [_I] * 4
                                 + [_P]),
 }
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 class UpPlan(NamedTuple):
@@ -66,7 +69,8 @@ class UpPlan(NamedTuple):
 class DownPlan(NamedTuple):
     """"down": one CTA per (group, tile of ``units`` · ``vec`` columns),
     DOWN_THREADS threads = ``units`` column units × ``slices`` row
-    slices."""
+    slices; ``vec`` is the values of one 16-byte copy (4 f32, 8 bf16) or
+    1."""
     units: int
     vec: int
     slices: int
@@ -90,12 +94,13 @@ def up_smem(slice_: int, rows: int) -> int:
     return slice_ * (16 * -(-rows // 16) + 12)
 
 
-def down_smem(group: int, units: int, vec: int) -> int:
+def down_smem(group: int, units: int, vec: int, esize: int = 4) -> int:
     """Bytes of the "down" CTA's shared memory: source and partner rows of
-    the tile, per-slice min/max, and cos, sin, scale and source row per
-    group row."""
+    the tile (``esize`` bytes a value), per-slice f32 min/max, and cos,
+    sin, scale and source row per group row."""
     tw = units * vec
-    return 4 * (2 * group * tw + 2 * (DOWN_THREADS // units) * tw + 4 * group)
+    return (esize * 2 * group * tw
+            + 4 * (2 * (DOWN_THREADS // units) * tw + 4 * group))
 
 
 def _plan_up(d: int, f: int, group: int) -> UpPlan:
@@ -123,12 +128,12 @@ def _plan_up(d: int, f: int, group: int) -> UpPlan:
                      f"of at most {MAX_GRID_X} blocks")
 
 
-def _plan_down(f: int, n: int, group: int) -> DownPlan:
-    vec = 4 if n % 4 == 0 else 1
+def _plan_down(f: int, n: int, group: int, esize: int) -> DownPlan:
+    vec = 16 // esize if n % (16 // esize) == 0 else 1
     units = DOWN_UNITS
-    while units > 1 and down_smem(group, units, vec) > DOWN_SMEM:
+    while units > 1 and down_smem(group, units, vec, esize) > DOWN_SMEM:
         units //= 2
-    smem = down_smem(group, units, vec)
+    smem = down_smem(group, units, vec, esize)
     tiles = -(-n // (units * vec))
     grid = f // group * tiles
     if smem > SMEM_MAX or grid > MAX_GRID_X:
@@ -140,8 +145,9 @@ def _plan_down(f: int, n: int, group: int) -> DownPlan:
 
 
 @functools.lru_cache(maxsize=1024)
-def plan(K: int, N: int, group: int, mode: str):
-    """The launch of ``transform_quant`` on w (K, N) at ``group``: an
+def plan(K: int, N: int, group: int, mode: str, esize: int = 4):
+    """The launch of ``transform_quant`` on w (K, N) of ``esize``-byte
+    values (4 f32, 2 bf16) at ``group``: an
     :class:`UpPlan` ("up", w (D, F) = (K, N)) or a :class:`DownPlan`
     ("down", w (F, D) = (K, N)). Raises ``ValueError`` for a shape no plan
     takes.
@@ -151,8 +157,11 @@ def plan(K: int, N: int, group: int, mode: str):
     height dividing ``group`` whose codes fit UP_SMEM bytes (else a whole
     CTA's shared memory); only when no height fits at 8 does it take a
     non-portable cluster of 16.
-    "down" takes the widest tile (at most DOWN_UNITS units of 4 columns, or
-    of 1 when N is not a multiple of 4) within DOWN_SMEM bytes."""
+    "down" takes the widest tile (at most DOWN_UNITS units of one 16-byte
+    copy's columns, or of 1 column when N is not a multiple of them) within
+    DOWN_SMEM bytes."""
+    if esize not in (2, 4):
+        raise ValueError(f"esize must be 4 (f32) or 2 (bf16), got {esize}")
     if mode not in MODES:
         raise ValueError(f"mode must be 'up' or 'down', got {mode!r}")
     if group <= 0 or K % group:
@@ -163,26 +172,29 @@ def plan(K: int, N: int, group: int, mode: str):
         return _plan_up(K, N, group)
     if K % 2:
         raise ValueError(f"transformed axis f={K} must be even")
-    return _plan_down(K, N, group)
+    return _plan_down(K, N, group, esize)
 
 
 def launch(w, pi, svec, cos, sin, fq, scale, zero, *, bits: int, group: int,
            mode: str, plan) -> None:
     """fq, scale, zero <- fake-quant of the (pi, svec, cos/sin)-transformed
-    w (K, N) by ``plan`` (from :func:`plan`); ``svec`` is s for "up" and 1/s
-    for "down". Raises if the launch is refused."""
+    w (K, N) (f32 or bf16; fq the same) by ``plan`` (from :func:`plan` at
+    w's element size); ``svec`` is s for "up" and 1/s for "down". Raises if
+    the launch is refused."""
     lib = build.load("transform_quant", _SIG)
     K, N = w.shape
     ptrs = (w.data_ptr(), pi.data_ptr(), svec.data_ptr(), cos.data_ptr(),
             sin.data_ptr(), fq.data_ptr(), scale.data_ptr(), zero.data_ptr())
     stream = torch.cuda.current_stream(w.device).cuda_stream
+    dt = _DTYPE[w.dtype]
     if mode == "up":
         rc = lib.rq_transform_quant_up(
-            *ptrs, K, N, group, bits, plan.cluster, plan.slice, plan.rows,
-            plan.threads, plan.smem, stream)
+            *ptrs, K, N, group, bits, dt, plan.cluster, plan.slice,
+            plan.rows, plan.threads, plan.smem, stream)
     else:
         rc = lib.rq_transform_quant_down(
-            *ptrs, K, N, group, bits, plan.units, plan.vec, plan.smem, stream)
+            *ptrs, K, N, group, bits, dt, plan.units, plan.vec, plan.smem,
+            stream)
     if rc != 0:
         raise RuntimeError(
             f"transform_quant {mode} kernel launch failed: CUDA error {rc}")

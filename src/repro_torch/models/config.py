@@ -81,6 +81,10 @@ class ModelConfig:
     compute_dtype: str = "float32"
     attn_chunk: int = 1024            # kv-chunk for blocked online-softmax attention
     vocab_pad_multiple: int = 256
+    attn_softmax_dtype: str = "float32"   # float32 | bfloat16 score pipeline
+                                          # of blocked_attention
+    gqa_repeat_kv: bool = False       # repeat KV to the query heads before
+                                      # blocked_attention
     kv_cache_dtype: str = "compute"   # compute | int8 (absmax-scaled KV cache)
     use_flash_decode: bool = False    # route 1-token decode attention over the
                                       # contiguous cache through the CUDA

@@ -6,7 +6,18 @@ orientation, (B, S, H, Dh) heads). RoPE and qk-norm are plain PyTorch, as
 they are jnp in the reference. Attention is the reference's
 ``blocked_attention`` online softmax in plain PyTorch (jnp there, not a
 Pallas kernel), except one-token decode over a contiguous cache with
-``cfg.use_flash_decode``, which takes the ``flash_decode`` kernel.
+``cfg.use_flash_decode``, which takes the ``flash_decode`` kernel (f32
+whatever ``cfg.attn_softmax_dtype`` says, as the reference's kernel route;
+the reference falls back to ``blocked_attention`` only at a traced cache
+index, which the port's host-integer index never is).
+
+In a bf16 model each operation rounds to bf16 where the reference's does
+(its jnp ops on bf16 arrays, as XLA compiles them on the CPU): the norms
+and RoPE compute in f32 and round once, ``silu`` rounds after each of its
+four steps as ``jax.nn.silu`` (``x * sigmoid(x)``, the sigmoid as ``1 /
+(1 + exp(-x))``) does, and ``blocked_attention`` keeps its scores in
+``softmax_dtype`` with (m, l, acc) in f32. (``gelu``, which no bf16 config
+uses, rounds once.)
 Cross-attention (an encoder-decoder's decoder over the encoder's K/V) is
 non-causal ``blocked_attention`` on every call, decode included: the
 reference routes none of it through its flash kernel. The MoE
@@ -22,7 +33,8 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["NEG_INF", "rmsnorm", "layernorm", "apply_norm", "init_norm",
+__all__ = ["NEG_INF", "rmsnorm", "layernorm", "apply_norm", "add_norm",
+           "init_norm",
            "activation_fn", "rope_cos_sin", "apply_rope", "attn_qkv",
            "attn_out", "blocked_attention", "self_attention",
            "cross_attention", "cross_kv", "mlp",
@@ -32,23 +44,39 @@ __all__ = ["NEG_INF", "rmsnorm", "layernorm", "apply_norm", "init_norm",
 NEG_INF = -1e30
 
 
-def rmsnorm(x, w, eps=1e-6):
+def rmsnorm(x, w, eps=1e-6, dtype=None):
+    """RMSNorm in f32, rounded to ``dtype`` (x's by default), then times w."""
     xf = x.float()
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+    return (xf * torch.rsqrt(var + eps)).to(dtype or x.dtype) * w
 
 
-def layernorm(x, w, b, eps=1e-5):
+def layernorm(x, w, b, eps=1e-5, dtype=None):
+    """LayerNorm in f32, rounded to ``dtype`` (x's by default), then w, b."""
     xf = x.float()
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
-    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(dtype or x.dtype) * w + b
+
+
+def _norm(x, p, kind, dtype):
+    if kind == "layernorm":
+        return layernorm(x, p["w"], p["b"], dtype=dtype)
+    return rmsnorm(x, p["w"], dtype=dtype)
 
 
 def apply_norm(x, p, kind):
-    if kind == "layernorm":
-        return layernorm(x, p["w"], p["b"])
-    return rmsnorm(x, p["w"])
+    return _norm(x, p, kind, x.dtype)
+
+
+def add_norm(h, a, p, kind):
+    """The residual h + a and the next pre-norm of it: (the sum rounded to
+    h's dtype, the norm ``p`` of the unrounded sum, rounded to h's dtype).
+    The reference's blocks, as XLA compiles them, compute a bf16 residual
+    sum that feeds the next norm's f32 upcast without rounding it, while
+    the residual stream itself is rounded; in f32 the two are one tensor."""
+    s = h.float() + a.float()
+    return s.to(h.dtype), _norm(s, p, kind, h.dtype)
 
 
 def init_norm(lead, d, kind, dtype, device):
@@ -64,9 +92,17 @@ def _gelu_tanh(x):
     return torch.nn.functional.gelu(x, approximate="tanh")
 
 
+def _silu(x):
+    """``jax.nn.silu``: in f32 one fused op; in a narrower dtype the
+    reference's steps, each rounded to it: exp(-x), 1 + that, its
+    reciprocal, x times that."""
+    if x.dtype == torch.float32:
+        return torch.nn.functional.silu(x)
+    return x * torch.reciprocal(1.0 + torch.exp(-x))
+
+
 def activation_fn(name):
-    return {"relu": torch.relu, "silu": torch.nn.functional.silu,
-            "gelu": _gelu_tanh}[name]
+    return {"relu": torch.relu, "silu": _silu, "gelu": _gelu_tanh}[name]
 
 
 @functools.lru_cache(maxsize=16)
@@ -147,28 +183,47 @@ def attn_out(p, x_attn):
 
 def blocked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
                       kv_len=None, chunk: int = 1024, k_scale=None,
-                      v_scale=None):
+                      v_scale=None, softmax_dtype=torch.float32,
+                      repeat_kv: bool = False):
     """q: (B, Sq, Hq, Dh); k/v: (B, Sk, Hkv, Dh) -> (B, Sq, Hq, Dh).
 
     The reference's online-softmax (flash-attention recurrence) over KV
-    chunks of ``chunk`` positions, in fp32: ``q_offset`` is the absolute
-    position of q[0] (decode), keys at or past ``kv_len`` are masked, and
-    int8 caches come with (B, Sk, Hkv) ``k_scale``/``v_scale``, dequantised
-    per chunk. Query head h reads KV head h // (Hq // Hkv). The port's
-    ``kv_len`` is a host integer, so the keys past it are sliced off before
-    the chunking (the reference masks whole chunks of them; a fully masked
-    chunk leaves (m, l, acc) unchanged, so the result is the same).
+    chunks of ``chunk`` positions: ``q_offset`` is the absolute position of
+    q[0] (decode), keys at or past ``kv_len`` are masked, and int8 caches
+    come with (B, Sk, Hkv) ``k_scale``/``v_scale``, dequantised per chunk.
+    Query head h reads KV head h // (Hq // Hkv); ``repeat_kv`` repeats the
+    KV heads (and scales) to Hq first, as the reference's
+    ``gqa_repeat_kv`` does (the same values). The port's ``kv_len`` is a
+    host integer, so the keys past it are sliced off before the chunking
+    (the reference masks whole chunks of them; a fully masked chunk leaves
+    (m, l, acc) unchanged, so the result is the same).
+
+    ``softmax_dtype`` is the scores' dtype, as in the reference: q (pre-
+    scaled by Dh^-0.5 rounded to it), K, V, the scores, the mask value
+    (-1e30 in f32, -3e38 otherwise) and the probabilities are in it; the
+    running max, sum and accumulator stay f32, and P·V accumulates in f32.
     """
     B, Sq, Hq, Dh = q.shape
     if kv_len is not None and kv_len < k.shape[1]:
         k, v = k[:, :kv_len], v[:, :kv_len]
         if k_scale is not None:
             k_scale, v_scale = k_scale[:, :kv_len], v_scale[:, :kv_len]
+    if repeat_kv and k.shape[2] < Hq:
+        rep0 = Hq // k.shape[2]
+        k = torch.repeat_interleave(k, rep0, dim=2)
+        v = torch.repeat_interleave(v, rep0, dim=2)
+        if k_scale is not None:
+            k_scale = torch.repeat_interleave(k_scale, rep0, dim=2)
+            v_scale = torch.repeat_interleave(v_scale, rep0, dim=2)
     Sk, Hkv = k.shape[1], k.shape[2]
     rep = Hq // Hkv
     dev = q.device
+    sdt = softmax_dtype
+    neg = NEG_INF if sdt == torch.float32 else -3e38
+    # Dh^-0.5 rounded to sdt, as the reference's jnp.asarray(scale, sdt)
+    scale = float(torch.tensor(Dh ** -0.5, dtype=sdt))
     # (B, Hkv, rep, Sq, Dh), pre-scaled as the reference does
-    qg = (q.float() * Dh ** -0.5).reshape(B, Sq, Hkv, rep, Dh).permute(
+    qg = (q.to(sdt) * scale).reshape(B, Sq, Hkv, rep, Dh).permute(
         0, 2, 3, 1, 4)
     q_pos = q_offset + torch.arange(Sq, device=dev)
     m = torch.full((B, Hkv, rep, Sq), NEG_INF, dtype=torch.float32,
@@ -178,25 +233,25 @@ def blocked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     acc = torch.zeros((B, Hkv, rep, Sq, Dh), dtype=torch.float32, device=dev)
     chunk = max(min(chunk, Sk), 1)
     for start in range(0, Sk, chunk):
-        kb = k[:, start:start + chunk].float()              # (B, C, Hkv, Dh)
-        vb = v[:, start:start + chunk].float()
+        kb = k[:, start:start + chunk].to(sdt)              # (B, C, Hkv, Dh)
+        vb = v[:, start:start + chunk].to(sdt)
         if k_scale is not None:
-            kb = kb * k_scale[:, start:start + chunk, :, None].float()
-            vb = vb * v_scale[:, start:start + chunk, :, None].float()
+            kb = kb * k_scale[:, start:start + chunk, :, None].to(sdt)
+            vb = vb * v_scale[:, start:start + chunk, :, None].to(sdt)
         kb = kb.permute(0, 2, 1, 3)[:, :, None]             # (B, Hkv, 1, C, Dh)
         vb = vb.permute(0, 2, 1, 3)[:, :, None]
         s = qg @ kb.transpose(-1, -2)                       # (B, Hkv, rep, Sq, C)
         if causal:
             k_pos = start + torch.arange(kb.shape[3], device=dev)
             mask = q_pos[:, None] >= k_pos[None, :]         # (Sq, C)
-            s = torch.where(mask, s, NEG_INF)
-        m_new = torch.maximum(m, torch.amax(s, dim=-1))
-        p = torch.exp(s - m_new[..., None])
+            s = torch.where(mask, s, neg)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1).float())
+        p = torch.exp(s - m_new[..., None].to(sdt))
         if causal:
             p = torch.where(mask, p, 0.0)
         corr = torch.exp(m - m_new)
-        l = l * corr + torch.sum(p, dim=-1)  # noqa: E741
-        acc = acc * corr[..., None] + p @ vb
+        l = l * corr + torch.sum(p, dim=-1).float()  # noqa: E741
+        acc = acc * corr[..., None] + p.float() @ vb.float()
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dh).to(q.dtype)
@@ -216,8 +271,11 @@ def self_attention(p, cfg: ModelConfig, x, positions, *, causal: bool = True,
     kernel; every other call ``blocked_attention``.
     """
     q, k, v = attn_qkv(p, cfg, x, positions)
+    kw = dict(chunk=cfg.attn_chunk,
+              softmax_dtype=getattr(torch, cfg.attn_softmax_dtype),
+              repeat_kv=cfg.gqa_repeat_kv)
     if cache is None:
-        out = blocked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+        out = blocked_attention(q, k, v, causal=causal, **kw)
         return attn_out(p, out), None
     S = x.shape[1]
     rows = slice(cache_index, cache_index + S)
@@ -234,9 +292,8 @@ def self_attention(p, cfg: ModelConfig, x, positions, *, causal: bool = True,
     else:
         out = blocked_attention(q, cache["k"], cache["v"], causal=causal,
                                 q_offset=cache_index, kv_len=kv_len,
-                                chunk=cfg.attn_chunk,
                                 k_scale=cache.get("k_scale"),
-                                v_scale=cache.get("v_scale"))
+                                v_scale=cache.get("v_scale"), **kw)
     return attn_out(p, out), cache
 
 
@@ -382,7 +439,11 @@ def moe_ffn(p, cfg: ModelConfig, x):
         out_buf[:, e] = h @ w["down"]
     out_slots = out_buf[b_idx, e_idx, torch.clamp(pos, 0, C - 1)] \
         * keep[..., None].to(x.dtype)
-    return torch.sum(out_slots.reshape(B, S, K, D) * gate_w[..., None], dim=2)
+    # the gate-weighted sum over the K choices in f32, rounded once: what the
+    # reference's bf16 product and sum compile to (XLA keeps the products
+    # unrounded inside the reduction)
+    return torch.sum(out_slots.float().reshape(B, S, K, D)
+                     * gate_w.float()[..., None], dim=2).to(x.dtype)
 
 
 def moe_aux_loss(p, cfg: ModelConfig, x):

@@ -189,19 +189,18 @@ def _dense_body(pl, cfg: ModelConfig, h, positions, cache=None,
     a, cache = L.self_attention(pl["attn"], cfg, a_in, positions,
                                 causal=causal, cache=cache,
                                 cache_index=cache_index)
-    h = h + a
     if "xattn" in pl and (cross is not None or enc_h is not None):
-        x_in = L.apply_norm(h, pl["ln_x"], cfg.norm)
+        h, x_in = L.add_norm(h, a, pl["ln_x"], cfg.norm)
         kv = cross if cross is not None else L.cross_kv(pl["xattn"], cfg,
                                                         enc_h)
-        h = h + L.cross_attention(pl["xattn"], cfg, x_in, kv)
-    return h + ffn_sublayer(pl, cfg, h), cache
+        a = L.cross_attention(pl["xattn"], cfg, x_in, kv)
+    h, m_in = L.add_norm(h, a, pl["ln2"], cfg.norm)
+    return h + ffn_sublayer(pl, cfg, m_in), cache
 
 
-def ffn_sublayer(pl, cfg: ModelConfig, h):
-    """The block's FFN on the normed residual: ``moe_ffn`` when the layer's
-    tree holds ``"moe"``, else the dense ``mlp``."""
-    m_in = L.apply_norm(h, pl["ln2"], cfg.norm)
+def ffn_sublayer(pl, cfg: ModelConfig, m_in):
+    """The block's FFN on its normed input ``m_in``: ``moe_ffn`` when the
+    layer's tree holds ``"moe"``, else the dense ``mlp``."""
     if "moe" in pl:
         return L.moe_ffn(pl["moe"], cfg, m_in)
     return L.mlp(pl["mlp"], cfg, m_in)

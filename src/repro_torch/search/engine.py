@@ -53,8 +53,8 @@ from repro_torch.core import objective as obj
 from repro_torch.data.calib import shard_calibration
 from repro_torch.models.model import forward
 from repro_torch.search import anneal
-from repro_torch.search.install import (stack_unit_batch, tree_bytes,
-                                        tree_install_unit)
+from repro_torch.search.install import (cast_unit, stack_unit_batch,
+                                        tree_bytes, tree_install_unit)
 from repro_torch.search.islands import IslandState, make_island_streams, migrate
 from repro_torch.search.tabu import TabuMemory, transform_bytes
 
@@ -185,9 +185,12 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
             f"the calibration tokens are on {dev}")
 
     base = adapter.base_stack(params_base)
+    # the model's dtypes, which the stack and every candidate take (a base
+    # method may hand over a wider base: core.pipeline's docstring)
+    like = adapter.base_stack(params_fp)
     transforms0 = stack_unit_batch(
         [inv.identity_transform(adapter.f_dim, dev)] * adapter.n_units)
-    fq0 = adapter.quant_stack(base, qcfg)
+    fq0 = cast_unit(adapter.quant_stack(base, qcfg), like)
 
     # FP reference forward on the FULL batch; per-island slices are views
     # into these (batch axis 0 for tokens/logits, axis 1 for the taps)
@@ -232,9 +235,16 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
     loss0s = [p + alpha * a for p, a in base0]
 
     def quant_candidate(t_new, u):
+        """The candidate unit in the stack's dtypes: both lanes compute the
+        transform in f32, and the reference's ``tree_install_unit`` casts
+        what it installs, so the override forward reads what an installed
+        stack would hold."""
         if fused:
-            return adapter.transform_quant_unit(base, t_new, u, qcfg)
-        return adapter.quant_unit(adapter.transform_unit(base, t_new, u), qcfg)
+            unit = adapter.transform_quant_unit(base, t_new, u, qcfg)
+        else:
+            unit = adapter.quant_unit(adapter.transform_unit(base, t_new, u),
+                                      qcfg)
+        return cast_unit(unit, like)
 
     def build(cands, fq_stack, u):
         """The K candidates' batch: built units, or stacks holding them."""

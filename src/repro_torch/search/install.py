@@ -7,6 +7,8 @@ tensors), nested freely; every leaf carries a leading unit axis.
   so a tree held elsewhere (the elite snapshot) never changes under a later
   install. The engine installs an accepted unit this way, and
   ``install="stack"`` builds each of its K candidate stacks this way.
+- :func:`cast_unit` gives a unit the stack's dtypes without installing it
+  (the engine's override forward under ``install="unit"``).
 - :func:`stack_unit_batch` stacks K per-unit trees along a new leading
   axis (the engine's identity transforms, one per unit).
 - :func:`tree_bytes` counts the payload bytes of a tree or of a list of
@@ -17,7 +19,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["tree_install_unit", "stack_unit_batch", "tree_bytes"]
+__all__ = ["tree_install_unit", "cast_unit", "stack_unit_batch",
+           "tree_bytes"]
 
 
 def _map(fn, tree, *rest):
@@ -48,6 +51,14 @@ def tree_install_unit(tree, u: int, unit):
         return out
 
     return _map(one, tree, unit)
+
+
+def cast_unit(unit, tree):
+    """``unit`` with each leaf in the dtype of the matching leaf of the
+    stacked ``tree``: the cast :func:`tree_install_unit` makes on install
+    (the reference's ``n[None].astype(x.dtype)``), for a unit that is read
+    without being installed (``install="unit"``'s override forward)."""
+    return _map(lambda n, x: n.to(x.dtype), unit, tree)
 
 
 def stack_unit_batch(units):

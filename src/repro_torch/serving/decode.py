@@ -132,8 +132,8 @@ def paged_block_body(pl, cfg: ModelConfig, carry, pool_slice, attn_sublayer):
         pl = dequant_tree(pl, getattr(torch, cfg.compute_dtype))
     a_in = L.apply_norm(carry, pl["ln1"], cfg.norm)
     a, pools = attn_sublayer(pl["attn"], a_in, pool_slice)
-    hh = carry + a
-    return hh + ffn_sublayer(pl, cfg, hh), pools
+    hh, m_in = L.add_norm(carry, a, pl["ln2"], cfg.norm)
+    return hh + ffn_sublayer(pl, cfg, m_in), pools
 
 
 def write_rows(pool, idx, val):

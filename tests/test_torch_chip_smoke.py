@@ -1000,3 +1000,132 @@ def test_check_greedy_with_a_frontend_takes_the_oracles_tokens_and_refuses_other
 def test_phase_13e_runs_cpu_against_cpu(arch):
     from repro_torch.kernels import ops
     CS.phase_small_encdec(torch, ops, arch, devs=("cpu", "cpu"))
+
+
+def test_qwen3_4b_bf16_reckoning():
+    """14's sizes in the config's own bf16, from the shapes (PERF.md's
+    predictions use them), and phase 10's fp32 depth cut."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen3-4b")
+    assert cfg.param_dtype == cfg.compute_dtype == "bfloat16"
+    assert CS.dense_param_count(cfg) * 2 == 8_824_159_232       # 8.82 GB
+    assert CS.ffn_stack_bytes(cfg, 2) == 5_379_194_880          # 5.38 GB
+    assert [s for _, s in CS.encdec_gq_shapes(cfg)] == [
+        (36 * 2560, 4096), (36 * 2560, 1024), (36 * 4096, 2560),
+        (36 * 2560, 9728), (36 * 9728, 2560)]
+    for K, N in ((2560, 9728), (9728, 2560)):
+        nbytes = CS.tq_bytes(K, N, 32, 9728, 2)
+        assert nbytes == 2 * K * N * 2 + 2 * (K // 32) * N * 4 + 9728 * 16
+        bound, by = CS.bound_ms(nbytes, CS.TQ_OPS * K * N)
+        assert by == "bytes" and bound == pytest.approx(0.0316, abs=1e-4)
+    assert CS.gq_bytes(92160, 9728, 32, 2) == 2 * 92160 * 9728 * 2 \
+        + 2 * 2880 * 9728 * 4
+    assert CS.zoo_config(get_config).n_layers == 36
+    assert CS.zoo_config(get_config, n_layers=CS.ZOO_FP32_LAYERS).n_layers \
+        == 12
+
+
+def test_qwen3_4b_bf16_launch_formulas():
+    """The counts 14b and 14d hold the kernels to: the bf16 model launches
+    what the fp32 one does (fake_quant and the fused lane go through the
+    same kernels in either dtype)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.search import SearchConfig
+
+    cfg = get_config("qwen3-4b")
+    stats = {"tabu_skips": 0, "tabu_rebuilds": 0}
+    assert CS.search_launches(cfg, SearchConfig(steps=16, fused_kernel=True),
+                              stats) == {"group_quant": 3,
+                                         "transform_quant": 48}
+    assert CS.base_method_gq_launches("rtn", cfg) == 7
+    assert CS.base_method_gq_launches("awq", cfg) == 4687
+    assert CS.paged_launches(cfg, 21) == 756
+
+
+def test_bf16_oracle_weights_and_near_tie():
+    """A bf16 model's greedy oracle runs on bf16 weights, and its near tie
+    is wider than an fp32 model's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.quantized.qmodel import pack_model
+
+    cfg = get_config("qwen3-4b").reduced(param_dtype="bfloat16",
+                                         compute_dtype="bfloat16")
+    assert CS.near_tie(cfg) == 2.0 ** -5
+    assert CS.near_tie(get_config("qwen3-4b").reduced()) == CS.NEAR_TIE
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    dense = CS.oracle_weights(pack_model(params, QuantConfig(2, 32)), cfg)
+    assert dense["blocks"]["mlp"]["up"].dtype == torch.bfloat16
+    assert dense["blocks"]["ln1"]["w"].dtype == torch.bfloat16
+
+
+def test_check_greedy_lists_every_near_tie_of_a_request(monkeypatch):
+    """After a near tie a request is still held, token by token, to the
+    oracle after its own tokens: every tie is listed (so ``compare_runs``
+    finds the first parting of two runs among them), and a later token
+    off the oracle without a tie still fails."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import forward, init_params
+
+    cfg = get_config("qwen3-4b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompt = [3, 1, 4, 1, 5]
+    seq = torch.tensor([prompt])
+    for _ in range(5):
+        logits = forward(params, cfg, seq)[:, -1, :cfg.vocab_size]
+        seq = torch.cat([seq, logits.argmax(-1)[:, None]], dim=1)
+    out = seq[0, 5:].tolist()
+    out[4] = (out[4] + 1) % cfg.vocab_size     # the last token: no later one
+    out[1] = (out[1] + 1) % cfg.vocab_size     # moves the oracle after it
+    reqs = [SimpleNamespace(prompt=prompt)]
+    monkeypatch.setattr(CS, "near_tie", lambda c: float("inf"))
+    ties = CS.check_greedy(torch, forward, params, cfg, reqs, [out], "t",
+                           device="cpu")
+    assert [(i, j) for i, j, _ in ties][:1] == [(0, 1)]
+    assert (0, 4) in [(i, j) for i, j, _ in ties]
+    monkeypatch.setattr(CS, "near_tie", lambda c: 0.0)
+    with pytest.raises(AssertionError, match="request 0 token 1"):
+        CS.check_greedy(torch, forward, params, cfg, reqs, [out], "t",
+                        device="cpu")
+
+
+def test_check_greedy_excuses_only_a_token_near_the_top(monkeypatch):
+    """A token off the oracle is excused where its own oracle logit is
+    within the bar of the top (the runner-up at a near tie), not wherever
+    the oracle's top-2 gap is under the bar: at the bar halfway between
+    the top-2 gap and the lowest token's gap, the runner-up passes and the
+    lowest token fails."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import forward, init_params
+
+    cfg = get_config("qwen3-4b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompt = [3, 1, 4, 1, 5]
+    seq = torch.tensor([prompt])
+    for _ in range(5):
+        logits = forward(params, cfg, seq)[:, -1, :cfg.vocab_size]
+        seq = torch.cat([seq, logits.argmax(-1)[:, None]], dim=1)
+    last = logits[0]                          # the oracle at the last token
+    order = torch.argsort(last, descending=True)
+    top = float(last[order[0]])
+    gap2 = (top - float(last[order[1]])) / abs(top)
+    gap_low = (top - float(last[order[-1]])) / abs(top)
+    bar = (gap2 + gap_low) / 2
+    reqs = [SimpleNamespace(prompt=prompt)]
+    out = seq[0, 5:].tolist()
+    monkeypatch.setattr(CS, "near_tie", lambda c: bar)
+    out[4] = int(order[1])
+    ties = CS.check_greedy(torch, forward, params, cfg, reqs, [out], "t",
+                           device="cpu")
+    assert [(i, j) for i, j, _ in ties] == [(0, 4)]
+    assert ties[0][2] == pytest.approx(gap2, rel=1e-5)
+    out[4] = int(order[-1])
+    with pytest.raises(AssertionError, match="request 0 token 4"):
+        CS.check_greedy(torch, forward, params, cfg, reqs, [out], "t",
+                        device="cpu")

@@ -43,6 +43,21 @@ def test_group_quant_cuda_matches_plain(dtype, bits, group):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits,group", [(2, 32), (3, 128)])
+def test_group_quant_cuda_round_range_matches_plain(dtype, bits, group):
+    """``round_range`` (``core.quant.fake_quant``'s qparams in w's dtype)."""
+    dev = needs_cuda()
+    w = (torch.randn((512, 384), generator=torch.Generator().manual_seed(1))
+         * 2.5).to(dev, dtype)
+    before = tk.LAUNCHES["group_quant"]
+    fq, s, z = tk.group_quant(w, bits=bits, group=group, round_range=True)
+    assert tk.LAUNCHES["group_quant"] == before + 1
+    for got, want in zip((fq, s, z), tref.group_quant_ref(
+            w, bits, group, round_range=True)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def _pi(kind, f, seed):
     """A gather index of width f: identity, a partial shuffle (an eighth of
     the positions permuted among themselves), a random permutation, or
@@ -96,6 +111,35 @@ def test_transform_quant_cuda_matches_plain(mode, D, F, bits, group, kind,
     for got, want in zip((fq, sc, z), tref.transform_quant_ref(
             w, pi, s, phi, bits=bits, group=group, mode=mode)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# bf16 w: the f32 cases' shapes that cross the tiles ("down" in 16-byte
+# copies of 8 values, or one value at a time at D 90), and Qwen3-4B's FFN
+TQ_BF16_CASES = [c for c in TQ_CUDA_CASES if c[:2] in (
+    (96, 256), (1408, 4864), (256, 8192), (90, 120))] + [
+    (2560, 9728, 2, 32, "random", False), (2560, 9728, 2, 32, "random", True)]
+
+
+@pytest.mark.parametrize("mode", ["up", "down"])
+@pytest.mark.parametrize("D,F,bits,group,kind,gate", TQ_BF16_CASES)
+def test_transform_quant_cuda_bf16_matches_plain(mode, D, F, bits, group,
+                                                 kind, gate):
+    dev = needs_cuda()
+    w = torch.randn((D, F) if mode == "up" else (F, D),
+                    generator=torch.Generator().manual_seed(2)).to(
+                        dev, torch.bfloat16)
+    _, s, phi = _tq_args(F, seed=3)
+    if gate:
+        s, phi = torch.ones_like(s), torch.zeros_like(phi)
+    pi, s, phi = _pi(kind, F, seed=4).to(dev), s.to(dev), phi.to(dev)
+    before = tk.LAUNCHES["transform_quant"]
+    fq, sc, z = tk.transform_quant(w, pi, s, phi, bits=bits, group=group,
+                                   mode=mode)
+    assert tk.LAUNCHES["transform_quant"] == before + 1
+    assert fq.dtype == torch.bfloat16 and sc.dtype == torch.float32
+    for got, want in zip((fq, sc, z), tref.transform_quant_ref(
+            w, pi, s, phi, bits=bits, group=group, mode=mode)):
+        assert torch.equal(got, want)
 
 
 def test_cuda_wrappers_raise_on_bad_inputs():
