@@ -159,27 +159,32 @@ source, started together, into ``build/kernels/``), then:
    steps at 9d's, PagedServer's greedy tokens identical;
 11. the MoE family: (a) Phi-3.5-MoE (``configs/phi3_5_moe.py``: d 4096,
    32/8 heads × 128, 16 experts top-2, d_ff 6400, LayerNorm, vocab 32064)
-   at full width, 3 of its 32 layers deep, random-init, in fp32 (the cuts:
-   depth, and the config's own bf16): ``group_quant`` held to its plain
-   version at every shape the model gives it, then ``quantize_model`` RTN
+   at full width, 3 of its 32 layers deep (the cut), random-init, in its
+   own bf16: ``group_quant`` (``round_range``) held to its plain version at
+   every shape the model gives it, ``transform_quant`` at one expert and
+   the GQA paged routes and flash_decode at its heads on bf16 caches
+   (``tq_check``, ``attn_kernels_at``), then ``quantize_model`` RTN
    alone and with 16 fused steps over the 48 expert units (launches held
    to ``base_method_gq_launches`` and ``search_launches``), held-out ppl,
    losses, accept rate, peak memory, and one candidate's forward beside
    its operations over the E·C slots of the dispatch buffer
    (``moe_forward_flops``); (b) the packed model through ``PagedServer``
    with sharing off, on, and on with 2 pages per block (both GQA routes,
-   3 x decode steps each), each run held token for token to its plain
-   route (the same server with the paged decode's plain version: MoE
-   capacity follows each prefill chunk's S, so a full forward is not the
-   served computation), with the step split; (c) ``BatchedServer`` with
-   ``use_flash_decode`` off and on, the flag-on tokens held to the flag-off
-   run; (d) phi3.5-moe and Moonlight (E 64, top-6) reduced on the card
+   3 x decode steps each), each run served again with every decode step
+   held to the same step through the paged decode's plain version on the
+   same pools (``StepCheck``: MoE capacity follows each prefill chunk's S,
+   so a full forward is not the served computation, and in bf16 a
+   rounding swaps experts at a router near tie), with the step split; (c)
+   ``BatchedServer`` with ``use_flash_decode`` off (no independent
+   oracle: a full forward routes at another capacity) and on
+   (``StepCheck`` against blocked attention); then the bf16-vs-fp32 accept decisions (``family_accepts``,
+   as 14c); (d) phi3.5-moe and Moonlight (E 64, top-6) reduced on the card
    against the CPU: forward, prefill + decode, RTN + 4 fused steps, 5
-   train steps, PagedServer's tokens;
+   train steps, PagedServer's tokens, and in bf16 (``phase_small_bf16``);
 12. the SSM and hybrid families: (a) Mamba2-2.7B
    (``configs/mamba2_2_7b.py``: 64 blocks, d 2560, d_inner 5120, 80 SSD
    heads x 64, d_state 128, chunk 128, vocab 50280) at full width and
-   depth, random-init, in fp32 (a cut: the config says bf16):
+   depth, random-init, in its own bf16:
    ``group_quant`` held to its plain version at the stacked Mamba shapes
    and one block's, then ``quantize_model`` RTN alone and with 16 steps,
    the fused flag asked for (the Mamba adapter has no fused build: one
@@ -188,23 +193,31 @@ source, started together, into ``build/kernels/``), then:
    memory, launches held to ``ssm_quantize_launches``, and one
    candidate's forward beside its operations, the SSD scan's included
    (``ssm_forward_flops``); (b) the packed model through ``BatchedServer``
-   over the trace's first 8 requests: greedy tokens held to the
-   full-forward oracle, tokens/s, step ms, device ms per decode step by
-   family (dequant, GEMM, the SSD state update, idle), and
-   ``PagedServer`` refusing the config; (c) Zamba2-7B
+   over the trace's first 8 requests: each served step's logits held,
+   teacher-forced, to the full forward's (``hold_served_logits``: in bf16
+   one-ulp partings grow over 64 blocks past any token tie), tokens/s,
+   step ms, device ms per decode step by family (dequant, GEMM, the SSD
+   state update, idle), ``PagedServer`` refusing the config, and the same
+   server on the RTN model in fp32, its greedy tokens held to the
+   full-forward oracle at NEAR_TIE; (c) Zamba2-7B
    (``configs/zamba2_7b.py``: d 3584, 32/32 heads x 112, d_ff 14336, SSM
    d_state 64) at full width, 13 of its 81 blocks (hybrid layout (11,
-   2)), fp32: as (a), with the two-phase search (8 unfused Mamba steps,
+   2)), bf16, after ``transform_quant`` at its shared FFN and flash_decode
+   at Dh 112 on a bf16 cache: as (a), with the two-phase search (8
+   unfused Mamba steps,
    then 8 fused shared-FFN steps: 24 ``transform_quant``), then
-   ``BatchedServer`` with ``use_flash_decode`` off and on (tokens held to
-   the oracle and to each other; flash_decode launched 2 x decode steps);
-   (d) both configs reduced on the card against the CPU: forward and taps,
-   prefill + 3 decode steps, RTN + 4 steps on the same CPU-drawn proposals
-   (``histories_agree`` per phase), BatchedServer's tokens;
+   ``BatchedServer`` with ``use_flash_decode`` off and on (logits held as
+   in (b); flash_decode launched 2 x decode steps), and both again on the
+   RTN model in fp32 (tokens held to the oracle and to each other);
+   the bf16-vs-fp32 accept decisions of both; (d) both configs reduced on
+   the card against the CPU: forward and taps, prefill + 3 decode steps,
+   RTN + 4 steps on the same CPU-drawn proposals (``histories_agree`` per
+   phase), BatchedServer's tokens, and in bf16;
 13. the encoder-decoder and vision families, at full width and depth in
-   fp32 (a cut: the configs say bf16), after ``group_quant`` is held to
-   its plain version at every stacked shape both models give it
-   (``encdec_gq_shapes``) and timed at the largest: (a) SeamlessM4T-medium
+   their own bf16, after ``group_quant`` is held to its plain version at
+   every stacked shape both models give it (``encdec_gq_shapes``) and
+   timed at the largest, and ``transform_quant`` and flash_decode at
+   Seamless's decoder: (a) SeamlessM4T-medium
    (``configs/seamless_m4t_medium.py``: 12 encoder + 12 decoder layers, d
    1024, 16/16 heads x 64, ReLU d_ff 4096, biases, LayerNorm, learned
    positions, vocab 256206 -> 256256), random-init: ``quantize_model`` RTN
@@ -229,12 +242,14 @@ source, started together, into ``build/kernels/``), then:
    PagedServer over the trace with sharing off, on and MP 2 and
    BatchedServer flag off / on (as 10b-c); the two GQA paged routes and
    flash_decode at (B 8, 14/2, Dh 64) against their plain versions at the
-   trace's lengths and at 1024, timed beside their bounds; the CE search
-   with patches raising ValueError; (d) 3 train steps of each at B 2 x 512
-   tokens (512 frames; 256 patches): finite losses, step ms, peak; (e)
-   both reduced configs on the card against the CPU: forward and taps,
-   prefill + 3 decode steps, RTN + 4 fused steps (``histories_agree``),
-   3 train steps;
+   trace's lengths and at 1024 (f32, int8 and bf16 caches), timed on bf16
+   beside their bounds, ``transform_quant`` at its FFN; the CE search with
+   patches raising ValueError; then the bf16-vs-fp32 accept decisions of
+   both; (d) 3 train steps of each in fp32 (the bf16 train step is not yet
+   held to the reference) at B 2 x 512 tokens (512 frames; 256 patches):
+   finite losses, step ms, peak; (e) both reduced configs on the card
+   against the CPU: forward and taps, prefill + 3 decode steps, RTN + 4
+   fused steps (``histories_agree``), 3 train steps, and in bf16;
 14. Qwen3-4B in its config's own bf16 at full width and depth,
    random-init, with ``torch.backends.cuda.matmul.
    allow_bf16_reduced_precision_reduction`` off: (a) ``transform_quant``'s
@@ -294,12 +309,14 @@ STEPS = 16
 LANE_STEPS = 6
 PROFILE_STEPS = 4
 
-# kernel-name fragments -> family for the profile (first match wins)
+# kernel-name fragments -> family for the profile (first match wins);
+# cuBLAS's Hopper GEMMs for bf16 are "nvjet_*" kernels, which name no gemm
 FAMILIES = (
     ("transform_quant", "transform_quant (port kernel)"),
     ("group_quant", "group_quant (port kernel)"),
     ("gemm", "matmul (cuBLAS)"),
     ("cutlass", "matmul (cuBLAS)"),
+    ("nvjet", "matmul (cuBLAS)"),
     ("softmax", "softmax / log_softmax"),
     ("reduce", "reductions"),
     ("copy", "copies"),
@@ -420,6 +437,14 @@ def device_ms(torch, fn, fragments, calls=20, attempts=3):
     log("device_time_fallback", fragments=list(fragments), attempts=attempts,
         ms=ms)
     return ms
+
+
+def peak_share(flops, ms, elem):
+    """{"share_of_<dtype>_peak": the rate ``flops`` in ``ms`` reach, over
+    the card's peak for 4-byte (fp32) or 2-byte (bf16) operands}."""
+    name, rate = ("share_of_fp32_peak", FP32_OPS_PER_S) if elem == 4 else \
+        ("share_of_bf16_peak", BF16_OPS_PER_S)
+    return {name: flops / ms / 1e-3 / rate}
 
 
 def bound_ms(nbytes, nops):
@@ -621,20 +646,20 @@ def phase_kernels(torch, ops, ref, gq, tq, cfg):
     return rows
 
 
-def histories_agree(ha, hb, what):
-    """Compare two search histories (hb is the yardstick): losses rtol 1e-5
-    and accept flags wherever |delta| > 1e-5 |loss|; a flip on a near tie
-    ends the comparison (the trajectories legitimately part there).
-    Returns (steps compared, step where they parted or None)."""
+def histories_agree(ha, hb, what, rtol=1e-5):
+    """Compare two search histories (hb is the yardstick): losses within
+    ``rtol`` and accept flags wherever |delta| > rtol |loss|; a flip on a
+    near tie ends the comparison (the trajectories legitimately part
+    there). Returns (steps compared, step where they parted or None)."""
     cur = hb[0][1]
     compared = 0
     for (sa, la, _, _, aa), (sb, lb, _, _, ab) in zip(ha, hb):
         if sa != sb:
             raise AssertionError(f"{what}: history steps differ")
-        if abs(la - lb) > 1e-5 * abs(lb):
+        if abs(la - lb) > rtol * abs(lb):
             raise AssertionError(f"{what}: step {sb} loss {la} vs {lb}")
         if aa != ab:
-            if abs(lb - cur) > 1e-5 * abs(lb):
+            if abs(lb - cur) > rtol * abs(lb):
                 raise AssertionError(f"{what}: step {sb} accept flags differ")
             return compared, sb
         if sb > 0 and ab:
@@ -754,10 +779,25 @@ NEAR_TIE = 1e-4          # relative logit gap under which tokens may part
 # layers' outputs differently): 2^-5 of the top logit, 4-8 bf16 ulps,
 # 2.1x the largest gap seen at a parting on Qwen3-4B (0.0149)
 NEAR_TIE_BF16 = 2.0 ** -5
+SPREAD_FRAC = 1e-3     # share of the embedding table moved by one bf16 ulp
 
 
 def near_tie(cfg) -> float:
     return NEAR_TIE if cfg.compute_dtype == "float32" else NEAR_TIE_BF16
+
+
+def embed_moved(torch, params, seed, frac=SPREAD_FRAC):
+    """``params`` (a shallow copy) with ``frac`` of its bf16 token
+    embedding's nonzero elements moved by one ulp, away from or towards 0 at
+    random (the model's own spread under one-ulp input changes)."""
+    t = params["embed"]["tok"]
+    g = torch.Generator(device=t.device).manual_seed(seed)
+    pick = torch.rand(t.shape, generator=g, device=t.device) < frac
+    step = torch.where(torch.rand(t.shape, generator=g, device=t.device)
+                       < 0.5, 1, -1).to(torch.int16)
+    bits = t.view(torch.int16)
+    tok = torch.where(pick & (t != 0), bits + step, bits).view(t.dtype)
+    return {**params, "embed": {**params["embed"], "tok": tok}}
 
 
 def oracle_weights(params_q, cfg):
@@ -1028,13 +1068,15 @@ def check_greedy(torch, forward, dense, cfg, reqs, outs, what, kw=None,
     top logit, relative (a near tie: the token is the oracle's runner-up
     or as close, not any token). Logs how many positions were held, how
     many of them have a top-2 gap under the bar (the share the rule could
-    excuse) and how many parted. Returns every near tie met as (request,
-    position, relative gap of the token served): two runs that part first
-    at (i, j) share their earlier tokens, so one of them left the oracle
-    there and (i, j) is in the list (``compare_runs``)."""
+    excuse) and how many parted; a token off the oracle at no near tie
+    fails the check after every request is held (the line lists them all).
+    Returns every near tie met as (request, position, relative gap of the
+    token served): two runs that part first at (i, j) share their earlier
+    tokens, so one of them left the oracle there and (i, j) is in the list
+    (``compare_runs``)."""
     kw = kw or {}
     P = kw["vision_embeds"].shape[1] if "vision_embeds" in kw else 0
-    ties, n_pos, n_under = [], 0, 0
+    ties, bad, n_pos, n_under = [], [], 0, 0
     V, bar = cfg.vocab_size, near_tie(cfg)
     for i, (r, out) in enumerate(zip(reqs, outs)):
         seq = torch.tensor([list(r.prompt) + out[:-1]], device=device)
@@ -1051,17 +1093,111 @@ def check_greedy(torch, forward, dense, cfg, reqs, outs, what, kw=None,
         n_under += int((gap2 < bar).sum())
         for j, (tok, want) in enumerate(zip(out, pred)):
             if tok != want:
-                if gap[j] >= bar:
-                    raise AssertionError(
-                        f"{what}: request {i} token {j} = {tok}, oracle "
-                        f"{want}, its gap to the top {gap[j]:.3g} (not a "
-                        f"near tie)")
-                ties.append((i, j, gap[j]))
+                (ties if gap[j] < bar else bad).append((i, j, gap[j]))
     log("greedy_oracle", what=what, near_tie=bar, positions=n_pos,
         top2_under_bar=n_under, share_under_bar=n_under / max(n_pos, 1),
         parted=len(ties), largest_parted_gap=max((t[2] for t in ties),
-                                                 default=None))
+                                                 default=None),
+        refused=bad)
+    if bad:
+        i, j, g = bad[0]
+        raise AssertionError(f"{what}: request {i} token {j}, its gap to the "
+                             f"top {g:.3g} (not a near tie; {len(bad)} such)")
     return ties
+
+
+def generate_with_logits(torch, server, reqs):
+    """``server.generate(reqs)`` (a BatchedServer, one batch) keeping each
+    step's logits: returns (outs, (B, steps, V) f32 logits: the prefill's
+    last position, then each decode step's). The step is the server's own
+    (``decode_step`` and its greedy argmax), the server left as it was."""
+    from repro_torch.models.model import decode_step
+
+    cfg, kept = server.cfg, []
+    V = cfg.vocab_size
+    prefill, step_fn = server.prefill_fn, server.step_fn
+
+    def pre(p, batch):
+        logits, cache = prefill(p, batch)
+        kept.append(logits[:, -1, :V].float())
+        return logits, cache
+
+    def step(p, tok, cache, index):
+        logits, cache = decode_step(p, cfg, tok, cache, index)
+        kept.append(logits[:, -1, :V].float())
+        return torch.argmax(logits[:, -1, :V], dim=-1)[:, None], cache
+
+    server.prefill_fn, server.step_fn = pre, step
+    try:
+        outs = server.generate(reqs)
+    finally:
+        server.prefill_fn, server.step_fn = prefill, step_fn
+    return outs, torch.stack(kept, 1)
+
+
+SERVED_SPREADS = 2     # the served logits' bar, in the model's own spreads
+SERVED_SPREAD_FRAC = 1.0   # ... with every embedding element moved one ulp
+POWER_SHARE = 0.9      # control rows the bar must refuse for the check to hold
+
+
+def _rel_rms(torch, got, want):
+    """Per row: RMS of (got - want) over RMS of want, each centred over
+    the vocabulary (a constant shift of a row changes no token)."""
+    d = got - want
+    d = d - d.mean(-1, keepdim=True)
+    w = want - want.mean(-1, keepdim=True)
+    return (d.pow(2).mean(-1) / w.pow(2).mean(-1)).sqrt()
+
+
+def hold_served_logits(torch, forward, dense, cfg, reqs, outs, served, what,
+                       device="cuda"):
+    """A bf16 SSM or hybrid stack's served logits held, teacher-forced, to
+    the full forward over the same tokens: per position, the distance
+    ``_rel_rms(served, forward)`` within SERVED_SPREADS x the model's own
+    spread (the largest ``_rel_rms`` between the forward and the same
+    forward with every element of the token embedding moved by one ulp,
+    ``embed_moved`` at SERVED_SPREAD_FRAC: the reduced Mamba2 and Zamba2
+    on the CPU part from their forward by 0.013 and 0.036, their spreads
+    are 0.053 and 0.070, the off-by-one control 1.3). Over its depth such a stack turns one-ulp partings
+    into logit moves wider than any token tie (Mamba2's 64 blocks: 0.105
+    of the top logit), so tokens cannot be held to the oracle, but a step
+    that computes something else moves the whole row. The bar's power is
+    read from a control: each served row against the forward's row one
+    position later (an off-by-one step); fewer than POWER_SHARE of the
+    control rows above the bar fails the check. Logs the distances, the
+    spread, the bar and the control."""
+    V = cfg.vocab_size
+    moved = embed_moved(torch, dense, 1, SERVED_SPREAD_FRAC)
+    dist, spread, control = [], [], []
+    for i, (r, out) in enumerate(zip(reqs, outs)):
+        seq = torch.tensor([list(r.prompt) + out[:-1]], device=device)
+        at = len(r.prompt) - 1
+        want = forward(dense, cfg, seq)[0, at:, :V].float()
+        other = forward(moved, cfg, seq)[0, at:, :V].float()
+        got = served[i, :len(out)].to(want.device)
+        dist.append(_rel_rms(torch, got, want))
+        spread.append(_rel_rms(torch, other, want))
+        control.append(_rel_rms(torch, got[:-1], want[1:]))
+    del moved
+    dist, spread, control = (torch.cat(x) for x in (dist, spread, control))
+    bar = SERVED_SPREADS * float(spread.max())
+    over = int((dist > bar).sum())
+    power = float((control > bar).float().mean())
+    log("served_logits_oracle", what=what, positions=int(dist.numel()),
+        largest=float(dist.max()), median=float(dist.median()),
+        spread=float(spread.max()), bar=bar, over_bar=over,
+        control_min=float(control.min()),
+        control_median=float(control.median()), control_over_bar=power,
+        oracle="full forward over the dequantized weights, teacher-forced "
+               "on the served tokens")
+    if over:
+        raise AssertionError(f"{what}: {over} served rows farther than "
+                             f"{bar:.3g} from the forward (largest "
+                             f"{float(dist.max()):.3g})")
+    if power < POWER_SHARE:
+        raise AssertionError(f"{what}: the bar {bar:.3g} refuses only "
+                             f"{power:.0%} of the off-by-one control rows")
+    return float(dist.max()), bar
 
 
 def compare_runs(outs_a, outs_b, ties_ok, what):
@@ -1092,6 +1228,16 @@ SERVE_FAMILIES = (("split_decode", "paged_decode (port kernel)"),
 def _family(name, families):
     low = name.lower()
     return next((f for frag, f in families if frag in low), "other")
+
+
+def other_kernels(named_ms, families, family="other", n=6):
+    """The ``n`` kernels (by total ms over (name, ms) pairs) that
+    ``families`` puts in ``family``: by default those no fragment names."""
+    tot = defaultdict(float)
+    for name, ms in named_ms:
+        if _family(name, families) == family:
+            tot[name[:120]] += ms
+    return dict(sorted(tot.items(), key=lambda kv: -kv[1])[:n])
 
 
 def _inside(ev, name):
@@ -1147,12 +1293,16 @@ def profile_serving(torch, obs, server, reqs):
     for n in spans:
         ws = device[n] or host[n]
         by_family = defaultdict(float)
-        n_kernels = 0
+        n_kernels, inside = 0, []
         for start, dur, name in kernels:
             if any(a <= start <= b for a, b in ws):
                 by_family[_family(name, SERVE_FAMILIES)] += dur / 1e3
+                inside.append((name, dur / 1e3))
                 n_kernels += 1
         out[n] = dict(spans=len(host[n]),
+                      other_kernels_ms=other_kernels(inside, SERVE_FAMILIES),
+                      matmul_kernels_ms=other_kernels(
+                          inside, SERVE_FAMILIES, "matmul (cuBLAS)", 3),
                       windows="device" if device[n] else "host",
                       host_ms=sum(b - a for a, b in host[n]) / 1e3,
                       device_ms=sum(by_family.values()), kernels=n_kernels,
@@ -1200,10 +1350,10 @@ def phase_serving(torch, ops, kernel_rows, cfg, params_q, setup_s,
     oracle: an MoE model routes each prefill chunk with the chunk's own
     capacity, so a full forward over prompt + output (one S) is not the
     served computation, and sharing changes the chunks (phase 11b holds
-    each run to its plain route instead, ``plain_route_oracle``)."""
+    each decode step to its plain route instead, ``stepwise_oracle``)."""
     from repro_torch import obs
     from repro_torch.launch.serve import PagedServer, Request
-    from repro_torch.models.model import dequant_tree, forward
+    from repro_torch.models.model import forward
     from repro_torch.quantized.qmodel import dense_bytes, packed_bytes
     from repro_torch.serving import build_trace
 
@@ -1605,19 +1755,21 @@ def legacy_step_profile(torch, server, params_q, padded, steps,
 
 
 def phase_legacy_serving(torch, ops, cfg, params_q, profile=True,
-                         full_forward_oracle=True):
+                         full_forward_oracle=True, ref=None):
     """6c (and 10c, 11c): BatchedServer on a 2-bit model (opt-1.3b;
     Qwen3-4B; Phi-3.5-MoE) over phase 5's 24-request trace,
     use_flash_decode off then on; with ``profile``, device time by kernel
     family over batch 0's prefill and steps. Both runs are held to the
-    greedy full-forward oracle, or, without ``full_forward_oracle`` (MoE:
-    the prefill routes at the prompt's capacity, not the oracle's), the
-    flag-on run to the flag-off run, its plain route, token for token.
+    greedy full-forward oracle and to each other, or, without
+    ``full_forward_oracle`` (MoE: the prefill routes at the prompt's
+    capacity, not the oracle's): the flag-on run served again under
+    ``StepCheck`` (each decode step held to blocked attention, the flag-off
+    route, on the same cache); the flag-off run has no independent oracle.
     Returns the flag-on run's flash_decode launches."""
     import dataclasses
 
     from repro_torch.launch.serve import BatchedServer, Request
-    from repro_torch.models.model import dequant_tree, forward, init_cache
+    from repro_torch.models.model import forward, init_cache
     from repro_torch.quantized.qmodel import cache_bytes
     from repro_torch.serving import build_trace
 
@@ -1663,12 +1815,28 @@ def phase_legacy_serving(torch, ops, cfg, params_q, profile=True,
         del dense
         oracle = ("full forward over the dequantized weights on the "
                   "left-padded prompts")
+        parted = compare_runs(runs[False]["outs"], runs[True]["outs"],
+                              {(i, j) for t in ties.values()
+                               for i, j, _ in t}, "flash off vs on")
     else:
-        ties = {f: [] for f in runs}
-        oracle = "the flag-off run (blocked attention, plain PyTorch)"
-    parted = compare_runs(runs[False]["outs"], runs[True]["outs"],
-                          {(i, j) for t in ties.values() for i, j, _ in t},
-                          "flash off vs on")
+        ties = {False: []}
+        check = StepCheck(torch, ref, cfg)
+        server = BatchedServer(params_q, dataclasses.replace(
+            cfg, use_flash_decode=True), device="cuda", **LEGACY)
+        with check:
+            outs = check.watch_batched(server, cfg).generate(reqs)
+        if outs != runs[True]["outs"]:
+            raise AssertionError("the checked flag-on run's tokens are not "
+                                 "the timed run's")
+        ties[True] = check.parted
+        log("step_check", arch=cfg.name, run="BatchedServer flag on",
+            **check.counts())
+        parted = [i for i, (a, b) in enumerate(zip(runs[False]["outs"],
+                                                    runs[True]["outs"]))
+                  if a != b]
+        oracle = ("flag off: none (a full forward routes at another "
+                  "capacity); flag on: each decode step again with blocked "
+                  "attention on the same cache (StepCheck)")
     for f, r in runs.items():
         log("serving_legacy", arch=cfg.name, use_flash_decode=f,
             requests=len(reqs), batches=n_batches, decode_steps=steps,
@@ -2596,7 +2764,7 @@ SMALL_TRAIN_STEPS = 5
 # device-kernel name fragments -> family for the train-step profile (first
 # match wins)
 TRAIN_FAMILIES = (("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
-                  ("cutlass", "matmul (cuBLAS)"),
+                  ("cutlass", "matmul (cuBLAS)"), ("nvjet", "matmul (cuBLAS)"),
                   ("softmax", "softmax / log_softmax"),
                   ("index", "indexing (embedding gather, scatter-add)"),
                   ("scatter", "indexing (embedding gather, scatter-add)"),
@@ -3064,8 +3232,7 @@ def phase_zoo_main(torch, ops, cfg, qcfg, methods=ZOO_METHODS, tag="zoo"):
                  capacity_512=cfg.moe.capacity(512), norm=cfg.norm,
                  param_count=cfg.param_count(),
                  active_param_count=cfg.active_param_count(),
-                 cuts=[f"depth: {cfg.n_layers} of 32 layers",
-                       "fp32 where the config says bf16"]) if moe else {}
+                 cuts=[f"depth: {cfg.n_layers} of 32 layers"]) if moe else {}
     log(tag + "_setup", arch=cfg.name, n_layers=cfg.n_layers,
         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
         head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
@@ -3155,12 +3322,10 @@ def phase_zoo_main(torch, ops, cfg, qcfg, methods=ZOO_METHODS, tag="zoo"):
                      * C * (2 + int(cfg.gated_mlp)) * cfg.d_model * cfg.d_ff,
                      slots_per_row=cfg.moe.num_experts * C,
                      routed_slots_per_row=S * cfg.moe.top_k)
-    peak_name, peak_rate = ("share_of_fp32_peak", FP32_OPS_PER_S) \
-        if elem == 4 else ("share_of_bf16_peak", BF16_OPS_PER_S)
     log(tag + "_step", arch=cfg.name, forward_objective_ms=fwd_ms,
         step_ms=step_ms, forward_flops=flops,
         forward_tflops_per_s=flops / fwd_ms / 1e9,
-        **{peak_name: flops / fwd_ms / 1e-3 / peak_rate},
+        **peak_share(flops, fwd_ms, elem),
         stack_clone_bytes=clone,
         logits_bytes=B * S * cfg.padded_vocab * elem, **extra)
     del calib, held
@@ -3279,9 +3444,10 @@ def phase_small_zoo(torch, ops, arch, devs=("cpu", "cuda"), cfg=None):
 
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b")
-# cuts: 3 of the config's 32 layers (4.17 B params, 16.66 GB in fp32, so
-# that the weights, the fake-quant model, the search's expert stack and the
-# clone an accept makes of it fit one card), and fp32 where it says bf16
+# cut: 3 of the config's 32 layers (4.17 B params, 8.33 GB in its own bf16;
+# 16.66 GB in fp32, where 11c's fp32 search for the accept comparison peaks
+# near 64 GB: a deeper stack would not fit it; and 11b dequantises all 16
+# experts of every layer at each decode step, ≈ 35 s of the script at 3)
 MOE_LAYERS = 3
 MOE_SERVE = (("off", False, 1), ("on", True, 1), ("on-mp2", True, 2))
 MOE_PROFILE_REQUESTS = 8
@@ -3291,10 +3457,8 @@ MOON_MOE = dict(num_experts=64, top_k=6)
 
 
 def moe_config(get_config, arch=MOE_ARCH, n_layers=MOE_LAYERS):
-    """``arch`` at full width, ``n_layers`` deep, in fp32."""
-    import dataclasses
-    return dataclasses.replace(get_config(arch), n_layers=n_layers,
-                               **ZOO_DTYPE)
+    """``arch`` at full width, ``n_layers`` deep, in its own dtype."""
+    return dataclasses.replace(get_config(arch), n_layers=n_layers)
 
 
 def moe_param_count(cfg) -> int:
@@ -3387,45 +3551,36 @@ def gq_shapes_check(torch, ops, ref, cfg, shapes, timed, seed, dtype=None,
     return err, row
 
 
-def plain_route_oracle(torch, ref, cfg, params_q, device="cuda"):
-    """11b's oracle: each PagedServer run against the same server and
-    options with the paged-decode kernel's plain version
-    (``kernels.ref.paged_decode_ref``, plain PyTorch on the card) in its
-    place: the served computation itself, chunking and MoE capacity
-    included. Tokens must be identical. Runs with the same sharing are
-    also held to each other (only the attention route differs)."""
+def stepwise_oracle(torch, ref, cfg, params_q, device="cuda"):
+    """11b's oracle: each PagedServer run served again with the same
+    options under ``StepCheck``: every decode step held to the same step
+    through the paged decode's plain version (``kernels.ref.
+    paged_decode_ref``) on the same pools, the token parting only at a near
+    tie of the plain logits or of the plain step's routing. The served
+    computation itself (chunking and MoE capacity included), so no
+    full-forward oracle is needed; the run must give the tokens the timed
+    run gave. Runs are not held to each other: an MoE model routes each
+    prefill chunk at the chunk's capacity (sharing changes the chunks), and
+    in bf16 the attention routes round differently."""
     from repro_torch.launch.serve import PagedServer
-    from repro_torch.serving import decode as dec
-
-    def plain(q, k_pages, v_pages, block_tables, seq_lens, k_scale=None,
-              v_scale=None, **_):
-        return ref.paged_decode_ref(q, k_pages, v_pages, block_tables,
-                                    seq_lens, k_scale, v_scale)
 
     def oracle(reqs, runs):
-        plain_outs = {}
-        kernel = dec.paged_decode
-        dec.paged_decode = plain
-        try:
-            for sharing in sorted({r["sharing"] for r in runs.values()}):
-                plain_outs[sharing] = PagedServer(
-                    params_q, cfg, prefix_cache=sharing, device=device,
-                    **SERVE).generate(reqs)
-        finally:
-            dec.paged_decode = kernel
+        ties = {}
         for k, r in runs.items():
-            if r["outs"] != plain_outs[r["sharing"]]:
-                i = next(i for i, (a, b) in enumerate(zip(
-                    r["outs"], plain_outs[r["sharing"]])) if a != b)
-                raise AssertionError(f"{k}: request {i} parts from the "
-                                     f"plain route")
-        first = {}
-        for k, r in runs.items():
-            first.setdefault(r["sharing"], k)
-        return ({k: [] for k in runs},
-                "the same server and options with the paged-decode kernel's "
-                "plain version (kernels.ref.paged_decode_ref)",
-                {k: first[r["sharing"]] for k, r in runs.items()})
+            check = StepCheck(torch, ref, cfg)
+            with check:
+                outs = check.watch_paged(PagedServer(
+                    params_q, cfg, prefix_cache=r["sharing"],
+                    gqa_pages_per_block=r["mp"], device=device,
+                    **SERVE)).generate(reqs)
+            if outs != r["outs"]:
+                raise AssertionError(f"{k}: the checked run's tokens are not "
+                                     f"the timed run's")
+            ties[k] = check.parted
+            log("step_check", arch=cfg.name, run=k, **check.counts())
+        return (ties, "each decode step again through the paged decode's "
+                "plain version on the same pools (StepCheck)",
+                {k: k for k in runs})
 
     return oracle
 
@@ -3441,7 +3596,7 @@ def phase_moe_serving(torch, ops, ref, cfg, params_q, setup_s):
     paged, split = phase_serving(
         torch, ops, rows, cfg, params_q, setup_s, variants=MOE_SERVE,
         tag="moe_", profile_requests=MOE_PROFILE_REQUESTS,
-        oracle=plain_route_oracle(torch, ref, cfg, params_q))
+        oracle=stepwise_oracle(torch, ref, cfg, params_q))
     per_layer = expert_stack_bytes(cfg) // cfg.n_layers // 4
     log("moe_dequant", arch=cfg.name, expert_weights_per_layer=per_layer,
         dequant_per_layer_ms=split["dequant_per_layer_ms"],
@@ -3449,7 +3604,7 @@ def phase_moe_serving(torch, ops, ref, cfg, params_q, setup_s):
         / (per_layer / 1e6))
     t1 = time.perf_counter()
     flash = phase_legacy_serving(torch, ops, cfg, params_q, profile=False,
-                                 full_forward_oracle=False)
+                                 full_forward_oracle=False, ref=ref)
     log("moe_serving_seconds", paged_s=t1 - t0,
         batched_s=time.perf_counter() - t1)
     return paged, flash
@@ -3466,14 +3621,25 @@ def small_moe_config(get_config, arch):
 
 
 def phase_moe(torch, ops, ref, get_config, qcfg):
-    """Phase 11 (11a-11d). Returns the launch counts the kernels line
-    carries: 11a's by kernel and run, 11b's paged runs by label, 11c's
-    flash_decode, and 11a's group_quant check (max abs err, timing row)."""
+    """Phase 11 (11a-11d), Phi-3.5-MoE in its own bf16: the kernels at its
+    shapes (``group_quant`` at every stacked shape, ``transform_quant`` at
+    one expert, the GQA routes and ``flash_decode`` at 32/8 x 128 on bf16
+    caches), 11a RTN ± STEPS fused steps, 11b / 11c both servers, then
+    the bf16-vs-fp32 accept decisions, and 11d both MoE configs reduced,
+    card against CPU, in fp32 and in bf16. Returns what the kernels line
+    carries: 11a's launches by kernel and run, 11b's paged runs by label,
+    11c's flash_decode, the kernel checks' rows."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cfg = moe_config(get_config)
     gq_check = gq_shapes_check(torch, ops, ref, cfg, moe_gq_shapes(cfg),
-                               "experts up/gate", 4321)
+                               "experts up/gate", 4321,
+                               **own_dtype_kw(torch, cfg))
+    tq = tq_check(torch, ops, ref, cfg.name, cfg.d_model, cfg.d_ff, qcfg,
+                  4324, torch.bfloat16)
+    attn = attn_kernels_at(torch, ops, ref, cfg, (
+        "paged_decode_gqa", "paged_decode_gqa_mp", "flash_decode"),
+        trace_decode_lens(cfg), (torch.bfloat16,), torch.bfloat16)
     params_q, pack_s, launches = phase_zoo_main(torch, ops, cfg, qcfg,
                                                 methods=("rtn",), tag="moe")
     t1 = time.perf_counter()
@@ -3481,12 +3647,17 @@ def phase_moe(torch, ops, ref, get_config, qcfg):
     del params_q
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
+    differing = family_accepts(torch, ops, cfg, qcfg)
+    t3 = time.perf_counter()
     for arch in MOE_ARCHS:
         phase_small_zoo(torch, ops, arch, cfg=small_moe_config(get_config,
                                                                arch))
-    t3 = time.perf_counter()
-    log("phase11", seconds=t3 - t0, a_s=t1 - t0, bc_s=t2 - t1, d_s=t3 - t2)
-    return dict(main=launches, paged=paged, flash=flash, gq_check=gq_check)
+        phase_small_bf16(torch, ops, arch)
+    t4 = time.perf_counter()
+    log("phase11", seconds=t4 - t0, a_s=t1 - t0, bc_s=t2 - t1,
+        accepts_s=t3 - t2, d_s=t4 - t3, accept_decisions_differing=differing)
+    return dict(main=launches, paged=paged, flash=flash, gq_check=gq_check,
+                tq=tq, attn=attn, differing=differing)
 
 
 # ---------------------------------------------------------------------------
@@ -3498,8 +3669,9 @@ HYBRID_ARCH = "zamba2-7b"
 SSM_ARCHS = (SSM_ARCH, HYBRID_ARCH)
 # 12c's cut: 13 of Zamba2-7B's 81 blocks, so that hybrid_layout() is
 # (11, 2): two applications of the shared block and one tail SSM block
-# (1.29 B params, 5.2 GB in fp32; the full 81 blocks with the search's
-# three Mamba stacks of 21 GB each would not fit one card)
+# (1.29 B params, 2.6 GB in its own bf16, 5.2 GB in fp32 for 12c's accept
+# comparison; the full 81 blocks with the search's three Mamba stacks of
+# 21 GB each in fp32 would not fit one card)
 HYBRID_LAYERS = 13
 SSM_SERVE_REQUESTS = 8        # 12b / 12c: one batch of the trace's first 8
 MAMBA_KEYS = ("w_z", "w_x", "out_proj")
@@ -3507,8 +3679,9 @@ SCAN_RANGE, DEQUANT_RANGE = "ssm.scan", "model.dequant"
 
 
 def ssm_config(get_config, arch=SSM_ARCH):
-    """``arch`` at full width in fp32 (Zamba2-7B HYBRID_LAYERS deep)."""
-    cfg = dataclasses.replace(get_config(arch), **ZOO_DTYPE)
+    """``arch`` at full width in its own dtype (Zamba2-7B HYBRID_LAYERS
+    deep)."""
+    cfg = get_config(arch)
     if cfg.block_pattern == "hybrid":
         cfg = dataclasses.replace(cfg, n_layers=HYBRID_LAYERS)
     return cfg
@@ -3657,11 +3830,11 @@ def phase_ssm_main(torch, ops, cfg, qcfg):
     """12a (and 12c's search): ``quantize_model`` RTN alone and with STEPS
     steps (the fused flag asked for: the Mamba phase falls back to the
     unfused lane with a warning; the hybrid's shared phase runs fused) on
-    random-init ``cfg`` in fp32, 4 x 512 calibration tokens, held-out ppl
-    on 4 x 512 others; each run's launches held to
+    random-init ``cfg`` in its own dtype, 4 x 512 calibration tokens,
+    held-out ppl on 4 x 512 others; each run's launches held to
     ``ssm_quantize_launches``; then one candidate's forward + objective
-    timed beside its operations (``ssm_forward_flops``), and the fp32
-    params packed at 2 bits / g32. Returns (the packed params, the packing
+    timed beside its operations (``ssm_forward_flops``), and the params
+    packed at 2 bits / g32. Returns (the packed params, the packing
     seconds, the launch counts by run)."""
     import warnings
 
@@ -3688,14 +3861,15 @@ def phase_ssm_main(torch, ops, cfg, qcfg):
         raise AssertionError(f"{n_params} params != {ssm_param_count(cfg)}")
     n_m, n_a, di, H, N, _ = ssm_dims(cfg)
     hybrid = cfg.block_pattern == "hybrid"
-    cuts = ["fp32 where the config says bf16"] + (
-        [f"depth: {cfg.n_layers} of 81 blocks"] if hybrid else [])
+    elem = torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
+    cuts = [f"depth: {cfg.n_layers} of 81 blocks"] if hybrid else []
     log("ssm_setup", arch=cfg.name, n_layers=cfg.n_layers,
         mamba_blocks=n_m, shared_applications=n_a, d_model=cfg.d_model,
         d_inner=di, ssd_heads=H, d_state=N, chunk=cfg.ssm.chunk,
         vocab=cfg.vocab_size, padded_vocab=cfg.padded_vocab,
-        params=n_params, param_count=cfg.param_count(),
-        param_bytes=4 * n_params, mamba_stack_bytes=mamba_stack_bytes(cfg),
+        dtype=cfg.param_dtype, params=n_params,
+        param_count=cfg.param_count(), param_bytes=elem * n_params,
+        mamba_stack_bytes=mamba_stack_bytes(cfg, elem),
         calib=list(calib.shape), peak_bytes=torch.cuda.max_memory_allocated(),
         cuts=cuts, seconds=time.perf_counter() - t0)
 
@@ -3754,7 +3928,7 @@ def phase_ssm_main(torch, ops, cfg, qcfg):
                          step_ms=step_ms, fused=sr.stats["fused"],
                          fallback_warning=fallback[0],
                          accepts=sum(1 for h in sr.history if h[0] and h[4]),
-                         stack_clone_bytes=mamba_stack_bytes(cfg))
+                         stack_clone_bytes=mamba_stack_bytes(cfg, elem))
         log("ssm_quantize", arch=cfg.name, method=label, ppl_fp32=ppl_fp,
             ppl=ppl_q, wall_s=wall, peak_bytes=peak, launches=counts,
             expected=want, **extra)
@@ -3774,9 +3948,9 @@ def phase_ssm_main(torch, ops, cfg, qcfg):
         step_ms=step_ms, forward_flops=flops,
         ssd_flops=n_m * ssd_flops(cfg, B, S),
         forward_tflops_per_s=flops / fwd_ms / 1e9,
-        share_of_fp32_peak=flops / fwd_ms / 1e-3 / FP32_OPS_PER_S,
-        stack_clone_bytes=mamba_stack_bytes(cfg),
-        logits_bytes=B * S * cfg.padded_vocab * 4)
+        **peak_share(flops, fwd_ms, elem),
+        stack_clone_bytes=mamba_stack_bytes(cfg, elem),
+        logits_bytes=B * S * cfg.padded_vocab * elem)
     del calib, held
     t0 = time.perf_counter()
     params_q = pack_model(params, qcfg)
@@ -3786,7 +3960,7 @@ def phase_ssm_main(torch, ops, cfg, qcfg):
 
 
 SSM_FAMILIES = (("gemm", "GEMM (cuBLAS)"), ("gemv", "GEMM (cuBLAS)"),
-                ("cutlass", "GEMM (cuBLAS)"),
+                ("cutlass", "GEMM (cuBLAS)"), ("nvjet", "GEMM (cuBLAS)"),
                 ("split_decode", "flash_decode (port kernel)"))
 
 
@@ -3849,6 +4023,8 @@ def ssm_decode_profile(torch, obs, server, params_q, toks, steps):
         label = {DEQUANT_RANGE: "dequant", SCAN_RANGE: "SSD state update"}.get(
             where) or _family(name, SSM_FAMILIES)
         fam[label] += (end - start) / 1e3
+    others = other_kernels(((name, (end - start) / 1e3 / steps)
+                            for start, end, name in kernels), SSM_FAMILIES)
     span = (max(e for _, e, _ in kernels) - min(s for s, _, _ in kernels)) \
         / 1e3 / steps
     busy = sum(fam.values()) / steps
@@ -3860,23 +4036,27 @@ def ssm_decode_profile(torch, obs, server, params_q, toks, steps):
                          idle_share=out["idle"] / step_ms,
                          profiled_span_ms=span,
                          kernels_per_step=len(kernels) / steps,
+                         other_kernels_ms=others,
                          device_windows={n: len(w) for n, w in
                                          windows.items()})
 
 
-def phase_ssm_serving(torch, ops, cfg, params_q, flash_flags=(False,)):
+def phase_ssm_serving(torch, ops, cfg, params_q, flash_flags=(False,),
+                      profile=True):
     """12b (and 12c): BatchedServer on the packed model over the trace's
     first SSM_SERVE_REQUESTS requests (one batch, max_new TRACE's), once
-    per ``use_flash_decode`` flag: tokens/s, step ms, device ms per decode
-    step by family (flag off), peak bytes; every run held to the greedy
-    full-forward oracle on the left-padded prompts (or parting at a near
-    tie), the flag-on run to the flag-off run, flash_decode launched once
-    per shared-block application per decode step with the flag on and
-    never otherwise; then PagedServer must refuse the config. Returns the
-    flag-on run's flash_decode launches (None without it)."""
+    per ``use_flash_decode`` flag: tokens/s, step ms, and with ``profile``
+    device ms per decode step by family (flag off), peak bytes;
+    flash_decode launched once per shared-block application per decode
+    step with the flag on and never otherwise. In fp32 every run's tokens
+    are held to the greedy full-forward oracle on the left-padded prompts
+    (or part at a near tie), the flag-on run to the flag-off run; in bf16
+    every run's logits are held, teacher-forced, to the full forward's
+    (``hold_served_logits``). Then PagedServer must refuse the config.
+    Returns the flag-on run's flash_decode launches (None without it)."""
     from repro_torch import obs
     from repro_torch.launch.serve import BatchedServer, PagedServer, Request
-    from repro_torch.models.model import dequant_tree, forward, init_cache
+    from repro_torch.models.model import forward, init_cache
     from repro_torch.quantized.qmodel import cache_bytes
     from repro_torch.serving import build_trace
 
@@ -3886,6 +4066,7 @@ def phase_ssm_serving(torch, ops, cfg, params_q, flash_flags=(False,)):
     B = LEGACY["batch_size"]
     padded = padded_requests(Request, reqs, B)
     steps = TRACE["max_new"] - 1
+    bf16 = cfg.compute_dtype != "float32"
     cache = init_cache(cfg, B, LEGACY["max_len"], device="cuda")
     state_bytes = cache_bytes(cache)
     del cache
@@ -3911,29 +4092,53 @@ def phase_ssm_serving(torch, ops, cfg, params_q, flash_flags=(False,)):
         toks = torch.tensor([list(r.prompt) for r in padded[:B]],
                             device="cuda")
         step_ms, family = ssm_decode_profile(
-            torch, obs, server, params_q, toks, steps) if not flash else \
-            (legacy_step_profile(torch, server, params_q, padded, steps,
-                                 False)[0], None)
+            torch, obs, server, params_q, toks, steps) if profile and \
+            not flash else (legacy_step_profile(
+                torch, server, params_q, padded, steps, False)[0], None)
+        served = None
+        if bf16:
+            again, served = generate_with_logits(torch, server, reqs)
+            if again != outs:
+                raise AssertionError(f"{cfg.name} flash={flash}: the run "
+                                     f"keeping its logits served other "
+                                     f"tokens")
         runs[flash] = dict(outs=outs, wall=wall, counts=counts, peak=peak,
-                           step_ms=step_ms, family=family,
+                           step_ms=step_ms, family=family, served=served,
                            tokens=sum(len(o) for o in outs))
         del server
-    dense = dequant_tree(params_q)
-    ties = {f: check_greedy(torch, forward, dense, cfg, padded,
-                            runs[f]["outs"], f"{cfg.name} flash={f} vs oracle")
-            for f in runs}
+    dense = oracle_weights(params_q, cfg)
+    if bf16:
+        ties = {f: [] for f in runs}
+        held = {f: hold_served_logits(torch, forward, dense, cfg, padded,
+                                      r["outs"], r.pop("served"),
+                                      f"{cfg.name} flash={f}")
+                for f, r in runs.items()}
+        parted = [i for i, (a, b) in enumerate(zip(
+            runs[False]["outs"], runs[True]["outs"])) if a != b] \
+            if True in runs else []
+        oracle = ("the full forward's logits over the dequantized weights, "
+                  "teacher-forced on the served tokens")
+    else:
+        ties = {f: check_greedy(torch, forward, dense, cfg, padded,
+                                runs[f]["outs"], f"{cfg.name} flash={f} vs "
+                                f"oracle") for f in runs}
+        held = {f: None for f in runs}
+        parted = compare_runs(runs[False]["outs"], runs[True]["outs"],
+                              {(i, j) for t in ties.values() for i, j, _ in t},
+                              f"{cfg.name} flash off vs on") \
+            if True in runs else []
+        oracle = ("full forward over the dequantized weights on the "
+                  "left-padded prompts")
     del dense
     torch.cuda.empty_cache()
-    parted = compare_runs(runs[False]["outs"], runs[True]["outs"],
-                          {(i, j) for t in ties.values() for i, j, _ in t},
-                          f"{cfg.name} flash off vs on") if True in runs else []
     for f, r in runs.items():
-        log("ssm_serving", arch=cfg.name, use_flash_decode=f,
-            requests=len(reqs), decode_steps=steps, tokens=r["tokens"],
-            wall_s=r["wall"], tokens_per_s=r["tokens"] / r["wall"],
-            step_ms=r["step_ms"], launches=r["counts"],
-            state_and_kv_bytes=state_bytes, peak_bytes=r["peak"],
-            near_ties=ties[f], device_ms_by_family=r["family"],
+        log("ssm_serving", arch=cfg.name, dtype=cfg.compute_dtype,
+            use_flash_decode=f, requests=len(reqs), decode_steps=steps,
+            tokens=r["tokens"], wall_s=r["wall"],
+            tokens_per_s=r["tokens"] / r["wall"], step_ms=r["step_ms"],
+            launches=r["counts"], state_and_kv_bytes=state_bytes,
+            peak_bytes=r["peak"], near_ties=ties[f],
+            logits_largest_and_bar=held[f], device_ms_by_family=r["family"],
             profile_window=f"{steps} decode steps of the batch"
             if r["family"] else None)
     try:
@@ -3942,10 +4147,30 @@ def phase_ssm_serving(torch, ops, cfg, params_q, flash_flags=(False,)):
         refusal = str(e)
     else:
         raise AssertionError(f"{cfg.name}: PagedServer did not refuse")
-    log("ssm_serving_check", arch=cfg.name, parted_at=parted,
-        oracle="full forward over the dequantized weights on the "
-               "left-padded prompts", paged_refusal=refusal)
+    log("ssm_serving_check", arch=cfg.name, dtype=cfg.compute_dtype,
+        parted_at=parted, oracle=oracle, paged_refusal=refusal)
     return runs[True]["counts"]["flash_decode"] if True in runs else None
+
+
+def phase_ssm_serving_fp32(torch, ops, cfg, qcfg, flash_flags):
+    """12b / 12c's fp32 check, shortened: ``cfg`` in fp32, random-init
+    (seed 0) and packed by RTN, through ``phase_ssm_serving`` unprofiled
+    (tokens held to the full-forward oracle at NEAR_TIE, flag-on run to
+    flag-off run): the oracle that holds tokens, which a bf16 stack this
+    deep cannot give. Returns the flag-on run's flash_decode launches."""
+    from repro_torch.models.model import init_params
+    from repro_torch.quantized.qmodel import pack_model
+
+    c = dataclasses.replace(cfg, param_dtype="float32",
+                            compute_dtype="float32")
+    params_q = pack_model(init_params(c, torch.Generator(
+        device="cuda").manual_seed(0), device="cuda"), qcfg)
+    torch.cuda.empty_cache()
+    flash = phase_ssm_serving(torch, ops, c, params_q, flash_flags,
+                              profile=False)
+    del params_q
+    torch.cuda.empty_cache()
+    return flash
 
 
 def ssm_proposals(inv, cfg, seed, device):
@@ -4064,34 +4289,53 @@ def phase_small_ssm(torch, ops, arch, devs=("cpu", "cuda")):
 
 
 def phase_ssm(torch, ops, ref, get_config, qcfg):
-    """Phase 12 (12a-12d). Returns the launch counts the kernels line
-    carries: 12a's and 12c's by kernel and run, 12c's flash_decode, and
-    12a's group_quant check (max abs err, timing row)."""
+    """Phase 12 (12a-12d) in the configs' own bf16: 12a Mamba2-2.7B RTN ±
+    STEPS steps after ``group_quant`` at its shapes, 12b its
+    BatchedServer; 12c Zamba2-7B (HYBRID_LAYERS blocks) after
+    ``group_quant`` at its shapes, ``transform_quant`` at the shared FFN
+    and ``flash_decode`` at Dh 112 on a bf16 cache: the two-phase search
+    and BatchedServer flag off / on; the bf16-vs-fp32 accept decisions of
+    both; 12d both reduced, card against CPU, in fp32 and in bf16. Returns
+    the launch counts and kernel rows the kernels line carries."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cfg = ssm_config(get_config)
     gq_check = gq_shapes_check(torch, ops, ref, cfg, ssm_gq_shapes(cfg),
-                               "w_z/w_x stack", 4322)
+                               "w_z/w_x stack", 4322,
+                               **own_dtype_kw(torch, cfg))
     params_q, pack_s, mamba = phase_ssm_main(torch, ops, cfg, qcfg)
     t1 = time.perf_counter()
     phase_ssm_serving(torch, ops, cfg, params_q)
     del params_q
     torch.cuda.empty_cache()
+    phase_ssm_serving_fp32(torch, ops, cfg, qcfg, (False,))
     t2 = time.perf_counter()
     hcfg = ssm_config(get_config, HYBRID_ARCH)
     gq_shapes_check(torch, ops, ref, hcfg, ssm_gq_shapes(hcfg),
-                    "w_z/w_x stack", 4322)
+                    "w_z/w_x stack", 4322, **own_dtype_kw(torch, hcfg))
+    tq = tq_check(torch, ops, ref, hcfg.name, hcfg.d_model, hcfg.d_ff, qcfg,
+                  4325, torch.bfloat16)
+    attn = attn_kernels_at(torch, ops, ref, hcfg, ("flash_decode",),
+                           trace_decode_lens(hcfg), (torch.bfloat16,),
+                           torch.bfloat16)
     params_q, _, hybrid = phase_ssm_main(torch, ops, hcfg, qcfg)
     flash = phase_ssm_serving(torch, ops, hcfg, params_q, (False, True))
     del params_q
     torch.cuda.empty_cache()
+    flash32 = phase_ssm_serving_fp32(torch, ops, hcfg, qcfg, (False, True))
     t3 = time.perf_counter()
+    differing = {c.name: family_accepts(torch, ops, c, qcfg)
+                 for c in (cfg, hcfg)}
+    t4 = time.perf_counter()
     for arch in SSM_ARCHS:
         phase_small_ssm(torch, ops, arch)
-    t4 = time.perf_counter()
-    log("phase12", seconds=t4 - t0, a_s=t1 - t0, b_s=t2 - t1, c_s=t3 - t2,
-        d_s=t4 - t3, pack_s=pack_s)
-    return dict(mamba=mamba, hybrid=hybrid, flash=flash, gq_check=gq_check)
+        phase_small_bf16(torch, ops, arch)
+    t5 = time.perf_counter()
+    log("phase12", seconds=t5 - t0, a_s=t1 - t0, b_s=t2 - t1, c_s=t3 - t2,
+        accepts_s=t4 - t3, d_s=t5 - t4, pack_s=pack_s,
+        accept_decisions_differing=differing)
+    return dict(mamba=mamba, hybrid=hybrid, flash=flash, flash32=flash32,
+                gq_check=gq_check, tq=tq, attn=attn, differing=differing)
 
 
 # ---------------------------------------------------------------------------
@@ -4111,8 +4355,8 @@ TRAIN13 = dict(batch=2, seq=512, frames=512, steps=3)    # 13d
 
 
 def encdec_config(get_config, arch=ENCDEC_ARCH):
-    """``arch`` at full width and depth in fp32 (the config says bf16)."""
-    return dataclasses.replace(get_config(arch), **ZOO_DTYPE)
+    """``arch`` at full width and depth in its own dtype."""
+    return get_config(arch)
 
 
 def encdec_param_count(cfg) -> int:
@@ -4179,11 +4423,13 @@ def encdec_gq_shapes(cfg):
 
 
 def encdec_gq_check(torch, ops, ref, cfg):
-    """13a's and 13c's kernel check (``gq_shapes_check``) at every shape of
-    ``encdec_gq_shapes``, timed at the largest."""
+    """13a's and 13c's kernel check (``gq_shapes_check``, w in the
+    config's dtype) at every shape of ``encdec_gq_shapes``, timed at the
+    largest."""
     shapes = encdec_gq_shapes(cfg)
     timed = max(shapes, key=lambda s: s[1][0] * s[1][1])[0]
-    return gq_shapes_check(torch, ops, ref, cfg, shapes, timed, 4323)
+    return gq_shapes_check(torch, ops, ref, cfg, shapes, timed, 4323,
+                           **own_dtype_kw(torch, cfg))
 
 
 def encdec_quantize_launches(cfg, scfg=None, stats=None):
@@ -4252,7 +4498,7 @@ def frontend_serving(torch, ops, cfg, params_q, toks, kw, tag):
     Returns (the flag-on run's launches, the runs)."""
     from types import SimpleNamespace
 
-    from repro_torch.models.model import dequant_tree, forward
+    from repro_torch.models.model import forward
 
     steps = ENCDEC_SERVE["steps"]
     runs = {}
@@ -4270,7 +4516,7 @@ def frontend_serving(torch, ops, cfg, params_q, toks, kw, tag):
         runs[flash] = dict(gen=gen, step_ms=step_ms, counts=counts,
                            cross_bytes=xbytes,
                            peak=torch.cuda.max_memory_allocated())
-    dense = dequant_tree(params_q)
+    dense = oracle_weights(params_q, cfg)
     prompts = [SimpleNamespace(prompt=p) for p in toks.tolist()]
     ties = {f: check_greedy(torch, forward, dense, cfg, prompts,
                             r["gen"].tolist(), f"{cfg.name} flash={f} vs "
@@ -4307,14 +4553,15 @@ def trace_prompts(torch, Request, cfg, n):
 
 
 def phase_encdec_main(torch, ops, cfg, qcfg):
-    """13a: Seamless at full width and depth, fp32: ``quantize_model`` RTN
+    """13a: Seamless at full width and depth in its own dtype (bf16):
+    ``quantize_model`` RTN
     alone and with STEPS fused steps on 4 x 512 calibration tokens and 4 x
     ``frontend_len`` stub frames through ``forward_kwargs``; held-out ppl on
     4 x 512 other tokens with their own frames. The encoder's FFN leaves
     must be unchanged by the search and changed by RTN; launches held to
     ``encdec_quantize_launches``; GPTQ, AWQ and OmniQuant must raise
     ValueError. Then one candidate's forward + objective beside its
-    operations (``encdec_forward_flops``), and the fp32 params packed at 2
+    operations (``encdec_forward_flops``), and the params packed at 2
     bits / g32. Returns (the packed params, the launch counts by run)."""
     from repro_torch.core.objective import activation_mse, calib_ce
     from repro_torch.core.pipeline import quantize_model
@@ -4341,15 +4588,15 @@ def phase_encdec_main(torch, ops, cfg, qcfg):
     if n_params != encdec_param_count(cfg):
         raise AssertionError(f"{n_params} params != "
                              f"{encdec_param_count(cfg)}")
+    elem = torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
     log("encdec_setup", arch=cfg.name, n_layers=cfg.n_layers,
         encoder_layers=cfg.encoder_layers, d_model=cfg.d_model,
         heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.resolved_head_dim,
         d_ff=cfg.d_ff, vocab=cfg.vocab_size, padded_vocab=cfg.padded_vocab,
         frontend=cfg.frontend, frames=list(kw["enc_embeds"].shape),
-        params=n_params, param_count=cfg.param_count(),
-        param_bytes=4 * n_params, calib=list(calib.shape),
-        cuts=["fp32 where the config says bf16"],
-        seconds=time.perf_counter() - t0)
+        dtype=cfg.param_dtype, params=n_params,
+        param_count=cfg.param_count(), param_bytes=elem * n_params,
+        calib=list(calib.shape), seconds=time.perf_counter() - t0)
 
     def ppl(p):
         logits = forward(p, cfg, held, **held_kw)
@@ -4426,8 +4673,7 @@ def phase_encdec_main(torch, ops, cfg, qcfg):
     log("encdec_step", arch=cfg.name, forward_objective_ms=fwd_ms,
         step_ms=results.get("step_ms"), forward_flops=flops,
         forward_tflops_per_s=flops / fwd_ms / 1e9,
-        share_of_fp32_peak=flops / fwd_ms / 1e-3 / FP32_OPS_PER_S,
-        frames=T, refusals=refusals)
+        **peak_share(flops, fwd_ms, elem), frames=T, refusals=refusals)
     del calib, held, kw, held_kw
     params_q = pack_model(params, qcfg)
     del params
@@ -4454,7 +4700,8 @@ def phase_encdec_serving(torch, ops, cfg, params_q):
     flash, runs = frontend_serving(torch, ops, cfg, params_q, toks, kw,
                                    "encdec_steps")
     if runs[True]["cross_bytes"] != cross_cache_bytes(
-            cfg, B, kw["enc_embeds"].shape[1]):
+            cfg, B, kw["enc_embeds"].shape[1],
+            kw["enc_embeds"].element_size()):
         raise AssertionError(f"cross cache {runs[True]['cross_bytes']} bytes")
     steps = ENCDEC_SERVE["steps"] - 1
     prefill = make_prefill_step(cfg, toks.shape[1] + steps + 1)
@@ -4479,102 +4726,24 @@ def phase_encdec_serving(torch, ops, cfg, params_q):
     return flash
 
 
-def rep7_kernels(torch, ops, ref, pd, fd, cfg, decode_lens):
-    """13c: the GQA paged routes and flash_decode at InternVL2's head layout
-    (B 8, 14 query / 2 KV heads of 64: rep 7, not a power of two) against
-    their plain versions (PD_TOL / FD_TOL; f32 and int8), at the trace's
-    decode lengths and at 1024 tokens, each timed (one call, and device
-    time under the profiler) beside its bound and plain version. Returns
-    {kernel: {"max_abs_err", context: row}}."""
-    B, H, Hkv, Dh = 8, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    out = {}
-    for route, mp in (("paged_decode_gqa", 1), ("paged_decode_gqa_mp", 2),
-                      ("flash_decode", None)):
-        rows, err = {}, 0.0
-        for ctx, lens in (("decode", decode_lens), ("1024", [1024] * B)):
-            P = -(-max(lens) // PSZ)
-            for dt in (torch.float32, torch.int8):
-                before = ops.LAUNCHES[route]
-                if route == "flash_decode":
-                    args = flash_case(torch, B=B, S=max(lens), H=H, Hkv=Hkv,
-                                      Dh=Dh, dtype=dt, seed=13)
-                    n = max(lens)
-                    want = ref.flash_decode_ref(*args, kv_len=n)
-                    got = ops.flash_decode(*args, kv_len=n)
-                    torch.testing.assert_close(got, want, **FD_TOL)
-                else:
-                    args = paged_case(torch, B=B, H=H, Hkv=Hkv, Dh=Dh, P=P,
-                                      lens=lens, dtype=dt, seed=13)
-                    want = ref.paged_decode_ref(*args)
-                    got = ops.paged_decode(*args, **route_kw(route, mp))
-                    torch.testing.assert_close(got, want, **PD_TOL)
-                torch.cuda.synchronize()
-                if ops.LAUNCHES[route] != before + 1:
-                    raise AssertionError(f"{route} did not launch at rep "
-                                         f"{H // Hkv}")
-                e = float((got - want).abs().max())
-                err = max(err, e)
-                log("kernel_check", kernel=route, arch=cfg.name, context=ctx,
-                    heads=[H, Hkv], head_dim=Dh, batch=B, dtype=str(dt),
-                    lens=lens, max_abs_err=e)
-                if dt != torch.float32:
-                    continue
-                if route == "flash_decode":
-                    q, k, v, _, _ = args
-                    o = torch.empty((B, H, Dh), device=q.device)
-
-                    def run():
-                        fd.launch(q, k, v, None, None, o, kv_len=n)
-
-                    def plain():
-                        return ref.flash_decode_ref(q, k, v, kv_len=n)
-                    nbytes = 2 * B * n * Hkv * Dh * 4 + 2 * q.numel() * 4
-                    ops_n = 4 * B * H * Dh * n
-                else:
-                    q, kp, vp, bt, ln, ks, _ = args
-                    o = torch.empty((B, H, Dh), device=q.device)
-                    m = torch.empty((B, H), device=q.device)
-                    l_ = torch.empty_like(m)
-
-                    def run():
-                        pd.launch(route, q, kp, vp, bt, ln, None, None, o, m,
-                                  l_, normalize=True, pages_per_block=mp)
-
-                    def plain():
-                        return ref.paged_decode_ref(q, kp, vp, bt, ln)
-                    nbytes = paged_bytes(q, kp, ks, lens, H, Hkv)
-                    ops_n = 4 * H * Dh * sum(lens)
-                t, spread = time_stats(torch, run, reps=50)
-                dev = device_ms(torch, run, PD_KERNEL_NAMES)
-                b, by = bound_ms(nbytes, ops_n)
-                rows[ctx] = dict(ms=t, ms_range=spread, device_ms=dev,
-                                 plain_ms=time_ms(torch, plain, reps=20),
-                                 bound_ms=b, bound_by=by,
-                                 device_share_of_bound=b / dev, batch=B,
-                                 heads=[H, Hkv], head_dim=Dh, lens=lens)
-                log("kernel_time", kernel=route, arch=cfg.name, context=ctx,
-                    **rows[ctx])
-        out[route] = dict(max_abs_err=err, **rows)
-    return out
-
-
 def phase_vlm(torch, ops, ref, cfg, qcfg, pd_rows):
-    """13c: InternVL2 at full width and depth, fp32 (14/2 heads: GQA rep 7;
-    qkv biases; tied embeddings). RTN and AWQ, each alone and with STEPS
+    """13c: InternVL2 at full width and depth in its own dtype (bf16; 14/2
+    heads: GQA rep 7; qkv biases; tied embeddings). RTN and AWQ, each alone
+    and with STEPS
     fused steps, on text (``phase_zoo_main``); the packed model through the
     steps with 8 x 256 stub patches (``frontend_serving``: decode from
     P+S, flash_decode at rep 7), PagedServer over the trace with sharing
     off, on and MP 2 (``phase_serving``, profiled over
     VLM_PROFILE_REQUESTS requests), and BatchedServer flag off / on
-    (``phase_legacy_serving``); the rep-7 kernels (``rep7_kernels``); and the
-    CE search with patches must raise ValueError. Returns the launch counts
-    and the rep-7 rows."""
+    (``phase_legacy_serving``); the rep-7 kernels (``attn_kernels_at``: f32,
+    int8 and bf16 caches, timed on bf16) and ``transform_quant`` at its FFN
+    in bf16; and the CE search with patches must raise ValueError. Returns
+    the launch counts and the kernel rows."""
     from repro_torch.core.pipeline import quantize_model
     from repro_torch.core.search import SearchConfig
     from repro_torch.data.calib import calibration_tensor
     from repro_torch.launch.serve import Request
     from repro_torch.models.model import init_params
-    from repro_torch.serving import build_trace
 
     params_q, pack_s, launches = phase_zoo_main(torch, ops, cfg, qcfg,
                                                 tag="vlm")
@@ -4589,11 +4758,12 @@ def phase_vlm(torch, ops, ref, cfg, qcfg, pd_rows):
     legacy = phase_legacy_serving(torch, ops, cfg, params_q, profile=False)
     del params_q
     torch.cuda.empty_cache()
-    pd = importlib.import_module("repro_torch.kernels.paged_decode")
-    fd = importlib.import_module("repro_torch.kernels.flash_decode")
-    decode_lens = [len(t["prompt"]) + TRACE["max_new"] // 2
-                   for t in build_trace(cfg.vocab_size, **TRACE)[:8]]
-    rep7 = rep7_kernels(torch, ops, ref, pd, fd, cfg, decode_lens)
+    rep7 = attn_kernels_at(torch, ops, ref, cfg, (
+        "paged_decode_gqa", "paged_decode_gqa_mp", "flash_decode"),
+        trace_decode_lens(cfg), (torch.float32, torch.int8, torch.bfloat16),
+        torch.bfloat16)
+    tq = tq_check(torch, ops, ref, cfg.name, cfg.d_model, cfg.d_ff, qcfg,
+                  4326, torch.bfloat16)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
     calib = calibration_tensor(cfg.vocab_size, n_seqs=2, seq_len=64, seed=99,
@@ -4611,12 +4781,13 @@ def phase_vlm(torch, ops, ref, cfg, qcfg, pd_rows):
     torch.cuda.empty_cache()
     log("vlm_search_refusal", arch=cfg.name, error=refusal)
     return dict(main=launches, flash=flash, legacy_flash=legacy,
-                paged=paged, rep7=rep7)
+                paged=paged, rep7=rep7, vlm_tq=tq)
 
 
 def phase_encdec_train(torch, cfg):
     """13d: TRAIN13["steps"] train steps (``make_train_step``, AdamW) at full
-    width and depth, fp32, B 2 x 512 tokens with the stub frontend input
+    width and depth, fp32 (the bf16 train step is not held to the
+    reference yet), B 2 x 512 tokens with the stub frontend input
     (512 encoder frames, or 256 patches): finite losses, step ms (the last
     step) and peak bytes."""
     from repro_torch.data.calib import calibration_tensor
@@ -4755,9 +4926,13 @@ def phase_small_encdec(torch, ops, arch, devs=("cpu", "cuda")):
 
 
 def phase_encdec(torch, ops, ref, get_config, qcfg, pd_rows):
-    """Phase 13 (13a-13e), after ``group_quant`` is held to its plain
-    version at both models' shapes (``encdec_gq_check``). Returns the
-    launch counts and rows the kernels line carries."""
+    """Phase 13 (13a-13e) in the configs' own bf16, after ``group_quant``
+    is held to its plain version at both models' shapes
+    (``encdec_gq_check``) and ``transform_quant`` and ``flash_decode`` at
+    Seamless's decoder (13c holds InternVL2's): 13a-13c, the bf16-vs-fp32
+    accept decisions of both, 13d the fp32 train steps, 13e both reduced,
+    card against CPU, in fp32 and in bf16. Returns the launch counts and
+    rows the kernels line carries."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cfg = encdec_config(get_config)
@@ -4765,6 +4940,11 @@ def phase_encdec(torch, ops, ref, get_config, qcfg, pd_rows):
     checks = {c.name: encdec_gq_check(torch, ops, ref, c) for c in (cfg, vcfg)}
     gq_check = (max(e for e, _ in checks.values()),
                 {arch: row for arch, (_, row) in checks.items()})
+    tq = tq_check(torch, ops, ref, cfg.name, cfg.d_model, cfg.d_ff, qcfg,
+                  4327, torch.bfloat16)
+    attn = attn_kernels_at(torch, ops, ref, cfg, ("flash_decode",),
+                           trace_decode_lens(cfg), (torch.bfloat16,),
+                           torch.bfloat16)
     params_q, seamless = phase_encdec_main(torch, ops, cfg, qcfg)
     t1 = time.perf_counter()
     seamless_flash = phase_encdec_serving(torch, ops, cfg, params_q)
@@ -4773,16 +4953,569 @@ def phase_encdec(torch, ops, ref, get_config, qcfg, pd_rows):
     t2 = time.perf_counter()
     vlm = phase_vlm(torch, ops, ref, vcfg, qcfg, pd_rows)
     t3 = time.perf_counter()
-    for c in (cfg, vcfg):
-        phase_encdec_train(torch, c)
+    differing = {cfg.name: family_accepts(
+        torch, ops, cfg, qcfg, kw=frontend_kw(torch, cfg, 4, seed=1)),
+        vcfg.name: family_accepts(torch, ops, vcfg, qcfg)}
     t4 = time.perf_counter()
+    for c in (cfg, vcfg):
+        phase_encdec_train(torch, dataclasses.replace(c, **ZOO_DTYPE))
+    t5 = time.perf_counter()
     for arch in ENCDEC_ARCHS:
         phase_small_encdec(torch, ops, arch)
-    t5 = time.perf_counter()
-    log("phase13", seconds=t5 - t0, a_s=t1 - t0, b_s=t2 - t1, c_s=t3 - t2,
-        d_s=t4 - t3, e_s=t5 - t4)
+        phase_small_bf16(torch, ops, arch)
+    t6 = time.perf_counter()
+    log("phase13", seconds=t6 - t0, a_s=t1 - t0, b_s=t2 - t1, c_s=t3 - t2,
+        accepts_s=t4 - t3, d_s=t5 - t4, e_s=t6 - t5,
+        accept_decisions_differing=differing)
     return dict(seamless=seamless, seamless_flash=seamless_flash,
-                gq_check=gq_check, **vlm)
+                gq_check=gq_check, tq=tq, attn=attn, differing=differing,
+                **vlm)
+
+
+# ---------------------------------------------------------------------------
+# the families in their own bf16: checks shared by phases 11-14
+# ---------------------------------------------------------------------------
+
+BF16_ULPS = 2          # tests/test_torch_bf16.py's elementwise bar
+BF16_FARTHER = 1.25    # and its bar against the fp32 forward
+BF16_LOSS_RTOL = 1e-3  # tests/test_torch_bf16_search.py's LOSS_RTOL
+
+
+def own_dtype_kw(torch, cfg):
+    """``gq_shapes_check``'s w dtype and ``round_range`` for ``cfg``'s
+    params (a bf16 w is fake-quantised with its range and scale rounded to
+    bf16, as ``core.quant.fake_quant`` calls the kernel)."""
+    bf16 = cfg.param_dtype == "bfloat16"
+    return dict(dtype=torch.bfloat16 if bf16 else torch.float32,
+                round_range=bf16)
+
+
+def tq_check(torch, ops, ref, arch, D, F, qcfg, seed, dtype):
+    """``transform_quant`` up (D, F) and down (F, D) on a random π and w in
+    ``dtype``, each held to its plain version with ``torch.equal`` and
+    timed beside its bound. Returns {mode: row}."""
+    G = qcfg.group_size
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pi = make_pi(torch, "random", F, gen, "cuda")
+    s = 1.0 + 0.05 * torch.randn(F, generator=gen, device="cuda")
+    phi = 0.3 * torch.randn(F // 2, generator=gen, device="cuda")
+    rows = {}
+    for mode, shape in (("up", (D, F)), ("down", (F, D))):
+        w = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        def kern(w=w, mode=mode):
+            return ops.transform_quant(w, pi, s, phi, bits=qcfg.bits,
+                                       group=G, mode=mode)
+
+        err = exact(torch, kern(), ref.transform_quant_ref(
+            w, pi, s, phi, bits=qcfg.bits, group=G, mode=mode),
+            f"transform_quant {arch} {dtype} {mode}")
+        ms = time_ms(torch, kern)
+        dev = device_ms(torch, kern, ("transform_quant",))
+        plain = time_ms(torch, lambda w=w, mode=mode: ref.transform_quant_ref(
+            w, pi, s, phi, bits=qcfg.bits, group=G, mode=mode), reps=5)
+        K, N = shape
+        nbytes = tq_bytes(K, N, G, F, w.element_size())
+        bound, by = bound_ms(nbytes, TQ_OPS * K * N)
+        rows[mode] = dict(shape=[K, N], ms=ms, device_ms=dev, plain_ms=plain,
+                          bound_ms=bound, bound_by=by, bytes=nbytes,
+                          share_of_bound=bound / dev, max_abs_err=err,
+                          plan=list(importlib.import_module(
+                              "repro_torch.kernels.transform_quant").plan(
+                                  K, N, G, mode, w.element_size())))
+        log("kernel_check", kernel="transform_quant", arch=arch, mode=mode,
+            dtype=str(dtype), pi="random", equal=True, **rows[mode])
+        del w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def attn_kernels_at(torch, ops, ref, cfg, routes, decode_lens, dtypes,
+                    timed, seed=13):
+    """The decode-attention routes of ``routes`` ("paged_decode_gqa",
+    "paged_decode_gqa_mp" at MP 2, "flash_decode") at ``cfg``'s head
+    layout (B 8), against their plain versions (PD_TOL / FD_TOL) with the
+    caches in each of ``dtypes``, at the trace's decode lengths and at
+    1024 tokens; each timed in the ``timed`` dtype (one call, and device
+    time under the profiler) beside its bound and plain version. Returns
+    {route: {"max_abs_err", context: row}}."""
+    pd = importlib.import_module("repro_torch.kernels.paged_decode")
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+    B, H, Hkv, Dh = 8, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    out = {}
+    for route in routes:
+        mp = 2 if route == "paged_decode_gqa_mp" else 1
+        rows, err = {}, 0.0
+        for ctx, lens in (("decode", decode_lens), ("1024", [1024] * B)):
+            P = -(-max(lens) // PSZ)
+            for dt in dtypes:
+                before = ops.LAUNCHES[route]
+                if route == "flash_decode":
+                    args = flash_case(torch, B=B, S=max(lens), H=H, Hkv=Hkv,
+                                      Dh=Dh, dtype=dt, seed=seed)
+                    n = max(lens)
+                    want = ref.flash_decode_ref(*args, kv_len=n)
+                    got = ops.flash_decode(*args, kv_len=n)
+                    torch.testing.assert_close(got, want, **FD_TOL)
+                else:
+                    args = paged_case(torch, B=B, H=H, Hkv=Hkv, Dh=Dh, P=P,
+                                      lens=lens, dtype=dt, seed=seed)
+                    want = ref.paged_decode_ref(*args)
+                    got = ops.paged_decode(*args, **route_kw(route, mp))
+                    torch.testing.assert_close(got, want, **PD_TOL)
+                torch.cuda.synchronize()
+                if ops.LAUNCHES[route] != before + 1:
+                    raise AssertionError(f"{route} did not launch at "
+                                         f"{H}/{Hkv} x {Dh}")
+                e = float((got - want).abs().max())
+                err = max(err, e)
+                log("kernel_check", kernel=route, arch=cfg.name, context=ctx,
+                    heads=[H, Hkv], head_dim=Dh, batch=B, dtype=str(dt),
+                    lens=lens, max_abs_err=e)
+                if dt != timed:
+                    continue
+                if route == "flash_decode":
+                    q, k, v, _, _ = args
+                    o = torch.empty((B, H, Dh), device=q.device)
+
+                    def run():
+                        fd.launch(q, k, v, None, None, o, kv_len=n)
+
+                    def plain():
+                        return ref.flash_decode_ref(q, k, v, kv_len=n)
+                    nbytes = 2 * B * n * Hkv * Dh * k.element_size() \
+                        + 2 * q.numel() * 4
+                    ops_n = 4 * B * H * Dh * n
+                else:
+                    q, kp, vp, bt, ln, ks, _ = args
+                    o = torch.empty((B, H, Dh), device=q.device)
+                    m = torch.empty((B, H), device=q.device)
+                    l_ = torch.empty_like(m)
+
+                    def run():
+                        pd.launch(route, q, kp, vp, bt, ln, None, None, o, m,
+                                  l_, normalize=True, pages_per_block=mp)
+
+                    def plain():
+                        return ref.paged_decode_ref(q, kp, vp, bt, ln)
+                    nbytes = paged_bytes(q, kp, ks, lens, H, Hkv)
+                    ops_n = 4 * H * Dh * sum(lens)
+                t, spread = time_stats(torch, run, reps=50)
+                dev = device_ms(torch, run, PD_KERNEL_NAMES)
+                b, by = bound_ms(nbytes, ops_n)
+                rows[ctx] = dict(ms=t, ms_range=spread, device_ms=dev,
+                                 plain_ms=time_ms(torch, plain, reps=20),
+                                 bound_ms=b, bound_by=by,
+                                 device_share_of_bound=b / dev, batch=B,
+                                 heads=[H, Hkv], head_dim=Dh, lens=lens,
+                                 dtype=str(dt))
+                log("kernel_time", kernel=route, arch=cfg.name, context=ctx,
+                    **rows[ctx])
+        out[route] = dict(max_abs_err=err, **rows)
+    torch.cuda.empty_cache()
+    return out
+
+
+def trace_decode_lens(cfg):
+    """The trace's first batch's sequence lengths halfway through decoding
+    (5b's "decode" context)."""
+    from repro_torch.serving import build_trace
+    return [len(t["prompt"]) + TRACE["max_new"] // 2
+            for t in build_trace(cfg.vocab_size, **TRACE)[:8]]
+
+
+def family_accepts(torch, ops, cfg, qcfg, kw=None, device="cuda"):
+    """14c for any family: from the same bf16 initial weights (random-init,
+    seed 0), RTN on every leaf the search does not take and STEPS steps
+    with the fused flag in bf16, and the same on the weights widened to
+    f32 in fp32, each from a fresh CPU-drawn proposal source of one seed
+    (the Mamba adapter's within-head moves for a Mamba phase, one source
+    per phase of a hybrid run); an encoder-decoder stack with the frames
+    ``kw`` in each run's dtype. The decisions are compared step by step
+    (after the first that differs, the two runs search from different
+    points). Returns the number of decisions that differ. ``device="cpu"``
+    runs it on the CPU (at a reduced size, to try its plumbing)."""
+    import warnings
+
+    from repro_torch.core import invariance as inv
+    from repro_torch.core import rtn
+    from repro_torch.core.quant import fake_quant
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import init_params
+    from repro_torch.search import run
+
+    t0 = time.perf_counter()
+    cuda = device == "cuda"
+    ssm = cfg.block_pattern in ("ssm", "hybrid")
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    calib = calibration_tensor(cfg.vocab_size, n_seqs=4,
+                               seq_len=512 if cuda else 32, seed=99,
+                               device=device)
+    scfg = SearchConfig(steps=STEPS, fused_kernel=True, log_every=0)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    runs = {}
+    for label, c in (("bf16", cfg), ("fp32", cfg32)):
+        if label == "fp32":
+            p, params = _widen(torch, params), None
+        else:
+            p = params
+        base = rtn.map_quantizable(p, lambda w, _: fake_quant(w, qcfg),
+                                   only=lambda q: q[-1] not in
+                                   FFN_KEYS + MAMBA_KEYS)
+        src = ssm_proposals(inv, c, 5, device) if ssm else \
+            CpuProposals(inv, 5, device)
+        fkw = {k: v.to(getattr(torch, c.compute_dtype))
+               for k, v in (kw or {}).items()} or None
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # the Mamba fallback
+            res = run(p, base, c, qcfg, calib, scfg, proposals=src,
+                      forward_kwargs=fkw)
+        runs[label] = dict(history=res.history, final=res.final_loss,
+                           initial=res.initial_loss,
+                           launches=dict(ops.LAUNCHES),
+                           peak=torch.cuda.max_memory_allocated()
+                           if cuda else None,
+                           step_ms=1e3 / res.stats["proposals_per_sec"])
+        del p, base, res
+        if cuda:
+            torch.cuda.empty_cache()
+    hb, hf = runs["bf16"]["history"], runs["fp32"]["history"]
+    # positions in the merged history (a hybrid run's phases each count
+    # their steps from 1)
+    differ = [i for i, (b, f) in enumerate(zip(hb, hf))
+              if b[0] and b[4] != f[4]]
+    for label, r in runs.items():
+        phases_monotone(r["history"], r["final"], f"{cfg.name} {label}")
+    log("bf16_vs_fp32_accepts", arch=cfg.name, n_layers=cfg.n_layers,
+        steps=STEPS, bf16_accepts=[h[4] for h in hb if h[0]],
+        fp32_accepts=[h[4] for h in hf if h[0]], differing=len(differ),
+        differ_at=differ, first_parting=differ[0] if differ else None,
+        bf16_losses=[h[1] for h in hb], fp32_losses=[h[1] for h in hf],
+        bf16_step_ms=runs["bf16"]["step_ms"],
+        fp32_step_ms=runs["fp32"]["step_ms"],
+        peak_bytes={k: r["peak"] for k, r in runs.items()},
+        launches={k: r["launches"] for k, r in runs.items()},
+        seconds=time.perf_counter() - t0)
+    return len(differ)
+
+
+# a router near tie: the k-th and (k+1)-th expert scores at most this many
+# ulps apart (2x the largest margin met at a parting on Phi-3.5-MoE, 1 ulp)
+ROUTER_TIE_ULPS = 2
+# ... excuses a token whose plain logit is within this of the top, relative
+# (2x the largest gap met at such a parting, 0.248; the oracle's logits of
+# a token at random lie about one top logit below it)
+ROUTER_TIE_GAP = 0.5
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree.clone() if hasattr(tree, "clone") else tree
+
+
+class StepCheck:
+    """Inside ``with``: each decode step a server takes through a port
+    kernel is computed again on the same inputs (its cache or pools cloned
+    first) through the plain attention route, and every live row's token
+    is held to the plain step's logits: the same argmax, or a near tie of
+    them (the token within ``near_tie(cfg)`` of the top), or, within the
+    wider ROUTER_TIE_GAP, a router near tie of the plain step (in some
+    layer the k-th and (k+1)-th expert scores at most ROUTER_TIE_ULPS ulps
+    apart: a rounding of the hidden state may swap the experts there, which
+    an MoE model turns into another token). ``counts()`` gives the rule's
+    reach: rows checked, rows at a router near tie, rows whose plain top-2
+    gap is under the near tie, and the mean share of the vocabulary within
+    ROUTER_TIE_GAP of the top at a router near tie. In bf16 the kernel
+    and the plain version round differently, so the tokens of two whole
+    runs part wherever one such step does (11b / 11c held whole runs to
+    the plain route in fp32). ``watch_paged(server)``
+    checks a PagedServer's steps (the paged decode's plain version);
+    ``watch_batched(server, cfg_off)`` a BatchedServer's with
+    ``use_flash_decode`` on (blocked attention, the flag off). ``parted``
+    lists (step, row, the served token's gap in the plain logits, the
+    plain step's smallest router margin in ulps)."""
+
+    def __init__(self, torch, ref, cfg):
+        self.torch, self.ref, self.cfg = torch, ref, cfg
+        self.parted, self.steps, self.rows = [], 0, 0
+        self.router_ties, self.top2_under, self.reach = 0, 0, []
+
+    def counts(self):
+        return dict(steps=self.steps, rows=self.rows,
+                    router_tie_rows=self.router_ties,
+                    top2_under_near_tie=self.top2_under,
+                    vocab_share_within_router_gap=sum(self.reach)
+                    / len(self.reach) if self.reach else None,
+                    parted=self.parted)
+
+    def _router_margins(self, L, run):
+        """``run()`` with ``layers.moe_top_k`` recording each row's gap
+        between its k-th and (k+1)-th score in ulps of the k-th; returns
+        (run's result, the smallest gap per row or None)."""
+        torch, real, gaps = self.torch, L.moe_top_k, []
+
+        def top_k(logits, k):
+            srt = torch.sort(logits.float(), dim=-1, descending=True).values
+            kth = srt[..., k - 1]
+            ulp = torch.exp2(torch.floor(torch.log2(kth.abs().clamp_min(
+                1e-30)))) * torch.finfo(logits.dtype).eps
+            gaps.append(((kth - srt[..., k]) / ulp).reshape(
+                logits.shape[0], -1).amin(-1))
+            return real(logits, k)
+        L.moe_top_k = top_k
+        try:
+            out = run()
+        finally:
+            L.moe_top_k = real
+        return out, (torch.stack(gaps).amin(0) if gaps else None)
+
+    def _hold(self, logits, plain, margins, rows):
+        """Hold each of ``rows`` of the step's (B, V) logits to ``plain``."""
+        torch, V, bar = self.torch, self.cfg.vocab_size, near_tie(self.cfg)
+        got = torch.argmax(logits[:, :V], dim=-1).tolist()
+        want = torch.argmax(plain[:, :V], dim=-1).tolist()
+        top2 = torch.topk(plain[:, :V], 2, dim=-1).values
+        gap2 = ((top2[:, 0] - top2[:, 1]) / top2[:, 0].abs()).tolist()
+        for i in rows:
+            self.rows += 1
+            margin = None if margins is None else float(margins[i])
+            tie = margin is not None and margin <= ROUTER_TIE_ULPS
+            self.top2_under += gap2[i] < bar
+            if tie:
+                self.router_ties += 1
+                top = plain[i, :V].max()
+                self.reach.append(float(((top - plain[i, :V]) / top.abs()
+                                         < ROUTER_TIE_GAP).float().mean()))
+            if got[i] == want[i]:
+                continue
+            top = float(plain[i, want[i]])
+            gap = (top - float(plain[i, got[i]])) / abs(top)
+            if gap >= bar and not (tie and gap < ROUTER_TIE_GAP):
+                raise AssertionError(
+                    f"{self.cfg.name}: decode step {self.steps} row {i}: the "
+                    f"kernel route serves {got[i]}, the plain route {want[i]}"
+                    f", gap {gap:.3g}, router margin {margin} ulps (not a "
+                    f"near tie)")
+            self.parted.append((self.steps, i, gap, margin))
+        self.steps += 1
+
+    def watch_paged(self, server):
+        from repro_torch.models import layers as L
+        from repro_torch.serving import decode as dec
+
+        real, ref, batcher = dec.paged_decode_logits, self.ref, server.batcher
+
+        def plain(q, k_pages, v_pages, block_tables, seq_lens, k_scale=None,
+                  v_scale=None, **_):
+            return ref.paged_decode_ref(q, k_pages, v_pages, block_tables,
+                                        seq_lens, k_scale, v_scale)
+
+        def logits_step(params_q, cfg, tokens, pools, bt, lens, **kw):
+            saved = _clone(pools)
+            logits, pools = real(params_q, cfg, tokens, pools, bt, lens, **kw)
+            kernel = dec.paged_decode
+            dec.paged_decode = plain
+            try:
+                (p_logits, _), margins = self._router_margins(
+                    L, lambda: real(params_q, cfg, tokens, saved, bt, lens,
+                                    **kw))
+            finally:
+                dec.paged_decode = kernel
+            self._hold(logits[:, -1].float(), p_logits[:, -1].float(), margins,
+                       [i for i, s in enumerate(batcher.slots)
+                        if s is not None])
+            return logits, pools
+
+        self._undo = lambda: setattr(dec, "paged_decode_logits", real)
+        dec.paged_decode_logits = logits_step
+        return server
+
+    def watch_batched(self, server, cfg_off):
+        from repro_torch.models import layers as L
+        from repro_torch.models.model import decode_step
+
+        cfg_on = server.cfg
+
+        def step(params_q, tokens, cache, index):
+            saved = _clone(cache)
+            logits, cache = decode_step(params_q, cfg_on, tokens, cache, index)
+            (p_logits, _), margins = self._router_margins(
+                L, lambda: decode_step(params_q, cfg_off, tokens, saved,
+                                       index))
+            self._hold(logits[:, -1].float(), p_logits[:, -1].float(), margins,
+                       range(tokens.shape[0]))
+            V = cfg_on.vocab_size
+            return self.torch.argmax(logits[:, -1, :V], dim=-1)[:, None], cache
+
+        server.step_fn = step
+        self._undo = lambda: None
+        return server
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        getattr(self, "_undo", lambda: None)()
+
+
+def ulps_of_scale(torch, got, want):
+    """max |got - want| in bf16 ulps of ``want``'s scale (2^(floor(log2
+    max|want|) - 7))."""
+    want = want.double()
+    ulp = 2.0 ** (math.floor(math.log2(float(want.abs().max()))) - 7)
+    return float((got.double() - want).abs().max()) / ulp
+
+
+def bf16_close(torch, got, want, want32, what, ulps):
+    """The bf16 bars on one tensor: within ``ulps`` ulps of ``want``'s
+    scale elementwise, and no farther from ``want32`` (the same weights'
+    fp32 run) than BF16_FARTHER x ``want`` is, by max abs and by RMS.
+    Returns the distance in ulps."""
+    d = ulps_of_scale(torch, got, want)
+    if d > ulps:
+        raise AssertionError(f"{what}: {d:.3g} ulps of the scale > {ulps}")
+    got, want, want32 = (x.double() for x in (got, want, want32))
+    for name, f in (("max", lambda x: float(x.abs().max())),
+                    ("rms", lambda x: float(x.pow(2).mean().sqrt()))):
+        if f(got - want32) > BF16_FARTHER * f(want - want32):
+            raise AssertionError(f"{what}: {name} off fp32 {f(got - want32)}"
+                                 f" > {BF16_FARTHER} x {f(want - want32)}")
+    return d
+
+
+def small_bf16_runs(torch, cfg, params, d, calib, kw_cal, toks, kw_dec, P):
+    """The forward (logits and block outputs), prefill + 3 decode steps'
+    logits of ``cfg`` on device ``d`` from ``params``, all on the CPU."""
+    from repro_torch.models.model import decode_step, forward, prefill
+
+    p = to_device(params, d)
+    lg, hid = forward(p, cfg, calib.to(d), collect_hidden=True,
+                      **{k: v.to(d) for k, v in kw_cal.items()})
+    out = [lg.cpu(), hid.cpu()]
+    lg, cache = prefill(p, cfg, toks[:, :9].to(d), 32,
+                        **{k: v.to(d) for k, v in kw_dec.items()})
+    out.append(lg.cpu())
+    for t in range(9, 12):
+        lg, cache = decode_step(p, cfg, toks[:, t:t + 1].to(d), cache, P + t)
+        out.append(lg.cpu())
+    return out
+
+
+def phase_small_bf16(torch, ops, arch, devs=("cpu", "cuda")):
+    """11d / 12d / 13e's bf16 case: ``arch``'s reduced config in its own
+    bf16 on ``devs`` (the CPU yardstick, then the card) from the same bf16
+    weights (drawn on the CPU), tokens, frontend input and proposals. The
+    forward's logits and block outputs, and prefill + 3 decode steps'
+    logits, within BF16_ULPS ulps of the tensor's scale of the CPU's (or of
+    the CPU port's own spread where that is wider: its forward against the
+    same with SPREAD_FRAC of the embedding table moved by one bf16 ulp, the
+    hybrid's depth grows one-ulp partings), and no farther from the CPU's
+    fp32 run of the weights widened than BF16_FARTHER x the CPU's bf16;
+    RTN within one quantization step; RTN + SMALL_ZOO_STEPS steps with the
+    fused flag, losses within BF16_LOSS_RTOL and the decisions equal
+    wherever a step's |delta| exceeds it (``histories_agree``)."""
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import invariance as inv
+    from repro_torch.core import rtn
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.quant import QuantConfig, fake_quant
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import forward, init_params, quantizable_paths
+    from repro_torch.search import run
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch).reduced(param_dtype="bfloat16",
+                                   compute_dtype="bfloat16")
+    if cfg.moe is not None and arch != MOE_ARCH:
+        cfg = small_moe_config(get_config, arch)
+        cfg = dataclasses.replace(cfg, param_dtype="bfloat16",
+                                  compute_dtype="bfloat16")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    qcfg = QuantConfig(bits=2, group_size=32)
+    params = init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+    calib = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=64,
+                               device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (3, 12)))
+    front = cfg.is_enc_dec or cfg.frontend == "vision"
+    kw_cal = frontend_kw(torch, cfg, 4, seed=8, device="cpu") if front else {}
+    kw_dec = frontend_kw(torch, cfg, 3, seed=9, device="cpu") if front else {}
+    P = cfg.frontend_len if cfg.frontend == "vision" else 0
+    ref = small_bf16_runs(torch, cfg, params, torch.device(devs[0]), calib,
+                          kw_cal, toks, kw_dec, P)
+    ref32 = small_bf16_runs(torch, cfg32, _widen(torch, params),
+                            torch.device(devs[0]), calib,
+                            {k: v.float() for k, v in kw_cal.items()}, toks,
+                            {k: v.float() for k, v in kw_dec.items()}, P)
+    dev = small_bf16_runs(torch, cfg, params, torch.device(devs[1]), calib,
+                          kw_cal, toks, kw_dec, P)
+    # the CPU port's own spread over the forward's logits and block outputs
+    spread = [0.0, 0.0]
+    for seed in range(2):
+        lg, hid = forward(embed_moved(torch, params, seed), cfg, calib,
+                          collect_hidden=True, **kw_cal)
+        spread = [max(spread[0], ulps_of_scale(torch, lg, ref[0])),
+                  max(spread[1], max(ulps_of_scale(torch, hid[i], ref[1][i])
+                                     for i in range(hid.shape[0])))]
+    bars = [max(BF16_ULPS, s) for s in spread]
+    read = [bf16_close(torch, dev[0], ref[0], ref32[0], f"{arch} logits",
+                       bars[0])]
+    read.append(max(bf16_close(torch, dev[1][i], ref[1][i], ref32[1][i],
+                               f"{arch} block {i}", bars[1])
+                    for i in range(dev[1].shape[0])))
+    read.append(max(bf16_close(torch, a, b, c, f"{arch} prefill / decode",
+                               bars[0])
+                    for a, b, c in zip(dev[2:], ref[2:], ref32[2:])))
+    # RTN, then the search from an RTN base, card against CPU
+    rtn_q, hist = [], []
+    for d in map(torch.device, devs):
+        p = to_device(params, d)
+        kc = {k: v.to(d) for k, v in kw_cal.items()} or None
+        rtn_q.append(quantize_model(p, cfg, qcfg, "rtn", device=d).params_q)
+        base = rtn.map_quantizable(p, lambda w, _: fake_quant(w, qcfg),
+                                   only=lambda q: q[-1] not in
+                                   FFN_KEYS + MAMBA_KEYS)
+        src = ssm_proposals(inv, cfg, 3, d) \
+            if cfg.block_pattern in ("ssm", "hybrid") else \
+            CpuProposals(inv, 3, d)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)   # the Mamba fallback
+            res = run(p, base, cfg, qcfg, calib.to(d), SearchConfig(
+                steps=SMALL_ZOO_STEPS, fused_kernel=True, log_every=0),
+                proposals=src, forward_kwargs=kc if cfg.is_enc_dec else None)
+        hist.append(res.history)
+        del p, base, res
+    apart = 0.0
+    for path in quantizable_paths(params):
+        a, b = (rtn.get_by_path(q, path) for q in rtn_q)
+        apart = max(apart, within_one_step(a.float(), b.float(), 2, 32))
+    compared, parted = [], []
+    for ha, hb in zip(history_phases(hist[1]), history_phases(hist[0])):
+        c, p_ = histories_agree(ha, hb, f"{arch} bf16 search",
+                                rtol=BF16_LOSS_RTOL)
+        compared.append(c)
+        parted.append(p_)
+    log("small_bf16", arch=arch, devices=list(devs), dtype=cfg.param_dtype,
+        pattern=cfg.block_pattern, frontend=cfg.frontend,
+        ulps_bar=bars, spread_ulps=spread, read_ulps=read,
+        rtn_steps_apart_frac=apart, search_compared=compared,
+        search_parted_at=parted, card_losses=[h[1] for h in hist[1]],
+        ref_losses=[h[1] for h in hist[0]], seconds=time.perf_counter() - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -4793,48 +5526,14 @@ BF16_ARCH = "qwen3-4b"
 
 
 def phase_bf16_kernels(torch, ops, ref, cfg, qcfg):
-    """14a: ``transform_quant``'s bf16 branch at the model's FFN, up (D, F)
-    and down (F, D) with a random π, each held to its plain version with
-    ``torch.equal`` and timed beside its bound, and ``group_quant``
-    (``round_range``) at every stacked shape RTN, AWQ and the search give
-    it (``encdec_gq_shapes``: the attention and FFN stacks), timed at the
-    largest (``gq_shapes_check``).
+    """14a: ``transform_quant``'s bf16 branch at the model's FFN
+    (``tq_check``), and ``group_quant`` (``round_range``) at every stacked
+    shape RTN, AWQ and the search give it (``encdec_gq_shapes``: the
+    attention and FFN stacks), timed at the largest (``gq_shapes_check``).
     Returns the two kernels' rows for the kernels line."""
-    D, F, G = cfg.d_model, cfg.d_ff, qcfg.group_size
-    gen = torch.Generator(device="cuda").manual_seed(1414)
-    rows = {"transform_quant": {}, "group_quant": {}}
-    pi = make_pi(torch, "random", F, gen, "cuda")
-    s = 1.0 + 0.05 * torch.randn(F, generator=gen, device="cuda")
-    phi = 0.3 * torch.randn(F // 2, generator=gen, device="cuda")
-    for mode, shape in (("up", (D, F)), ("down", (F, D))):
-        w = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-        got = ops.transform_quant(w, pi, s, phi, bits=qcfg.bits, group=G,
-                                  mode=mode)
-        want = ref.transform_quant_ref(w, pi, s, phi, bits=qcfg.bits,
-                                       group=G, mode=mode)
-        err = exact(torch, got, want, f"transform_quant bf16 {mode}")
-
-        def kern(w=w, mode=mode):
-            return ops.transform_quant(w, pi, s, phi, bits=qcfg.bits,
-                                       group=G, mode=mode)
-
-        ms = time_ms(torch, kern)
-        dev = device_ms(torch, kern, ("transform_quant",))
-        plain = time_ms(torch, lambda w=w, mode=mode: ref.transform_quant_ref(
-            w, pi, s, phi, bits=qcfg.bits, group=G, mode=mode), reps=5)
-        K, N = shape
-        nbytes = tq_bytes(K, N, G, F, 2)
-        bound, by = bound_ms(nbytes, TQ_OPS * K * N)
-        row = dict(shape=[K, N], ms=ms, device_ms=dev, plain_ms=plain,
-                   bound_ms=bound, bound_by=by, bytes=nbytes,
-                   share_of_bound=bound / dev, max_abs_err=err,
-                   plan=list(importlib.import_module(
-                       "repro_torch.kernels.transform_quant").plan(
-                           K, N, G, mode, 2)))
-        rows["transform_quant"][mode] = row
-        log("bf16_kernel_check", kernel="transform_quant", mode=mode,
-            dtype="bfloat16", pi="random", equal=True, **row)
-        del w, got, want
+    rows = {"transform_quant": tq_check(torch, ops, ref, cfg.name,
+                                        cfg.d_model, cfg.d_ff, qcfg, 1414,
+                                        torch.bfloat16)}
     shapes = encdec_gq_shapes(cfg)
     timed = max(shapes, key=lambda s: s[1][0] * s[1][1])[0]
     err, row = gq_shapes_check(torch, ops, ref, cfg, shapes, timed, 1415,
@@ -4842,62 +5541,6 @@ def phase_bf16_kernels(torch, ops, ref, cfg, qcfg):
     rows["group_quant"] = dict(max_abs_err=err, **row)
     torch.cuda.empty_cache()
     return rows
-
-
-def phase_bf16_accepts(torch, ops, cfg, qcfg):
-    """14c: PERF.md's open question, whether bf16 keeps the search's accept
-    decisions: from the same bf16 initial weights (random-init, seed 0),
-    RTN on every non-FFN leaf and STEPS fused steps in bf16, and the same
-    in fp32 on the weights widened, each from a fresh CPU-drawn proposal
-    source of one seed. The decisions are compared step by step (after the
-    first that differs, the two runs search from different points)."""
-    from repro_torch.core import invariance as inv
-    from repro_torch.core import rtn
-    from repro_torch.core.quant import fake_quant
-    from repro_torch.core.search import SearchConfig
-    from repro_torch.data.calib import calibration_tensor
-    from repro_torch.models.model import init_params
-    from repro_torch.search import run
-
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         device="cuda")
-    calib = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=512,
-                               seed=99, device="cuda")
-    scfg = SearchConfig(steps=STEPS, fused_kernel=True, log_every=0)
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                compute_dtype="float32")
-    runs = {}
-    for label, c in (("bf16", cfg), ("fp32", cfg32)):
-        p = params if label == "bf16" else _widen(torch, params)
-        base = rtn.map_quantizable(p, lambda w, _: fake_quant(w, qcfg),
-                                   only=lambda q: q[-1] not in FFN_KEYS)
-        ops.reset_launch_counts()
-        res = run(p, base, c, qcfg, calib, scfg,
-                  proposals=CpuProposals(inv, 5, "cuda"))
-        runs[label] = dict(history=res.history, final=res.final_loss,
-                           initial=res.initial_loss,
-                           launches=dict(ops.LAUNCHES),
-                           step_ms=1e3 / res.stats["proposals_per_sec"])
-        del p, base, res
-        torch.cuda.empty_cache()
-    hb, hf = runs["bf16"]["history"], runs["fp32"]["history"]
-    differ = [b[0] for b, f in zip(hb[1:], hf[1:]) if b[4] != f[4]]
-    for r in runs.values():
-        if not r["final"] <= r["initial"]:
-            raise AssertionError("bf16 vs fp32: final loss above initial")
-    log("bf16_vs_fp32_accepts", arch=cfg.name, steps=STEPS,
-        bf16_accepts=[h[4] for h in hb[1:]],
-        fp32_accepts=[h[4] for h in hf[1:]], differing=len(differ),
-        differ_at=differ, first_parting=differ[0] if differ else None,
-        bf16_losses=[h[1] for h in hb], fp32_losses=[h[1] for h in hf],
-        bf16_step_ms=runs["bf16"]["step_ms"],
-        fp32_step_ms=runs["fp32"]["step_ms"],
-        launches={k: r["launches"] for k, r in runs.items()},
-        seconds=time.perf_counter() - t0)
-    del params, calib
-    torch.cuda.empty_cache()
-    return len(differ)
 
 
 def _widen(torch, tree):
@@ -4912,29 +5555,24 @@ def phase_bf16(torch, ops, ref, get_config, qcfg, pd_rows):
     rows, 14b's launches by kernel and run, 14d's paged runs' launches by
     label and the flash run's."""
     torch.cuda.empty_cache()
-    old = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    try:
-        t0 = time.perf_counter()
-        cfg = get_config(BF16_ARCH)
-        if cfg.param_dtype != "bfloat16" or cfg.compute_dtype != "bfloat16":
-            raise AssertionError(f"{cfg.name} is not a bf16 config")
-        rows = phase_bf16_kernels(torch, ops, ref, cfg, qcfg)
-        t1 = time.perf_counter()
-        params_q, pack_s, launches = phase_zoo_main(torch, ops, cfg, qcfg,
-                                                    tag="bf16")
-        t2 = time.perf_counter()
-        differing = phase_bf16_accepts(torch, ops, cfg, qcfg)
-        t3 = time.perf_counter()
-        paged, flash = phase_zoo_serving(torch, ops, cfg, params_q, pack_s,
-                                         pd_rows, tag="bf16_")
-        del params_q
-        torch.cuda.empty_cache()
-        t4 = time.perf_counter()
-        log("phase14", seconds=t4 - t0, a_s=t1 - t0, b_s=t2 - t1,
-            c_s=t3 - t2, d_s=t4 - t3, accept_decisions_differing=differing)
-    finally:
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = old
+    t0 = time.perf_counter()
+    cfg = get_config(BF16_ARCH)
+    if cfg.param_dtype != "bfloat16" or cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"{cfg.name} is not a bf16 config")
+    rows = phase_bf16_kernels(torch, ops, ref, cfg, qcfg)
+    t1 = time.perf_counter()
+    params_q, pack_s, launches = phase_zoo_main(torch, ops, cfg, qcfg,
+                                                tag="bf16")
+    t2 = time.perf_counter()
+    differing = family_accepts(torch, ops, cfg, qcfg)
+    t3 = time.perf_counter()
+    paged, flash = phase_zoo_serving(torch, ops, cfg, params_q, pack_s,
+                                     pd_rows, tag="bf16_")
+    del params_q
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    log("phase14", seconds=t4 - t0, a_s=t1 - t0, b_s=t2 - t1, c_s=t3 - t2,
+        d_s=t4 - t3, accept_decisions_differing=differing)
     return dict(rows=rows, main=launches, paged=paged, flash=flash,
                 differing=differing)
 
@@ -4952,8 +5590,11 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    # parity settings: accept decisions ride on loss deltas near 1e-5, and
+    # bf16 GEMMs reduce in f32 as the reference's do
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     from repro_torch.configs import get_config
     from repro_torch.core.objective import activation_mse, calib_ce
@@ -5116,12 +5757,9 @@ def main() -> int:
     lap("phase4")
 
     # ---- phase 5: paged serving ------------------------------------------
-    from repro_torch.serving import build_trace
     pd = importlib.import_module("repro_torch.kernels.paged_decode")
     pd_errs = phase_paged_kernels(torch, ops, ref, pd)
-    decode_lens = [len(t["prompt"]) + TRACE["max_new"] // 2
-                   for t in build_trace(cfg.vocab_size, **TRACE)[:8]]
-    pd_rows = phase_paged_times(torch, ops, ref, pd, decode_lens)
+    pd_rows = phase_paged_times(torch, ops, ref, pd, trace_decode_lens(cfg))
     gqa_vs_sdpa(pd_rows)
     params_q, setup_s = packed_opt(torch, cfg)
     serve_counts, split = phase_serving(torch, ops, pd_rows, cfg, params_q,
@@ -5254,11 +5892,11 @@ def main() -> int:
                 "launches": moe["main"][name],
                 "launches_on": "phase 11a: quantize_model rtn, alone and "
                                "with 16 fused steps over the L·E expert "
-                               "units, on Phi-3.5-MoE (fp32, full width, 3 "
-                               "layers), each counted from 0",
+                               "units, on Phi-3.5-MoE (its own bf16, full "
+                               "width, 3 layers), each counted from 0",
                 **({"max_abs_err": moe["gq_check"][0],
                     "expert_stack_time": moe["gq_check"][1]}
-                   if name == "group_quant" else {})},
+                   if name == "group_quant" else {"kernel": moe["tq"]})},
             "ssm": {
                 "launches": {"mamba2-2.7b": ssm["mamba"][name],
                              "zamba2-7b": ssm["hybrid"][name]},
@@ -5266,25 +5904,27 @@ def main() -> int:
                                "and with 16 steps (the fused flag asked "
                                "for: the Mamba phase runs unfused, the "
                                "hybrid's shared-FFN phase fused), on "
-                               "Mamba2-2.7B (fp32, full width and depth) and "
-                               "Zamba2-7B (fp32, full width, 13 blocks), "
-                               "each counted from 0",
+                               "Mamba2-2.7B (its own bf16, full width and "
+                               "depth) and Zamba2-7B (bf16, full width, 13 "
+                               "blocks), each counted from 0",
                 **({"max_abs_err": ssm["gq_check"][0],
                     "mamba_stack_time": ssm["gq_check"][1]}
-                   if name == "group_quant" else {})},
+                   if name == "group_quant" else {"kernel": ssm["tq"]})},
             "encdec": {
                 "launches": {"seamless-m4t-medium": encdec["seamless"][name],
                              "internvl2-1b": encdec["main"][name]},
                 "launches_on": "phase 13a / 13c: quantize_model rtn alone "
                                "and with 16 fused steps on SeamlessM4T-medium "
-                               "(fp32, full width and depth, 4 x 4096 stub "
-                               "frames through forward_kwargs), rtn / awq "
-                               "alone and with 16 fused steps on InternVL2-1B "
-                               "(fp32, full width and depth, text), each "
-                               "counted from 0",
+                               "(its own bf16, full width and depth, 4 x "
+                               "4096 stub frames through forward_kwargs), "
+                               "rtn / awq alone and with 16 fused steps on "
+                               "InternVL2-1B (bf16, full width and depth, "
+                               "text), each counted from 0",
                 **({"max_abs_err": encdec["gq_check"][0],
                     "largest_stack_time": encdec["gq_check"][1]}
-                   if name == "group_quant" else {})},
+                   if name == "group_quant" else
+                   {"kernel": {"seamless-m4t-medium": encdec["tq"],
+                               "internvl2-1b": encdec["vlm_tq"]}})},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
@@ -5329,16 +5969,19 @@ def main() -> int:
                                              "paged_decode_gqa"
                                              else "on-mp2"][route],
                     "launches_on": "phase 11b: PagedServer on 2-bit "
-                                   "Phi-3.5-MoE (3 layers), sharing on"
-                                   + (", 2 pages per block" if
-                                      route.endswith("_mp") else "")},
+                                   "Phi-3.5-MoE (bf16 pools, 3 layers), "
+                                   "sharing on" + (", 2 pages per block" if
+                                                   route.endswith("_mp")
+                                                   else ""),
+                    "bf16": moe["attn"][route]},
                 "encdec": {
                     "launches": encdec["paged"]["on" if route ==
                                                 "paged_decode_gqa"
                                                 else "on-mp2"][route],
                     "launches_on": "phase 13c: PagedServer on 2-bit "
-                                   "InternVL2-1B (14/2 heads: rep 7), "
-                                   "sharing on" + (", 2 pages per block" if
+                                   "InternVL2-1B (bf16 pools, 14/2 heads: "
+                                   "rep 7), sharing on"
+                                   + (", 2 pages per block" if
                                                    route.endswith("_mp")
                                                    else ""),
                     "rep7": encdec["rep7"][route]}}),
@@ -5374,23 +6017,27 @@ def main() -> int:
                  "launches_on": "phase 14d: Qwen3-4B (bf16 cache, full "
                                 "depth) BatchedServer, use_flash_decode on"},
         "moe": {"launches": moe["flash"],
-                "launches_on": "phase 11c: Phi-3.5-MoE (3 layers) "
-                               "BatchedServer, use_flash_decode on"},
+                "launches_on": "phase 11c: Phi-3.5-MoE (bf16 cache, 3 "
+                               "layers) BatchedServer, use_flash_decode on",
+                "bf16": moe["attn"]["flash_decode"]},
         "ssm": {"launches": ssm["flash"],
-                "launches_on": "phase 12c: Zamba2-7B (13 blocks: 2 "
-                               "applications of the shared block, Dh 112) "
-                               "BatchedServer, use_flash_decode on"},
+                "launches_on": "phase 12c: Zamba2-7B (bf16 cache, 13 "
+                               "blocks: 2 applications of the shared block, "
+                               "Dh 112) BatchedServer, use_flash_decode on",
+                "fp32_launches": ssm["flash32"],
+                "bf16": ssm["attn"]["flash_decode"]},
         "encdec": {"launches": {
             "seamless-m4t-medium steps": encdec["seamless_flash"],
             "internvl2-1b steps": encdec["flash"],
             "internvl2-1b BatchedServer": encdec["legacy_flash"]},
             "launches_on": "phase 13b / 13c: make_prefill_step + 15 "
-                           "make_serve_step calls (B 8, use_flash_decode "
-                           "on) on SeamlessM4T-medium (decoder "
-                           "self-attention, 16/16 heads) and on "
+                           "make_serve_step calls (B 8, bf16 caches, "
+                           "use_flash_decode on) on SeamlessM4T-medium "
+                           "(decoder self-attention, 16/16 heads) and on "
                            "InternVL2-1B after 256 patches (14/2 heads: rep "
                            "7); BatchedServer on InternVL2-1B, flag on",
-            "rep7": encdec["rep7"]["flash_decode"]},
+            "rep7": encdec["rep7"]["flash_decode"],
+            "bf16": encdec["attn"]["flash_decode"]},
         "max_abs_err": fd_err,
         **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")},

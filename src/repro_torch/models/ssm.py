@@ -16,6 +16,12 @@ decode step's state update) is an ``ssm.scan`` profiler range when
 The input projection is stored as separate weights (w_z, w_x, w_B, w_C,
 w_dt), as in the reference, so the within-head permutation the search
 proposes is a pure gather of w_z / w_x / conv_x columns and out_proj rows.
+
+In a bf16 model the block rounds where the reference's does as XLA
+compiles it on the CPU: every conv tap product, partial sum and the bias
+add; each of ``silu``'s four steps (``layers.activation_fn("silu")``); not
+the gate product before the gated RMSNorm; and in the decode step's conv
+the tap products feed the f32 sum unrounded. The scan itself is f32.
 """
 from __future__ import annotations
 
@@ -26,9 +32,11 @@ import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import activation_fn, rmsnorm
 
 __all__ = ["init_ssm", "ssm_forward", "ssm_decode_step", "init_ssm_state"]
+
+_silu = activation_fn("silu")   # jax.nn.silu's rounding in bf16
 
 
 def _dims(cfg: ModelConfig):
@@ -158,8 +166,11 @@ def _project(p, x):
 
 
 def _gate_out(p, y, z):
-    """The gated RMSNorm and the output projection."""
-    return rmsnorm(y * F.silu(z), p["norm_w"]) @ p["out_proj"]
+    """The gated RMSNorm and the output projection. The gate product
+    y * silu(z) feeds the norm's f32 upcast unrounded, as the reference's
+    compiled block keeps it (in f32 the same computation)."""
+    return rmsnorm(y.float() * _silu(z).float(), p["norm_w"],
+                   dtype=y.dtype) @ p["out_proj"]
 
 
 def ssm_forward(p, cfg: ModelConfig, x, return_state: bool = False):
@@ -172,9 +183,9 @@ def ssm_forward(p, cfg: ModelConfig, x, return_state: bool = False):
     di, h, g, n = _dims(cfg)
     B_, L, _ = x.shape
     z, xs, Bs, Cs, dt = _project(p, x)
-    xi = F.silu(_causal_conv(xs, p["conv_x"], p["conv_b_x"]))
-    Bm = F.silu(_causal_conv(Bs, p["conv_B"], p["conv_b_B"]))
-    Cm = F.silu(_causal_conv(Cs, p["conv_C"], p["conv_b_C"]))
+    xi = _silu(_causal_conv(xs, p["conv_x"], p["conv_b_x"]))
+    Bm = _silu(_causal_conv(Bs, p["conv_B"], p["conv_b_B"]))
+    Cm = _silu(_causal_conv(Cs, p["conv_C"], p["conv_b_C"]))
     xi = xi.reshape(B_, L, h, s.head_dim)
     Bm = Bm.reshape(B_, L, g, n)
     Cm = Cm.reshape(B_, L, g, n)
@@ -213,9 +224,11 @@ def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
 
 def _conv_step(win_prev, new, w, b):
     """One position of the depthwise conv over the cached window: (out,
-    the window shifted by one)."""
+    the window shifted by one). The tap products feed the sum unrounded
+    (the reference's compiled reduce takes them in f32), the sum and the
+    bias add round to the window's dtype."""
     win = torch.cat([win_prev, new[:, None, :]], dim=1)   # (B, W, C)
-    out = torch.sum(win * w[None], dim=1) + b
+    out = torch.sum(win.float() * w.float()[None], dim=1).to(win.dtype) + b
     return out, win[:, 1:]
 
 
@@ -229,11 +242,11 @@ def ssm_decode_step(p, cfg: ModelConfig, x, state):
     xo, new_cx = _conv_step(state["conv"]["x"], xs, p["conv_x"], p["conv_b_x"])
     Bo, new_cb = _conv_step(state["conv"]["B"], Bs, p["conv_B"], p["conv_b_B"])
     Co, new_cc = _conv_step(state["conv"]["C"], Cs, p["conv_C"], p["conv_b_C"])
-    xi = F.silu(xo).reshape(B_, h, s.head_dim)
+    xi = _silu(xo).reshape(B_, h, s.head_dim)
     rep = h // g
-    Bh = torch.repeat_interleave(F.silu(Bo).reshape(B_, g, n), rep,
+    Bh = torch.repeat_interleave(_silu(Bo).reshape(B_, g, n), rep,
                                  dim=1).float()           # (B, H, N)
-    Ch = torch.repeat_interleave(F.silu(Co).reshape(B_, g, n), rep,
+    Ch = torch.repeat_interleave(_silu(Co).reshape(B_, g, n), rep,
                                  dim=1).float()
     dt = F.softplus(dt.float() + p["dt_bias"])            # (B, H)
     A = -torch.exp(p["A_log"])

@@ -83,13 +83,14 @@ def _ulp_of_scale(ref):
     return 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
 
 
-def assert_bf16_close(got, want, want32, what):
-    """The forward bars of the module docstring on one tensor."""
+def assert_bf16_close(got, want, want32, what, ulps=ULPS):
+    """The forward bars of the module docstring on one tensor (``ulps``
+    elementwise)."""
     got, want, want32 = (to_np(x).astype(np.float64)
                          for x in (got, want, want32))
-    bar = ULPS * _ulp_of_scale(want)
+    bar = ulps * _ulp_of_scale(want)
     err = np.abs(got - want)
-    assert err.max() <= bar, (f"{what}: {err.max():.4g} > {ULPS} ulps of the "
+    assert err.max() <= bar, (f"{what}: {err.max():.4g} > {ulps} ulps of the "
                               f"scale ({bar:.4g}); equal on "
                               f"{np.mean(err == 0):.2%}")
     ours, theirs = got - want32, want - want32

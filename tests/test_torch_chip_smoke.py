@@ -33,6 +33,7 @@
   CPU), its greedy oracle, and 13e run CPU against CPU for both configs.
 """
 import importlib.util
+import json
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -576,7 +577,7 @@ def test_phi_moe_reckoning():
             cfg.resolved_head_dim, cfg.d_ff, cfg.padded_vocab,
             cfg.moe.num_experts, cfg.moe.top_k) == (
         3, 4096, 32, 8, 128, 6400, 32256, 16, 2)
-    assert cfg.param_dtype == cfg.compute_dtype == "float32"
+    assert cfg.param_dtype == cfg.compute_dtype == "bfloat16"   # its own
     assert get_config("phi3.5-moe-42b-a6.6b").n_layers == 32
     assert cfg.param_count() == 4_165_165_056          # 16.66 GB in fp32
     # LayerNorm: 4 D a block and 2 D for the final norm beside the count
@@ -656,10 +657,11 @@ def test_moe_quantize_launches_match_the_formulas(monkeypatch, search):
     assert want_tq == (9 if search else 0)
 
 
-def test_plain_route_oracle_swaps_the_kernel_and_restores_it():
-    """11b's oracle serves with the plain paged decode in the kernel's
-    place, holds each run to it, pairs runs of the same sharing, and puts
-    the kernel back; a run that parts from its plain route fails."""
+def test_stepwise_oracle_checks_every_step_and_restores_the_route():
+    """11b's oracle serves each run again under ``StepCheck`` (every decode
+    step computed again through the plain paged decode on cloned pools),
+    needs the timed run's tokens back, and puts the decode step back; a
+    run whose tokens it does not reproduce fails."""
     from repro_torch.configs import get_config
     from repro_torch.core.quant import QuantConfig
     from repro_torch.kernels import ref
@@ -674,37 +676,72 @@ def test_plain_route_oracle_swaps_the_kernel_and_restores_it():
                                       device="cpu"), QuantConfig(2, 32))
     reqs = [Request(**t) for t in build_trace(
         cfg.vocab_size, n_tenants=2, per_tenant=2, page_size=8, max_new=3)]
-    kernel, real_ref = dec.paged_decode, ref.paged_decode_ref
-    seen = []
-
-    def plain_seen(*a, **k):
-        seen.append(dec.paged_decode is not kernel)
-        return real_ref(*a, **k)
-
+    small = dict(max_batch=4, page_size=8, n_pages=64, max_len=64)
     runs = {}
     for label, sharing, mp in CS.MOE_SERVE:
         outs = PagedServer(params_q, cfg, prefix_cache=sharing,
-                           gqa_pages_per_block=mp, device="cpu", max_batch=4,
-                           page_size=8, n_pages=64, max_len=64).generate(reqs)
-        runs[label] = dict(outs=outs, sharing=sharing)
-    serve = dict(CS.SERVE)
+                           gqa_pages_per_block=mp, device="cpu",
+                           **small).generate(reqs)
+        runs[label] = dict(outs=outs, sharing=sharing, mp=mp)
+    real_step = dec.paged_decode_logits
     monkeypatch = pytest.MonkeyPatch()
-    monkeypatch.setattr(CS, "SERVE", dict(serve, page_size=8, n_pages=64,
-                                          max_len=64, max_batch=4))
-    monkeypatch.setattr(ref, "paged_decode_ref", plain_seen)
+    monkeypatch.setattr(CS, "SERVE", dict(CS.SERVE, **small))
     try:
-        oracle = CS.plain_route_oracle(torch, ref, cfg, params_q, "cpu")
+        oracle = CS.stepwise_oracle(torch, ref, cfg, params_q, "cpu")
         ties, name, peers = oracle(reqs, runs)
-        assert dec.paged_decode is kernel and seen and all(seen)
+        assert dec.paged_decode_logits is real_step
         assert ties == {k: [] for k in runs} and "plain version" in name
-        assert peers == {"off": "off", "on": "on", "on-mp2": "on"}
+        assert peers == {k: k for k in runs}
         bad = dict(runs, on=dict(runs["on"], outs=[o[::-1] for o in
                                                    runs["on"]["outs"]]))
-        with pytest.raises(AssertionError, match="plain route"):
+        with pytest.raises(AssertionError, match="timed run"):
             oracle(reqs, bad)
-        assert dec.paged_decode is kernel
+        assert dec.paged_decode_logits is real_step
     finally:
         monkeypatch.undo()
+
+
+def test_step_check_refuses_a_step_far_from_its_plain_route():
+    """``StepCheck`` holds each decode step to the plain route on the same
+    inputs: on the CPU the two are one computation (no parting, every
+    step and live row counted); a plain route that computes something
+    else (attention output 0) is refused."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import BatchedServer, PagedServer, Request
+    from repro_torch.models.model import init_params
+    from repro_torch.quantized.qmodel import pack_model
+    from repro_torch.serving import build_trace
+
+    cfg = get_config("phi3.5-moe-42b-a6.6b").reduced(
+        param_dtype="bfloat16", compute_dtype="bfloat16")
+    pq = pack_model(init_params(cfg, torch.Generator().manual_seed(1),
+                                device="cpu"), QuantConfig(2, 32))
+    reqs = [Request(**t) for t in build_trace(
+        cfg.vocab_size, n_tenants=2, per_tenant=2, page_size=8, max_new=4)]
+    small = dict(max_batch=4, page_size=8, n_pages=64, max_len=64)
+    want = PagedServer(pq, cfg, device="cpu", **small).generate(reqs)
+    check = CS.StepCheck(torch, ref, cfg)
+    with check:
+        got = check.watch_paged(PagedServer(pq, cfg, device="cpu",
+                                            **small)).generate(reqs)
+    assert got == want and check.parted == [] and check.steps > 0
+    assert check.rows >= len(reqs) * 3
+    on = dataclasses.replace(cfg, use_flash_decode=True)
+    check = CS.StepCheck(torch, ref, cfg)
+    with check:
+        check.watch_batched(BatchedServer(pq, on, batch_size=4, max_len=64,
+                                          device="cpu"), cfg).generate(reqs)
+    assert check.parted == [] and check.steps == 3
+    zero = SimpleNamespace(paged_decode_ref=lambda q, *a, **k:
+                           torch.zeros_like(q))
+    with pytest.raises(AssertionError, match="not a near tie"):
+        with CS.StepCheck(torch, zero, cfg) as check:
+            check.watch_paged(PagedServer(pq, cfg, device="cpu",
+                                          **small)).generate(reqs)
 
 
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
@@ -736,15 +773,16 @@ def test_ssm_param_count_is_init_params_leaves(arch):
 
 
 def test_ssm_reckoning():
-    """12a's and 12c's models: Mamba2-2.7B at full width and depth, 2.83 B
-    params (11.3 GB in fp32) of which the searched Mamba stack is 10.07 GB;
+    """12a's and 12c's models: Mamba2-2.7B at full width and depth in its
+    own bf16, 2.83 B params (11.3 GB in fp32) of which the searched Mamba
+    stack is 10.07 GB in fp32;
     Zamba2-7B at 13 blocks, (11, 2), 1.29 B params; one forward's
     operations over 4 x 512 tokens."""
     from repro_torch.configs import get_config
 
     cfg = CS.ssm_config(get_config)
     assert (cfg.n_layers, cfg.d_model, cfg.param_dtype) == (64, 2560,
-                                                            "float32")
+                                                            "bfloat16")
     assert cfg.param_count() == 2_831_727_616
     assert CS.ssm_param_count(cfg) == 2_831_727_616 + 64 * (5120 + 256) + 2560
     assert CS.mamba_stack_bytes(cfg) == 64 * 3 * 2560 * 5120 * 4
@@ -864,14 +902,15 @@ def test_encdec_param_count_is_init_params_leaves(arch):
 
 
 def test_encdec_reckoning():
-    """13a's and 13c's models at full width and depth in fp32: their
-    analytic and tree parameter counts, one forward's operations over 4 x
-    512 tokens (Seamless with 4 x 4096 frames), and 13b's cross cache."""
+    """13a's and 13c's models at full width and depth, in their own bf16:
+    their analytic and tree parameter counts, one forward's operations over
+    4 x 512 tokens (Seamless with 4 x 4096 frames), and 13b's cross cache
+    (4-byte elements here; ``test_families_bf16_reckoning`` has bf16's)."""
     from repro_torch.configs import get_config
 
     s = CS.encdec_config(get_config)
     assert (s.n_layers, s.encoder_layers, s.d_model, s.param_dtype) == (
-        12, 12, 1024, "float32")
+        12, 12, 1024, "bfloat16")
     assert s.param_count() == 910_761_984 and s.padded_vocab == 256256
     # biases (q, k, v, o of 3 attentions; up, down), LayerNorm biases, the
     # final norm: what the analytic count leaves out
@@ -1055,6 +1094,7 @@ def test_bf16_oracle_weights_and_near_tie():
                                          compute_dtype="bfloat16")
     assert CS.near_tie(cfg) == 2.0 ** -5
     assert CS.near_tie(get_config("qwen3-4b").reduced()) == CS.NEAR_TIE
+
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     dense = CS.oracle_weights(pack_model(params, QuantConfig(2, 32)), cfg)
     assert dense["blocks"]["mlp"]["up"].dtype == torch.bfloat16
@@ -1129,3 +1169,218 @@ def test_check_greedy_excuses_only_a_token_near_the_top(monkeypatch):
     with pytest.raises(AssertionError, match="request 0 token 4"):
         CS.check_greedy(torch, forward, params, cfg, reqs, [out], "t",
                         device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# phases 11-13 in the configs' own bf16
+# ---------------------------------------------------------------------------
+
+def test_phi_moe_bf16_reckoning():
+    """11's Phi-3.5-MoE in bf16 (PERF.md's predictions use these): params
+    and expert-stack bytes, the shapes ``group_quant`` (bf16,
+    ``round_range``) and ``transform_quant`` (one expert) take with their
+    bounds, the decode layout of the GQA routes and ``flash_decode``; the
+    launch counts are fp32's (the same kernels in either dtype)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.search import SearchConfig
+
+    cfg = CS.moe_config(get_config)
+    assert CS.own_dtype_kw(torch, cfg) == dict(dtype=torch.bfloat16,
+                                               round_range=True)
+    assert CS.moe_param_count(cfg) * 2 == 8_330_395_648       # 8.33 GB
+    assert CS.expert_stack_bytes(cfg, 2) == 7_549_747_200     # 7.55 GB
+    assert dict(CS.moe_gq_shapes(cfg))["experts up/gate"] == (196608, 6400)
+    assert CS.gq_bytes(196608, 6400, 32, 2) == 2 * 196608 * 6400 * 2 \
+        + 2 * 6144 * 6400 * 4
+    for K, N in ((4096, 6400), (6400, 4096)):
+        nbytes = CS.tq_bytes(K, N, 32, 6400, 2)
+        assert nbytes == 2 * K * N * 2 + 2 * (K // 32) * N * 4 + 6400 * 16
+        bound, by = CS.bound_ms(nbytes, CS.TQ_OPS * K * N)
+        assert by == "bytes" and bound == pytest.approx(0.0333, abs=1e-4)
+    stats = {"tabu_skips": 0, "tabu_rebuilds": 0}
+    assert CS.search_launches(cfg, SearchConfig(steps=16, fused_kernel=True),
+                              stats) == {"group_quant": 3,
+                                         "transform_quant": 48}
+    assert CS.base_method_gq_launches("rtn", cfg) == 7
+    assert CS.paged_launches(cfg, 21) == 63
+    assert (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim) == (32, 8, 128)
+
+
+def test_ssm_bf16_reckoning():
+    """12's models in bf16: Mamba2-2.7B 5.66 GB of params, its searched
+    Mamba stack 5.03 GB; Zamba2-7B at 13 blocks 2.59 GB, the shared FFN
+    (3584, 14336) ``transform_quant`` takes, ``flash_decode`` at Dh 112;
+    launch counts as in fp32."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.search import SearchConfig
+
+    cfg = CS.ssm_config(get_config)
+    assert CS.ssm_param_count(cfg) * 2 == 5_664_148_480
+    assert CS.mamba_stack_bytes(cfg, 2) == 5_033_164_800
+    assert dict(CS.ssm_gq_shapes(cfg))["w_z/w_x stack"] == (163840, 5120)
+    hcfg = CS.ssm_config(get_config, "zamba2-7b")
+    assert hcfg.param_dtype == hcfg.compute_dtype == "bfloat16"
+    assert CS.ssm_param_count(hcfg) * 2 == 2_585_332_704
+    assert (hcfg.d_model, hcfg.d_ff) == (3584, 14336)
+    nbytes = CS.tq_bytes(3584, 14336, 32, 14336, 2)
+    bound, by = CS.bound_ms(nbytes, CS.TQ_OPS * 3584 * 14336)
+    assert by == "bytes" and bound == pytest.approx(0.0653, abs=1e-4)
+    assert (hcfg.n_heads, hcfg.n_kv_heads, hcfg.resolved_head_dim) == \
+        (32, 32, 112)
+    scfg = SearchConfig(steps=16, fused_kernel=True)
+    assert CS.ssm_quantize_launches(cfg, scfg) == {"group_quant": 51,
+                                                   "transform_quant": 0}
+    assert CS.ssm_quantize_launches(hcfg, scfg) == {"group_quant": 34,
+                                                    "transform_quant": 24}
+
+
+def test_encdec_bf16_reckoning():
+    """13's models in bf16: Seamless 1.82 GB of params, its cross cache at
+    B 8 x 4096 frames 1.61 GB, its decoder FFN (1024, 4096) and
+    InternVL2's (896, 4864) for ``transform_quant``, the decode layouts
+    (16/16 x 64, 14/2 x 64); launch counts as in fp32."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.search import SearchConfig
+
+    s = CS.encdec_config(get_config)
+    v = CS.encdec_config(get_config, "internvl2-1b")
+    assert CS.encdec_param_count(s) * 2 == 1_822_171_136
+    assert CS.encdec_param_count(v) * 2 == 987_836_160
+    assert CS.cross_cache_bytes(s, 8, 4096, 2) == 1_610_612_736
+    for c, (D, F) in ((s, (1024, 4096)), (v, (896, 4864))):
+        assert (c.d_model, c.d_ff) == (D, F)
+        for K, N in ((D, F), (F, D)):
+            nbytes = CS.tq_bytes(K, N, 32, F, 2)
+            assert nbytes == 2 * K * N * 2 + 2 * (K // 32) * N * 4 + F * 16
+    assert (s.n_heads, s.n_kv_heads, s.resolved_head_dim) == (16, 16, 64)
+    assert (v.n_heads, v.n_kv_heads, v.resolved_head_dim) == (14, 2, 64)
+    scfg = SearchConfig(steps=16, fused_kernel=True)
+    stats = {"tabu_skips": 0, "tabu_rebuilds": 0}
+    assert CS.encdec_quantize_launches(s) == {"group_quant": 16,
+                                              "transform_quant": 0}
+    assert CS.encdec_quantize_launches(s, scfg, stats) == {
+        "group_quant": 14, "transform_quant": 32}
+    assert CS.search_launches(v, scfg, stats) == {"group_quant": 3,
+                                                  "transform_quant": 48}
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "mamba2-2.7b",
+                                  "zamba2-7b", "seamless-m4t-medium",
+                                  "internvl2-1b"])
+def test_phase_small_bf16_runs_cpu_against_cpu(arch):
+    from repro_torch.kernels import ops
+    CS.phase_small_bf16(torch, ops, arch, devs=("cpu", "cpu"))
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "zamba2-7b",
+                                  "seamless-m4t-medium"])
+def test_family_accepts_runs_on_the_cpu(arch, capsys):
+    """The accept comparison's plumbing at the reduced size: both runs take
+    STEPS steps from one proposal stream (one per phase of the hybrid)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels import ops
+
+    cfg = get_config(arch).reduced(param_dtype="bfloat16",
+                                   compute_dtype="bfloat16")
+    kw = CS.frontend_kw(torch, cfg, 4, seed=1, device="cpu") \
+        if cfg.is_enc_dec else None
+    n = CS.family_accepts(torch, ops, cfg, QuantConfig(2, 32), kw=kw,
+                          device="cpu")
+    line = json.loads(capsys.readouterr().out.split(
+        "bf16_vs_fp32_accepts: ")[1].splitlines()[0])
+    assert line["differing"] == n == len(line["differ_at"])
+    assert len(line["bf16_accepts"]) == len(line["fp32_accepts"]) == CS.STEPS
+
+
+def test_step_check_excuses_a_router_tie_only_near_the_top():
+    """A token off the plain step's argmax passes at a near tie of the
+    logits, or at a router near tie (margin <= ROUTER_TIE_ULPS) within
+    ROUTER_TIE_GAP of the top; farther, or at a wider margin, it fails;
+    ``counts()`` reports the rows at a router tie and the rule's reach."""
+    cfg = SimpleNamespace(vocab_size=4, compute_dtype="bfloat16", name="t")
+    plain = torch.tensor([[10.0, 9.99, 7.0, 2.0]] * 3)
+    got = torch.tensor([[0.0, 1.0, 0.0, 0.0],      # the runner-up: a tie
+                        [0.0, 0.0, 1.0, 0.0],      # gap 0.3
+                        [10.0, 0.0, 0.0, 0.0]])    # the argmax
+    check = CS.StepCheck(torch, None, cfg)
+    check._hold(got, plain, torch.tensor([9.0, 1.0, 0.0]), range(3))
+    assert [(s, i) for s, i, _, _ in check.parted] == [(0, 0), (0, 1)]
+    c = check.counts()
+    assert (c["rows"], c["router_tie_rows"], c["top2_under_near_tie"]) == \
+        (3, 2, 3)
+    assert c["vocab_share_within_router_gap"] == pytest.approx(0.75)
+    with pytest.raises(AssertionError, match="not a near tie"):
+        check._hold(got, plain, torch.tensor([9.0, 3.0, 0.0]), range(3))
+    far = torch.tensor([[0.0, 0.0, 0.0, 1.0]])     # gap 0.8
+    with pytest.raises(AssertionError, match="not a near tie"):
+        CS.StepCheck(torch, None, cfg)._hold(far, plain[:1],
+                                             torch.tensor([0.0]), [0])
+
+
+def _served_zamba2():
+    """Zamba2 reduced in bf16, RTN-packed, and one BatchedServer batch of
+    4 requests run keeping its logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models.model import init_params
+    from repro_torch.quantized.qmodel import pack_model
+    from repro_torch.serving import build_trace
+
+    cfg = get_config("zamba2-7b").reduced(param_dtype="bfloat16",
+                                          compute_dtype="bfloat16")
+    pq = pack_model(init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu"), QuantConfig(2, 32))
+    reqs = [Request(**t) for t in build_trace(
+        cfg.vocab_size, n_tenants=2, per_tenant=2, page_size=8, max_new=5)]
+    server = BatchedServer(pq, cfg, batch_size=4, max_len=64, device="cpu")
+    outs = server.generate(reqs)
+    got, served = CS.generate_with_logits(torch, server, reqs)
+    return cfg, pq, reqs, outs, got, served
+
+
+def test_served_logits_are_the_servers_own():
+    """``generate_with_logits`` serves the tokens ``generate`` serves, each
+    the argmax of its kept row, and leaves the server as it was."""
+    cfg, _, reqs, outs, got, served = _served_zamba2()
+    assert got == outs
+    assert served.shape == (4, 5, cfg.vocab_size)
+    assert served.argmax(-1).tolist() == outs
+
+
+def test_hold_served_logits_refuses_a_step_that_computes_something_else(
+        capsys):
+    """The served logits of a bf16 hybrid stack pass against the full
+    forward at twice its spread (``embed_moved``: the embedding's
+    elements moved by one ulp, SPREAD_FRAC of them or all), and the bar
+    refuses the off-by-one control; served rows one position late, or a
+    row of another request, fail."""
+    from repro_torch.models.model import forward
+
+    cfg, pq, reqs, outs, _, served = _served_zamba2()
+    dense = CS.oracle_weights(pq, cfg)
+    moved = CS.embed_moved(torch, dense, 0)["embed"]["tok"]
+    apart = moved != dense["embed"]["tok"]
+    assert 0 < float(apart.float().mean()) < 3 * CS.SPREAD_FRAC
+    assert torch.all((moved.float() - dense["embed"]["tok"].float()).abs()[
+        apart] <= dense["embed"]["tok"].float().abs()[apart] * 2 ** -7)
+    tok = dense["embed"]["tok"]
+    every = CS.embed_moved(torch, dense, 0, CS.SERVED_SPREAD_FRAC)
+    assert torch.equal(every["embed"]["tok"] != tok, tok != 0)
+    padded = CS.padded_requests(type(reqs[0]), reqs, 4)
+    largest, bar = CS.hold_served_logits(torch, forward, dense, cfg, padded,
+                                         outs, served, "t", device="cpu")
+    line = json.loads(capsys.readouterr().out.split(
+        "served_logits_oracle: ")[1])
+    assert largest <= bar == CS.SERVED_SPREADS * line["spread"]
+    assert line["control_over_bar"] >= CS.POWER_SHARE
+    late = torch.cat([served[:, :1], served[:, :-1]], 1)
+    with pytest.raises(AssertionError, match="served rows farther"):
+        CS.hold_served_logits(torch, forward, dense, cfg, padded, outs, late,
+                              "t", device="cpu")
+    other = served.clone()
+    other[0, 2] = served[3, 2]
+    with pytest.raises(AssertionError, match="served rows farther"):
+        CS.hold_served_logits(torch, forward, dense, cfg, padded, outs, other,
+                              "t", device="cpu")

@@ -13,7 +13,12 @@ Weights are the reference's ``init_params`` carried across with
   logits within the reference's 2e-2 of the port's own full forward
   (``tests/test_models.py``; measured ≤ 2.4e-6);
 - the search's layer override: ``torch.equal`` to the forward over a copy
-  of the stack holding the unit.
+  of the stack holding the unit;
+- the fp32 train step (AdamW at lr 1e-3 after 2 warm-up steps, as the
+  other train-step tests run it), 3 steps on 4 x 32 tokens: loss and grad
+  norm of each step within rtol 1e-5, every leaf after the third step
+  within ``tests/test_substrate.py``'s rtol 2e-3 / atol 2e-4 (measured ≤
+  0.07 of it).
 """
 import dataclasses
 
@@ -25,13 +30,17 @@ import torch
 
 from helpers.torch_parity import one_torch_thread, to_np  # noqa: F401
 from repro.configs import get_config as jget_config
+from repro.launch import steps as jsteps
 from repro.models import model as jmodel
+from repro.optim import adamw as ja
 from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import search as tcs
+from repro_torch.launch import steps as tsteps
 from repro_torch.models import model as tmodel
 from repro_torch.models.config import (ModelConfig, SSMConfig,
                                        check_supported)
+from repro_torch.optim import adamw as ta
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 ARCHS = ("mamba2-2.7b", "zamba2-7b")
@@ -265,3 +274,29 @@ def test_layer_override_on_a_mamba_stack():
     want = tmodel.forward(ad.install(tparams, ad.install_unit(base, 1, cand)),
                           tcfg, toks)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ARCHS, ids=IDS)
+def test_train_steps_match_reference(arch):
+    """Three fp32 train steps through ``models/ssm.py``'s autograd path
+    (the conv, the chunked scan, the gated RMSNorm; the hybrid's shared
+    block too), each on the previous step's parameters and optimizer
+    state, against the reference's jitted step."""
+    jcfg, tcfg, jp, tp = pair(arch)
+    tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size,
+                                               (3, 4, 32)).astype(np.int32)
+    opt = dict(lr=1e-3, total_steps=10, warmup_steps=2)
+    jstep = jax.jit(jsteps.make_train_step(jcfg, ja.AdamWConfig(**opt)))
+    tstep = tsteps.make_train_step(tcfg, ta.AdamWConfig(**opt))
+    js, ts = ja.adamw_init(jp), ta.adamw_init(tp)
+    for i, toks in enumerate(tokens):
+        jp, js, jm = jstep(jp, js, {"tokens": jnp.asarray(toks)})
+        tp, ts, tm = tstep(tp, ts, {"tokens": torch.from_numpy(toks)})
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5,
+                                       err_msg=f"{k} at step {i}")
+    jflat, tflat = _flat(jax.tree.map(np.asarray, jp)), _flat(tp)
+    assert sorted(tflat) == sorted(jflat)
+    for path, j in jflat.items():
+        np.testing.assert_allclose(to_np(tflat[path]), j, rtol=2e-3,
+                                   atol=2e-4, err_msg="/".join(path))
