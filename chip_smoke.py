@@ -245,11 +245,14 @@ source, started together, into ``build/kernels/``), then:
    trace's lengths and at 1024 (f32, int8 and bf16 caches), timed on bf16
    beside their bounds, ``transform_quant`` at its FFN; the CE search with
    patches raising ValueError; then the bf16-vs-fp32 accept decisions of
-   both; (d) 3 train steps of each in fp32 (the bf16 train step is not yet
-   held to the reference) at B 2 x 512 tokens (512 frames; 256 patches):
-   finite losses, step ms, peak; (e) both reduced configs on the card
-   against the CPU: forward and taps, prefill + 3 decode steps, RTN + 4
-   fused steps (``histories_agree``), 3 train steps, and in bf16;
+   both; (d) 4 train steps of each in its own bf16 at B 2 x 512 tokens
+   (512 frames; 256 patches), lr 1e-4 after one warm-up step: finite
+   losses, step ms (median of the last 3), TFLOP/s, peak bytes against
+   the reckoning, the optimizer's time beside its bytes bound
+   (``run_train_steps``); (e) both reduced configs on the card against the
+   CPU: forward and taps, prefill + 3 decode steps, RTN + 4 fused steps
+   (``histories_agree``), 3 train steps, and in bf16 (with 3 bf16 train
+   steps held to the CPU's own spread);
 14. Qwen3-4B in its config's own bf16 at full width and depth,
    random-init, with ``torch.backends.cuda.matmul.
    allow_bf16_reduced_precision_reduction`` off: (a) ``transform_quant``'s
@@ -265,7 +268,15 @@ source, started together, into ``build/kernels/``), then:
    on, MP 2) and ``BatchedServer`` (flag off, on) as 10b-c, on bf16 pools
    and caches, tokens held to a bf16 greedy oracle (a bf16 near tie: the
    served token's oracle logit within NEAR_TIE_BF16 of the top logit; each
-   check logs the share of positions whose top-2 gap is under the bar).
+   check logs the share of positions whose top-2 gap is under the bar);
+   (e) the bf16 train step at full width, 12 of the 36 layers (1.99 B
+   parameters: the out-of-place step holds 24 B each, 106 GB at full
+   depth): B 4 x 512 tokens, 5 steps at lr 1e-4 after one warm-up step,
+   losses finite and falling, the share of bf16 elements moved, step ms,
+   TFLOP/s, peak bytes against the reckoning, the optimizer beside its
+   bytes bound (``phase_train_bf16``); then Qwen3-4B reduced in bf16 card
+   against the CPU (``phase_small_bf16``), its last train state saved on
+   the card in formats 1 and 2 and restored bit for bit.
 
 Prints the ``nvidia-smi`` name/power-limit line, a ``{"kernels": [...]}``
 line (all seven ported kernels), and last ``{"ok": true, "device":
@@ -2890,8 +2901,7 @@ def phase_train(torch, cfg):
     opt_ms = time_ms(torch, lambda: adamw_update(p, grads, o, opt_cfg),
                      warmup=1, reps=5)
     del grads
-    # read p, g, m, v and write p, m, v once: 7 f32 passes over N
-    opt_bound, opt_by = bound_ms(7 * 4 * n_params, 0)
+    opt_bound, opt_by = bound_ms(optimizer_bytes(p), 0)
 
     # accum_steps=2 on the same batch against the full batch
     p1, o1, m1 = step_fn(p, o, batch)
@@ -4351,7 +4361,7 @@ ENCDEC_SERVE = dict(batch=8, steps=16)  # 13b / 13c: B 8, 16 greedy tokens
 # 13c profiles PagedServer over 2 requests (8 took 37 s on the H100: the
 # profiler's events cost ≈ 0.2 ms each to read)
 VLM_PROFILE_REQUESTS = 2
-TRAIN13 = dict(batch=2, seq=512, frames=512, steps=3)    # 13d
+TRAIN13 = dict(batch=2, seq=512, frames=512, steps=4)    # 13d
 
 
 def encdec_config(get_config, arch=ENCDEC_ARCH):
@@ -4785,48 +4795,26 @@ def phase_vlm(torch, ops, ref, cfg, qcfg, pd_rows):
 
 
 def phase_encdec_train(torch, cfg):
-    """13d: TRAIN13["steps"] train steps (``make_train_step``, AdamW) at full
-    width and depth, fp32 (the bf16 train step is not held to the
-    reference yet), B 2 x 512 tokens with the stub frontend input
-    (512 encoder frames, or 256 patches): finite losses, step ms (the last
-    step) and peak bytes."""
-    from repro_torch.data.calib import calibration_tensor
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models.model import init_params
-    from repro_torch.optim.adamw import AdamWConfig, adamw_init
-
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    """13d: ``run_train_steps`` at full width and depth in the config's own
+    bf16 (``TRAIN13``: B 2 x 512 tokens, 512 stub encoder frames or the
+    256 patches, 4 steps at lr 1e-4 after one warm-up step): losses finite,
+    the logged quantities of ``run_train_steps`` and the forward + backward
+    operations by ``encdec_forward_flops`` (the encoder's and the patches'
+    included), peak bytes against ``train_reckoning``. No fp32 step is kept:
+    14e's and the CPU tests' checks of the bf16 step cover what 13d's fp32
+    run used to show (finite losses, the peak)."""
     B, S = TRAIN13["batch"], TRAIN13["seq"]
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         device="cuda")
-    state = adamw_init(params)
-    step = make_train_step(cfg, AdamWConfig(lr=1e-4, total_steps=10,
-                                            warmup_steps=1))
     kw = frontend_kw(torch, cfg, B, seed=6,
                      n=TRAIN13["frames"] if cfg.is_enc_dec else None)
-    losses, times = [], []
-    for i in range(TRAIN13["steps"]):
-        tokens = calibration_tensor(cfg.vocab_size, n_seqs=B, seq_len=S,
-                                    seed=200 + i, device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, state, metrics = step(params, state, {"tokens": tokens, **kw})
-        losses.append(float(metrics["loss"]))
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"{cfg.name}: train losses {losses}")
+    row = run_train_steps(torch, cfg, B, S, TRAIN13["steps"], TRAIN_LR, kw,
+                          seed=200)
     T = kw["enc_embeds"].shape[1] if cfg.is_enc_dec else 0
     P = kw["vision_embeds"].shape[1] if "vision_embeds" in kw else 0
     flops = 3 * encdec_forward_flops(cfg, B, P + S, T)
-    log("encdec_train", arch=cfg.name, batch=B, seq=S,
-        frontend={k: list(v.shape) for k, v in kw.items()}, losses=losses,
-        step_ms=times, tflops_per_s=flops / times[-1] / 1e9,
-        train_flops=flops, peak_bytes=torch.cuda.max_memory_allocated())
-    del params, state
-    torch.cuda.empty_cache()
+    log("encdec_train", arch=cfg.name, dtype=cfg.param_dtype, batch=B,
+        seq=S, frontend={k: list(v.shape) for k, v in kw.items()},
+        train_flops=flops,
+        forward_backward_tflops_per_s=flops / row["step_ms"] / 1e9, **row)
 
 
 def phase_small_encdec(torch, ops, arch, devs=("cpu", "cuda")):
@@ -4930,7 +4918,7 @@ def phase_encdec(torch, ops, ref, get_config, qcfg, pd_rows):
     is held to its plain version at both models' shapes
     (``encdec_gq_check``) and ``transform_quant`` and ``flash_decode`` at
     Seamless's decoder (13c holds InternVL2's): 13a-13c, the bf16-vs-fp32
-    accept decisions of both, 13d the fp32 train steps, 13e both reduced,
+    accept decisions of both, 13d the bf16 train steps, 13e both reduced,
     card against CPU, in fp32 and in bf16. Returns the launch counts and
     rows the kernels line carries."""
     torch.cuda.empty_cache()
@@ -4958,7 +4946,7 @@ def phase_encdec(torch, ops, ref, get_config, qcfg, pd_rows):
         vcfg.name: family_accepts(torch, ops, vcfg, qcfg)}
     t4 = time.perf_counter()
     for c in (cfg, vcfg):
-        phase_encdec_train(torch, dataclasses.replace(c, **ZOO_DTYPE))
+        phase_encdec_train(torch, c)
     t5 = time.perf_counter()
     for arch in ENCDEC_ARCHS:
         phase_small_encdec(torch, ops, arch)
@@ -5392,6 +5380,274 @@ def bf16_close(torch, got, want, want32, what, ulps):
     return d
 
 
+# ---- the bf16 train step (13d, 14e, and the reduced configs' steps) -------
+
+TRAIN_LR = 1e-4        # 13d / 14e: lr after one warm-up step
+TRAIN14 = dict(batch=4, seq=512, steps=5, layers=12)     # 14e
+SMALL_TRAIN = dict(steps=3, lr=1e-3, batch=2, seq=32)    # phase_small_bf16
+TRAIN_SPREAD_X = 2     # the step's bar, in the CPU port's own spreads
+STEP_ULP_SHARE = 1e-3  # params' RMS floor: one ulp of the scale on 0.1 %
+CARD_BYTES = 80e9      # one H100's device memory
+
+
+def train_reckoning(cfg, B, S):
+    """The bf16 (or fp32) train step's bytes at its peak on one card, from
+    ``cfg.param_count()`` (N, the reference's analytic count; the port's
+    tree adds only the final norm and the q/k norms). The step is out of
+    place (``optim/adamw.py``; ``run_resilient`` replays from its inputs),
+    so a parameter holds 4 e + 16 bytes at once (e its dtype's size: 24 in
+    bf16, 32 in fp32): the params, grads and clipped grads, the new params,
+    and m and v old and new (f32). On top: four f32 temporaries of the
+    largest leaf (the embedding or head, or a stacked FFN matrix), and the
+    logits (the compute dtype, their f32 log-softmax and its gradient)."""
+    e = 2 if cfg.param_dtype == "bfloat16" else 4
+    c = 2 if cfg.compute_dtype == "bfloat16" else 4
+    n = cfg.param_count()
+    V, D = cfg.padded_vocab, cfg.d_model
+    largest = max(V * D, cfg.n_layers * D * cfg.d_ff)
+    out = dict(n_params=n, bytes_per_param=4 * e + 16,
+               state_bytes=(4 * e + 16) * n, temp_bytes=4 * 4 * largest,
+               logits_bytes=B * S * V * (c + 4 + 4))
+    out["total_bytes"] = out["state_bytes"] + out["temp_bytes"] + \
+        out["logits_bytes"]
+    return out
+
+
+def optimizer_bytes(params) -> int:
+    """Bytes ``adamw_update`` must move: per element of a leaf of e bytes,
+    the clip reads the gradient twice (its norm, then the scaling) and
+    writes it once (3 e), the update reads p and the clipped g (2 e) and m,
+    v (8) and writes p (e) and m, v (8): 6 e + 16 (28 in bf16)."""
+    from repro_torch.optim.adamw import tree_leaves
+    return sum(x.numel() * (6 * x.element_size() + 16)
+               for x in tree_leaves(params))
+
+
+def bf16_moved_share(torch, new, old) -> float:
+    """The share of the bf16 params' elements a step changed."""
+    from repro_torch.optim.adamw import tree_leaves
+    pairs = [(a, b) for a, b in zip(tree_leaves(new), tree_leaves(old))
+             if a.dtype == torch.bfloat16]
+    return sum(int((a != b).sum()) for a, b in pairs) / \
+        max(sum(a.numel() for a, _ in pairs), 1)
+
+
+def run_train_steps(torch, cfg, B, S, steps, lr, kw, seed, device="cuda"):
+    """``steps`` steps of ``make_train_step`` (AdamW at ``lr`` after one
+    warm-up step) from ``init_params`` on ``device``, in ``cfg``'s dtypes,
+    B x S calibration tokens a step (seeds ``seed`` + i) plus the frontend
+    input ``kw``. Raises on a non-finite loss. Returns the row its callers
+    log: losses, the share of bf16 elements each step moved, step ms (the
+    median of the last 3, and all), 6·N·tokens TFLOP/s, peak bytes
+    against ``train_reckoning``, and the optimizer alone on the last
+    state's gradients (``queued_ms`` of ``adamw_update``) beside its bytes
+    bound (``optimizer_bytes``). On the CPU (a test's plumbing run) the
+    peak and the optimizer's time are None."""
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.launch.steps import _loss_fn, _value_and_grad, \
+        make_train_step
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         adamw_update, tree_leaves)
+
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    if cuda:
+        torch.cuda.empty_cache()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    state = adamw_init(params)
+    opt_cfg = AdamWConfig(lr=lr, warmup_steps=1, total_steps=steps)
+    step = make_train_step(cfg, opt_cfg)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    losses, times, moved = [], [], []
+    for i in range(steps):
+        batch = {"tokens": calibration_tensor(
+            cfg.vocab_size, n_seqs=B, seq_len=S, seed=seed + i,
+            device=device), **kw}
+        sync()
+        t0 = time.perf_counter()
+        new, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        moved.append(bf16_moved_share(torch, new, params))
+        params = new
+        del new
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{cfg.name}: train losses {losses}")
+    opt_ms = None
+    if cuda:
+        _, grads = _value_and_grad(_loss_fn(cfg), params, batch)
+        opt_ms = queued_ms(torch, lambda: adamw_update(params, grads, state,
+                                                       opt_cfg), calls=3)
+        del grads
+    opt_bytes = optimizer_bytes(params)
+    opt_bound, opt_by = bound_ms(opt_bytes, 0)
+    del params, state
+    if cuda:
+        torch.cuda.empty_cache()
+    step_ms = statistics.median(times[-3:])
+    tokens = B * S
+    reck = train_reckoning(cfg, B, S)
+    return dict(n_params=n_params, n_params_analytic=reck["n_params"],
+                n_layers=cfg.n_layers, steps=steps, lr=lr, losses=losses,
+                bf16_moved_share=moved, step_ms=step_ms, step_ms_all=times,
+                tokens_per_s=tokens / step_ms * 1e3,
+                tflops_6nt=6 * n_params * tokens / step_ms / 1e9,
+                share_of_bf16_peak=6 * n_params * tokens / step_ms / 1e-3
+                / BF16_OPS_PER_S, peak_bytes=peak, reckoning=reck,
+                peak_over_reckoning=peak / reck["total_bytes"] if cuda
+                else None,
+                optimizer_queued_ms=opt_ms, optimizer_bytes=opt_bytes,
+                optimizer_bound_ms=opt_bound, optimizer_bound_by=opt_by)
+
+
+def small_train_step(torch, step, params, state, batch, d):
+    """One step of ``step`` on device ``d`` from CPU (params, state,
+    batch): (new params, new state, loss), on the CPU."""
+    p, s, m = step(to_device(params, d), to_device(state, d),
+                   {k: v.to(d) for k, v in batch.items()})
+    return to_device(p, "cpu"), to_device(s, "cpu"), float(m["loss"])
+
+
+def train_step_spread(torch, step, params, state, batch, want, d):
+    """The port's own spread on device ``d`` of one step from (params,
+    state, batch) against ``want`` (that step's outputs): the step again
+    with SPREAD_FRAC of the token embedding moved one ulp (two draws,
+    ``embed_moved``) and with the batch's rows reversed (the same loss
+    summed in another order). Per leaf the largest |Δ| of m and of v and
+    the largest RMS Δ of the new params, and the largest |Δ loss|."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    runs = [(embed_moved(torch, params, seed), batch) for seed in (0, 1)]
+    runs.append((params, {k: v.flip(0) for k, v in batch.items()}))
+    n = len(tree_leaves(want[0]))
+    out = dict(m=[0.0] * n, v=[0.0] * n, params_rms=[0.0] * n, loss=0.0)
+    for p, b in runs:
+        got = small_train_step(torch, step, p, state, b, d)
+        for i, (a, w) in enumerate(zip(tree_leaves(got[0]),
+                                       tree_leaves(want[0]))):
+            diff = a.double() - w.double()
+            out["params_rms"][i] = max(out["params_rms"][i],
+                                       float(diff.pow(2).mean().sqrt()))
+        for key in ("m", "v"):
+            for i, (a, w) in enumerate(zip(tree_leaves(got[1][key]),
+                                           tree_leaves(want[1][key]))):
+                out[key][i] = max(out[key][i],
+                                  float((a.double() - w.double()).abs().max()))
+        out["loss"] = max(out["loss"], abs(got[2] - want[2]))
+    return out
+
+
+def _scale_ulp(x, mantissa) -> float:
+    m = float(x.double().abs().max())
+    return 2.0 ** (math.floor(math.log2(m)) - mantissa) if m > 0 else 0.0
+
+
+def hold_train_step(torch, got, want, spread, what):
+    """One step's outputs on the card (``got``: new params, new state,
+    loss) against the CPU's (``want``), at TRAIN_SPREAD_X x the CPU's own
+    spread (``train_step_spread``): the loss within that or 1e-4 relative;
+    m and v elementwise, with a floor of one f32 ulp of the leaf's scale;
+    each param leaf's RMS distance, with a floor of one ulp of its scale
+    (its dtype) on STEP_ULP_SHARE of its elements. The card's bf16 GEMMs
+    round apart from the CPU's, so no flat tolerance holds. Raises naming
+    the first leaf over its bar; returns the worst share of a bar for the
+    loss, m, v and the params."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    worst = dict(loss=0.0, m=0.0, v=0.0, params=0.0)
+    bar = max(TRAIN_SPREAD_X * spread["loss"], 1e-4 * abs(want[2]))
+    worst["loss"] = abs(got[2] - want[2]) / bar
+    if worst["loss"] > 1:
+        raise AssertionError(f"{what}: loss {got[2]} vs {want[2]}, bar {bar}")
+    for key in ("m", "v"):
+        for i, (a, w) in enumerate(zip(tree_leaves(got[1][key]),
+                                       tree_leaves(want[1][key]))):
+            bar = TRAIN_SPREAD_X * max(spread[key][i], _scale_ulp(w, 23))
+            err = float((a.double() - w.double()).abs().max())
+            if err > bar:
+                raise AssertionError(f"{what}: {key} leaf {i} "
+                                     f"{tuple(a.shape)} off by {err} > {bar}")
+            worst[key] = max(worst[key], err / bar if bar else 0.0)
+    for i, (a, w) in enumerate(zip(tree_leaves(got[0]), tree_leaves(want[0]))):
+        floor = _scale_ulp(w, 7 if w.dtype == torch.bfloat16 else 23) \
+            * math.sqrt(STEP_ULP_SHARE)
+        bar = TRAIN_SPREAD_X * max(spread["params_rms"][i], floor)
+        err = float((a.double() - w.double()).pow(2).mean().sqrt())
+        if err > bar:
+            raise AssertionError(f"{what}: param leaf {i} {tuple(a.shape)} "
+                                 f"RMS off by {err} > {bar}")
+        worst["params"] = max(worst["params"], err / bar if bar else 0.0)
+    return worst
+
+
+def small_bf16_train(torch, cfg, params, calib, kw, devs, what):
+    """SMALL_TRAIN["steps"] bf16 train steps (lr 1e-3 after one warm-up
+    step) on ``devs``, teacher-forced: each step from the CPU's (params,
+    state) after the one before, held with ``hold_train_step`` to the
+    CPU's own spread measured in this call. Returns (the worst shares per
+    step, the last step's outputs on the device under test)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    step = make_train_step(cfg, AdamWConfig(lr=SMALL_TRAIN["lr"],
+                                            warmup_steps=1, total_steps=100))
+    batch = {"tokens": calib, **kw}
+    p, s = params, adamw_init(params)
+    reads, got = [], None
+    for k in range(SMALL_TRAIN["steps"]):
+        want = small_train_step(torch, step, p, s, batch, torch.device(devs[0]))
+        got = small_train_step(torch, step, p, s, batch, torch.device(devs[1]))
+        spread = train_step_spread(torch, step, p, s, batch, want,
+                                   torch.device(devs[0]))
+        reads.append(hold_train_step(torch, got, want, spread,
+                                     f"{what} step {k}"))
+        p, s = want[0], want[1]
+    return reads, got
+
+
+def bf16_ckpt_roundtrip(torch, state, device, ckdir):
+    """``state`` (params, opt_state) saved on ``device`` through
+    ``CheckpointManager`` in format 1 and in format 2 under ``ckdir``
+    (deleted afterwards) and restored onto ``device``: every leaf equal,
+    dtype included. Returns the dtypes seen."""
+    import shutil
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.optim.adamw import tree_leaves
+
+    state = to_device({"p": state[0], "o": state[1]}, device)
+    seen = set()
+    try:
+        for sharded in (False, True):
+            d = Path(ckdir) / ("format2" if sharded else "format1")
+            mgr = CheckpointManager(d, sharded=sharded, device=device)
+            mgr.save(3, (state["p"], state["o"]))
+            mgr.wait()
+            (p, o), manifest = mgr.restore()
+            if manifest["step"] != 3:
+                raise AssertionError(f"ckpt round trip: step {manifest}")
+            for a, b in zip(tree_leaves({"p": p, "o": o}), tree_leaves(state)):
+                if a.dtype != b.dtype or a.device != b.device or \
+                        not torch.equal(a, b):
+                    raise AssertionError(
+                        f"ckpt round trip (format {1 + sharded}): a "
+                        f"{b.dtype} leaf {tuple(b.shape)} came back apart")
+                seen.add(str(b.dtype).split(".")[-1])
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return sorted(seen)
+
+
 def small_bf16_runs(torch, cfg, params, d, calib, kw_cal, toks, kw_dec, P):
     """The forward (logits and block outputs), prefill + 3 decode steps'
     logits of ``cfg`` on device ``d`` from ``params``, all on the CPU."""
@@ -5410,7 +5666,7 @@ def small_bf16_runs(torch, cfg, params, d, calib, kw_cal, toks, kw_dec, P):
     return out
 
 
-def phase_small_bf16(torch, ops, arch, devs=("cpu", "cuda")):
+def phase_small_bf16(torch, ops, arch, devs=("cpu", "cuda"), ckpt_dir=None):
     """11d / 12d / 13e's bf16 case: ``arch``'s reduced config in its own
     bf16 on ``devs`` (the CPU yardstick, then the card) from the same bf16
     weights (drawn on the CPU), tokens, frontend input and proposals. The
@@ -5422,7 +5678,11 @@ def phase_small_bf16(torch, ops, arch, devs=("cpu", "cuda")):
     fp32 run of the weights widened than BF16_FARTHER x the CPU's bf16;
     RTN within one quantization step; RTN + SMALL_ZOO_STEPS steps with the
     fused flag, losses within BF16_LOSS_RTOL and the decisions equal
-    wherever a step's |delta| exceeds it (``histories_agree``)."""
+    wherever a step's |delta| exceeds it (``histories_agree``); 3 bf16
+    train steps on 2 x 32 tokens, teacher-forced from the CPU's state,
+    each held to the CPU port's own spread (``small_bf16_train``); with
+    ``ckpt_dir``, the device's last train state saved there in formats 1
+    and 2 and restored, equal bit for bit (``bf16_ckpt_roundtrip``)."""
     import warnings
 
     import numpy as np
@@ -5510,8 +5770,20 @@ def phase_small_bf16(torch, ops, arch, devs=("cpu", "cuda")):
                                 rtol=BF16_LOSS_RTOL)
         compared.append(c)
         parted.append(p_)
+    # 3 bf16 train steps, card against the CPU's own spread
+    B, S = SMALL_TRAIN["batch"], SMALL_TRAIN["seq"]
+    kw_train = frontend_kw(torch, cfg, B, seed=10, device="cpu") \
+        if front else {}
+    train_read, last = small_bf16_train(
+        torch, cfg, params, calibration_tensor(cfg.vocab_size, n_seqs=B,
+                                               seq_len=S, seed=11,
+                                               device="cpu"),
+        kw_train, devs, f"{arch} bf16 train")
+    ckpt_dtypes = bf16_ckpt_roundtrip(torch, last[:2], devs[1], ckpt_dir) \
+        if ckpt_dir else None
     log("small_bf16", arch=arch, devices=list(devs), dtype=cfg.param_dtype,
         pattern=cfg.block_pattern, frontend=cfg.frontend,
+        train_worst_share_of_bar=train_read, ckpt_roundtrip_dtypes=ckpt_dtypes,
         ulps_bar=bars, spread_ulps=spread, read_ulps=read,
         rtn_steps_apart_frac=apart, search_compared=compared,
         search_parted_at=parted, card_losses=[h[1] for h in hist[1]],
@@ -5550,8 +5822,34 @@ def _widen(torch, tree):
     return tree.float() if tree.is_floating_point() else tree
 
 
+def phase_train_bf16(torch, get_config):
+    """14e: Qwen3-4B in its own bf16 at full width, TRAIN14["layers"] of
+    its 36 layers (``train_reckoning``: the out-of-place step holds 24 B a
+    parameter, 106 GB at full depth; 1.99 B parameters and ≈ 48 GB + the
+    temporaries and logits at 12), ``run_train_steps`` at B 4 x 512 tokens,
+    5 steps, lr 1e-4 after one warm-up step. Holds: losses finite and the
+    last below the first, the peak within the card. Logs the share of bf16
+    elements each step moved, step ms (median of the last 3), 6·N·tokens
+    TFLOP/s, peak bytes against the reckoning, and the optimizer's time
+    beside its bytes bound."""
+    cfg = dataclasses.replace(get_config(BF16_ARCH),
+                              n_layers=TRAIN14["layers"])
+    if cfg.param_dtype != "bfloat16" or cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"{cfg.name} is not a bf16 config")
+    row = run_train_steps(torch, cfg, TRAIN14["batch"], TRAIN14["seq"],
+                          TRAIN14["steps"], TRAIN_LR, {}, seed=300)
+    if not row["losses"][-1] < row["losses"][0]:
+        raise AssertionError(f"14e: losses {row['losses']} did not fall")
+    log("train_bf16", arch=cfg.name, dtype=cfg.param_dtype,
+        batch=TRAIN14["batch"], seq=TRAIN14["seq"],
+        n_layers_full=get_config(BF16_ARCH).n_layers, **row)
+    return row
+
+
 def phase_bf16(torch, ops, ref, get_config, qcfg, pd_rows):
-    """Phase 14 (14a-14d). Returns what the kernels line carries: 14a's
+    """Phase 14 (14a-14e, then Qwen3-4B reduced in bf16 card against CPU
+    with the bf16 checkpoint round trip). Returns what the kernels line
+    carries: 14a's
     rows, 14b's launches by kernel and run, 14d's paged runs' launches by
     label and the flash run's."""
     torch.cuda.empty_cache()
@@ -5571,8 +5869,14 @@ def phase_bf16(torch, ops, ref, get_config, qcfg, pd_rows):
     del params_q
     torch.cuda.empty_cache()
     t4 = time.perf_counter()
-    log("phase14", seconds=t4 - t0, a_s=t1 - t0, b_s=t2 - t1, c_s=t3 - t2,
-        d_s=t4 - t3, accept_decisions_differing=differing)
+    phase_train_bf16(torch, get_config)
+    t5 = time.perf_counter()
+    phase_small_bf16(torch, ops, BF16_ARCH,
+                     ckpt_dir=ROOT / SMOKE_OUT / "ckpt_bf16")
+    t6 = time.perf_counter()
+    log("phase14", seconds=t6 - t0, a_s=t1 - t0, b_s=t2 - t1, c_s=t3 - t2,
+        d_s=t4 - t3, e_s=t5 - t4, small_s=t6 - t5,
+        accept_decisions_differing=differing)
     return dict(rows=rows, main=launches, paged=paged, flash=flash,
                 differing=differing)
 

@@ -7,7 +7,8 @@ only consumes the scalar pair, so objectives implement the reference's
 - ``prepare(env) → state``      once-per-run precomputation;
 - ``evaluate(logits, hidden, state, env) → (primary, aux)`` per candidate;
   the engine combines them as ``loss = primary + α · aux``;
-- ``resolve_mix(p0, a0, env) → α`` from the step-0 values.
+- ``resolve_mix(p0, a0, env) → α`` from the step-0 values;
+- ``metrics() → dict``          static labels for the obs registry rows.
 
 Built-ins (see ``OBJECTIVES`` / :func:`get_objective`), the reference's
 four:
@@ -107,6 +108,9 @@ class Objective:
     def resolve_mix(self, primary0: float, aux0: float,
                     env: ObjectiveEnv) -> float:
         return 0.0
+
+    def metrics(self) -> Dict[str, str]:
+        return {"objective": self.name}
 
 
 def _aux_mse(logits, hidden, env: ObjectiveEnv):
@@ -214,6 +218,9 @@ class SWDActMatchObjective(Objective):
             return 0.0
         return float(primary0 / (env.ce_weight * aux0))
 
+    def metrics(self):
+        return {"objective": self.name, "n_proj": str(self.n_proj)}
+
 
 class SaliencyCEObjective(Objective):
     """Saliency-weighted CE (PAPERS.md 2504.13932): per-token NLL weighted by
@@ -253,6 +260,10 @@ class SaliencyCEObjective(Objective):
     def resolve_mix(self, primary0, aux0, env):
         return resolve_alpha(primary0, aux0, env.ce_weight) \
             if env.n_match else 0.0
+
+    def metrics(self):
+        return {"objective": self.name,
+                "saliency_temperature": str(self.temperature)}
 
 
 OBJECTIVES: Dict[str, Callable[[], Objective]] = {

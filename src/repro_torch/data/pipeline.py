@@ -11,7 +11,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["SyntheticZipf", "DataConfig", "make_pipeline"]
+__all__ = ["SyntheticZipf", "TokenDataset", "DataConfig", "make_pipeline"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +57,20 @@ class SyntheticZipf:
             else:
                 tok = self.next_tokens[tok, rng.choice(len(self.next_probs),
                                                        p=self.next_probs)]
+        return out
+
+
+class TokenDataset:
+    """Flat pre-tokenized corpus, chunked into sequences."""
+
+    def __init__(self, tokens: np.ndarray):
+        self.tokens = np.asarray(tokens, np.int64)
+
+    def sample(self, rng: np.random.Generator, length: int) -> np.ndarray:
+        start = rng.integers(0, max(len(self.tokens) - length, 1))
+        out = self.tokens[start:start + length]
+        if len(out) < length:
+            out = np.pad(out, (0, length - len(out)))
         return out
 
 

@@ -31,25 +31,10 @@ def _value_and_grad(loss_of, params, mb):
     return loss.detach(), tree_map(lambda x: grads[id(x)], tree)
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
-                    accum_steps: int = 1):
-    """(params, opt_state, batch) -> (params, opt_state, metrics {"loss",
-    "lr", "grad_norm"}); the inputs are not modified.
-
-    ``batch``: {"tokens": (B, S) int}, plus ``"vision_embeds"`` (B, P, D)
-    for a vision stack (``cfg.frontend == "vision"``: the loss drops the
-    first ``cfg.frontend_len`` logits, the patches') and ``"enc_embeds"``
-    (B, T, D) for an encoder-decoder stack, as the reference's step reads
-    them (a batch without them raises ``KeyError``).
-
-    ``accum_steps > 1`` splits every batch entry into equal microbatches
-    (rows ``i·B/n .. (i+1)·B/n``), sums their f32 losses and gradients in
-    order and divides by ``accum_steps``: activation memory scales down at
-    the cost of ``accum_steps`` weight passes. A batch that ``accum_steps``
-    does not divide raises ``ValueError`` (the reference's reshape raises
-    too).
-    """
-    schedule = cosine_schedule(opt_cfg)
+def _loss_fn(cfg: ModelConfig):
+    """(params, batch) -> the train step's f32 loss: the mean next-token CE
+    of ``M.forward`` over ``batch["tokens"]`` (a vision stack's patch
+    logits dropped), as the reference's step computes it."""
     prefix = cfg.frontend_len if cfg.frontend == "vision" else 0
 
     def loss_of(p, mb):
@@ -69,6 +54,30 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
         if prefix:
             logits = logits[:, prefix:]
         return M.lm_loss(logits[:, :-1], tokens[:, 1:], cfg.vocab_size)
+
+    return loss_of
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
+                    accum_steps: int = 1):
+    """(params, opt_state, batch) -> (params, opt_state, metrics {"loss",
+    "lr", "grad_norm"}); the inputs are not modified.
+
+    ``batch``: {"tokens": (B, S) int}, plus ``"vision_embeds"`` (B, P, D)
+    for a vision stack (``cfg.frontend == "vision"``: the loss drops the
+    first ``cfg.frontend_len`` logits, the patches') and ``"enc_embeds"``
+    (B, T, D) for an encoder-decoder stack, as the reference's step reads
+    them (a batch without them raises ``KeyError``).
+
+    ``accum_steps > 1`` splits every batch entry into equal microbatches
+    (rows ``i·B/n .. (i+1)·B/n``), sums their f32 losses and gradients in
+    order and divides by ``accum_steps``: activation memory scales down at
+    the cost of ``accum_steps`` weight passes. A batch that ``accum_steps``
+    does not divide raises ``ValueError`` (the reference's reshape raises
+    too).
+    """
+    schedule = cosine_schedule(opt_cfg)
+    loss_of = _loss_fn(cfg)
 
     def train_step(params, opt_state, batch):
         batch = dict(batch, tokens=batch["tokens"].long())

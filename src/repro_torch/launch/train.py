@@ -41,7 +41,10 @@ def train(arch: str = "opt-tiny", steps: int = 100, batch: int = 8, seq: int = 2
 
     Initial params are ``params`` (already on ``device``) or
     ``init_params`` from a ``torch.Generator`` on ``device`` seeded with
-    ``seed`` (the draws differ between the CPU and the card)."""
+    ``seed`` (the draws differ between the CPU and the card). The params,
+    and so the step, keep ``cfg``'s dtypes (a bf16 config trains bf16
+    params with f32 m and v). A resume reads a format-1 or a format-2
+    checkpoint; saves are format 1."""
     dev = resolve_device(device)
     cfg = cfg or (get_config(arch).reduced() if reduced else get_config(arch))
     check_supported(cfg)

@@ -21,7 +21,10 @@ In a bf16 model the block rounds where the reference's does as XLA
 compiles it on the CPU: every conv tap product, partial sum and the bias
 add; each of ``silu``'s four steps (``layers.activation_fn("silu")``); not
 the gate product before the gated RMSNorm; and in the decode step's conv
-the tap products feed the f32 sum unrounded. The scan itself is f32.
+the tap products feed the f32 sum unrounded. The scan itself is f32. Its
+backward rounds where the reference's compiled VJP does inside the gated
+RMSNorm (``_gate_out``): the cotangent of the SSD output reaches the D skip,
+the scan and ``dt_bias`` unrounded.
 """
 from __future__ import annotations
 
@@ -165,12 +168,53 @@ def _project(p, x):
         x @ p["w_dt"]
 
 
-def _gate_out(p, y, z):
-    """The gated RMSNorm and the output projection. The gate product
-    y * silu(z) feeds the norm's f32 upcast unrounded, as the reference's
-    compiled block keeps it (in f32 the same computation)."""
-    return rmsnorm(y.float() * _silu(z).float(), p["norm_w"],
-                   dtype=y.dtype) @ p["out_proj"]
+class _Rounded(torch.autograd.Function):
+    """f32 ``x`` rounded to ``dtype`` and widened back, with the cotangent
+    passed on unrounded: a bf16 cast whose backward convert pair XLA's
+    compiled VJP drops (the cotangent stays f32)."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        return x.to(dtype).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _RoundGrad(torch.autograd.Function):
+    """The identity on f32 ``x`` whose backward rounds the cotangent to
+    ``dtype``: the backward of a bf16 value's f32 upcast."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype).float(), None
+
+
+def _gate_out(p, y, z, eps=1e-6):
+    """The gated RMSNorm and the output projection of the f32 SSD output
+    ``y``, in ``z``'s dtype. In f32 plain autograd. In a narrower dtype
+    the forward rounds y to it and keeps the gate product y * silu(z)
+    unrounded into the norm's f32 upcast, and the backward rounds where the
+    reference's compiled VJP does: each of the norm input's two f32 uses
+    rounds its cotangent and their sum rounds again; the normalised value's
+    cotangent (the out-projection's times norm_w) and y's (the gate's times
+    silu(z)) stay f32, so the D skip, the scan and ``dt_bias`` see an
+    unrounded cotangent."""
+    dt = z.dtype
+    if dt == torch.float32:
+        return rmsnorm(y * _silu(z), p["norm_w"]) @ p["out_proj"]
+    g = _RoundGrad.apply(_Rounded.apply(y, dt) * _silu(z).float(), dt)
+    var = torch.mean(torch.square(_RoundGrad.apply(g, dt)), dim=-1,
+                     keepdim=True)
+    n = _Rounded.apply(_RoundGrad.apply(g, dt) * torch.rsqrt(var + eps), dt)
+    out = _RoundGrad.apply(n * p["norm_w"].float(), dt).to(dt)
+    return out @ p["out_proj"]
 
 
 def ssm_forward(p, cfg: ModelConfig, x, return_state: bool = False):
@@ -195,7 +239,7 @@ def ssm_forward(p, cfg: ModelConfig, x, return_state: bool = False):
         y, final_state = _ssd_chunked(xi * dt[..., None],
                                       dt * A[None, None, :], Bm, Cm, s.chunk)
     y = y + xi.float() * p["D"][None, None, :, None]
-    out = _gate_out(p, y.reshape(B_, L, di).to(x.dtype), z)
+    out = _gate_out(p, y.reshape(B_, L, di), z)
     if return_state:
         w = s.conv_width - 1
         conv_state = {"x": xs[:, -w:, :], "B": Bs[:, -w:, :],
@@ -257,6 +301,6 @@ def ssm_decode_step(p, cfg: ModelConfig, x, state):
             + torch.einsum("bhn,bhp->bhpn", Bh, u)
         y = torch.einsum("bhn,bhpn->bhp", Ch, new_state) \
             + xi.float() * p["D"][None, :, None]
-    out = _gate_out(p, y.reshape(B_, di).to(x.dtype), z)[:, None, :]
+    out = _gate_out(p, y.reshape(B_, di), z)[:, None, :]
     return out, {"state": new_state,
                  "conv": {"x": new_cx, "B": new_cb, "C": new_cc}}

@@ -298,3 +298,36 @@ class PagedKVCache:
         ``dst`` — the copy-on-write fork run by the batcher before a decode
         write would mutate a page that still has other owners."""
         copy_page(self.pools, src, dst)
+
+    # -- prefill write (the contiguous path) -------------------------------
+
+    def write_prefill(self, page_ids: Sequence[int], cache: dict,
+                      length: int) -> None:
+        """Scatter a freshly prefilled contiguous cache into the pool, in
+        place.
+
+        ``cache`` is ``model.prefill``'s cache for ONE sequence (leaves
+        (L, 1, S_pad, ...)) with ``S_pad >= len(page_ids) * page_size``
+        covering the ``length``-token prompt. Rows past ``length`` inside
+        the last page carry whatever the cache held there: reads mask them
+        by the sequence's length.
+
+        The batcher admits through the chunked paged prefill
+        (``serving/prefill.py``) and never calls this; it is the path the
+        equivalence tests compare that prefill against.
+        """
+        n = len(page_ids)
+        need = self.pages_for(length)
+        if n < need:
+            raise ValueError(f"{n} pages cannot hold {length} tokens")
+        ids = torch.as_tensor(list(page_ids), dtype=torch.long,
+                              device=self.device)
+        for key, pool in self.pools.items():
+            src = cache[key][:, 0]                       # (L, S_pad, ...)
+            if src.shape[1] < n * self.page_size:
+                raise ValueError(
+                    f"prefill cache depth {src.shape[1]} < {n} pages")
+            src = src[:, : n * self.page_size]
+            src = src.reshape((src.shape[0], n, self.page_size)
+                              + tuple(src.shape[2:]))
+            pool[:, ids] = src.to(device=pool.device, dtype=pool.dtype)

@@ -31,6 +31,11 @@
   operations and cross-cache bytes), its launch formula (held to the
   wrapper calls of ``quantize_model`` with ``forward_kwargs`` on the
   CPU), its greedy oracle, and 13e run CPU against CPU for both configs.
+- The bf16 train step's checks (13d, 14e, ``phase_small_bf16``): 14e's
+  memory reckoning at 12 of Qwen3-4B's 36 layers against
+  ``ModelConfig.param_count``, ``run_train_steps`` on the CPU, the bar the
+  card's reduced train steps are held to (the CPU's own spread) refusing
+  a step moved one lr the wrong way, and the bf16 checkpoint round trip.
 """
 import importlib.util
 import json
@@ -1384,3 +1389,101 @@ def test_hold_served_logits_refuses_a_step_that_computes_something_else(
     with pytest.raises(AssertionError, match="served rows farther"):
         CS.hold_served_logits(torch, forward, dense, cfg, padded, outs, other,
                               "t", device="cpu")
+
+
+def test_phase_small_bf16_train_and_ckpt_roundtrip_cpu(tmp_path, capsys):
+    """Phase 14's reduced Qwen3-4B case CPU against CPU: the 3 bf16 train
+    steps (each within every bar: the same device reads 0) and the train
+    state through both checkpoint formats, bf16 params and f32 m / v back
+    bit for bit."""
+    from repro_torch.kernels import ops
+    CS.phase_small_bf16(torch, ops, "qwen3-4b", devs=("cpu", "cpu"),
+                        ckpt_dir=tmp_path / "ck")
+    line = [x for x in capsys.readouterr().out.splitlines()
+            if x.startswith("small_bf16: ")][-1]
+    row = json.loads(line.split(": ", 1)[1])
+    assert row["ckpt_roundtrip_dtypes"] == ["bfloat16", "float32", "int32"]
+    assert len(row["train_worst_share_of_bar"]) == CS.SMALL_TRAIN["steps"]
+    assert all(v == 0.0 for r in row["train_worst_share_of_bar"]
+               for v in r.values())
+    assert not (tmp_path / "ck").exists()
+
+
+def test_train_step_bar_refuses_a_step_moved_one_lr_the_wrong_way():
+    """The bar ``phase_small_bf16`` holds the card's train steps to (the
+    CPU port's own spread, ``train_step_spread``) has power: the same step
+    with every param's update reversed (each element moved about one lr
+    the wrong way from where it started) is refused, while the step
+    itself passes."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_map
+
+    cfg = get_config("qwen3-4b").reduced(param_dtype="bfloat16",
+                                         compute_dtype="bfloat16")
+    params = init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+    batch = {"tokens": calibration_tensor(cfg.vocab_size, n_seqs=2,
+                                          seq_len=32, seed=11, device="cpu")}
+    step = make_train_step(cfg, AdamWConfig(lr=CS.SMALL_TRAIN["lr"],
+                                            warmup_steps=1, total_steps=100))
+    state = adamw_init(params)
+    cpu = torch.device("cpu")
+    want = CS.small_train_step(torch, step, params, state, batch, cpu)
+    spread = CS.train_step_spread(torch, step, params, state, batch, want, cpu)
+    CS.hold_train_step(torch, want, want, spread, "the step itself")
+    wrong = tree_map(lambda new, old: (2 * old.float() - new.float()).to(
+        new.dtype), want[0], params)
+    with pytest.raises(AssertionError, match="param leaf"):
+        CS.hold_train_step(torch, (wrong,) + want[1:], want, spread,
+                           "reversed")
+
+
+def test_train_reckoning_of_the_14e_cut():
+    """14e's memory reckoning at 12 of Qwen3-4B's 36 layers, from
+    ``ModelConfig.param_count``: 1,989,734,400 parameters (the port's tree
+    adds the final norm and the q / k norms, 5,632), 24 B each in the
+    out-of-place bf16 step (47.8 GB), 57.1 GB with the temporaries and the
+    logits at B 4 x 512: within one card, where the full 36 layers' state
+    alone (105.9 GB) is not. The optimizer's bytes: 28 a bf16 element, 40
+    an f32 one."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config("qwen3-4b")
+    cut = dataclasses.replace(full, n_layers=CS.TRAIN14["layers"])
+    r = CS.train_reckoning(cut, CS.TRAIN14["batch"], CS.TRAIN14["seq"])
+    assert r["n_params"] == cut.param_count() == 1_989_734_400
+    assert CS.dense_param_count(cut) - cut.param_count() == \
+        cut.d_model + 2 * cut.n_layers * cut.resolved_head_dim
+    assert r["bytes_per_param"] == 24
+    assert r["state_bytes"] == 24 * cut.param_count()
+    assert r["total_bytes"] == 57_096_437_760 < CS.CARD_BYTES
+    assert CS.train_reckoning(full, 4, 512)["state_bytes"] > CS.CARD_BYTES
+    tree = {"a": torch.zeros(3, 4, dtype=torch.bfloat16),
+            "b": {"c": torch.zeros(5)}}
+    assert CS.optimizer_bytes(tree) == 12 * 28 + 5 * 40
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "internvl2-1b"])
+def test_run_train_steps_runs_on_the_cpu(arch):
+    """13d's and 14e's train run (``run_train_steps``) at the reduced size
+    in bf16 on the CPU: four finite losses (at 2 x 32 tokens of a 512-token
+    vocabulary the batches' spread hides any fall), every step moving bf16
+    elements, and the row's arithmetic (the timings and peak are the
+    card's)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).reduced(param_dtype="bfloat16",
+                                   compute_dtype="bfloat16")
+    kw = CS.frontend_kw(torch, cfg, 2, seed=6, device="cpu") \
+        if cfg.frontend == "vision" else {}
+    row = CS.run_train_steps(torch, cfg, 2, 32, 4, 1e-3, kw, seed=200,
+                             device="cpu")
+    assert len(row["losses"]) == 4
+    assert min(row["bf16_moved_share"]) > 0.1
+    assert row["n_params"] - row["n_params_analytic"] < 0.01 * row["n_params"]
+    assert row["optimizer_bytes"] == 28 * row["n_params"]   # all bf16
+    assert row["peak_bytes"] is None and row["optimizer_queued_ms"] is None

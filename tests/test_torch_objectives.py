@@ -149,3 +149,16 @@ def test_objective_defaults_match_reference():
         for f, v in vars(j).items():
             assert getattr(t, f) == v, (cls, f)
     assert dataclasses.fields(tobj.ObjectiveEnv)[-1].default == 10.0
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("ce", {}), ("kl", {}), ("swd_actmatch", {}),
+    ("swd_actmatch", {"n_proj": 16}), ("saliency_ce", {}),
+    ("saliency_ce", {"temperature": 2.5})],
+    ids=["ce", "kl", "swd", "swd-16", "saliency", "saliency-t2.5"])
+def test_metrics_labels_equal_reference(name, kw):
+    """``metrics()``, the obs registry labels: the base's {"objective"},
+    SWD's n_proj and saliency's temperature, as the reference's strings."""
+    j = type(jobj.get_objective(name))(**kw)
+    t = type(tobj.get_objective(name))(**kw)
+    assert t.metrics() == j.metrics()

@@ -24,6 +24,7 @@ from repro.core.quant import QuantConfig as JQuantConfig
 from repro.models import init_params as jinit_params
 from repro.models.model import embed_tokens as jembed
 from repro.models.model import lm_head_logits as jlm_head
+from repro.models.model import prefill as jprefill
 from repro.quantized.qmodel import pack_model as jpack_model
 from repro.serving import decode as jdec
 from repro.serving import paged_cache as jpc
@@ -33,6 +34,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.serving import (ContinuousBatcher, PagedKVCache,
                                  PagedRequest, chain_keys)
 from repro_torch.serving import decode as tdec
+from repro_torch.models.model import prefill as tprefill
 from repro_torch.serving import prefill as tpre
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -159,6 +161,51 @@ def test_prefill_chunks_match_reference(packed, psz, plen, chunk_pages,
                                rtol=1e-5, atol=1e-4)
     _assert_pools_close(tcache.gather_tokens(ids, plen),
                         jcache.gather_tokens(ids, plen))
+
+
+@pytest.mark.parametrize("psz,plen,kv_dtype", [
+    (4, 3, "compute"),         # sub-page prompt
+    (8, 13, "compute"),        # ragged tail
+    (4, 11, "int8"),
+])
+def test_write_prefill_matches_reference(packed, psz, plen, kv_dtype):
+    """``PagedKVCache.write_prefill``: a contiguous prefill's cache
+    scattered into the same pages leaves every pool leaf (the whole pool)
+    at the reference's; the chunked paged prefill writes the same live
+    rows (the reference's ``tests/test_paged.py`` acceptance, on the
+    port); a cache too shallow or a page list too short raises as there."""
+    jcfg, tcfg, jpq, tpq = packed
+    jcfg = dataclasses.replace(jcfg, kv_cache_dtype=kv_dtype)
+    tcfg = dataclasses.replace(tcfg, kv_cache_dtype=kv_dtype)
+    jcache = jpc.PagedKVCache(jcfg, n_pages=16, page_size=psz,
+                              max_pages_per_seq=8)
+    tcache = PagedKVCache(tcfg, n_pages=16, page_size=psz,
+                          max_pages_per_seq=8, device="cpu")
+    ids = jcache.allocator.alloc(jcache.pages_for(plen))
+    assert tcache.allocator.alloc(len(ids)) == ids
+    s_pad = len(ids) * psz
+    toks = np.zeros((1, s_pad), np.int32)
+    toks[0, :plen] = np.random.default_rng(plen).integers(
+        0, tcfg.vocab_size, size=plen)
+    _, jkv = jprefill(jpq, jcfg, jnp.asarray(toks), s_pad)
+    _, tkv = tprefill(tpq, tcfg, torch.from_numpy(toks.astype(np.int64)),
+                      s_pad)
+    jcache.write_prefill(ids, jkv, plen)
+    tcache.write_prefill(ids, tkv, plen)
+    _assert_pools_close(tcache.pools, jcache.pools)
+    chunked = PagedKVCache(tcfg, n_pages=16, page_size=psz,
+                           max_pages_per_seq=8, device="cpu")
+    assert chunked.allocator.alloc(len(ids)) == ids
+    tpre.run_prefill_chunks(
+        tpre.make_paged_prefill_step(tcfg), tpq, chunked.pools,
+        toks[0, :plen], torch.from_numpy(chunked.block_table_row(ids)[None]),
+        page_size=psz, chunk_pages=1)
+    _assert_pools_close(chunked.gather_tokens(ids, plen),
+                        tcache.gather_tokens(ids, plen))
+    with pytest.raises(ValueError, match="pages cannot hold"):
+        tcache.write_prefill(ids[:-1] or [], tkv, s_pad + psz)
+    with pytest.raises(ValueError, match="prefill cache depth"):
+        tcache.write_prefill(ids + [15], tkv, plen)
 
 
 def test_prefill_attention_matches_reference():

@@ -26,6 +26,9 @@ import torch
 
 from helpers.torch_parity import one_torch_thread  # noqa: F401
 from repro.configs import get_config as jget_config
+from repro.data.pipeline import DataConfig as JDataConfig
+from repro.data.pipeline import TokenDataset as JTokenDataset
+from repro.data.pipeline import make_pipeline as jmake_pipeline
 from repro.data.tokenizer import ByteTokenizer as JByteTokenizer
 from repro.launch.steps import make_train_step as jmake_train_step
 from repro.launch.train import train as jtrain
@@ -33,6 +36,7 @@ from repro.models import init_params as jinit_params
 from repro.optim import adamw as ja
 from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_numpy
+from repro_torch.data import DataConfig, TokenDataset, make_pipeline
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.launch.steps import make_train_step
 from repro_torch.launch.train import main as tmain
@@ -299,3 +303,23 @@ def test_byte_tokenizer_matches_reference(text, special):
     assert ids == j.encode(text, add_special=special)
     assert t.decode(ids) == j.decode(ids) == text
     assert t.vocab_size == j.vocab_size == 259
+
+
+@pytest.mark.parametrize("n_tokens,length", [(1000, 64), (40, 64), (64, 64)],
+                         ids=["chunked", "padded", "whole"])
+def test_token_dataset_samples_equal_reference(n_tokens, length):
+    """``TokenDataset`` (exported from ``repro_torch.data``): the same
+    samples as the reference's from the same ``rng``, alone and as the
+    step-indexed pipeline's source (a corpus shorter than a sequence is
+    zero-padded)."""
+    corpus = np.random.default_rng(0).integers(0, 512, n_tokens)
+    j, t = JTokenDataset(corpus), TokenDataset(corpus)
+    rj, rt = np.random.default_rng(5), np.random.default_rng(5)
+    for _ in range(4):
+        a, b = t.sample(rt, length), j.sample(rj, length)
+        assert a.dtype == b.dtype == np.int64
+        np.testing.assert_array_equal(a, b)
+    cfg = dict(seq_len=length, global_batch=4, vocab_size=512)
+    got = make_pipeline(DataConfig(**cfg), source=t)(3)
+    want = jmake_pipeline(JDataConfig(**cfg), source=j)(3)
+    np.testing.assert_array_equal(got, want)
