@@ -79,9 +79,9 @@ source, started together, into ``build/kernels/``), then:
    beside the bound, the plain version and ``torch.matmul`` on the
    dequantised weights, then the public op once per case;
 7. the calibrated base methods and the other objectives: (a) on opt-1.3b
-   at full width, 12 of its 24 layers (a cut since phase 12: GPTQ's
-   host-bound row loop halves), seed 0, and phase 2's calibration and
-   held-out sets, ``quantize_model`` with ``gptq``, ``awq`` and
+   at full width, 4 of its 24 layers (a cut: 12 from phase 12, 4 since
+   phase 15; GPTQ's row loop is host-bound), seed 0, and phase 2's
+   calibration and held-out sets, ``quantize_model`` with ``gptq``, ``awq`` and
    ``omniquant`` (OmniQuant cut to 20 Adam steps a block from 200), each
    alone and then with 16 fused search steps: ppl for fp32 / base /
    base+search, the search's initial and final loss and accept rate,
@@ -264,7 +264,8 @@ source, started together, into ``build/kernels/``), then:
    formulas, peaks, a forward's ms and TFLOP/s; (c) from the same bf16
    weights, 16 fused steps in bf16 and 16 in fp32 (the weights widened)
    on the same CPU-drawn proposals: the accept decisions that differ; (d)
-   the RTN weights packed at 2 bits through ``PagedServer`` (sharing off,
+   the RTN weights packed at 2 bits, cut to their first 12 layers (a cut
+   since phase 15), through ``PagedServer`` (sharing off,
    on, MP 2) and ``BatchedServer`` (flag off, on) as 10b-c, on bf16 pools
    and caches, tokens held to a bf16 greedy oracle (a bf16 near tie: the
    served token's oracle logit within NEAR_TIE_BF16 of the top logit; each
@@ -276,7 +277,30 @@ source, started together, into ``build/kernels/``), then:
    TFLOP/s, peak bytes against the reckoning, the optimizer beside its
    bytes bound (``phase_train_bf16``); then Qwen3-4B reduced in bf16 card
    against the CPU (``phase_small_bf16``), its last train state saved on
-   the card in formats 1 and 2 and restored bit for bit.
+   the card in formats 1 and 2 and restored bit for bit;
+15. more than one process (``torch.distributed``; each rank a process of
+   its own, started with ``spawn`` after the kernels are built, on the one
+   card): first the sequential engine on opt-1.3b (full width and depth,
+   phase 2's seed and calibration set): RTN + 8 fused steps with 1 island,
+   and with 2 islands migrating every 4 steps (step ms, peak bytes); then
+   (a) a real NCCL group of one: the NCCL version, the barrier,
+   ``repro_torch.launch.dist_smoke``'s checks on the card (opt-tiny mapped
+   parity, the merged metrics, a format-2 checkpoint re-meshed),
+   ``argmin_allgather`` / ``elite_broadcast`` / ``compressed_psum`` on card
+   tensors (the last within its bound and one quantization step of the same
+   call on the CPU), the mapped search with 1 island equal to the
+   sequential run bit for bit (histories, losses, migrations, π, s, φ),
+   and the sequence-sharded paged decode
+   (``dist.sharded_paged_decode_attention``: the CUDA kernel's
+   ``normalize=False`` partials, merged across ranks) on the whole cache
+   at opt-1.3b's 32/32 x 64 and 32/8 x 128 (MP 1 and 2), B 8 x 1024, held
+   to the kernel on the whole cache and to the plain version at PD_TOL;
+   (b) two ranks on the card over gloo (``backend="gloo"`` passed
+   explicitly: NCCL refuses two ranks on one device): the same, with the
+   mapped search's 2 islands equal to the sequential 2-island run bit for
+   bit, each rank's pools holding half of every sequence, and the merged
+   ``dist_snapshot`` byte-identical on both ranks; each rank's peak bytes
+   and a search step's ms beside the sequential run's.
 
 Prints the ``nvidia-smi`` name/power-limit line, a ``{"kernels": [...]}``
 line (all seven ported kernels), and last ``{"ok": true, "device":
@@ -2000,10 +2024,10 @@ def phase_quant_matmul(torch, ops, ref, qm):
 # ---------------------------------------------------------------------------
 
 BASE_METHODS = ("gptq", "awq", "omniquant")
-# 7a / 7b's depth: 12 of opt-1.3b's 24 layers (a cut since phase 12 was
-# added: GPTQ's host-bound row loop, run twice, took 124 s of the script's
-# 570-710 s at full depth)
-BASE_LAYERS = 12
+# 7a / 7b's depth: 4 of opt-1.3b's 24 layers (a cut: GPTQ's host-bound row
+# loop, run twice, took 124 s of the script's 570-710 s at full depth and
+# 49 s at 12 layers, the depth from phase 12 until phase 15 was added)
+BASE_LAYERS = 4
 # 7a's OmniQuant runs 20 Adam steps a block, not the default 200 (cut: the
 # per-step ms is logged; 7c runs the default on opt-tiny)
 OMNI_STEPS = 20
@@ -4358,9 +4382,10 @@ VLM_ARCH = "internvl2-1b"
 ENCDEC_ARCHS = (ENCDEC_ARCH, VLM_ARCH)
 ENC_FFN = (("enc_blocks", "mlp", "up"), ("enc_blocks", "mlp", "down"))
 ENCDEC_SERVE = dict(batch=8, steps=16)  # 13b / 13c: B 8, 16 greedy tokens
-# 13c profiles PagedServer over 2 requests (8 took 37 s on the H100: the
-# profiler's events cost ≈ 0.2 ms each to read)
-VLM_PROFILE_REQUESTS = 2
+# 13c profiles PagedServer over 1 request (8 took 37 s on the H100, 2 took
+# 22.6-24.6 s: the profiler's events cost ≈ 0.2 ms each to read; 1 since
+# phase 15)
+VLM_PROFILE_REQUESTS = 1
 TRAIN13 = dict(batch=2, seq=512, frames=512, steps=4)    # 13d
 
 
@@ -5795,6 +5820,27 @@ def phase_small_bf16(torch, ops, arch, devs=("cpu", "cuda"), ckpt_dir=None):
 # ---------------------------------------------------------------------------
 
 BF16_ARCH = "qwen3-4b"
+# 14d serves the first 12 of the 36 layers 14b packed (a cut since phase 15:
+# at full depth the five serving runs, their oracles and the profiled run
+# took 112 s of the script; 10b-c serve the same 12 layers in fp32)
+BF16_SERVE_LAYERS = 12
+
+
+def first_layers(params_q, n):
+    """A packed model cut to its first ``n`` layers: every stacked leaf of
+    ``blocks`` (a packed one by its components) sliced to ``[:n]`` (views),
+    the rest kept."""
+    from repro_torch.core.quant import QTensor
+
+    def cut(x):
+        if isinstance(x, dict):
+            return {k: cut(v) for k, v in x.items()}
+        if isinstance(x, QTensor):
+            return QTensor(x.packed[:n], x.scale[:n], x.zero[:n], x.bits,
+                           x.group_size, x.shape)
+        return x[:n]
+
+    return {k: cut(v) if k == "blocks" else v for k, v in params_q.items()}
 
 
 def phase_bf16_kernels(torch, ops, ref, cfg, qcfg):
@@ -5864,8 +5910,10 @@ def phase_bf16(torch, ops, ref, get_config, qcfg, pd_rows):
     t2 = time.perf_counter()
     differing = family_accepts(torch, ops, cfg, qcfg)
     t3 = time.perf_counter()
-    paged, flash = phase_zoo_serving(torch, ops, cfg, params_q, pack_s,
-                                     pd_rows, tag="bf16_")
+    paged, flash = phase_zoo_serving(
+        torch, ops, dataclasses.replace(cfg, n_layers=BF16_SERVE_LAYERS),
+        first_layers(params_q, BF16_SERVE_LAYERS), pack_s, pd_rows,
+        tag="bf16_")
     del params_q
     torch.cuda.empty_cache()
     t4 = time.perf_counter()
@@ -5879,6 +5927,355 @@ def phase_bf16(torch, ops, ref, get_config, qcfg, pd_rows):
         accept_decisions_differing=differing)
     return dict(rows=rows, main=launches, paged=paged, flash=flash,
                 differing=differing)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: more than one process (torch.distributed)
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 8            # fused search steps of 15a / 15b
+DIST_MIGRATE = 4          # 15b's migration cadence
+DIST_OUT = "build/smoke/dist"    # the ranks' results (git-ignored)
+DIST_TIMEOUT_S = 600      # a rank that runs longer is killed, and fails
+# 15b's sharded paged decode: (layout, H, Hkv, Dh, (route, MP) pairs) at
+# B 8 x DIST_PAGES pages (1024 tokens a sequence), half of every sequence
+# in each rank's own pool; the lengths put a sequence wholly on rank 0
+# (512, 300), leave one shard of a sequence empty (300, 1) and one empty
+# sequence (0)
+DIST_PD_CASES = (("mha", 32, 32, 64, (("paged_decode", 1),)),
+                 ("gqa", 32, 8, 128, (("paged_decode_gqa", 1),
+                                      ("paged_decode_gqa_mp", 2))))
+DIST_PAGES = 64
+DIST_LENS = [1024, 1000, 777, 512, 513, 300, 1, 0]
+DIST_PSUM = (1 << 20, 8, 32)     # compressed_psum: values a rank, bits, group
+
+
+def split_pool(torch, args, n, rank, psz=PSZ):
+    """Rank ``rank``'s share of a paged cache split over ``n`` ranks: the
+    pages [rank·P/n, (rank+1)·P/n) of every sequence's block table (B, P),
+    copied into a pool of its own (its page 0 unused, as the serving
+    pools keep theirs), with the rank's block table and local lengths.
+    ``args`` is ``paged_case``'s list (q, pools, table, lengths, scales);
+    returns the same list for the rank's pool."""
+    q, kp, vp, bt, lens, ks, vs = args
+    B, P = bt.shape
+    per = P // n
+    pages = bt[:, rank * per:(rank + 1) * per].reshape(-1).long()
+
+    def pool(x):
+        return None if x is None else torch.cat([x[:1], x[pages]])
+
+    local_bt = (1 + torch.arange(B * per, device=bt.device,
+                                 dtype=torch.int32)).reshape(B, per)
+    local = (lens - rank * per * psz).clamp(0, per * psz).to(torch.int32)
+    return [q, pool(kp), pool(vp), local_bt, local, pool(ks), pool(vs)]
+
+
+def hold_merge(torch, got, want, what):
+    """A sharded decode's merged output held to a whole-cache decode at the
+    paged bar (PD_TOL); returns the max abs error."""
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: merged {tuple(got.shape)}, finite "
+                             f"{bool(torch.isfinite(got).all())}")
+    try:
+        torch.testing.assert_close(got, want, **PD_TOL)
+    except AssertionError as e:
+        raise AssertionError(f"{what}: the merge is not the whole-cache "
+                             f"decode: {e}") from None
+    return float((got - want).abs().max())
+
+
+def mapped_matches(seq, got, what):
+    """A mapped run held to the sequential lane bit for bit: every island's
+    history, the initial and final loss, the migrations and the elite's
+    (π, s, φ)."""
+    for i, (a, b) in enumerate(zip(seq["histories"], got["histories"])):
+        if a != b:
+            first = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                         min(len(a), len(b)))
+            raise AssertionError(
+                f"{what}: island {i} parts from the sequential lane at entry "
+                f"{first}: {a[first:first + 1]} vs {b[first:first + 1]}")
+    if len(seq["histories"]) != len(got["histories"]):
+        raise AssertionError(f"{what}: {len(got['histories'])} islands, the "
+                             f"sequential lane {len(seq['histories'])}")
+    for key in ("initial_loss", "final_loss", "migrations"):
+        if seq[key] != got[key]:
+            raise AssertionError(f"{what}: {key} {got[key]} vs the "
+                                 f"sequential lane's {seq[key]}")
+    for key in ("pi", "s", "phi"):
+        if seq[key] != got[key]:
+            raise AssertionError(f"{what}: the elite's {key} differs")
+
+
+def dist_search(torch, ops, cfg, qcfg, islands, mapped, dev):
+    """RTN + DIST_STEPS fused steps on random-init opt-1.3b (phase 2's seed
+    and calibration set) over ``islands`` islands, sequential or mapped
+    (one island a rank); the launches, peak bytes and a step's ms ride
+    along."""
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.calib import calibration_tensor
+    from repro_torch.models.model import init_params
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    calib = calibration_tensor(cfg.vocab_size, n_seqs=4, seq_len=512,
+                               seed=99, device=dev)
+    scfg = SearchConfig(steps=DIST_STEPS, fused_kernel=True, log_every=0,
+                        islands=islands, migrate_every=DIST_MIGRATE,
+                        mapped=mapped)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = quantize_model(params, cfg, qcfg, "rtn", calib, scfg, device=dev)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    sr = res.search
+    out = {"histories": sr.island_histories, "initial_loss": sr.initial_loss,
+           "final_loss": sr.final_loss, "migrations": sr.stats["migrations"],
+           "mapped": sr.stats["mapped"], "accept_rate": sr.accept_rate,
+           "step_ms": 1e3 * sr.stats["proposals"]
+           / sr.stats["proposals_per_sec"] / DIST_STEPS,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "wall_s": wall, "launches": counts}
+    for key in ("pi", "s", "phi"):
+        out[key] = getattr(sr.transforms, key).cpu().numpy().tobytes()
+    del res, sr, params, calib
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_decode(torch, ops, ref, world, rank, dev):
+    """The sequence-sharded paged decode at every DIST_PD_CASES route: this
+    rank's share of the cache (all of it in a world of one) through the
+    CUDA kernel with ``normalize=False`` and the cross-rank merge, held to
+    the kernel on the whole cache and to the plain version. The launches
+    are counted over the sharded calls alone."""
+    from repro_torch.dist import attention
+    rows, counts = [], dict.fromkeys(PD_ROUTES, 0)
+    for name, H, Hkv, Dh, routes in DIST_PD_CASES:
+        whole = paged_case(torch, B=len(DIST_LENS), H=H, Hkv=Hkv, Dh=Dh,
+                           P=DIST_PAGES, lens=DIST_LENS,
+                           dtype=torch.float32, seed=15)
+        mine = split_pool(torch, whole, world, rank)
+        plain = ref.paged_decode_ref(*whole)
+        for route, mp in routes:
+            kw = route_kw(route, mp)
+            ops.reset_launch_counts()
+            got = attention.sharded_paged_decode_attention(
+                *mine[:5], None, mine[5], mine[6],
+                fused_gqa=kw.get("fused_gqa", True),
+                gqa_pages_per_block=kw.get("gqa_pages_per_block", 1))
+            torch.cuda.synchronize(dev)
+            counts[route] += ops.LAUNCHES[route]
+            if ops.LAUNCHES[route] != 1:
+                raise AssertionError(f"{route}: {ops.LAUNCHES[route]} "
+                                     f"launches in one sharded call")
+            kernel = ops.paged_decode(*whole, **kw)
+            err = hold_merge(torch, got, kernel, f"{name} {route} vs kernel")
+            err_plain = hold_merge(torch, got, plain,
+                                   f"{name} {route} vs plain")
+            ms = time_ms(torch, lambda: attention.sharded_paged_decode_attention(
+                *mine[:5], None, mine[5], mine[6],
+                fused_gqa=kw.get("fused_gqa", True),
+                gqa_pages_per_block=kw.get("gqa_pages_per_block", 1)),
+                warmup=2, reps=10)
+            rows.append({"layout": name, "route": route, "pages_per_block": mp,
+                         "heads": [H, Hkv], "head_dim": Dh,
+                         "local_lens": mine[4].tolist(),
+                         "max_abs_err_vs_kernel": err,
+                         "max_abs_err_vs_plain": err_plain, "ms": ms})
+    return rows, counts
+
+
+def dist_collectives(torch, world, rank, dev):
+    """argmin_allgather, elite_broadcast and compressed_psum on card
+    tensors: the exact ones held exactly, compressed_psum to its bound
+    (N·max(scale)/2 of the exact sum) and to the same function on the CPU
+    copies of the same inputs (one quantization step)."""
+    from repro_torch.dist import collectives
+    n, bits, group = DIST_PSUM
+    xs = [torch.randn(n, generator=torch.Generator(device=dev)
+                      .manual_seed(1000 + r), device=dev)
+          for r in range(world)]
+    v, owner = collectives.argmin_allgather(xs[rank][:1].reshape(()))
+    want = min(range(world), key=lambda r: float(xs[r][0]))
+    if owner != want or float(v) != float(xs[want][0]):
+        raise AssertionError(f"argmin_allgather: {owner} vs {want}")
+    tree = {"x": xs[rank][:4096].clone(), "i": torch.full(
+        (3,), rank, dtype=torch.int32, device=dev)}
+    got = collectives.elite_broadcast(tree, world - 1)
+    if not (torch.equal(got["x"], xs[world - 1][:4096])
+            and int(got["i"][0]) == world - 1):
+        raise AssertionError("elite_broadcast: not the owner's tree")
+    t0 = time.perf_counter()
+    card = collectives.compressed_psum(xs[rank], bits=bits, group_size=group)
+    torch.cuda.synchronize(dev)
+    card_s = time.perf_counter() - t0
+    cpu = collectives.compressed_psum(xs[rank].cpu(), bits=bits,
+                                      group_size=group)
+    exact = torch.stack(xs).sum(0)
+    step = max(float((x.reshape(-1, group).amax(1) - x.reshape(-1, group)
+                      .amin(1)).max()) for x in xs) / ((1 << bits) - 1)
+    err = float((card - exact).abs().max())
+    if err > world * step / 2 + 1e-6:
+        raise AssertionError(f"compressed_psum: {err} above its bound "
+                             f"{world * step / 2}")
+    diff = float((card.cpu() - cpu).abs().max())
+    if diff > step * 1.001:
+        raise AssertionError(f"compressed_psum: card vs CPU {diff} above one "
+                             f"step {step}")
+    return {"psum_values": n, "bits": bits, "group": group,
+            "max_abs_err_vs_exact": err, "bound": world * step / 2,
+            "card_vs_cpu_max_abs": diff,
+            "card_equal_cpu": bool(torch.equal(card.cpu(), cpu)),
+            "card_s": card_s}
+
+
+def dist_rank_main(rank, world, backend, init, out_dir):
+    """One rank of 15a / 15b, started with ``spawn``: brings the group up on
+    the card (``cuda:0``: one card), runs ``repro_torch.launch.dist_smoke``'s
+    checks, the collectives, the mapped search at opt-1.3b and the sharded
+    paged decode, and writes its results to ``out_dir``."""
+    import pickle
+    import traceback
+    out_file = Path(out_dir) / f"rank{rank}.pkl"
+    try:
+        sys.path.insert(0, str(ROOT / "src"))
+        import torch
+        import torch.distributed as dist
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        dist.init_process_group(backend, init_method=init, world_size=world,
+                                rank=rank)
+        from repro_torch import obs
+        from repro_torch.configs import get_config
+        from repro_torch.core.quant import QuantConfig
+        from repro_torch.dist import runtime
+        from repro_torch.kernels import ops, ref
+        from repro_torch.launch import dist_smoke
+        out = {"backend": dist.get_backend(), "world": world,
+               "nccl": ".".join(map(str, torch.cuda.nccl.version())),
+               "device": str(runtime.local_device("cuda"))}
+        runtime.barrier("phase15")
+        dist_smoke.main(["--device", "cuda", "--steps", "3",
+                         "--migrate-every", "2",
+                         "--ckpt-dir", str(Path(out_dir) / "ckpt")])
+        out["collectives"] = dist_collectives(torch, world, rank, dev)
+        out["search"] = dist_search(torch, ops, get_config("opt-1.3b"),
+                                    QuantConfig(bits=2, group_size=32),
+                                    world, True, dev)
+        out["decode"], out["decode_launches"] = dist_decode(
+            torch, ops, ref, world, rank, dev)
+        out["snapshot"] = obs.snapshot_json(obs.dist_snapshot())
+        runtime.barrier("phase15-end")
+        dist.destroy_process_group()
+        out_file.write_bytes(pickle.dumps(("ok", out)))
+    except BaseException:
+        out_file.write_bytes(pickle.dumps(("error", traceback.format_exc())))
+        raise
+
+
+def run_dist_ranks(world, backend):
+    """Start ``world`` ranks of ``dist_rank_main`` with ``spawn`` (this
+    process holds a CUDA context), wait for them (killing every one left
+    once a rank fails, or after DIST_TIMEOUT_S) and return their results,
+    in rank order."""
+    import multiprocessing as mp
+    import pickle
+    import shutil
+    import socket
+
+    out_dir = ROOT / DIST_OUT / f"{backend}{world}"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        init = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dist_rank_main,
+                         args=(r, world, backend, init, str(out_dir)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:   # a rank that failed leaves its peer blocked in a collective
+        while any(p.is_alive() for p in procs) and \
+                time.monotonic() < deadline and \
+                not any(p.exitcode not in (None, 0) for p in procs):
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    results = []
+    for r, p in enumerate(procs):
+        f = out_dir / f"rank{r}.pkl"
+        if not f.exists():
+            raise AssertionError(f"{backend} rank {r}/{world}: exit code "
+                                 f"{p.exitcode}, no result")
+        status, res = pickle.loads(f.read_bytes())
+        if status != "ok":
+            raise AssertionError(f"{backend} rank {r}/{world} failed:\n{res}")
+        results.append(res)
+    return results
+
+
+def phase_dist(torch, ops, cfg, qcfg):
+    """15: the parent's sequential runs (1 and 2 islands), then 15a, a real
+    NCCL group of one, and 15b, two ranks on the one card over gloo (NCCL
+    refuses two ranks on one device), each rank a process of its own.
+    Returns the launches of the mapped searches and sharded decodes."""
+    dev = torch.device("cuda", 0)
+    seq = {}
+    for islands in (1, 2):
+        seq[islands] = dist_search(torch, ops, cfg, qcfg, islands, False, dev)
+        s = seq[islands]
+        log("dist_sequential", islands=islands, steps=DIST_STEPS,
+            migrate_every=DIST_MIGRATE, step_ms=s["step_ms"],
+            peak_bytes=s["peak_bytes"], wall_s=s["wall_s"],
+            migrations=s["migrations"], final_loss=s["final_loss"],
+            launches=s["launches"])
+    torch.cuda.empty_cache()
+    out = {}
+    for tag, world, backend in (("15a", 1, "nccl"), ("15b", 2, "gloo")):
+        t0 = time.perf_counter()
+        ranks = run_dist_ranks(world, backend)
+        for r, res in enumerate(ranks):
+            mapped_matches(seq[world], res["search"], f"{tag} rank {r}")
+        if len({res["snapshot"] for res in ranks}) != 1:
+            raise AssertionError(f"{tag}: dist_snapshot differs by rank")
+        for r, res in enumerate(ranks):
+            s = res["search"]
+            log("dist_mapped", phase=tag, rank=r, world=world,
+                backend=res["backend"], nccl=res["nccl"],
+                device=res["device"], islands=world, steps=DIST_STEPS,
+                step_ms=s["step_ms"], sequential_step_ms=seq[world]["step_ms"],
+                peak_bytes=s["peak_bytes"],
+                sequential_peak_bytes=seq[world]["peak_bytes"],
+                migrations=s["migrations"], final_loss=s["final_loss"],
+                launches=s["launches"], equal_to_sequential=True)
+            log("dist_decode", phase=tag, rank=r, rows=res["decode"],
+                launches=res["decode_launches"])
+            log("dist_collectives", phase=tag, rank=r, **res["collectives"])
+        log("dist_phase", phase=tag, world=world, backend=backend,
+            seconds=time.perf_counter() - t0,
+            why=("a real NCCL group of one" if backend == "nccl" else
+                 "backend gloo, passed explicitly: NCCL cannot put two "
+                 "ranks on one device"),
+            snapshot_bytes=len(ranks[0]["snapshot"]))
+        out[tag] = ranks
+    return {tag: {"search": [r["search"]["launches"] for r in ranks],
+                  "decode": [r["decode_launches"] for r in ranks]}
+            for tag, ranks in out.items()}
 
 
 def main() -> int:
@@ -6148,6 +6545,11 @@ def main() -> int:
     # ---- phase 14: Qwen3-4B in its own bf16 at full width and depth ------
     bf16 = phase_bf16(torch, ops, ref, get_config, qcfg, pd_rows)
     lap("phase14")
+
+    # ---- phase 15: more than one process (torch.distributed) -------------
+    torch.cuda.empty_cache()
+    dist15 = phase_dist(torch, ops, cfg, qcfg)
+    lap("phase15")
     log("script_seconds", total=marks[-1] - marks[0], **seconds)
 
     kernels = []
@@ -6165,7 +6567,7 @@ def main() -> int:
             "base_methods": {
                 "launches": base_launches[name],
                 "launches_on": "phase 7a: quantize_model gptq / awq / "
-                               "omniquant on opt-1.3b (12 of its 24 "
+                               "omniquant on opt-1.3b (4 of its 24 "
                                "layers), alone and with 16 fused steps, "
                                "each counted from 0"},
             "search_engine": {
@@ -6229,6 +6631,14 @@ def main() -> int:
                    if name == "group_quant" else
                    {"kernel": {"seamless-m4t-medium": encdec["tq"],
                                "internvl2-1b": encdec["vlm_tq"]}})},
+            "dist": {
+                "launches": {tag: [c[name] for c in d["search"]]
+                             for tag, d in dist15.items()},
+                "launches_on": "phase 15a / 15b: quantize_model rtn + 8 "
+                               "fused steps on opt-1.3b (full width and "
+                               "depth), mapped: one island a rank (15a a "
+                               "NCCL group of one, 15b two ranks on the "
+                               "card over gloo), each rank counted from 0"},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
@@ -6261,7 +6671,8 @@ def main() -> int:
                                               "paged_decode_gqa"
                                               else "on-mp2"][route],
                     "launches_on": "phase 14d: PagedServer on 2-bit "
-                                   "Qwen3-4B, bf16 pools (full depth), "
+                                   "Qwen3-4B, bf16 pools (12 of 36 "
+                                   "layers), "
                                    "sharing on" + (", 2 pages per block" if
                                                    route.endswith("_mp")
                                                    else "")},
@@ -6289,6 +6700,17 @@ def main() -> int:
                                                    route.endswith("_mp")
                                                    else ""),
                     "rep7": encdec["rep7"][route]}}),
+            "dist": {
+                "launches": {tag: [c[route] for c in d["decode"]]
+                             for tag, d in dist15.items()},
+                "launches_on": "phase 15a / 15b: "
+                               "dist.sharded_paged_decode_attention "
+                               "(normalize=False partials, merged across "
+                               "ranks) at B 8 x 1024, "
+                               + ("32/32 x 64" if route == "paged_decode"
+                                  else "32/8 x 128") + " (15a the whole "
+                               "cache on one rank, 15b half of every "
+                               "sequence a rank), each rank counted from 0"},
             "max_abs_err": pd_errs[route],
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
@@ -6318,8 +6740,9 @@ def main() -> int:
                 "launches_on": "phase 10c: Qwen3-4B (fp32, 12 layers) "
                                "BatchedServer, use_flash_decode on"},
         "bf16": {"launches": bf16["flash"],
-                 "launches_on": "phase 14d: Qwen3-4B (bf16 cache, full "
-                                "depth) BatchedServer, use_flash_decode on"},
+                 "launches_on": "phase 14d: Qwen3-4B (bf16 cache, 12 of "
+                                "36 layers) BatchedServer, use_flash_decode "
+                                "on"},
         "moe": {"launches": moe["flash"],
                 "launches_on": "phase 11c: Phi-3.5-MoE (bf16 cache, 3 "
                                "layers) BatchedServer, use_flash_decode on",

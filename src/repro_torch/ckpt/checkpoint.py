@@ -31,13 +31,23 @@ What keeps the two packages' files interchangeable:
     2: the bytes, as the reference's ``_to_bytes``) and viewed back through
     the manifest's dtype name.
 
-The port saves from one process: format 2 writes every leaf as one whole
-shard from process 0 (multi-process shard writes, barriers and the elastic
-re-mesh onto target shardings wait for ROADMAP Queue 1 item 14), and
-``restore_sharded_checkpoint`` assembles N hosts' shards — whoever wrote
-them — into whole tensors on one device. Every restore verifies checksums,
-and corruption errors NAME THE FILE. Restores return tensors on ``device``
-(the card unless ``device="cpu"``).
+Format 2 is written by every process of the ``torch.distributed`` world
+(``process_index_count``: one host a rank). Given a spec tree and a mesh
+shape (``dist.sharding``: a tuple of mesh-axis names per dim, a
+``QTensor`` of component specs), each rank writes only the slices it owns,
+by the reference's replica-0 rule: a leaf's slice is written by the one
+rank whose coordinates are 0 on every axis the leaf's spec does not shard
+over, so every global slice lands exactly once; a leaf without a spec, and
+a plain value, is written whole by rank 0. Every rank passes the whole
+tree (the port's ranks hold whole tensors). Rank 0 commits
+``manifest.json`` once every host's shard manifest has landed (a
+filesystem barrier, no collective: the manager writes on a thread).
+``restore_sharded_checkpoint`` assembles whichever hosts' shards overlap
+what it is asked for: whole tensors, or under a target spec tree and mesh
+shape only one rank's slice of each leaf — the elastic re-mesh onto
+another mesh shape or world size (``dist.fault.remesh_restore``). Every
+restore verifies checksums, and corruption errors NAME THE FILE. Restores
+return tensors on ``device`` (the card unless ``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -66,8 +76,10 @@ _SEP = "/"
 
 def process_index_count() -> tuple:
     """(this process's index, the process count) for shard ownership and
-    gc: (0, 1) until ROADMAP Queue 1 item 14 wires ``torch.distributed``."""
-    return 0, 1
+    gc: the ``torch.distributed`` rank and world size, (0, 1) without a
+    process group."""
+    from repro_torch.dist import runtime
+    return runtime.process_index(), runtime.process_count()
 
 
 def _flatten(tree, path=()):
@@ -243,6 +255,14 @@ def restore_checkpoint(directory, step: Optional[int] = None, *, host_id: int = 
         tree = restore_sharded_checkpoint(directory, step, verify=verify,
                                           device=dev)[0]
         return tree, manifest
+    flat = _read_full(d, manifest, host_id, verify)
+    names = {k: m["dtype"] for k, m in manifest["keys"].items()}
+    return _unflatten(flat, names, dev), manifest
+
+
+def _read_full(d: pathlib.Path, manifest: dict, host_id: int,
+               verify: bool) -> dict:
+    """Flat key -> numpy carrier of a format-1 step, checksums verified."""
     shard_file = d / f"host{host_id:04d}.npz"
     try:
         with np.load(shard_file) as z:
@@ -261,8 +281,7 @@ def restore_checkpoint(directory, step: Optional[int] = None, *, host_id: int = 
             if got != manifest["keys"][k]["sha"]:
                 raise IOError(f"checkpoint corruption in {shard_file}: "
                               f"leaf {k!r} fails its manifest checksum")
-    names = {k: m["dtype"] for k, m in manifest["keys"].items()}
-    return _unflatten(flat, names, dev), manifest
+    return flat
 
 
 def _resolve_step(base: pathlib.Path, step: Optional[int]) -> int:
@@ -277,23 +296,86 @@ def _resolve_step(base: pathlib.Path, step: Optional[int]) -> int:
 # format 2: addressable shards
 # ---------------------------------------------------------------------------
 
-def _prepare_shards(tree):
+def _spec_at(specs, parts):
+    """The spec at a flat key's path (its '/'-split parts) in a spec tree
+    mirroring the saved tree; None (whole) where the tree has none."""
+    node = specs
+    for p in parts:
+        if node is None:
+            return None
+        if isinstance(node, QTensor):
+            if not p.startswith("__qt_") or p == "__qt_meta":
+                return None
+            node = getattr(node, p[len("__qt_"):])
+        elif isinstance(node, dict):
+            node = node.get(p)
+        elif p.startswith("__") and p[2:].isdigit():
+            node = node[int(p[2:])]
+        else:
+            return None
+    return node
+
+
+def _dtype_name(key: str, leaf) -> str:
+    """The manifest dtype name ``_host`` would give the leaf."""
+    if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            return "bfloat16"
+        name = str(torch.empty(0, dtype=leaf.dtype).numpy().dtype)
+    else:
+        name = str(np.asarray(leaf).dtype)
+    return "uint32" if key.endswith("__qt_packed") else name
+
+
+def _check_mesh(specs, mesh, n_ranks: int) -> dict:
+    from repro_torch.dist import sharding
+    if specs is None:
+        return {}
+    if mesh is None:
+        raise ValueError("a spec tree needs the mesh shape it refers to")
+    shape = sharding._shape_dict(mesh)
+    if int(np.prod(list(shape.values()))) != n_ranks:
+        raise ValueError(f"mesh {shape} has {int(np.prod(list(shape.values())))}"
+                         f" ranks, the world {n_ranks}")
+    return shape
+
+
+def _prepare_shards(tree, specs=None, mesh=None):
     """Synchronous device->host snapshot of this process's shards. Returns
     (records, flat_arrays, keys_meta):
       records     — [{key, npz, index, sha}] for this host's shard manifest
       flat_arrays — npz entry name -> raw shard bytes
       keys_meta   — flat key -> {shape, dtype} GLOBAL metadata
-    One process saves: process 0 writes every leaf as one whole shard."""
-    pid, _ = process_index_count()
-    snap = _snapshot(tree)
-    keys_meta = {k: {"shape": list(a.shape), "dtype": name}
-                 for k, (a, name) in snap.items()}
-    if pid != 0:
-        return [], {}, keys_meta
-    flat_arrays = {f"{k}#0": _bytes_view(a) for k, (a, _) in snap.items()}
+    Without ``specs`` process 0 writes every leaf whole; with them each
+    rank copies and writes only the slices it owns (module docstring)."""
+    from repro_torch.dist import sharding
+    pid, n = process_index_count()
+    mesh = _check_mesh(specs, mesh, n)
+    records, flat_arrays, keys_meta = [], {}, {}
+    for path, leaf in _flatten(tree):
+        key = _SEP.join(path)
+        shape = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) \
+            else np.shape(leaf)
+        keys_meta[key] = {"shape": list(shape),
+                          "dtype": _dtype_name(key, leaf)}
+        spec = _spec_at(specs, path) if isinstance(leaf, torch.Tensor) \
+            else None
+        if spec is None or not any(spec):
+            if pid != 0:
+                continue
+            index = [[0, d] for d in shape]
+        else:
+            if not sharding.replica_zero(spec, mesh, pid):
+                continue
+            index = sharding.shard_index(spec, shape, mesh, pid)
+            leaf = leaf[tuple(slice(a, b) for a, b in index)]
+        a, _ = _host(key, leaf)
+        npz = f"{key}#{pid}"
+        flat_arrays[npz] = _bytes_view(a)
+        records.append({"key": key, "npz": npz, "index": index})
     sums = _checksums(flat_arrays)
-    records = [{"key": k, "npz": f"{k}#0", "index": [[0, d] for d in a.shape],
-                "sha": sums[f"{k}#0"]} for k, (a, _) in snap.items()]
+    for rec in records:
+        rec["sha"] = sums[rec["npz"]]
     return records, flat_arrays, keys_meta
 
 
@@ -329,16 +411,19 @@ def _write_shards(d: pathlib.Path, step: int, prepared, *, extra, timeout):
     })
 
 
-def save_sharded_checkpoint(directory, step: int, tree, *,
-                            extra: Optional[dict] = None,
+def save_sharded_checkpoint(directory, step: int, tree, *, specs=None,
+                            mesh=None, extra: Optional[dict] = None,
                             timeout: float = 120.0):
-    """Format-2 save: this process's shards plus a shard manifest (index +
-    checksum per shard); process 0 publishes the global manifest once all
-    hosts' shard manifests exist. Synchronous; the async wrapper is
+    """Format-2 save: this process's shards (its slices under ``specs`` over
+    the ``mesh`` shape, or with no specs everything from process 0) plus a
+    shard manifest (index + checksum per shard); process 0 publishes the
+    global manifest once all hosts' shard manifests exist. Every rank of
+    the world calls it. Synchronous; the async wrapper is
     ``CheckpointManager(sharded=True)``."""
     d = pathlib.Path(directory) / f"step_{step:08d}"
     d.mkdir(parents=True, exist_ok=True)
-    _write_shards(d, step, _prepare_shards(tree), extra=extra, timeout=timeout)
+    _write_shards(d, step, _prepare_shards(tree, specs, mesh), extra=extra,
+                  timeout=timeout)
     return d
 
 
@@ -380,47 +465,88 @@ class _ShardReader:
         for z in self._npz.values():
             z.close()
 
-    def assemble(self, key: str, shape, dtype) -> np.ndarray:
-        """Materialize a saved leaf whole by stitching its saved shards;
-        verifies full coverage."""
-        out = np.zeros(tuple(shape), dtype=dtype)
+    def assemble(self, key: str, shape, dtype, index=None) -> np.ndarray:
+        """Materialize ``leaf[index]`` (the whole leaf when None) by
+        stitching the saved shards that overlap it; verifies full
+        coverage."""
+        if index is None:
+            index = [[0, d] for d in shape]
+        out = np.zeros(tuple(b - a for a, b in index), dtype=dtype)
         covered = 0
         for host, rec in self.by_key.get(key, ()):
-            box = [(a, b) for a, b in rec["index"]]
-            if any(a >= b for a, b in box):
+            ov = [(max(ta, sa), min(tb, sb))
+                  for (ta, tb), (sa, sb) in zip(index, rec["index"])]
+            if any(lo >= hi for lo, hi in ov):
                 continue
-            out[tuple(slice(a, b) for a, b in box)] = self.shard(host, rec, dtype)
-            covered += int(np.prod([b - a for a, b in box])) if box else 1
-        want = int(np.prod(shape)) if len(shape) else 1
+            data = self.shard(host, rec, dtype)
+            src = tuple(slice(lo - sa, hi - sa)
+                        for (lo, hi), (sa, _) in zip(ov, rec["index"]))
+            dst = tuple(slice(lo - ta, hi - ta)
+                        for (lo, hi), (ta, _) in zip(ov, index))
+            out[dst] = data[src]
+            covered += int(np.prod([hi - lo for lo, hi in ov])) if ov else 1
+        want = int(np.prod(out.shape)) if out.ndim else 1
         if covered != want:
             raise IOError(
                 f"checkpoint corruption in {self.d}: leaf {key!r} has "
-                f"{covered}/{want} elements covered by saved shards "
-                f"(missing or overlapping host shard files)")
+                f"{covered}/{want} elements covered by saved shards for "
+                f"index {index} (missing or overlapping host shard files)")
         return out
 
 
+def _target_index(specs, mesh, rank, key, shape):
+    """The [start, stop] box of ``rank``'s slice of a leaf under ``specs``
+    (None: the whole leaf)."""
+    from repro_torch.dist import sharding
+    spec = None if specs is None else _spec_at(specs, key.split(_SEP))
+    if spec is None or not any(spec):
+        return None
+    return sharding.shard_index(spec, shape, mesh, rank)
+
+
 def restore_sharded_checkpoint(directory, step: Optional[int] = None, *,
+                               specs=None, mesh=None,
+                               rank: Optional[int] = None,
                                verify: bool = True, device="cuda"):
-    """Restore of a format-2 checkpoint written by any number of hosts:
-    every leaf is assembled whole from the hosts' shards and placed on
-    ``device``. Returns (tree, manifest). A format-1 checkpoint restores
-    through ``restore_checkpoint``."""
+    """Restore of a format-2 checkpoint written by any number of hosts,
+    placed on ``device``. Returns (tree, manifest).
+
+    Without ``specs`` every leaf is assembled whole from the hosts' shards.
+    With a target spec tree over the ``mesh`` shape each leaf comes back as
+    ``rank``'s slice (this process's rank by default), assembled from only
+    the saved shards that overlap it — the elastic re-mesh: the target mesh
+    may differ in shape and size from the one that saved. A format-1
+    checkpoint restores through ``restore_checkpoint`` (then is sliced)."""
     dev = resolve_device(device)
     base = pathlib.Path(directory)
     step = _resolve_step(base, step)
     d = base / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
+    if rank is None:
+        rank = process_index_count()[0]
+    if specs is not None and mesh is None:
+        raise ValueError("a spec tree needs the mesh shape it refers to")
+    names = {k: m["dtype"] for k, m in manifest["keys"].items()}
     if manifest.get("format", 1) != 2:
-        return restore_checkpoint(directory, step, verify=verify, device=dev)
+        if specs is None:
+            return restore_checkpoint(directory, step, verify=verify,
+                                      device=dev)
+        flat = _read_full(d, manifest, 0, verify)
+        for key, a in flat.items():
+            idx = _target_index(specs, mesh, rank, key, a.shape)
+            if idx is not None:
+                flat[key] = a[tuple(slice(lo, hi) for lo, hi in idx)]
+        return _unflatten(flat, names, dev), manifest
     reader = _ShardReader(d, int(manifest.get("hosts", 1)), verify)
     try:
-        flat = {key: reader.assemble(key, tuple(meta["shape"]),
-                                     _carrier(meta["dtype"]))
-                for key, meta in manifest["keys"].items()}
+        flat = {}
+        for key, meta in manifest["keys"].items():
+            shape = tuple(meta["shape"])
+            flat[key] = reader.assemble(
+                key, shape, _carrier(meta["dtype"]),
+                _target_index(specs, mesh, rank, key, shape))
     finally:
         reader.close()
-    names = {k: m["dtype"] for k, m in manifest["keys"].items()}
     return _unflatten(flat, names, dev), manifest
 
 
@@ -460,17 +586,23 @@ class CheckpointManager:
     returns; file writes run on a background thread, at most one in flight
     (``wait()`` joins, and re-raises a failed write).
 
-    ``sharded=True`` writes format 2. Retention (gc) then runs per host:
-    each host unlinks its own shard files (process 0 uncommits the manifest
+    ``sharded=True`` writes format 2 (every rank calls ``save`` and
+    ``wait`` at the same step), each rank its slices under ``specs`` over
+    the ``mesh`` shape when given. Retention (gc) then runs per host: each
+    host unlinks its own shard files (process 0 uncommits the manifest
     first and sweeps shards of hosts beyond the current count). ``restore``
-    places tensors on ``device`` (the card unless ``device="cpu"``)."""
+    places tensors on ``device`` (the card unless ``device="cpu"``): whole,
+    or one rank's slices under target specs (``dist.fault.remesh_restore``).
+    """
 
     def __init__(self, directory, keep: int = 3, *, sharded: bool = False,
-                 device="cuda"):
+                 device="cuda", specs=None, mesh=None):
         self.dir = pathlib.Path(directory)
         self.keep = keep
         self.sharded = sharded
         self.device = device
+        self.specs = specs
+        self.mesh = mesh
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -479,7 +611,7 @@ class CheckpointManager:
         d = self.dir / f"step_{step:08d}"
         d.mkdir(parents=True, exist_ok=True)
         if self.sharded:
-            prepared = _prepare_shards(tree)   # sync: host snapshot
+            prepared = _prepare_shards(tree, self.specs, self.mesh)  # sync
 
             def _write():
                 _write_shards(d, step, prepared, extra=extra, timeout=120.0)
@@ -517,16 +649,19 @@ class CheckpointManager:
             e, self._error = self._error, None
             raise IOError(f"async checkpoint save failed: {e}") from e
 
-    def restore(self, step=None, *, verify: bool = True):
+    def restore(self, step=None, *, specs=None, mesh=None,
+                verify: bool = True):
         """Checksum-verifying restore (corruption raises IOError naming the
-        file) onto the manager's device."""
+        file) onto the manager's device: whole tensors, or this rank's
+        slices under target ``specs`` over the ``mesh`` shape."""
         dev = resolve_device(self.device)
         self.wait()  # an in-flight async save must land before we read
         with obs.trace_span("ckpt.restore", hist=obs.histogram(
                 "ckpt_restore_seconds", "Checkpoint restore latency")):
-            if self.sharded:
-                return restore_sharded_checkpoint(self.dir, step,
-                                                  verify=verify, device=dev)
+            if self.sharded or specs is not None:
+                return restore_sharded_checkpoint(self.dir, step, specs=specs,
+                                                  mesh=mesh, verify=verify,
+                                                  device=dev)
             return restore_checkpoint(self.dir, step, verify=verify,
                                       device=dev)
 

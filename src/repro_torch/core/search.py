@@ -57,7 +57,7 @@ class SearchConfig:
     anneal: str = "geometric"      # schedule: constant | geometric | linear
     migrate_every: int = 50        # elite-migration cadence (0 = never)
     fused_kernel: bool = False     # kernels.transform_quant fused lane
-    mapped: bool = False           # not ported yet (ROADMAP item 14)
+    mapped: bool = False           # one island per rank (torch.distributed)
     # --- candidate-eval memory model + calibration sharding ---
     install: str = "unit"          # "unit": stack + K×unit, one override
                                    # forward each; "stack": K full stacks

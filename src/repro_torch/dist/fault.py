@@ -6,9 +6,11 @@ restores the latest checkpoint (or the initial state when none landed yet) and
 replays forward. Because the data pipeline is step-indexed and the step
 function is pure in (state, step), replay converges to the same state.
 
-The elastic ``remesh_restore`` and the mesh functions wait for ROADMAP Queue 1
-item 14 (multi-GPU); ``PreemptionGuard.drain`` joins a ``torch.distributed``
-barrier only when a process group is initialised.
+``remesh_restore`` is the elastic restore: the latest (or a given) checkpoint
+read back as this rank's slices under target specs over a mesh shape — which
+may differ from the one that saved — or as whole tensors.
+``PreemptionGuard.drain`` joins ``runtime.barrier("preemption-drain")`` (a
+world of one without a process group).
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import numpy as np
 from repro_torch import obs
 from repro_torch.ckpt.checkpoint import list_steps
 
-__all__ = ["StepWatchdog", "PreemptionGuard", "run_resilient"]
+__all__ = ["StepWatchdog", "PreemptionGuard", "run_resilient",
+           "remesh_restore"]
 
 
 class StepWatchdog:
@@ -101,9 +104,10 @@ class PreemptionGuard:
     platforms) and a grace window; dying mid-step wastes the window and — on
     a multi-host run — leaves peers hanging in a collective. The guard turns
     the signal into a FLAG checked at step boundaries: ``run_resilient``
-    drains to a final checkpoint, then joins a ``torch.distributed`` barrier
-    (when a process group is initialised) so every host exits with the SAME
-    step durably on disk.
+    drains to a final checkpoint, then joins a ``runtime.barrier()`` so
+    every host exits with the SAME step durably on disk (the next
+    incarnation restores it, possibly onto another mesh via
+    ``remesh_restore``).
 
     Use as a context manager so the previous handlers are restored (tests,
     nested loops); ``signal.raise_signal`` or a real ``kill`` both work.
@@ -135,15 +139,14 @@ class PreemptionGuard:
     def drain(self, ckpt, step: int, state) -> None:
         """Checkpoint ``state`` at ``step``, join the save, then barrier so
         every host has the step durably written before anyone exits."""
-        import torch.distributed as dist
+        from repro_torch.dist import runtime
         obs.counter("dist_preemption_drains_total",
                     "Preemption signals drained to a checkpoint").inc()
         with obs.trace_span("dist.preemption_drain", step=step):
             if ckpt is not None:
                 ckpt.save(step, state)
                 ckpt.wait()
-            if dist.is_available() and dist.is_initialized():
-                dist.barrier()
+            runtime.barrier("preemption-drain")
 
 
 def run_resilient(step_fn: Callable, state, n_steps: int, *, ckpt=None,
@@ -226,3 +229,14 @@ def _restore_newest_intact(ckpt, initial, start_step: int, events: list):
             events.append(("corrupt_ckpt", s, f"{type(e).__name__}: {e}"))
     return initial, start_step
 
+
+def remesh_restore(ckpt, specs=None, step: Optional[int] = None,
+                   mesh_shape=None):
+    """Elastic restore: load the latest (or given) checkpoint of the
+    ``CheckpointManager`` ``ckpt`` and return this rank's slice of every
+    leaf under the target ``specs`` (a spec tree, ``dist.sharding``) over
+    ``mesh_shape`` — which may differ in shape and world size from the mesh
+    that saved (N ranks -> M ranks) — or whole tensors when ``specs`` is
+    None. Format-2 checkpoints read only the saved shards that overlap each
+    slice. Returns (tree, manifest)."""
+    return ckpt.restore(step, specs=specs, mesh=mesh_shape)

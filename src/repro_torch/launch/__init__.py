@@ -1,2 +1,2 @@
 """Command-line entry points of the port (the reference's ``repro.launch``):
-``train``, ``serve`` and ``search``."""
+``train``, ``serve``, ``search`` and ``dist_smoke``, with ``mesh`` shapes."""

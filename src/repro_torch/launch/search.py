@@ -11,9 +11,20 @@ directory, git-ignored) by row name. Row names and the ``derived`` field
 are the reference's. With ``--measure-mem`` (CUDA only) the row carries
 ``peak_live_bytes``, ``stack_bytes`` and ``candidate_batch_bytes`` and lands
 under ``search_unit_install/`` or ``search_stack_install/`` per
-``--install``. One card has nothing to shard, so there is no mesh;
-``--mapped`` (one island per device) waits for the multi-GPU port and
-raises. ``main(argv, device="cpu")`` runs it on the CPU.
+``--install``. With ``--mapped`` the islands run one per rank of the
+``torch.distributed`` world (``SearchConfig(mapped=True)``; ``--islands``
+must equal the world size), each rank on its own device, and the row lands
+under ``search_mapped_islands/``, written by rank 0 alone; its proposals
+are reconciled with the registries of every rank merged
+(``obs.dist_snapshot``). ``main`` brings the world up from the
+``REPRO_COORDINATOR`` / ``REPRO_NUM_PROCESSES`` / ``REPRO_PROCESS_ID``
+environment (``dist.runtime.initialize``) or runs alone:
+
+    REPRO_COORDINATOR=127.0.0.1:29511 REPRO_NUM_PROCESSES=2 \
+    REPRO_PROCESS_ID=0 PYTHONPATH=src python -m repro_torch.launch.search \
+        --islands 2 --mapped --steps 8 &   # ... and REPRO_PROCESS_ID=1
+
+``main(argv, device="cpu")`` runs it on the CPU (over gloo when mapped).
 """
 from __future__ import annotations
 
@@ -30,7 +41,7 @@ from repro_torch.core.pipeline import quantize_model
 from repro_torch.core.quant import QuantConfig
 from repro_torch.core.search import SearchConfig
 from repro_torch.data.calib import calibration_tensor
-from repro_torch.device import resolve_device
+from repro_torch.dist import runtime
 from repro_torch.models.model import init_params
 
 __all__ = ["run_search_bench", "main", "DEFAULT_OUT"]
@@ -53,6 +64,16 @@ def _merge_rows(out: pathlib.Path, row: dict):
     out.write_text(json.dumps(rows, indent=1))
 
 
+def _proposals_total(mapped: bool) -> float:
+    """``search_proposals_total`` over every label: this process's, or,
+    when mapped, every rank's merged (a collective: every rank calls it)."""
+    if not mapped:
+        return obs.counter("search_proposals_total",
+                           "Candidate transforms proposed").total()
+    entry = obs.dist_snapshot().get("search_proposals_total")
+    return sum(s["value"] for s in entry["series"]) if entry else 0.0
+
+
 def run_search_bench(arch: str = "opt-tiny", *, steps: int = 40,
                      population: int = 4, islands: int = 1,
                      temperature: float = 0.0, anneal: str = "geometric",
@@ -64,7 +85,7 @@ def run_search_bench(arch: str = "opt-tiny", *, steps: int = 40,
                      seq_len: int = 128, seed: int = 0,
                      out=None, metrics_out: str = obs.DEFAULT_METRICS_PATH,
                      device="cuda") -> dict:
-    dev = resolve_device(device)
+    dev = runtime.local_device(device)
     cfg = get_config(arch).reduced()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                          device=dev)
@@ -79,8 +100,7 @@ def run_search_bench(arch: str = "opt-tiny", *, steps: int = 40,
                         measure_memory=measure_mem)
     qcfg = QuantConfig(bits=bits, group_size=group)
 
-    prop_before = obs.counter(
-        "search_proposals_total", "Candidate transforms proposed").total()
+    prop_before = _proposals_total(mapped)
     t0 = time.monotonic()
     result = quantize_model(params, cfg, qcfg, method="rtn",
                             calib_tokens=calib, search=scfg, device=dev)
@@ -91,14 +111,14 @@ def run_search_bench(arch: str = "opt-tiny", *, steps: int = 40,
     proposals = sr.stats["proposals"]
     # the registry must reconcile exactly with the stats dict — a drift
     # here means an instrumentation hook was moved off the hot path
-    prop_delta = obs.counter("search_proposals_total").total() - prop_before
+    prop_delta = _proposals_total(mapped) - prop_before
     if prop_delta != proposals:
         raise AssertionError(
             f"obs/stats divergence: search_proposals_total grew by "
             f"{prop_delta} but stats['proposals'] == {proposals}")
     family = ({"unit": "search_unit_install",
                "stack": "search_stack_install"}[install] if measure_mem
-              else "search/engine")
+              else "search_mapped_islands" if mapped else "search/engine")
     row = {
         "name": (f"{family}/{arch}s{steps}p{population}i{islands}"
                  f"b{bits}g{group}" + ("fused" if fused else "")
@@ -115,10 +135,11 @@ def run_search_bench(arch: str = "opt-tiny", *, steps: int = 40,
     if measure_mem:
         for key in ("peak_live_bytes", "stack_bytes", "candidate_batch_bytes"):
             row[key] = int(sr.stats[key])
-    print(f"{row['name']},{row['us_per_call']},{row['derived']}")
-    out = pathlib.Path(out if out else DEFAULT_OUT)
-    out.parent.mkdir(parents=True, exist_ok=True)
-    _merge_rows(out, row)
+    if runtime.process_index() == 0:
+        print(f"{row['name']},{row['us_per_call']},{row['derived']}")
+        out = pathlib.Path(out if out else DEFAULT_OUT)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        _merge_rows(out, row)
     if metrics_out:
         obs.write_snapshot(path=metrics_out)
     return row
@@ -136,8 +157,8 @@ def main(argv=None, *, device="cuda") -> int:
     ap.add_argument("--fused", action="store_true",
                     help="fused transform+fake-quant kernel hot path")
     ap.add_argument("--mapped", action="store_true",
-                    help="one island per device (not ported yet: ROADMAP "
-                         "Queue 1 item 14)")
+                    help="one island per rank of the torch.distributed world "
+                         "(requires --islands == world size)")
     ap.add_argument("--objective", default="ce",
                     choices=["ce", "kl", "swd_actmatch", "saliency_ce"],
                     help="search objective (registry name)")
@@ -164,6 +185,7 @@ def main(argv=None, *, device="cuda") -> int:
     args = ap.parse_args(argv)
     if args.trace_out:
         obs.set_trace_sink(args.trace_out)
+    runtime.initialize(device=device)
     run_search_bench(args.arch, steps=args.steps, population=args.population,
                      islands=args.islands, temperature=args.temperature,
                      anneal=args.anneal, migrate_every=args.migrate_every,

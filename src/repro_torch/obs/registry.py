@@ -1,9 +1,9 @@
 """Process-local metrics registry: counters, gauges, fixed-bucket histograms.
 
 The port's own copy of the reference's ``repro.obs.registry`` (stdlib only):
-the instruments, ``Registry.snapshot`` and ``reset`` as they are there. The
-multi-host ``merge_snapshots`` and the Prometheus exposition wait for the
-multi-GPU slice.
+the instruments, ``Registry.snapshot`` and ``reset``, and the multi-process
+``merge_snapshots`` / ``snapshot_json`` as they are there. The Prometheus
+exposition waits for the tooling slice.
 
 Three instrument kinds, as in the reference:
 
@@ -27,12 +27,13 @@ batcher-reuse contract).
 from __future__ import annotations
 
 import bisect
+import json
 import threading
 from typing import Dict, List, Optional, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "Registry", "hist_quantile",
            "LATENCY_BUCKETS_S", "get_registry", "counter", "gauge",
-           "histogram"]
+           "histogram", "merge_snapshots", "snapshot_json"]
 
 # geometric ladder from 100us to 2 minutes: wide enough for a CPU-container
 # TTFT and a real-accelerator decode step to land in informative buckets
@@ -228,6 +229,66 @@ class Registry:
                 entry["edges"] = list(m.edges)
             out[name] = entry
         return out
+
+
+def _merge_series(kind: str, a: List[dict], b: List[dict]) -> List[dict]:
+    by_key: Dict[tuple, dict] = {}
+    for src in (a, b):
+        for s in src:
+            key = _label_key(s["labels"])
+            cur = by_key.get(key)
+            if cur is None:
+                s = dict(s)
+                if kind == "gauge":     # normalize away any stray value field
+                    s = {"labels": s["labels"], "min": s["min"],
+                         "max": s["max"], "sum": s["sum"], "n": s["n"]}
+                by_key[key] = s
+            elif kind == "counter":
+                cur["value"] = cur["value"] + s["value"]
+            elif kind == "gauge":
+                cur["min"] = min(cur["min"], s["min"])
+                cur["max"] = max(cur["max"], s["max"])
+                cur["sum"] = cur["sum"] + s["sum"]
+                cur["n"] = cur["n"] + s["n"]
+            else:                        # histogram: exact bucket-wise add
+                cur["counts"] = [x + y for x, y in
+                                 zip(cur["counts"], s["counts"])]
+                cur["sum"] = cur["sum"] + s["sum"]
+                cur["count"] = cur["count"] + s["count"]
+    return [by_key[k] for k in sorted(by_key)]
+
+
+def merge_snapshots(a: dict, b: dict) -> dict:
+    """Merge two ``Registry.snapshot()`` dicts: counters sum, gauges combine
+    (min, max, sum, n), histograms add bucket-wise. Associative and
+    commutative, so fleet aggregation order does not matter."""
+    out = {}
+    for name in sorted(set(a) | set(b)):
+        ea, eb = a.get(name), b.get(name)
+        if ea is None or eb is None:
+            src = ea or eb
+            entry = dict(src)
+            entry["series"] = _merge_series(src["kind"], src["series"], [])
+            out[name] = entry
+            continue
+        if ea["kind"] != eb["kind"]:
+            raise ValueError(f"metric {name!r}: kind mismatch "
+                             f"{ea['kind']} vs {eb['kind']}")
+        if ea["kind"] == "histogram" and ea["edges"] != eb["edges"]:
+            raise ValueError(f"histogram {name!r}: bucket edges differ "
+                             f"across snapshots")
+        entry = {"kind": ea["kind"], "help": ea["help"] or eb["help"],
+                 "series": _merge_series(ea["kind"], ea["series"],
+                                         eb["series"])}
+        if ea["kind"] == "histogram":
+            entry["edges"] = list(ea["edges"])
+        out[name] = entry
+    return out
+
+
+def snapshot_json(snap: dict) -> str:
+    """Deterministic JSON encoding (sorted keys) of a snapshot."""
+    return json.dumps(snap, sort_keys=True)
 
 
 # -- module-level default registry ------------------------------------------

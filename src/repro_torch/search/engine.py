@@ -37,8 +37,20 @@ state that a later step changes.
 Observability: the reference's nine ``search_*`` metrics, spans
 ``search.run`` / ``search.step`` / ``search.eval``, and a ``[search]``
 line through ``obs.emit`` every ``log_every`` steps. ``measure_memory``
-reads the CUDA caching allocator (see ``_run_engine``). Mapped islands (one
-island per device) wait for the multi-GPU port and raise.
+reads the CUDA caching allocator (see ``_run_engine``).
+
+Mapped islands (``SearchConfig(mapped=True)``): one island per rank of the
+``torch.distributed`` world, each on its own device (``_run_mapped``).
+Every rank replays every island's host streams (unit picks, accept
+uniforms), so the accept logic stays on the host exactly as in the
+sequential lane; each rank steps only its own island, through the same
+build and score code, and the per-step traffic is one all-gather of each
+island's (loss, primary, aux) row. Migration is
+``islands.migrate_on_mesh`` (one scalar race, the winner's state
+broadcast), and at the end the elite's best state is broadcast to every
+rank. Equal to the sequential lane bit for bit by construction: the same
+operations on the same inputs on each island's device, and exact data
+movement between them.
 """
 from __future__ import annotations
 
@@ -51,11 +63,14 @@ from repro_torch import obs
 from repro_torch.core import invariance as inv
 from repro_torch.core import objective as obj
 from repro_torch.data.calib import shard_calibration
+from repro_torch.dist import runtime
+from repro_torch.dist.collectives import all_gather, elite_broadcast
 from repro_torch.models.model import forward
 from repro_torch.search import anneal
 from repro_torch.search.install import (cast_unit, stack_unit_batch,
                                         tree_bytes, tree_install_unit)
-from repro_torch.search.islands import IslandState, make_island_streams, migrate
+from repro_torch.search.islands import (IslandState, make_island_streams,
+                                        migrate, migrate_on_mesh)
 from repro_torch.search.tabu import TabuMemory, transform_bytes
 
 __all__ = ["_run_engine", "run_population_search"]
@@ -166,10 +181,18 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
             "tabu memory needs the host-synchronous sequential lane "
             "(candidate fingerprints are host state); mapped=True cannot "
             "combine with tabu>0")
-    if scfg.mapped:
-        raise NotImplementedError(
-            "SearchConfig.mapped=True is not ported yet: ROADMAP Queue 1 "
-            "item 14 (mapped islands)")
+    mapped = bool(scfg.mapped)
+    rank = runtime.process_index()
+    if mapped and n_islands != runtime.process_count():
+        raise ValueError(
+            f"mapped=True runs one island per device (one device a "
+            f"process): islands={n_islands} but the world has "
+            f"{runtime.process_count()} process(es) (match --islands to "
+            f"the world size)")
+    if mapped and measure:
+        raise ValueError(
+            "measure_memory reads one device's allocator over the sequential "
+            "lane; mapped=True runs one island per device")
     fwd_kw = dict(forward_kwargs or {})
     if shard_calib and fwd_kw and n_islands > 1:
         raise ValueError(
@@ -219,18 +242,26 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
     p0, a0 = (float(x) for x in eval_global(fq0))
     alpha = float(objv.resolve_mix(p0, a0, env_global))
     loss0 = p0 + alpha * a0
+    # the islands this process steps: all of them, or its own when mapped
+    own = [rank] if mapped else list(range(n_islands))
     if shard_calib:
         slices = shard_calibration(calib_tokens, n_islands)
         bounds = np.cumsum([0] + [int(s.shape[0]) for s in slices])
-        eval_fns = [make_eval(make_env(
+        eval_fns = {i: make_eval(make_env(
             slices[i], logits_fp[bounds[i]:bounds[i + 1]],
             hidden_fp[:, bounds[i]:bounds[i + 1]] if n_match else None))
-            for i in range(n_islands)]
+            for i in own}
         # per-island step-0 baselines on each island's OWN slice (1 island
         # == the full batch == the replicated baseline)
-        base0 = [tuple(float(x) for x in f(fq0)) for f in eval_fns]
+        base0 = {i: tuple(float(x) for x in eval_fns[i](fq0)) for i in own}
+        if mapped:   # every rank needs every island's baseline
+            row = torch.tensor(base0[rank], dtype=torch.float64,
+                               device=runtime.collective_device())
+            base0 = [tuple(r.tolist()) for r in all_gather(row)]
+        else:
+            base0 = [base0[i] for i in range(n_islands)]
     else:
-        eval_fns = [eval_global] * n_islands
+        eval_fns = {i: eval_global for i in own}
         base0 = [(p0, a0)] * n_islands
     loss0s = [p + alpha * a for p, a in base0]
 
@@ -269,12 +300,18 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
                                            float(scfg.temperature), scfg.steps)
     stats = {"migrations": 0, "uphill_accepts": 0,
              "proposals": scfg.steps * K * n_islands, "fused": fused,
-             "mapped": False, "objective": objv.name,
+             "mapped": mapped, "objective": objv.name,
              "install": install_mode, "tabu_hits": 0,
              "shard_calib": shard_calib, "tabu_skips": 0,
              "tabu_rebuilds": 0}
     metrics = _search_metrics()
     metrics["best"].set(loss0)
+
+    if mapped:
+        return _run_mapped(
+            SearchResult, adapter, params_base, scfg, schedule, stats,
+            metrics, objv.name, K, n_islands, migrate_every, transforms0, fq0,
+            loss0s, base0, dev, proposals, eval_fns[rank], build, score)
 
     islands, tabus = [], []
     for i in range(n_islands):
@@ -404,6 +441,133 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
     return SearchResult(
         params_q=adapter.install(params_base, elite.best_fq),
         transforms=elite.best_transforms,
+        history=elite.history,
+        accept_rate=elite.n_accept / max(scfg.steps, 1),
+        final_loss=elite.best_loss,
+        initial_loss=loss0s[elite.index],
+        island_histories=[s.history for s in islands],
+        stats=stats,
+    )
+
+
+def _run_mapped(SearchResult, adapter, params_base, scfg, schedule, stats,
+                metrics, obj_name, K, n_islands, migrate_every, transforms0,
+                fq0, loss0s, base0, dev, proposals, evaluate, build, score):
+    """The mapped island loop: island r on rank r, on that rank's device.
+
+    - Every rank replays every island's host stream (unit pick, accept
+      uniform), so the accept decisions and histories are computed on the
+      host, identically everywhere.
+    - Each rank builds and scores its own island's K candidates with the
+      sequential lane's ``build`` / ``score``, and the (loss, primary,
+      aux) rows meet in one all-gather (float32 as ``score`` made them:
+      exact).
+    - Migration moves only data: ``islands.migrate_on_mesh`` on the local
+      island's trees, the scalars replayed on the host as ``migrate``
+      would.
+    - The ``search_*`` counters count the local island (proposals, accepts,
+      uphill); migrations are counted on rank 0 only, so a merged snapshot
+      reconciles with ``stats``.
+    """
+    rank = runtime.process_index()
+    proposer = getattr(adapter, "propose", None)
+    islands = []
+    for i in range(n_islands):
+        rng, native = make_island_streams(scfg.seed, i, dev, proposer)
+        mine = i == rank
+        islands.append(IslandState(
+            index=i, rng=rng,
+            proposals=(None if not mine else native if proposals is None
+                       else proposals[i]),
+            transforms=transforms0 if mine else None,
+            fq_stack=fq0 if mine else None,
+            current_loss=loss0s[i], best_loss=loss0s[i],
+            best_transforms=transforms0 if mine else None,
+            best_fq=fq0 if mine else None,
+            history=[(0, loss0s[i], base0[i][0], base0[i][1], True)]))
+    me = islands[rank]
+    install_mode = stats["install"]
+
+    with obs.trace_span("search.run", mode="mapped", islands=n_islands,
+                        population=K) as run_span:
+        for step in range(1, scfg.steps + 1):
+            T = schedule(step)
+            with obs.trace_span("search.step", step=step,
+                                hist=metrics["step"]):
+                us = [int(isl.rng.integers(adapter.n_units))
+                      for isl in islands]
+                u = us[rank]
+                cands = me.proposals(_unit_transform(me.transforms, u), K,
+                                     scfg.proposal)
+                with obs.trace_span("search.eval", hist=metrics["eval"]):
+                    batch = build(cands, me.fq_stack, u)
+                    losses, ps, auxs = score(evaluate, batch, me.fq_stack, u)
+                    i = int(np.argmin(losses))   # first minimum on ties
+                    chosen = batch[i]
+                    del batch
+                    row = torch.tensor([losses[i], ps[i], auxs[i]],
+                                       dtype=torch.float32,
+                                       device=runtime.collective_device())
+                    rows = [r.tolist() for r in all_gather(row)]
+                metrics["proposals"].inc(K, objective=obj_name)
+                for isl, (loss, p, a) in zip(islands, rows):
+                    delta = loss - isl.current_loss
+                    uniform = isl.rng.random() if T > 0.0 else None
+                    accepted = anneal.accept(delta, T, uniform)
+                    if accepted:
+                        if delta > 0.0:
+                            stats["uphill_accepts"] += 1
+                            if isl is me:
+                                metrics["uphill"].inc()
+                        isl.current_loss = loss
+                        isl.n_accept += 1
+                        if isl is me:
+                            metrics["accepts"].inc()
+                            me.fq_stack = (adapter.install_unit(
+                                me.fq_stack, u, chosen)
+                                if install_mode == "unit" else chosen)
+                            me.transforms = tree_install_unit(
+                                me.transforms, u, cands[i])
+                        if loss < isl.best_loss:
+                            isl.best_loss = loss
+                            if isl is me:
+                                me.best_transforms = me.transforms
+                                me.best_fq = me.fq_stack
+                    isl.history.append((step, loss, float(p), float(a),
+                                        accepted))
+                del chosen
+                if migrate_every and n_islands > 1 \
+                        and step % migrate_every == 0:
+                    (me.transforms, me.fq_stack, me.best_transforms,
+                     me.best_fq, did) = migrate_on_mesh(
+                        me.best_loss, me.current_loss, me.transforms,
+                        me.fq_stack, me.best_transforms, me.best_fq)
+                    if did:
+                        # replay the decision on the host scalars, exactly
+                        # as ``migrate`` makes it
+                        src = min(islands, key=lambda s: s.best_loss)
+                        dst = max(islands, key=lambda s: s.current_loss)
+                        dst.current_loss = src.best_loss
+                        dst.best_loss = min(dst.best_loss, src.best_loss)
+                        stats["migrations"] += 1
+                        if rank == 0:
+                            metrics["migrations"].inc()
+            metrics["best"].set(min(s.best_loss for s in islands))
+            metrics["temp"].set(T)
+            if scfg.log_every and step % scfg.log_every == 0:
+                best = min(s.best_loss for s in islands)
+                rate = sum(s.n_accept for s in islands) / (step * n_islands)
+                obs.emit("search", step=step, best=f"{best:.5f}",
+                         accept=f"{rate:.2%}", T=f"{T:.4g}",
+                         elapsed_s=f"{run_span.elapsed():.1f}", mode="mapped")
+
+    elite = min(islands, key=lambda s: s.best_loss)
+    best_t = elite_broadcast(me.best_transforms, elite.index)
+    best_fq = elite_broadcast(me.best_fq, elite.index)
+    stats["proposals_per_sec"] = stats["proposals"] / max(run_span.dur, 1e-9)
+    return SearchResult(
+        params_q=adapter.install(params_base, best_fq),
+        transforms=best_t,
         history=elite.history,
         accept_rate=elite.n_accept / max(scfg.steps, 1),
         final_loss=elite.best_loss,

@@ -17,8 +17,12 @@ Streams (:func:`make_island_streams`):
   ``np.random.SeedSequence([seed, i]).generate_state(1, np.uint64)``.
 
 So a 1-island run and island 0 of an N-island run walk identical
-trajectories until a migration rewrites someone's state. Migration across
-devices (the reference's mesh functions) waits for the multi-GPU port.
+trajectories until a migration rewrites someone's state.
+
+Across processes (``SearchConfig(mapped=True)``: one island per rank),
+:func:`migrate_on_mesh` is the same migration over a process group: one
+scalar race (:func:`elite_over_mesh`), one all-gather of the current
+losses, and the winner's elite state broadcast from its rank.
 """
 from __future__ import annotations
 
@@ -26,10 +30,15 @@ import dataclasses
 from typing import Any, Callable, List
 
 import numpy as np
+import torch
 
 from repro_torch.core.invariance import NativeProposals
+from repro_torch.dist import runtime
+from repro_torch.dist.collectives import (all_gather, argmin_allgather,
+                                          elite_broadcast)
 
-__all__ = ["IslandState", "island_seed", "make_island_streams", "migrate"]
+__all__ = ["IslandState", "island_seed", "make_island_streams", "migrate",
+           "elite_over_mesh", "migrate_on_mesh"]
 
 
 @dataclasses.dataclass
@@ -88,3 +97,37 @@ def migrate(islands: List[IslandState]) -> bool:
         dst.best_transforms = src.best_transforms
         dst.best_fq = src.best_fq
     return True
+
+
+def elite_over_mesh(loss, group=None):
+    """(global min loss, owning rank) over ``group``: the migration source's
+    scalar race across ranks (ties to the lowest rank)."""
+    return argmin_allgather(loss, group)
+
+
+def migrate_on_mesh(best_loss, cur_loss, transforms, fq_stack,
+                    best_transforms, best_fq, group=None):
+    """One elite migration over ``group``, each rank holding one island.
+
+    Semantically :func:`migrate` — the same tie-breaks (the first minimum
+    ``best_loss`` is the source, the first maximum ``cur_loss`` the
+    destination), the same guard (nothing moves when they are the same
+    rank or the source is not strictly better), the same update of the
+    destination's elite. The scalar exchange is one :func:`elite_over_mesh`
+    and one all-gather of the current losses; the winner's elite state
+    moves by ``elite_broadcast``. Returns the four state trees (this rank's
+    new ones) and the "did anything move" flag, the same on every rank."""
+    gmin, src = elite_over_mesh(best_loss, group)
+    cur_all = torch.cat(all_gather(gmin.new_tensor([float(cur_loss)]),
+                                   group))
+    dst = int(torch.argmax(cur_all))
+    did = src != dst and bool(gmin < cur_all[dst])
+    if not did:
+        return transforms, fq_stack, best_transforms, best_fq, False
+    elite_t = elite_broadcast(best_transforms, src, group)
+    elite_fq = elite_broadcast(best_fq, src, group)
+    if runtime.group_rank(group) == dst:
+        transforms, fq_stack = elite_t, elite_fq
+        if bool(gmin < gmin.new_tensor(float(best_loss))):
+            best_transforms, best_fq = elite_t, elite_fq
+    return transforms, fq_stack, best_transforms, best_fq, True

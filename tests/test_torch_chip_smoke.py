@@ -36,6 +36,10 @@
   ``ModelConfig.param_count``, ``run_train_steps`` on the CPU, the bar the
   card's reduced train steps are held to (the CPU's own spread) refusing
   a step moved one lr the wrong way, and the bf16 checkpoint round trip.
+- Phase 15's helpers: ``split_pool``'s per-rank shares of a paged cache,
+  whose merged partials equal the whole cache's decode; ``hold_merge``
+  refusing a merge that drops one shard's ``l``; ``mapped_matches``
+  refusing a history with one accept flipped.
 """
 import importlib.util
 import json
@@ -1487,3 +1491,111 @@ def test_run_train_steps_runs_on_the_cpu(arch):
     assert row["n_params"] - row["n_params_analytic"] < 0.01 * row["n_params"]
     assert row["optimizer_bytes"] == 28 * row["n_params"]   # all bf16
     assert row["peak_bytes"] is None and row["optimizer_queued_ms"] is None
+
+
+def _cpu_paged_case(B=4, H=4, Hkv=2, Dh=8, P=6, psz=4, lens=(24, 11, 1, 0),
+                    seed=3):
+    g = torch.Generator().manual_seed(seed)
+    n = B * P + 1
+    q = torch.randn((B, H, Dh), generator=g)
+    kp = torch.randn((n, psz, Hkv, Dh), generator=g)
+    vp = torch.randn((n, psz, Hkv, Dh), generator=g)
+    bt = (torch.randperm(n - 1, generator=g)[: B * P] + 1).reshape(B, P).int()
+    return [q, kp, vp, bt, torch.tensor(lens, dtype=torch.int32), None, None]
+
+
+def _shard_partials(case, n, psz=4):
+    from repro_torch.kernels import ops
+    parts = [ops.paged_decode(*CS.split_pool(torch, case, n, r, psz=psz)[:5],
+                              normalize=False) for r in range(n)]
+    return [torch.stack(x) for x in zip(*parts)]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_split_pool_shares_merge_to_the_whole_cache(n):
+    """15b's per-rank pools: rank r holds pages [r·P/n, (r+1)·P/n) of every
+    sequence (local lengths clamped to its share, so a sequence can leave a
+    shard empty), and the merge of the shards' partials is the decode of
+    the whole cache."""
+    from repro_torch.kernels import ops, ref
+    case = _cpu_paged_case()
+    whole = ops.paged_decode(*case)
+    shares = [CS.split_pool(torch, case, n, r, psz=4) for r in range(n)]
+    per = 6 // n
+    for r, sh in enumerate(shares):
+        assert sh[1].shape[0] == 4 * per + 1 and sh[3].shape == (4, per)
+        want = (case[4] - r * per * 4).clamp(0, per * 4)
+        assert torch.equal(sh[4], want.int())
+        for b in range(4):   # the rank's pages hold the whole cache's rows
+            for p in range(per):
+                assert torch.equal(sh[1][sh[3][b, p]],
+                                   case[1][case[3][b, r * per + p]])
+    if n > 1:
+        assert any(int(sh[4][2]) == 0 for sh in shares)   # an empty shard
+    acc, m, l = _shard_partials(case, n)  # noqa: E741
+    got = ref.merge_partials(acc, m, l)
+    assert CS.hold_merge(torch, got, whole, "merge") <= 1e-6
+
+
+def test_hold_merge_refuses_a_merge_that_drops_a_shards_l():
+    from repro_torch.kernels import ops, ref
+    case = _cpu_paged_case()
+    whole = ops.paged_decode(*case)
+    acc, m, l = _shard_partials(case, 2)  # noqa: E741
+    dropped = l.clone()
+    dropped[1] = 0.0                   # shard 1's normalizer mass lost
+    with pytest.raises(AssertionError, match="the merge is not"):
+        CS.hold_merge(torch, ref.merge_partials(acc, m, dropped), whole,
+                      "dropped l")
+
+
+def test_mapped_matches_refuses_one_flipped_accept():
+    hist = [[(0, 5.0, 4.0, 1.0, True), (1, 4.5, 3.9, 0.6, True),
+             (2, 4.7, 4.0, 0.7, False)],
+            [(0, 5.0, 4.0, 1.0, True), (1, 5.2, 4.1, 1.1, False)]]
+    pi = np.arange(8).tobytes()
+    seq = {"histories": hist, "initial_loss": 5.0, "final_loss": 4.5,
+           "migrations": 1, "pi": pi, "s": b"s", "phi": b"p"}
+    CS.mapped_matches(seq, dict(seq), "same")
+    flipped = [list(h) for h in hist]
+    flipped[1][1] = (1, 5.2, 4.1, 1.1, True)
+    with pytest.raises(AssertionError, match="island 1 parts"):
+        CS.mapped_matches(seq, dict(seq, histories=flipped), "flipped")
+    with pytest.raises(AssertionError, match="pi"):
+        CS.mapped_matches(seq, dict(seq, pi=np.arange(1, 9).tobytes()),
+                          "pi")
+
+
+def test_first_layers_cuts_a_packed_model_as_packing_the_cut_weights():
+    """14d's depth cut: the first n layers of a packed model are the packed
+    first n layers of its weights, leaf for leaf (QTensor components
+    included), and the rest of the tree is kept."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QTensor, QuantConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.quantized.qmodel import pack_model
+
+    cfg = get_config("qwen3-4b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(4), device="cpu")
+    qc = QuantConfig(bits=2, group_size=32)
+    got = CS.first_layers(pack_model(params, qc), 1)
+    cut = dict(params, blocks={k: {n: w[:1] for n, w in v.items()}
+                               if isinstance(v, dict) else v[:1]
+                               for k, v in params["blocks"].items()})
+    want = pack_model(cut, qc)
+
+    def leaves(t, p=()):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from leaves(t[k], p + (k,))
+        elif isinstance(t, QTensor):
+            for c in ("packed", "scale", "zero"):
+                yield p + (c,), getattr(t, c)
+        else:
+            yield p, t
+
+    a, b = dict(leaves(got)), dict(leaves(want))
+    assert set(a) == set(b)
+    for k in b:
+        assert a[k].shape == b[k].shape and torch.equal(a[k], b[k]), k
+    assert a[("blocks", "mlp", "up", "packed")].shape[0] == 1

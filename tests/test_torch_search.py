@@ -307,10 +307,14 @@ def test_install_unit_returns_a_fresh_stack():
 
 @pytest.mark.parametrize("field,value", [("mapped", True)])
 def test_unported_options_raise(opt_pair, field, value):
+    """Mapped islands are ported (one island a rank): in a world of one
+    process, two islands are refused as the reference refuses more islands
+    than devices."""
     _, tcfg, _, tparams, calib = opt_pair
-    scfg = dataclasses.replace(tcs.SearchConfig(steps=1, log_every=0),
+    scfg = dataclasses.replace(tcs.SearchConfig(steps=1, log_every=0,
+                                                islands=2),
                                **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="one island per device"):
         tsearch.run(tparams, tparams, tcfg, tq.QuantConfig(bits=2, group_size=32),
                     torch.from_numpy(calib.astype(np.int64)), scfg)
 

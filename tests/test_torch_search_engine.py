@@ -486,7 +486,7 @@ def test_install_modes_give_identical_histories(opt_pair, K, fused):
     (dict(install="bogus"), ValueError, "install"),
     (dict(measure_memory=True), ValueError, "measure_memory"),
     (dict(tabu=8, mapped=True), ValueError, "tabu"),
-    (dict(mapped=True), NotImplementedError, "item 14"),
+    (dict(mapped=True, islands=2), ValueError, "one island per device"),
     (dict(islands=2, shard_calib=True, population=1), None, None),
 ], ids=["bogus-install", "measure-on-cpu", "tabu-mapped", "mapped", "ok"])
 def test_engine_option_guards(opt_pair, kw, err, match):
@@ -651,7 +651,7 @@ def test_cli_merges_rows_by_name(tmp_path):
 
 
 @pytest.mark.parametrize("extra,err,match", [
-    (["--mapped"], NotImplementedError, "item 14"),
+    (["--mapped", "--islands", "2"], ValueError, "one island per device"),
     (["--mapped", "--tabu", "4"], ValueError, "tabu"),
     (["--measure-mem"], ValueError, "measure_memory"),
 ])
