@@ -264,8 +264,8 @@ source, started together, into ``build/kernels/``), then:
    formulas, peaks, a forward's ms and TFLOP/s; (c) from the same bf16
    weights, 16 fused steps in bf16 and 16 in fp32 (the weights widened)
    on the same CPU-drawn proposals: the accept decisions that differ; (d)
-   the RTN weights packed at 2 bits, cut to their first 12 layers (a cut
-   since phase 15), through ``PagedServer`` (sharing off,
+   the RTN weights packed at 2 bits, cut to their first 6 layers (12 since
+   phase 15, 6 since phase 16), through ``PagedServer`` (sharing off,
    on, MP 2) and ``BatchedServer`` (flag off, on) as 10b-c, on bf16 pools
    and caches, tokens held to a bf16 greedy oracle (a bf16 near tie: the
    served token's oracle logit within NEAR_TIE_BF16 of the top logit; each
@@ -300,7 +300,21 @@ source, started together, into ``build/kernels/``), then:
    mapped search's 2 islands equal to the sequential 2-island run bit for
    bit, each rank's pools holding half of every sequence, and the merged
    ``dist_snapshot`` byte-identical on both ranks; each rank's peak bytes
-   and a search step's ms beside the sequential run's.
+   and a search step's ms beside the sequential run's;
+16. the tooling held against the card: (a) the achieved figures beside
+   ``launch.roofline.HW``: a bf16 and an f32 (TF32 off) ``torch.matmul``
+   at 8192³ (median of 20) and HBM bandwidth from a 4 GiB device-to-device
+   copy; (b) opt-1.3b (full width and depth) at phase 9a's 4 x 512 train
+   step with remat off, "full" and "dots_all": loss and gradients equal to
+   remat off's bit for bit (else held to 9d's bars, and said), step ms,
+   ``max_memory_allocated`` (of the step, and of its forward and backward
+   alone, where remat acts), the FLOPs ``FlopCounterMode`` counts on the
+   card's run equal to the dry run's fake trace of the same step, and the
+   fake trace's live peak within 0.9-1.1 x the measured one; (c) every
+   shape the launch-budget checker (``repro_torch.analysis``) passes —
+   each zoo arch's up (gate is the same shape) and down, f32 and its own
+   dtype — through ``ops.transform_quant`` equal to its plain version, and
+   every shape it refuses raising ``ValueError`` in the wrapper.
 
 Prints the ``nvidia-smi`` name/power-limit line, a ``{"kernels": [...]}``
 line (all seven ported kernels), and last ``{"ok": true, "device":
@@ -5820,10 +5834,11 @@ def phase_small_bf16(torch, ops, arch, devs=("cpu", "cuda"), ckpt_dir=None):
 # ---------------------------------------------------------------------------
 
 BF16_ARCH = "qwen3-4b"
-# 14d serves the first 12 of the 36 layers 14b packed (a cut since phase 15:
+# 14d serves the first 6 of the 36 layers 14b packed (a cut since phase 15:
 # at full depth the five serving runs, their oracles and the profiled run
-# took 112 s of the script; 10b-c serve the same 12 layers in fp32)
-BF16_SERVE_LAYERS = 12
+# took 112 s of the script, 36.6 s at 12 layers; cut from 12 to 6 to pay
+# for phase 16; 10b-c serve 12 layers in fp32)
+BF16_SERVE_LAYERS = 6
 
 
 def first_layers(params_q, n):
@@ -6278,6 +6293,285 @@ def phase_dist(torch, ops, cfg, qcfg):
             for tag, ranks in out.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the tooling (achieved figures, remat and the dry run, the
+# launch-budget checker) held against the card
+# ---------------------------------------------------------------------------
+
+MM_N = 8192                   # 16a: torch.matmul at N x N x N
+MM_REPS = 20                  # 16a: median of this many
+COPY_BYTES = 4 << 30          # 16a: one device-to-device copy of 4 GiB
+REMAT_POLICIES = ("off", "full", "dots_all")
+REMAT_TIMED = 3               # 16b: timed steps a policy
+PEAK_BAND = (0.9, 1.1)        # 16b: fake trace's peak over the card's
+# 16c: shapes the checker refuses (as its fixture does) beside the zoo's
+LAUNCH_PROBES = (
+    ("transform_quant", 100, 64, 32, "up", "float32"),
+    ("transform_quant", 8192, 2048, 8192, "down", "float32"),
+    ("transform_quant", 32, 4194304, 32, "up", "float32"),
+    ("transform_quant", 9728, 2560, 32, "down", "bfloat16"),
+)
+
+
+def phase_achieved(torch):
+    """16a: the card's achieved figures beside ``launch.roofline.HW``: a
+    bf16 and an f32 (TF32 off) ``torch.matmul`` at MM_N³ (median of
+    MM_REPS, CUDA events; 2·N³ operations), and HBM bandwidth from a
+    COPY_BYTES device-to-device copy (its bytes read and written over the
+    median of MM_REPS copies)."""
+    from repro_torch.launch.roofline import HW
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    row = {"hw": dict(HW), "n": MM_N, "tf32": torch.backends.cuda.matmul.allow_tf32}
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        a = torch.randn((MM_N, MM_N), generator=gen, device="cuda").to(dt)
+        b = torch.randn((MM_N, MM_N), generator=gen, device="cuda").to(dt)
+        ms, rng = time_stats(torch, lambda: torch.matmul(a, b), warmup=3,
+                             reps=MM_REPS)
+        row[f"{name}_matmul_ms"], row[f"{name}_matmul_ms_range"] = ms, rng
+        row[f"{name}_tflops"] = 2 * MM_N ** 3 / (ms * 1e-3) / 1e12
+        del a, b
+    row["bf16_share_of_hw"] = row["bf16_tflops"] * 1e12 / HW["peak_flops"]
+    src = torch.empty(COPY_BYTES, dtype=torch.uint8, device="cuda")
+    src.fill_(1)
+    dst = torch.empty_like(src)
+    ms, rng = time_stats(torch, lambda: dst.copy_(src), warmup=3,
+                         reps=MM_REPS)
+    row.update(copy_bytes=COPY_BYTES, copy_ms=ms, copy_ms_range=rng,
+               hbm_bytes_per_s=2 * COPY_BYTES / (ms * 1e-3))
+    row["hbm_share_of_hw"] = row["hbm_bytes_per_s"] / HW["hbm_bw"]
+    del src, dst
+    torch.cuda.empty_cache()
+    log("achieved", **row)
+    return row
+
+
+def remat_cfg(cfg, policy):
+    """``cfg`` with remat off, or on under ``policy``."""
+    if policy == "off":
+        return cfg
+    return dataclasses.replace(cfg, remat=True, remat_policy=policy)
+
+
+def remat_args(torch, cfg, batch, seq, device, fake_mode=None):
+    """(params, AdamW state, {"tokens"}) of ``cfg``: seeded on ``device``,
+    or fake tensors of ``fake_mode`` (the dry run's builders) of the same
+    shapes and dtypes."""
+    from repro_torch.launch import steps
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import adamw_init
+
+    if fake_mode is not None:
+        with fake_mode:
+            params = steps.param_structs(cfg, fake_mode=fake_mode,
+                                         device=device)
+            return (params, adamw_init(params),
+                    {"tokens": torch.zeros((batch, seq), dtype=torch.int64,
+                                           device=device)})
+    gen = torch.Generator(device=device).manual_seed(16)
+    params = init_params(cfg, gen, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device=device)
+    return params, adamw_init(params), {"tokens": tokens}
+
+
+def measured_step(torch, step, args, device):
+    """One ``step(*args)`` and its peak: on the card
+    ``torch.cuda.max_memory_allocated`` over the call, less what was
+    allocated before it that is not the step's arguments (the arguments'
+    storages in 512-byte blocks); elsewhere the dry run's ``StepTrace``
+    over the real run. Returns (out, step peak, raw peak or None)."""
+    from repro_torch.launch import dryrun
+
+    if torch.device(device).type != "cuda":
+        res = dryrun.trace_step(step, args)
+        return res["out"], res["peak_bytes"], None
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    arg_bytes = dryrun.StepTrace().track(args)
+    torch.cuda.reset_peak_memory_stats()
+    out = step(*args)
+    torch.cuda.synchronize()
+    raw = torch.cuda.max_memory_allocated()
+    return out, raw - before + arg_bytes, raw
+
+
+def hold_remat(torch, ref, run, what):
+    """Losses and gradients of a remat step against remat off's: True when
+    equal bit for bit; else held to 9d's bars (losses within 1e-5
+    relative, the gradients and new params within ACCUM_TOL) and False.
+    Raises past the bars."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    pairs = [(run["loss"], ref["loss"]), (run["grad_norm"], ref["grad_norm"])]
+    pairs += list(zip(tree_leaves(run["grads"]), tree_leaves(ref["grads"])))
+    pairs += list(zip(tree_leaves(run["params"]), tree_leaves(ref["params"])))
+    if all(torch.equal(a, b) for a, b in pairs):
+        return True
+    rel = abs(float(run["loss"]) - float(ref["loss"])) / abs(float(ref["loss"]))
+    if not rel <= 1e-5:
+        raise AssertionError(f"{what}: loss parts by {rel} relative")
+    within(torch, [a for a, _ in pairs[2:]], [b for _, b in pairs[2:]],
+           what=what, **ACCUM_TOL)
+    return False
+
+
+def peak_ratio(fake_peak, card_peak, what):
+    """The fake trace's live peak over the card's, held to PEAK_BAND."""
+    ratio = fake_peak / card_peak
+    if not PEAK_BAND[0] <= ratio <= PEAK_BAND[1]:
+        raise AssertionError(f"{what}: fake peak {fake_peak} is {ratio:.4f} "
+                             f"x the card's {card_peak}, outside "
+                             f"{PEAK_BAND}")
+    return ratio
+
+
+def remat_runs(torch, cfg, batch, seq, device="cuda",
+               policies=REMAT_POLICIES, timed=REMAT_TIMED):
+    """16b: the train step of ``cfg`` at ``batch`` x ``seq`` with each remat
+    policy, from the same seeded state: its peak (``measured_step``) under
+    ``FlopCounterMode``, whose FLOPs must equal the dry run's fake trace of
+    the same step, and the fake trace's live peak within PEAK_BAND of the
+    measured one; the loss and gradients (``_value_and_grad``, whose own
+    peak — the forward and backward alone, where remat acts — is logged
+    beside the step's) and the step's new params held to remat off's
+    (``hold_remat``); step ms (median of ``timed``, on the card). Returns
+    {policy: row}."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.steps import _loss_fn, _value_and_grad
+    from repro_torch.optim.adamw import AdamWConfig
+
+    opt_cfg = AdamWConfig(lr=3e-4, total_steps=10, warmup_steps=5)
+    args = remat_args(torch, cfg, batch, seq, device)
+    on_card = torch.device(device).type == "cuda"
+    ref, rows = None, {}
+    for policy in policies:
+        t0 = time.perf_counter()
+        c = remat_cfg(cfg, policy)
+        step = steps.make_train_step(c, opt_cfg)
+        with FlopCounterMode(display=False) as fc:
+            out, peak, raw = measured_step(torch, step, args, device)
+        flops = fc.get_total_flops()
+        params, metrics = out[0], out[2]
+        del out
+        (loss, grads), grad_peak, _ = measured_step(
+            torch, lambda p, b: _value_and_grad(_loss_fn(c), p, b),
+            (args[0], args[2]), device)
+        run = {"loss": loss, "grad_norm": metrics["grad_norm"],
+               "grads": grads, "params": params}
+        del params, grads
+        bit_equal = True if ref is None else hold_remat(
+            torch, ref, run, f"16b {policy}")
+        if ref is None:
+            ref = run
+        del run
+        ms = ms_range = None
+        if on_card:
+            ms, ms_range = time_stats(torch, lambda: step(*args), warmup=0,
+                                      reps=timed)
+        mode = steps.new_fake_mode()
+        fake_args = remat_args(torch, c, batch, seq, device, fake_mode=mode)
+        fake = dryrun.trace_step(step, fake_args, mode)
+        del fake_args
+        if fake["flops"] != flops:
+            raise AssertionError(f"16b {policy}: the card's run counts "
+                                 f"{flops} FLOPs, the fake trace "
+                                 f"{fake['flops']}")
+        ratio = peak_ratio(fake["peak_bytes"], peak, f"16b {policy}")
+        rows[policy] = dict(
+            loss=float(metrics["loss"]), bit_equal=bit_equal, flops=flops,
+            fake_flops=fake["flops"], step_ms=ms, step_ms_range=ms_range,
+            peak_bytes=peak, max_memory_allocated=raw,
+            fake_peak_bytes=fake["peak_bytes"], fake_over_card=ratio,
+            grad_peak_bytes=grad_peak, fake_trace_s=fake["seconds"],
+            seconds=time.perf_counter() - t0)
+        log("remat", arch=cfg.name, policy=policy, batch=batch, seq=seq,
+            **rows[policy])
+        del metrics, fake
+        if on_card:
+            torch.cuda.empty_cache()
+    return rows
+
+
+def launch_rows():
+    """16c's rows: the launch-budget checker's zoo units (every zoo arch's
+    up — gate is the same shape — and down, f32 and its own dtype) and
+    LAUNCH_PROBES, each with the checker's verdict (``reason`` None where
+    the kernel takes the shape)."""
+    from repro_torch.analysis import launch_budget
+
+    rows = []
+    for r in launch_budget.zoo_units():
+        if r["proj"] is None:
+            continue
+        rows.append({"arch": r["arch"], "proj": r["proj"], "K": r["K"],
+                     "N": r["N"], "mode": r["mode"], "group": r["group"],
+                     "dtype": r["dtype"], "reason": r["reason"] or None})
+    for entry in LAUNCH_PROBES:
+        _, K, N, group, mode, dtype = entry
+        rows.append({"arch": "probe", "proj": mode, "K": K, "N": N,
+                     "mode": mode, "group": group, "dtype": dtype,
+                     "reason": launch_budget.probe(entry)})
+    return rows
+
+
+def phase_launch_budget(torch, ops, ref, rows, device="cuda"):
+    """16c: each row the checker passes, ``ops.transform_quant`` at its full
+    shape (2-bit, a seeded random π, s and φ) equal to its plain version
+    (``torch.equal``); each row it flags, the wrapper raising
+    ``ValueError``. Returns (checked, refused, launches)."""
+    ops.reset_launch_counts()
+    checked = refused = 0
+    for i, r in enumerate(rows):
+        K, N, mode = r["K"], r["N"], r["mode"]
+        f = N if mode == "up" else K
+        gen = torch.Generator(device=device).manual_seed(1600 + i)
+        pi = torch.randperm(f, generator=gen, device=device)
+        s = 1.0 + 0.05 * torch.randn(f, generator=gen, device=device)
+        phi = 0.3 * torch.randn(f // 2, generator=gen, device=device)
+        w = torch.randn((K, N), generator=gen, device=device).to(
+            getattr(torch, r["dtype"]))
+        kw = dict(bits=2, group=r["group"], mode=mode)
+        if r["reason"] is not None:
+            try:
+                ops.transform_quant(w, pi, s, phi, **kw)
+            except ValueError as e:
+                refused += 1
+                log("launch_budget", refused=True, error=str(e)[:120],
+                    **{k: v for k, v in r.items() if k != "reason"})
+                continue
+            raise AssertionError(f"16c: the checker refuses {r} but the "
+                                 f"wrapper launched it")
+        exact(torch, ops.transform_quant(w, pi, s, phi, **kw),
+              ref.transform_quant_ref(w, pi, s, phi, **kw),
+              f"16c transform_quant {r['arch']} {mode} {r['dtype']}")
+        checked += 1
+        del w
+    launches = ops.LAUNCHES["transform_quant"]
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        if launches != checked:
+            raise AssertionError(f"16c: {launches} launches for {checked} "
+                                 f"checked rows")
+    log("launch_budget_summary", checked=checked, refused=refused,
+        launches=launches)
+    return checked, refused, launches
+
+
+def phase_tooling(torch, ops, ref, cfg):
+    """16: 16a, 16b on ``cfg`` at phase 9a's TRAIN shape, 16c."""
+    t0 = time.perf_counter()
+    achieved = phase_achieved(torch)
+    remat = remat_runs(torch, cfg, TRAIN["batch"], TRAIN["seq"])
+    rows = launch_rows()
+    budget = phase_launch_budget(torch, ops, ref, rows)
+    log("phase16", seconds=time.perf_counter() - t0)
+    return {"achieved": achieved, "remat": remat, "budget": budget,
+            "rows": rows}
+
+
 def main() -> int:
     import torch
 
@@ -6550,6 +6844,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     dist15 = phase_dist(torch, ops, cfg, qcfg)
     lap("phase15")
+
+    # ---- phase 16: the tooling held against the card -----------------------
+    torch.cuda.empty_cache()
+    tooling = phase_tooling(torch, ops, ref, cfg)
+    lap("phase16")
     log("script_seconds", total=marks[-1] - marks[0], **seconds)
 
     kernels = []
@@ -6639,6 +6938,16 @@ def main() -> int:
                                "depth), mapped: one island a rank (15a a "
                                "NCCL group of one, 15b two ranks on the "
                                "card over gloo), each rank counted from 0"},
+            **({"launch_budget": {
+                "checks": tooling["budget"][2],
+                "checked_rows": tooling["budget"][0],
+                "refused_rows": tooling["budget"][1],
+                "checks_on": "phase 16c: every row the launch-budget "
+                             "checker passes (each zoo arch's up and down, "
+                             "f32 and its own dtype, and the passing "
+                             "probes), at full shape against the plain "
+                             "version; checks, not the main path"}}
+               if name == "transform_quant" else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
@@ -6671,7 +6980,7 @@ def main() -> int:
                                               "paged_decode_gqa"
                                               else "on-mp2"][route],
                     "launches_on": "phase 14d: PagedServer on 2-bit "
-                                   "Qwen3-4B, bf16 pools (12 of 36 "
+                                   "Qwen3-4B, bf16 pools (6 of 36 "
                                    "layers), "
                                    "sharing on" + (", 2 pages per block" if
                                                    route.endswith("_mp")
@@ -6740,7 +7049,7 @@ def main() -> int:
                 "launches_on": "phase 10c: Qwen3-4B (fp32, 12 layers) "
                                "BatchedServer, use_flash_decode on"},
         "bf16": {"launches": bf16["flash"],
-                 "launches_on": "phase 14d: Qwen3-4B (bf16 cache, 12 of "
+                 "launches_on": "phase 14d: Qwen3-4B (bf16 cache, 6 of "
                                 "36 layers) BatchedServer, use_flash_decode "
                                 "on"},
         "moe": {"launches": moe["flash"],

@@ -9,9 +9,12 @@ __all__ = ["resolve_device", "check_on_device"]
 
 def resolve_device(device="cuda") -> torch.device:
     """``torch.device`` for ``device``; raises when CUDA is asked for and no
-    GPU is present (pass ``device="cpu"`` to run on the CPU)."""
+    GPU is present (pass ``device="cpu"`` to run on the CPU). Under a
+    ``FakeTensorMode`` (the dry run's trace) nothing is allocated, so a
+    fake CUDA device needs no card."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda" and not torch.cuda.is_available() \
+            and torch._guards.active_fake_mode() is None:
         raise RuntimeError(
             "device='cuda' requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU")

@@ -13,6 +13,7 @@ from __future__ import annotations
 import importlib
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import ref
 
@@ -47,6 +48,16 @@ def _require(ok: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def _require_card(name: str, t: torch.Tensor) -> None:
+    """A wrapper's tensor off the CPU must be a real CUDA tensor: a fake
+    one (the dry run's trace, ``launch.dryrun``) or a meta one raises
+    before anything is built or launched."""
+    _require(t.device.type == "cuda",
+             f"{name} runs on CUDA or CPU tensors, got {t.device}")
+    _require(not is_fake(t), f"{name} reached with a fake tensor: a fake "
+             f"trace builds and launches no kernel")
+
+
 def _check_cuda(name: str, t: torch.Tensor, device, dtypes, shape) -> None:
     _require(t.device == device, f"{name} is on {t.device}, expected {device}")
     _require(t.dtype in dtypes, f"{name} has dtype {t.dtype}, expected one of "
@@ -54,6 +65,13 @@ def _check_cuda(name: str, t: torch.Tensor, device, dtypes, shape) -> None:
     _require(tuple(t.shape) == tuple(shape),
              f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     _require(t.is_contiguous(), f"{name} must be contiguous")
+
+
+def _check_head_dim(Dh: int) -> None:
+    """The decode kernels (paged routes and flash) load 4 values at a
+    time."""
+    _require(Dh % 4 == 0, f"head dim {Dh} must be a multiple of 4 (the "
+             f"kernel loads 4 values at a time)")
 
 
 def _check_quant_args(K: int, N: int, bits: int, group: int) -> None:
@@ -76,8 +94,7 @@ def group_quant(w: torch.Tensor, *, bits: int, group: int,
     nothing."""
     if w.device.type == "cpu":
         return ref.group_quant_ref(w, bits, group, round_range=round_range)
-    _require(w.device.type == "cuda",
-             f"group_quant runs on CUDA or CPU tensors, got {w.device}")
+    _require_card("group_quant", w)
     _require(w.ndim == 2, f"w must be 2-D, got shape {tuple(w.shape)}")
     K, N = w.shape
     _check_cuda("w", w, w.device, (torch.float32, torch.bfloat16), (K, N))
@@ -107,8 +124,7 @@ def transform_quant(w: torch.Tensor, pi: torch.Tensor, s: torch.Tensor,
     if w.device.type == "cpu":
         return ref.transform_quant_ref(w, pi, s, phi, bits=bits, group=group,
                                        mode=mode)
-    _require(w.device.type == "cuda",
-             f"transform_quant runs on CUDA or CPU tensors, got {w.device}")
+    _require_card("transform_quant", w)
     _require(w.ndim == 2, f"w must be 2-D, got shape {tuple(w.shape)}")
     K, N = w.shape
     f = N if mode == "up" else K
@@ -174,8 +190,7 @@ def paged_decode(q, k_pages, v_pages, block_tables, seq_lens, k_scale=None,
         return ref.paged_decode_ref(q, k_pages, v_pages, block_tables,
                                     seq_lens, k_scale, v_scale,
                                     normalize=normalize)
-    _require(q.device.type == "cuda",
-             f"paged_decode runs on CUDA or CPU tensors, got {q.device}")
+    _require_card("paged_decode", q)
     _require(q.ndim == 3 and k_pages.ndim == 4,
              f"q must be (B, H, Dh) and pools (N, psz, Hkv, Dh), got "
              f"{tuple(q.shape)} and {tuple(k_pages.shape)}")
@@ -183,8 +198,7 @@ def paged_decode(q, k_pages, v_pages, block_tables, seq_lens, k_scale=None,
     N, psz, Hkv, _ = k_pages.shape
     P = block_tables.shape[-1]
     _require(H % Hkv == 0, f"H={H} not a multiple of Hkv={Hkv}")
-    _require(Dh % 4 == 0, f"head dim {Dh} must be a multiple of 4 (the "
-             f"kernel loads 4 values at a time)")
+    _check_head_dim(Dh)
     route = paged_decode_route(H, Hkv, fused_gqa=fused_gqa,
                                gqa_pages_per_block=gqa_pages_per_block)
     mp = gqa_pages_per_block if route == "paged_decode_gqa_mp" else 1
@@ -225,8 +239,7 @@ def flash_decode(q, k, v, k_scale=None, v_scale=None, *, kv_len=None):
     """
     if q.device.type == "cpu":
         return ref.flash_decode_ref(q, k, v, k_scale, v_scale, kv_len)
-    _require(q.device.type == "cuda",
-             f"flash_decode runs on CUDA or CPU tensors, got {q.device}")
+    _require_card("flash_decode", q)
     _require(q.ndim == 3 and k.ndim == 4,
              f"q must be (B, H, Dh) and k/v (B, S, Hkv, Dh), got "
              f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -234,8 +247,7 @@ def flash_decode(q, k, v, k_scale=None, v_scale=None, *, kv_len=None):
     _, S, Hkv, _ = k.shape
     _require(S > 0 and Hkv > 0 and H % Hkv == 0,
              f"H={H} not a multiple of Hkv={Hkv}, or an empty cache")
-    _require(Dh % 4 == 0, f"head dim {Dh} must be a multiple of 4 (the "
-             f"kernel loads 4 values at a time)")
+    _check_head_dim(Dh)
     n = S if kv_len is None else int(kv_len)
     _require(n >= 0, f"kv_len must be >= 0, got {kv_len}")
     dev = q.device
@@ -269,8 +281,7 @@ def quant_matmul(x, packed, scale, zero, *, bits: int, group: int):
     """
     if x.device.type == "cpu":
         return ref.quant_matmul_ref(x, packed, scale, zero, bits, group)
-    _require(x.device.type == "cuda",
-             f"quant_matmul runs on CUDA or CPU tensors, got {x.device}")
+    _require_card("quant_matmul", x)
     _require(1 <= bits <= 8, f"bits must be in [1, 8], got {bits}")
     _require(x.ndim == 2 and packed.ndim == 2,
              f"x must be (M, K) and packed (W, N), got {tuple(x.shape)} and "

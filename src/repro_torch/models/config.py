@@ -1,13 +1,13 @@
 """Model configuration for the port's dense, encoder-decoder, vision, MoE,
 SSM and hybrid paths.
 
-The fields are the subset of the reference's ``repro.models.config``
-``ModelConfig`` that these forwards read, with the same names, order and
-defaults; ``reduced()`` derives the same tiny configs the reference's tests
-use. Every block pattern of the reference runs: dense (with an encoder
-stack and cross-attention when ``encoder_layers > 0``, and stub vision /
-audio front ends), MoE, SSM and hybrid; :func:`check_supported` refuses a
-pattern outside these and a family config without its sub-config.
+The fields are the reference's ``repro.models.config`` ``ModelConfig``
+fields, with the same names, order and defaults; ``reduced()`` derives the
+same tiny configs the reference's tests use. Every block pattern of the
+reference runs: dense (with an encoder stack and cross-attention when
+``encoder_layers > 0``, and stub vision / audio front ends), MoE, SSM and
+hybrid; :func:`check_supported` refuses a pattern outside these and a
+family config without its sub-config.
 """
 from __future__ import annotations
 
@@ -79,8 +79,17 @@ class ModelConfig:
     frontend_len: int = 0             # patches / frames prepended (vlm) or enc len
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    remat: bool = False               # recompute each block in the backward
     attn_chunk: int = 1024            # kv-chunk for blocked online-softmax attention
     vocab_pad_multiple: int = 256
+    # The reference's dry-run unrolls its layer and inner scans so XLA's
+    # cost analysis counts every iteration. The port's loops are Python, so
+    # every layer and chunk already runs (and is counted): both flags are
+    # accepted and change nothing.
+    unroll_layers: bool = False
+    unroll_inner: bool = False
+    remat_policy: str = "full"        # full | dots | dots_all | none: what a
+                                      # remat block saves (models.model)
     attn_softmax_dtype: str = "float32"   # float32 | bfloat16 score pipeline
                                           # of blocked_attention
     gqa_repeat_kv: bool = False       # repeat KV to the query heads before
@@ -190,6 +199,7 @@ class ModelConfig:
             moe=dataclasses.replace(self.moe, num_experts=4, top_k=2) if self.moe else None,
             ssm=(dataclasses.replace(self.ssm, d_state=16, head_dim=16,
                                      chunk=32) if self.ssm else None),
+            remat=False,
             attn_chunk=64,
             param_dtype="float32",
             compute_dtype="float32",

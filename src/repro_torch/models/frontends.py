@@ -15,7 +15,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["stub_vision_embeds", "stub_audio_frames"]
+__all__ = ["stub_vision_embeds", "stub_audio_frames", "frontend_spec"]
 
 
 def _normal(generator, shape, cfg: ModelConfig, device):
@@ -39,3 +39,18 @@ def stub_audio_frames(generator: torch.Generator, cfg: ModelConfig,
     scale 0.02 — stands in for the Seamless speech frontend (fbank +
     conformer downsampling)."""
     return _normal(generator, (batch, n_frames, cfg.d_model), cfg, device)
+
+
+def frontend_spec(cfg: ModelConfig, batch: int, length: int, *,
+                  fake_mode=None, device="cuda"):
+    """A fake tensor (B, L, D) in the compute dtype on ``device``: the dry
+    run's stand-in for precomputed patch / frame embeddings (the
+    reference's ``ShapeDtypeStruct``). Made in ``fake_mode`` (a
+    ``FakeTensorMode``), else in a mode of its own; nothing is allocated
+    and no card is needed."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with fake_mode or FakeTensorMode(allow_non_fake_inputs=True):
+        return torch.empty((batch, length, cfg.d_model),
+                           dtype=getattr(torch, cfg.compute_dtype),
+                           device=device)

@@ -119,8 +119,13 @@ def _rope_inv_freq(head_dim: int, theta: float, device: torch.device):
 
 
 def rope_cos_sin(positions, head_dim: int, theta: float):
-    """positions: (..., S) int -> cos/sin (..., S, head_dim // 2) f32."""
-    inv = _rope_inv_freq(head_dim, float(theta), positions.device)
+    """positions: (..., S) int -> cos/sin (..., S, head_dim // 2) f32.
+    Under a fake trace (``launch.dryrun``) the inverse frequencies are made
+    afresh, not cached: a cached fake tensor would stand in for them in
+    later real runs."""
+    inv_freq = _rope_inv_freq if torch._guards.active_fake_mode() is None \
+        else _rope_inv_freq.__wrapped__
+    inv = inv_freq(head_dim, float(theta), positions.device)
     ang = positions.float()[..., None] * inv
     return torch.cos(ang), torch.sin(ang)
 

@@ -21,6 +21,8 @@ each decoder block; a vision stack prepends patch embeddings to the tokens
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch import obs
@@ -33,7 +35,7 @@ from repro_torch.models.config import ModelConfig, check_supported
 __all__ = ["init_params", "embed_tokens", "lm_head_logits", "forward",
            "lm_loss", "quantizable_paths", "layer_slice", "dequant_tree",
            "init_cache", "decode_step", "prefill", "ffn_sublayer",
-           "block_order"]
+           "block_order", "remat_units"]
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -252,6 +254,75 @@ def block_order(cfg: ModelConfig):
     return order + [("ssm", u) for u in range(n_a * per_group, n_m)]
 
 
+def remat_units(cfg: ModelConfig):
+    """:func:`block_order` cut into the units the forward runs one after
+    another, each under one checkpoint when ``cfg.remat`` is set: one block
+    each, except that a hybrid stack's group of ``hybrid_period - 1`` Mamba
+    blocks and the shared block after it are one unit (the reference's
+    ``_hybrid_forward`` group body; each Mamba block inside it is
+    checkpointed again, as the reference's inner scan body is)."""
+    units, group = [], []
+    for kind, i in block_order(cfg):
+        if cfg.block_pattern != "hybrid":
+            units.append([(kind, i)])
+            continue
+        group.append((kind, i))
+        if kind == "shared":
+            units.append(group)
+            group = []
+    return units + [[b] for b in group]
+
+
+# the matmul ops whose outputs a selective remat policy saves: "dots" the
+# non-batched ones (the reference's dots_with_no_batch_dims_saveable),
+# "dots_all" every one (dots_saveable)
+_REMAT_SAVED = {
+    "dots": ("mm", "addmm"),
+    "dots_all": ("mm", "addmm", "bmm", "baddbmm"),
+}
+
+
+def _remat_context(names):
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    saved = {getattr(torch.ops.aten, n) for n in names}
+
+    def policy(ctx, op, *args, **kwargs):
+        if op.overloadpacket in saved:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` itself, or — when ``cfg.remat`` is set, ``remat_policy`` is
+    not "none" and autograd records — ``fn`` under a non-reentrant
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward instead of saved. "dots" and "dots_all" save the matmul outputs
+    of :data:`_REMAT_SAVED` (a selective checkpoint); any other policy saves
+    nothing inside the unit ("full", as the reference's plain
+    ``jax.checkpoint``). The recompute draws no random numbers, so the RNG
+    state is not stashed, and the values are those of the first run: the
+    gradients equal remat-off's bit for bit."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return fn
+    from torch.utils.checkpoint import checkpoint
+
+    kw = {}
+    if cfg.remat_policy in _REMAT_SAVED:
+        kw["context_fn"] = functools.partial(
+            _remat_context, _REMAT_SAVED[cfg.remat_policy])
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+
+    return wrapped
+
+
 def embed_tokens(params, cfg: ModelConfig, tokens, positions):
     """Token (+ learned position) embeddings; ``positions`` is (S,) or, for
     per-sequence depths, (B, S)."""
@@ -300,9 +371,13 @@ def _run_encoder(params, cfg: ModelConfig, enc_embeds):
             f"D), e.g. models.frontends.stub_audio_frames")
     h = enc_embeds.to(_dtype(cfg.compute_dtype))
     positions = torch.arange(h.shape[1], device=h.device)
+
+    def body(h, pl):
+        return _dense_body(pl, cfg, h, positions, causal=False)[0]
+
+    body = _maybe_remat(body, cfg)
     for i in range(cfg.encoder_layers):
-        h, _ = _dense_body(layer_slice(params["enc_blocks"], i), cfg, h,
-                           positions, causal=False)
+        h = body(h, layer_slice(params["enc_blocks"], i))
     return L.apply_norm(h, params["enc_norm"], cfg.norm)
 
 
@@ -344,14 +419,22 @@ def forward(params, cfg: ModelConfig, tokens, *, enc_embeds=None,
     check_supported(cfg)
     h, positions = _embed_inputs(params, cfg, tokens, vision_embeds)
     enc_h = _run_encoder(params, cfg, enc_embeds) if cfg.is_enc_dec else None
+    ssm_body = _maybe_remat(lambda h, pl: _ssm_body(pl, cfg, h), cfg)
+
+    def run(seg, h, *pls):
+        for (kind, _), pl in zip(seg, pls):
+            if kind == "ssm":
+                h = ssm_body(h, pl) if len(seg) > 1 else _ssm_body(pl, cfg, h)
+            else:
+                h, _ = _dense_body(pl, cfg, h, positions, enc_h=enc_h)
+        return h
+
     hidden = []
-    for kind, i in block_order(cfg):
-        pl = _block_params(params, kind, i, layer_override)
-        if kind == "ssm":
-            h = _ssm_body(pl, cfg, h)
-        else:
-            h, _ = _dense_body(pl, cfg, h, positions, enc_h=enc_h)
-        if collect_hidden and (kind == "shared"
+    for seg in remat_units(cfg):
+        pls = [_block_params(params, kind, i, layer_override)
+               for kind, i in seg]
+        h = _maybe_remat(functools.partial(run, seg), cfg)(h, *pls)
+        if collect_hidden and (seg[-1][0] == "shared"
                                or cfg.block_pattern != "hybrid"):
             hidden.append(h)
     logits = lm_head_logits(params, cfg, h)

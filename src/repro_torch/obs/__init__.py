@@ -8,8 +8,9 @@ from repro_torch.obs.registry import (LATENCY_BUCKETS_S, Counter, Gauge,
                                       Histogram, Registry, counter, gauge,
                                       get_registry, hist_quantile, histogram,
                                       merge_snapshots, snapshot_json)
-from repro_torch.obs.tracing import (emit, enable_profiler, profile_range,
-                                     set_trace_sink, trace_span)
+from repro_torch.obs.tracing import (emit, enable_profiler, get_trace_sink,
+                                     profile_range, set_trace_sink,
+                                     trace_span, trace_to)
 from repro_torch.obs.aggregate import (DEFAULT_METRICS_PATH, dist_snapshot,
                                        write_snapshot)
 
@@ -17,7 +18,7 @@ __all__ = [
     "LATENCY_BUCKETS_S", "Counter", "Gauge", "Histogram", "Registry",
     "counter", "gauge", "get_registry", "hist_quantile", "histogram",
     "emit", "enable_profiler", "profile_range", "set_trace_sink",
-    "trace_span", "DEFAULT_METRICS_PATH", "write_snapshot", "dist_snapshot",
-    "merge_snapshots", "snapshot_json",
+    "get_trace_sink", "trace_to", "trace_span", "DEFAULT_METRICS_PATH",
+    "write_snapshot", "dist_snapshot", "merge_snapshots", "snapshot_json",
 ]
 

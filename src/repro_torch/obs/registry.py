@@ -1,9 +1,9 @@
 """Process-local metrics registry: counters, gauges, fixed-bucket histograms.
 
 The port's own copy of the reference's ``repro.obs.registry`` (stdlib only):
-the instruments, ``Registry.snapshot`` and ``reset``, and the multi-process
-``merge_snapshots`` / ``snapshot_json`` as they are there. The Prometheus
-exposition waits for the tooling slice.
+the instruments, ``Registry.snapshot`` and ``reset``, the multi-process
+``merge_snapshots`` / ``snapshot_json`` and the Prometheus text exposition
+(``Registry.render_prometheus``) as they are there.
 
 Three instrument kinds, as in the reference:
 
@@ -45,6 +45,12 @@ LATENCY_BUCKETS_S = (
 
 def _label_key(labels: dict) -> Tuple[Tuple[str, str], ...]:
     return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+def _fmt_labels(key: Tuple[Tuple[str, str], ...]) -> str:
+    if not key:
+        return ""
+    return "{" + ",".join(f'{k}="{v}"' for k, v in key) + "}"
 
 
 class _Metric:
@@ -229,6 +235,36 @@ class Registry:
                 entry["edges"] = list(m.edges)
             out[name] = entry
         return out
+
+    def render_prometheus(self) -> str:
+        """Prometheus/OpenMetrics text exposition of the LIVE registry."""
+        lines: List[str] = []
+        with self._lock:
+            metrics = sorted(self._metrics.items())
+        for name, m in metrics:
+            if m.help:
+                lines.append(f"# HELP {name} {m.help}")
+            lines.append(f"# TYPE {name} {m.kind}")
+            if m.kind == "histogram":
+                for s in m._snapshot_series():
+                    lbl = _label_key(s["labels"])
+                    cum = 0
+                    for edge, c in zip(m.edges, s["counts"]):
+                        cum += c
+                        lines.append(f"{name}_bucket"
+                                     f"{_fmt_labels(lbl + (('le', repr(edge)),))}"
+                                     f" {cum}")
+                    cum += s["counts"][-1]
+                    lines.append(f"{name}_bucket"
+                                 f"{_fmt_labels(lbl + (('le', '+Inf'),))} {cum}")
+                    lines.append(f"{name}_sum{_fmt_labels(lbl)} {s['sum']}")
+                    lines.append(f"{name}_count{_fmt_labels(lbl)} {s['count']}")
+            else:
+                with m._lock:
+                    items = m._sorted_items()
+                for key, v in items:
+                    lines.append(f"{name}{_fmt_labels(key)} {v}")
+        return "\n".join(lines) + "\n"
 
 
 def _merge_series(kind: str, a: List[dict], b: List[dict]) -> List[dict]:

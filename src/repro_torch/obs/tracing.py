@@ -13,9 +13,11 @@ per process, written once per sink as a ``clock_anchor`` metadata event, so
 activity in a ``torch.profiler`` trace — the counterpart of the reference's
 ``jax.profiler`` annotation. ``profile_range(name)`` marks a region inside a
 span for such a trace only (no sink event, no histogram) and is a no-op
-unless ``enable_profiler()`` is on. ``emit(name, **fields)`` writes an
-instant event to the sink and prints the same ``[name] k=v ...`` line as
-the reference's.
+unless ``enable_profiler()`` is on (the counterpart of the reference's
+``enable_xprof``). ``emit(name, **fields)`` writes an instant event to the
+sink and prints the same ``[name] k=v ...`` line as the reference's.
+``trace_to(sink)`` sets a sink for a ``with`` block and restores the
+previous one after it; ``get_trace_sink()`` returns the current one.
 """
 from __future__ import annotations
 
@@ -26,8 +28,8 @@ import threading
 import time
 from typing import IO, Optional, Union
 
-__all__ = ["trace_span", "set_trace_sink", "enable_profiler",
-           "profile_range", "emit"]
+__all__ = ["trace_span", "set_trace_sink", "get_trace_sink", "trace_to",
+           "enable_profiler", "profile_range", "emit"]
 
 _lock = threading.Lock()
 _sink: Optional[IO] = None
@@ -58,23 +60,65 @@ def profile_range(name: str):
     return torch.profiler.record_function(name)
 
 
+def _open(sink: Union[str, IO, None]):
+    """Resolve a sink spec to (file_or_None, owned_by_us)."""
+    if isinstance(sink, str):
+        p = pathlib.Path(sink)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        return p.open("a"), True
+    return sink, False
+
+
+def _write_anchor() -> None:
+    """Stamp the sink with the epoch anchor (once per installed sink)."""
+    _write({"ph": "M", "name": "clock_anchor", "wall": _EPOCH_WALL,
+            "mono": _EPOCH_MONO})
+
+
 def set_trace_sink(sink: Union[str, IO, None]) -> None:
     """Point span output at a JSONL file. A string opens (appends) the path;
     a file-like object is used as-is; ``None`` disables tracing."""
     global _sink, _sink_owned
-    if isinstance(sink, str):
-        p = pathlib.Path(sink)
-        p.parent.mkdir(parents=True, exist_ok=True)
-        new, owned = p.open("a"), True
-    else:
-        new, owned = sink, False
+    new, owned = _open(sink)
     with _lock:
         if _sink is not None and _sink_owned:
             _sink.close()
         _sink, _sink_owned = new, owned
     if new is not None:
-        _write({"ph": "M", "name": "clock_anchor", "wall": _EPOCH_WALL,
-                "mono": _EPOCH_MONO})
+        _write_anchor()
+
+
+def get_trace_sink() -> Optional[IO]:
+    return _sink
+
+
+class trace_to:
+    """Scoped sink: ``with trace_to(path): ...`` restores the previous sink
+    on exit (tests, nested drivers). The previous sink is left open."""
+
+    def __init__(self, sink: Union[str, IO, None]):
+        self._spec = sink
+
+    def __enter__(self):
+        global _sink, _sink_owned
+        new, owned = _open(self._spec)
+        with _lock:
+            self._prev, self._prev_owned = _sink, _sink_owned
+            _sink, _sink_owned = new, owned
+        if new is not None:
+            _write_anchor()
+        return self
+
+    def __exit__(self, *exc):
+        global _sink, _sink_owned
+        with _lock:
+            if _sink is not None and _sink_owned:
+                try:
+                    _sink.close()
+                except OSError:
+                    pass
+            _sink, _sink_owned = self._prev, self._prev_owned
+        return False
 
 
 def _write(event: dict) -> None:

@@ -40,6 +40,14 @@
   whose merged partials equal the whole cache's decode; ``hold_merge``
   refusing a merge that drops one shard's ``l``; ``mapped_matches``
   refusing a history with one accept flipped.
+- Phase 16's: 16b (``remat_runs``) on opt-tiny reduced on the CPU — every
+  policy bit for bit with remat off, the FLOPs of the real run equal to
+  the fake trace's, the peaks within the band (on the CPU the real run's
+  peak is the dry run's tracker over real tensors); ``hold_remat``
+  falling back to 9d's bars and refusing a step past them;
+  ``peak_ratio``'s band; 16c's rows (``launch_rows``) as the checker's
+  verdicts, and ``phase_launch_budget`` refusing a wrapper that takes a
+  shape the checker flags.
 """
 import importlib.util
 import json
@@ -1599,3 +1607,78 @@ def test_first_layers_cuts_a_packed_model_as_packing_the_cut_weights():
     for k in b:
         assert a[k].shape == b[k].shape and torch.equal(a[k], b[k]), k
     assert a[("blocks", "mlp", "up", "packed")].shape[0] == 1
+
+
+# ---------------------------------------------------------------------------
+# phase 16
+# ---------------------------------------------------------------------------
+
+def test_remat_runs_on_the_cpu():
+    from repro_torch.configs import get_config
+    rows = CS.remat_runs(torch, get_config("opt-tiny").reduced(), 2, 16,
+                         device="cpu")
+    assert list(rows) == list(CS.REMAT_POLICIES)
+    for policy, r in rows.items():
+        assert r["bit_equal"] and r["flops"] == r["fake_flops"] > 0
+        assert r["fake_over_card"] == 1.0 and r["step_ms"] is None
+    assert rows["full"]["flops"] > rows["off"]["flops"] == \
+        rows["dots_all"]["flops"]
+    assert len({r["loss"] for r in rows.values()}) == 1
+
+
+def _remat_run(scale=0.0):
+    g = {"w": torch.linspace(-1.0, 1.0, 64)}
+    p = {"w": torch.linspace(0.0, 2.0, 64)}
+    return {"loss": torch.tensor(3.0), "grad_norm": torch.tensor(1.0),
+            "grads": {"w": g["w"] * (1 + scale)},
+            "params": {"w": p["w"] + scale}}
+
+
+def test_hold_remat_falls_back_to_the_9d_bars_and_refuses_past_them():
+    ref = _remat_run()
+    assert CS.hold_remat(torch, ref, _remat_run(), "same") is True
+    assert CS.hold_remat(torch, ref, _remat_run(1e-6), "near") is False
+    with pytest.raises(AssertionError, match="off the bar"):
+        CS.hold_remat(torch, ref, _remat_run(1e-2), "far")
+    moved = _remat_run()
+    moved["loss"] = torch.tensor(3.001)
+    with pytest.raises(AssertionError, match="loss parts"):
+        CS.hold_remat(torch, ref, moved, "loss")
+
+
+@pytest.mark.parametrize("fake,card,ok", [(95, 100, True), (109, 100, True),
+                                          (89, 100, False), (111, 100, False)])
+def test_peak_ratio_holds_the_band(fake, card, ok):
+    if ok:
+        assert CS.peak_ratio(fake, card, "x") == fake / card
+    else:
+        with pytest.raises(AssertionError, match="outside"):
+            CS.peak_ratio(fake, card, "x")
+
+
+def test_launch_rows_are_the_checkers_verdicts():
+    from repro_torch.analysis import launch_budget
+    rows = CS.launch_rows()
+    zoo = [r for r in rows if r["arch"] != "probe"]
+    assert len(zoo) == sum(1 for r in launch_budget.zoo_units() if r["proj"])
+    assert all(r["reason"] is None for r in zoo)
+    probes = [r for r in rows if r["arch"] == "probe"]
+    assert [r["reason"] is None for r in probes] == [False, False, False,
+                                                     True]
+    assert {(r["arch"], r["mode"]) for r in zoo} >= {
+        ("qwen3-4b", "up"), ("qwen3-4b", "down"), ("command-r-35b", "up")}
+
+
+def test_phase_launch_budget_checks_and_refuses_on_the_cpu():
+    from repro_torch.kernels import ops, ref
+    rows = [dict(arch="x", proj="up", K=64, N=128, mode="up", group=32,
+                 dtype="float32", reason=None),
+            dict(arch="x", proj="down", K=128, N=64, mode="down", group=32,
+                 dtype="bfloat16", reason=None)]
+    assert CS.phase_launch_budget(torch, ops, ref, rows, device="cpu") == \
+        (2, 0, 0)
+    # the CPU route runs the plain version: a shape the checker flags is
+    # taken there, which the phase reports as the wrapper launching it
+    bad = dict(rows[0], reason="refused")
+    with pytest.raises(AssertionError, match="launched it"):
+        CS.phase_launch_budget(torch, ops, ref, [bad], device="cpu")

@@ -139,6 +139,8 @@ def test_model_config_defaults_equal_reference():
     jf = [f for f in dataclasses.fields(JModelConfig)]
     tf = [f for f in dataclasses.fields(TModelConfig)]
     jdef = {f.name: f.default for f in jf}
+    # the port has every reference field
+    assert [f.name for f in tf] == [f.name for f in jf]
     shared = [f.name for f in tf if f.name in jdef]
     assert shared == [f.name for f in tf], "the port has a field the reference lacks"
     for f in tf:
