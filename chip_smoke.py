@@ -8,16 +8,23 @@ source, started together, into ``build/kernels/``), then:
 
 1. kernels vs plain versions on the card, held to exact equality (the
    kernels run the plain versions' fp32 operations in the same order):
-   ``group_quant`` on (2048, 2048) f32 and bf16 and at every shape the main
-   path gives it (the stacked attention, up and down weights of opt-1.3b
-   flattened to (24·2048, 2048), (24·2048, 8192) and (24·8192, 2048) f32),
-   ``transform_quant`` up (2048, 8192) and down (8192, 2048), bits 2/3/4,
-   groups 32/128, and up and down at every dense FFN shape of the config
-   zoo (2-bit g32, a random π); times each at the main path's shapes with
-   CUDA events and (device ms) under ``torch.profiler`` beside its bound,
-   ``transform_quant`` for an identity, a partially shuffled and a random
-   π; then the main path at a small size (opt-tiny) on the card against
-   the same path on the CPU, where the wrappers run their plain versions;
+   ``group_quant`` at every shape the main path gives it (the stacked
+   attention, up and down weights of opt-1.3b flattened to (24·2048,
+   2048), (24·2048, 8192) and (24·8192, 2048) f32), at AWQ's per-layer
+   matrices ((2048, 2048), (2048, 8192), (2560, 9728), (896, 4864)), a
+   per-column group (group = K), the 1-D path's (2048, 1) and an N that is
+   not a multiple of 8 (2048, 4868), these in f32 and bf16 (with and
+   without ``round_range``), the kernel's own launch plan equal to
+   ``kernels/group_quant.py::plan``'s; ``transform_quant`` up (2048, 8192)
+   and down (8192, 2048), bits 2/3/4, groups 32/128, and up and down at
+   every dense FFN shape of the config zoo (2-bit g32, a random π); times
+   each at the main path's shapes with
+   CUDA events and (device ms) under ``torch.profiler`` beside its bound
+   (``group_quant`` also at AWQ's per-layer shapes and the per-column one,
+   f32 and bf16), ``transform_quant`` for an identity, a partially
+   shuffled and a random π; then the main path at a small size (opt-tiny)
+   on the card against the same path on the CPU, where the wrappers run
+   their plain versions;
 2. the main path: ``quantize_model`` RTN and RTN + 16 fused InvarExplore
    steps on random-init opt-1.3b at full width and depth, with held-out
    perplexity for fp32 / RTN / RTN+search and the kernels' launch counts;
@@ -46,7 +53,7 @@ source, started together, into ``build/kernels/``), then:
    to a greedy oracle (the full forward over the dequantized weights),
    0 leaked pages, saved_frac >= 0.5, obs counters equal to the stats,
    paged-decode launches = 24 x decode steps; TTFT, tokens/s, bytes and
-   peak memory; then a third sharing-on run, over the trace's first 8
+   peak memory; then a third sharing-on run, over the trace's first 4
    requests (a cut: reading the profiler's events costs ≈ 0.2 ms each),
    under ``torch.profiler``:
    device time by kernel family in the decode steps and prefills, and the
@@ -123,7 +130,8 @@ source, started together, into ``build/kernels/``), then:
    over two steps, the optimizer alone beside its bound, and
    ``accum_steps=2`` on the same batch against the full batch (loss within
    1e-4, params within the reference's rtol 2e-3 / atol 2e-4); (b) that
-   train state (params, m and v, ≈ 17 GB f32) through an async
+   train state cut to its first 4 layers (params, m and v, ≈ 5.0 GB f32;
+   17 GB at full depth) and the cut model's train step, through an async
    ``CheckpointManager`` into build/smoke/ckpt/ (deleted afterwards): 3
    uninterrupted steps, against 1 step, a save, and ``run_resilient`` from
    step 1 with a failure injected at its first step, which restores the
@@ -141,7 +149,7 @@ source, started together, into ``build/kernels/``), then:
    within 1e-5 relative, params within (a)'s bar);
 10. the dense zoo (RoPE, qk-norm, gated SwiGLU, GQA): (a) Qwen3-4B
    (``configs/qwen3_4b.py``: 36 layers, d 2560, 32/8 heads, Dh 128, d_ff
-   9728, vocab 151936) at full width, 12 of its 36 layers, random-init, in
+   9728, vocab 151936) at full width, 4 of its 36 layers, random-init, in
    fp32 (phase 14 runs it in its own bf16 at full depth): ``quantize_model`` RTN and AWQ,
    each alone and with 16 fused steps (``transform_quant``'s gate call
    included), on 4 x 512 calibration tokens: held-out ppl, losses, accept
@@ -183,10 +191,10 @@ source, started together, into ``build/kernels/``), then:
    train steps, PagedServer's tokens, and in bf16 (``phase_small_bf16``);
 12. the SSM and hybrid families: (a) Mamba2-2.7B
    (``configs/mamba2_2_7b.py``: 64 blocks, d 2560, d_inner 5120, 80 SSD
-   heads x 64, d_state 128, chunk 128, vocab 50280) at full width and
-   depth, random-init, in its own bf16:
-   ``group_quant`` held to its plain version at the stacked Mamba shapes
-   and one block's, then ``quantize_model`` RTN alone and with 16 steps,
+   heads x 64, d_state 128, chunk 128, vocab 50280) at full width,
+   random-init, in its own bf16: ``group_quant`` held to its plain version
+   at the full-depth stacked Mamba shapes and one block's, then, on 32 of
+   the 64 blocks (a cut), ``quantize_model`` RTN alone and with 16 steps,
    the fused flag asked for (the Mamba adapter has no fused build: one
    warning, the unfused lane), on 4 x 512 calibration tokens: held-out
    ppl, losses (each phase's accepted losses falling strictly), peak
@@ -195,7 +203,7 @@ source, started together, into ``build/kernels/``), then:
    (``ssm_forward_flops``); (b) the packed model through ``BatchedServer``
    over the trace's first 8 requests: each served step's logits held,
    teacher-forced, to the full forward's (``hold_served_logits``: in bf16
-   one-ulp partings grow over 64 blocks past any token tie), tokens/s,
+   one-ulp partings grow over the blocks past any token tie), tokens/s,
    step ms, device ms per decode step by family (dequant, GEMM, the SSD
    state update, idle), ``PagedServer`` refusing the config, and the same
    server on the RTN model in fp32, its greedy tokens held to the
@@ -235,8 +243,10 @@ source, started together, into ``build/kernels/``), then:
    decode step's device time by family and idle share; PagedServer and
    BatchedServer raising; (c) InternVL2-1B (``configs/internvl2_1b.py``: 24
    layers, d 896, 14/2 heads x 64 (GQA rep 7), SwiGLU d_ff 4864, qkv
-   biases, RoPE 1e6, tied embeddings, vocab 151655): RTN and AWQ, each
-   alone and with 16 fused steps, on text (as 10a); the packed model
+   biases, RoPE 1e6, tied embeddings, vocab 151655), at 12 of its 24
+   layers (a cut; its group_quant shapes are checked at full depth first):
+   RTN and AWQ, each alone and with 16 fused steps, on text (as 10a); the
+   packed model
    through the steps with 8 x 256 stub patches (decode from P+S, tokens
    held to the full forward with the same patches, flash_decode at rep 7);
    PagedServer over the trace with sharing off, on and MP 2 and
@@ -304,9 +314,10 @@ source, started together, into ``build/kernels/``), then:
 16. the tooling held against the card: (a) the achieved figures beside
    ``launch.roofline.HW``: a bf16 and an f32 (TF32 off) ``torch.matmul``
    at 8192³ (median of 20) and HBM bandwidth from a 4 GiB device-to-device
-   copy; (b) opt-1.3b (full width and depth) at phase 9a's 4 x 512 train
-   step with remat off, "full" and "dots_all": loss and gradients equal to
-   remat off's bit for bit (else held to 9d's bars, and said), step ms,
+   copy; (b) opt-1.3b (full width, 12 of its 24 layers) at phase 9a's 4 x
+   512 train step with remat off, "full" and "dots_all": loss and
+   gradients equal to remat off's bit for bit (else held to 9d's bars,
+   and said), step ms,
    ``max_memory_allocated`` (of the step, and of its forward and backward
    alone, where remat acts), the FLOPs ``FlopCounterMode`` counts on the
    card's run equal to the dry run's fake trace of the same step, and the
@@ -551,25 +562,134 @@ def gq_bytes(K, N, group, elem=4):
     return 2 * K * N * elem + 2 * (K // group) * N * 4
 
 
+# AWQ's per-layer matrices, one fake_quant a candidate (core/awq.py):
+# opt-1.3b's attention and up, Qwen3-4B's and InternVL2-1B's up
+GQ_LAYER = ((2048, 2048), (2048, 8192), (2560, 9728), (896, 4864))
+# the kernel's other bodies and widths: a per-column group (group = K), the
+# 1-D path's (K, 1), an N that is not a multiple of 8 (bf16 then loads 4
+# values a thread, not 8)
+GQ_EDGE = (("per-column", (2048, 2048)), ("vector", (2048, 1)),
+           ("ragged", (2048, 4868)))
+
+
+def gq_check_cases(main_shapes):
+    """(label, (K, N), dtypes, groups) of phase 1's ``group_quant`` checks:
+    the main path's stacked leaves (f32), AWQ's per-layer matrices and the
+    edge cases (f32 and bf16); each is checked at every bits of BITS, bf16
+    with and without ``round_range``."""
+    both = ("float32", "bfloat16")
+    cases = [(leaf, shape, ("float32",), GROUPS)
+             for leaf, shape, _ in main_shapes]
+    cases += [("awq layer", shape, both, GROUPS) for shape in GQ_LAYER]
+    for label, (K, N) in GQ_EDGE:
+        groups = {"per-column": (K,), "vector": GROUPS + (K,)}.get(label,
+                                                                  GROUPS)
+        cases.append((label, (K, N), both, groups))
+    return cases
+
+
+def gq_time(torch, ref, gq, w, group, round_range, bits=2):
+    """One ``group_quant`` launch on w at ``group``: ms (CUDA events),
+    device ms (the kernel alone, under the profiler), the plain version's
+    ms, the bytes bound, the share of it by device time and the plan."""
+    K, N = w.shape
+    fq, s, z = torch.empty_like(w), *(
+        torch.empty((K // group, N), device=w.device) for _ in range(2))
+
+    def run():
+        gq.launch(w, fq, s, z, bits=bits, group=group,
+                  round_range=round_range)
+    t = time_ms(torch, run)
+    dm = device_ms(torch, run, ("group_quant",))
+    p = time_ms(torch, lambda: ref.group_quant_ref(
+        w, bits, group, round_range=round_range), reps=10)
+    b, by = bound_ms(gq_bytes(K, N, group, w.element_size()), GQ_OPS * K * N)
+    return dict(shape=[K, N], group=group, dtype=str(w.dtype),
+                round_range=round_range, ms=t, device_ms=dm, plain_ms=p,
+                bound_ms=b, bound_by=by, share_of_bound=b / dm,
+                plan=gq.plan(K, N, group, w.dtype)._asdict())
+
+
+def phase_group_quant(torch, ops, ref, gq, cfg):
+    """``group_quant`` against its plain version, bit for bit, at every
+    case of ``gq_check_cases`` (the plan the kernel made equal to
+    ``gq.plan``'s); then its times at the main path's stacked shapes (f32)
+    and at AWQ's per-layer and a per-column shape (f32, and bf16 with
+    ``round_range`` as ``fake_quant`` calls it). Returns (max abs err,
+    the kernels line's row)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    err_max = 0.0
+    main_shapes = main_path_gq_shapes(cfg)
+    for label, shape, dtypes, groups in gq_check_cases(main_shapes):
+        for dt in dtypes:
+            dt = getattr(torch, dt)
+            w = (torch.randn(shape, generator=gen, device=dev) * 2.5).to(dt)
+            for group in groups:
+                plan = gq.plan(*shape, group, dt)
+                if gq.kernel_plan(*shape, group, dt) != plan:
+                    raise AssertionError(
+                        f"group_quant {shape} {dt} g{group}: the kernel "
+                        f"plans {gq.kernel_plan(*shape, group, dt)}, "
+                        f"gq.plan {plan}")
+                for rr in (False, True) if dt == torch.bfloat16 else (False,):
+                    for bits in BITS:
+                        err = exact(torch, ops.group_quant(
+                            w, bits=bits, group=group, round_range=rr),
+                            ref.group_quant_ref(w, bits, group,
+                                                round_range=rr),
+                            f"group_quant {label} {shape} {dt} b{bits} "
+                            f"g{group} round_range {rr}")
+                        err_max = max(err_max, err)
+                        log("kernel_check", kernel="group_quant",
+                            case=label, shape=list(shape), dtype=str(dt),
+                            bits=bits, group=group, round_range=rr,
+                            body=plan.body, vec=plan.vec, max_abs_err=err)
+            del w
+    torch.cuda.empty_cache()
+
+    # times (bits 2, group 32): raw launches into preallocated outputs for
+    # the kernel, the plain version for plain_ms
+    group = 32
+    per_shape = []
+    for leaf, (K, N), n in main_shapes:
+        w = torch.randn((K, N), generator=gen, device=dev)
+        r = gq_time(torch, ref, gq, w, group, False)
+        per_shape.append(dict(leaf=leaf, per_pass=n, **r))
+        log("kernel_time", kernel="group_quant", leaf=leaf, **r)
+        del w
+    layer = []
+    for shape, g in [(s, group) for s in GQ_LAYER] + [((2048, 2048), 2048)]:
+        for dt in (torch.float32, torch.bfloat16):
+            w = (torch.randn(shape, generator=gen, device=dev) * 2.5).to(dt)
+            r = gq_time(torch, ref, gq, w, g, dt == torch.bfloat16)
+            layer.append(r)
+            log("kernel_time", kernel="group_quant",
+                leaf="per-column" if g != group else "awq layer", **r)
+            del w
+    row = dict(
+        ms=sum(r["ms"] * r["per_pass"] for r in per_shape),
+        device_ms=sum(r["device_ms"] * r["per_pass"] for r in per_shape),
+        plain_ms=sum(r["plain_ms"] * r["per_pass"] for r in per_shape),
+        bound_ms=sum(r["bound_ms"] * r["per_pass"] for r in per_shape),
+        bound_by="bytes" if all(r["bound_by"] == "bytes" for r in per_shape)
+        else "operations",
+        per="one RTN pass of opt-1.3b: 6 launches, one per stacked leaf",
+        shapes=per_shape, layer_shapes=layer, dtype="float32",
+        max_abs_err=err_max)
+    row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+    return err_max, row
+
+
 def phase_kernels(torch, ops, ref, gq, tq, cfg):
     """Kernel vs plain version at every listed shape/dtype/bits/group;
     returns the per-kernel timing rows at the main path's shapes."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
-    errs = {"group_quant": 0.0, "transform_quant": 0.0}
-    main_shapes = main_path_gq_shapes(cfg)
-    gq_cases = [((2048, 2048), torch.float32), ((2048, 2048), torch.bfloat16)]
-    gq_cases += [(shape, torch.float32) for _, shape, _ in main_shapes]
-    for shape, dt in gq_cases:
-        w = (torch.randn(shape, generator=gen, device=dev) * 2.5).to(dt)
-        for bits in BITS:
-            for group in GROUPS:
-                err = exact(torch, ops.group_quant(w, bits=bits, group=group),
-                            ref.group_quant_ref(w, bits, group),
-                            f"group_quant {shape} {dt} b{bits} g{group}")
-                errs["group_quant"] = max(errs["group_quant"], err)
-                log("kernel_check", kernel="group_quant", shape=list(shape),
-                    dtype=str(dt), bits=bits, group=group, max_abs_err=err)
+    errs = {"transform_quant": 0.0}
+    rows = {}
+    errs["group_quant"], rows["group_quant"] = phase_group_quant(
+        torch, ops, ref, gq, cfg)
     D, F = 2048, 8192
     pi = torch.randperm(F, generator=gen, device=dev)
     sv = 1.0 + 0.05 * torch.randn(F, generator=gen, device=dev)
@@ -607,50 +727,7 @@ def phase_kernels(torch, ops, ref, gq, tq, cfg):
             del w
         torch.cuda.empty_cache()
 
-    # timing at the main path's shapes (bits 2, group 32): raw launches into
-    # preallocated outputs for the kernel, the plain version for plain_ms
     bits, group = 2, 32
-    rows = {}
-    per_shape = []
-    for leaf, (K, N), n in main_shapes:
-        w = torch.randn((K, N), generator=gen, device=dev)
-        fq, s, z = torch.empty_like(w), *(
-            torch.empty((K // group, N), device=dev) for _ in range(2))
-        def run():
-            gq.launch(w, fq, s, z, bits=bits, group=group)
-        t = time_ms(torch, run)
-        dm = device_ms(torch, run, ("group_quant",))
-        p = time_ms(torch, lambda: ref.group_quant_ref(w, bits, group),
-                    reps=10)
-        b, by = bound_ms(2 * K * N * 4 + 2 * (K // group) * N * 4,
-                         GQ_OPS * K * N)
-        per_shape.append(dict(leaf=leaf, shape=[K, N], per_pass=n, ms=t,
-                              device_ms=dm, plain_ms=p, bound_ms=b,
-                              bound_by=by))
-        log("kernel_time", kernel="group_quant", leaf=leaf, shape=[K, N],
-            dtype="torch.float32", ms=t, device_ms=dm, plain_ms=p,
-            bound_ms=b)
-        del w, fq, s, z
-    rows["group_quant"] = dict(
-        ms=sum(r["ms"] * r["per_pass"] for r in per_shape),
-        device_ms=sum(r["device_ms"] * r["per_pass"] for r in per_shape),
-        plain_ms=sum(r["plain_ms"] * r["per_pass"] for r in per_shape),
-        bound_ms=sum(r["bound_ms"] * r["per_pass"] for r in per_shape),
-        bound_by="bytes" if all(r["bound_by"] == "bytes" for r in per_shape)
-        else "operations",
-        per="one RTN pass of opt-1.3b: 6 launches, one per stacked leaf",
-        shapes=per_shape, dtype="float32")
-    for shape, dt in gq_cases[:2]:
-        w = torch.randn(shape, generator=gen, device=dev).to(dt)
-        K, N = shape
-        fq, s, z = torch.empty_like(w), *(torch.empty((K // group, N), device=dev)
-                                           for _ in range(2))
-        t = time_ms(torch, lambda: gq.launch(w, fq, s, z, bits=bits, group=group))
-        p = time_ms(torch, lambda: ref.group_quant_ref(w, bits, group))
-        nb = 2 * K * N * w.element_size() + 2 * (K // group) * N * 4
-        b, _ = bound_ms(nb, GQ_OPS * K * N)
-        log("kernel_time", kernel="group_quant", shape=list(shape),
-            dtype=str(dt), ms=t, plain_ms=p, bound_ms=b)
     # transform_quant at opt-1.3b's shapes for each kind of pi: ms (CUDA
     # events, one call), device ms (the kernel alone, under the profiler),
     # bound and the share of it by device time; the kernels line carries
@@ -2807,6 +2884,10 @@ TRAIN = dict(batch=4, seq=512)       # 9a: 2,048 tokens a step
 TRAIN_STEPS = 10
 TIMED_STEPS = 3                      # 9a's timed steady steps (2 profiled)
 RESUME_STEPS = 3                     # 9b: 1 step, save, restore, 2 steps
+# 9b's depth (a cut): the train state of opt-1.3b's first 4 of 24 layers
+# (5.0 GB of params, m and v, against 17.0 GB at full depth, whose save,
+# wait and restore took 62.7-75.5 s on an H100 80GB HBM3 at 700 W)
+CKPT_LAYERS = 4
 ACCUM_TOL = dict(rtol=2e-3, atol=2e-4)   # tests/test_substrate.py's bar
 RESUME_RTOL = 1e-5
 SMALL_TRAIN_STEPS = 5
@@ -2855,7 +2936,7 @@ def phase_train(torch, cfg):
     seed at batch 4 × 512; then TIMED_STEPS steady steps of the same train
     step with device time by family over two of them under the profiler,
     the optimizer alone, and ``accum_steps=2`` against the full batch.
-    Returns (state, step_fn, tokens_at) for 9b."""
+    Returns (state, opt_cfg, tokens_at) for 9b."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -2969,22 +3050,41 @@ def phase_train(torch, cfg):
         steady_losses=[float(m["loss"]) for m in metrics],
         accum2_loss_diff=loss_diff, accum2_max_abs_param_diff=param_diff)
     metrics.clear()
-    return state[0], step_fn, tokens_at
+    return state[0], opt_cfg, tokens_at
 
 
-def phase_ckpt(torch, obs, state, step_fn, tokens_at):
-    """9b: the train state (params, m, v) through ``CheckpointManager``
-    (async, format 1) into build/smoke/ckpt/, deleted afterwards:
-    RESUME_STEPS uninterrupted steps, then from the same state 1 step, a
-    save, and ``run_resilient`` from step 1 with a failure injected at its
-    first step: it restores the save (every restored leaf must equal the
-    saved one) and runs the last 2 steps, whose losses must equal the
+def first_layers_state(state, n):
+    """A (params, opt_state) train state cut to its first ``n`` layers:
+    every leaf under a ``blocks`` key (of params, m and v) sliced to
+    ``[:n]`` and copied, the rest kept."""
+    def cut(tree, blocks=False):
+        if isinstance(tree, dict):
+            return {k: cut(v, blocks or k == "blocks")
+                    for k, v in tree.items()}
+        return tree[:n].clone() if blocks else tree
+    return tuple(cut(part) for part in state)
+
+
+def phase_ckpt(torch, obs, cfg, state, opt_cfg, tokens_at):
+    """9b: 9a's train state cut to its first CKPT_LAYERS layers (params,
+    m, v) through ``CheckpointManager`` (async, format 1) into
+    build/smoke/ckpt/, deleted afterwards: RESUME_STEPS uninterrupted
+    steps of the cut model's train step, then from the same state 1 step,
+    a save, and ``run_resilient`` from step 1 with a failure injected at
+    its first step: it restores the save (every restored leaf must equal
+    the saved one) and runs the last 2 steps, whose losses must equal the
     uninterrupted ones within RESUME_RTOL."""
     import resource
     import shutil
 
     from repro_torch.ckpt.checkpoint import CheckpointManager
     from repro_torch.dist.fault import run_resilient
+    from repro_torch.launch.steps import make_train_step
+
+    state = first_layers_state(state, CKPT_LAYERS)
+    torch.cuda.empty_cache()
+    step_fn = make_train_step(dataclasses.replace(cfg, n_layers=CKPT_LAYERS),
+                              opt_cfg)
 
     root = ROOT / "build" / "smoke"
     root.mkdir(parents=True, exist_ok=True)
@@ -3073,7 +3173,7 @@ def phase_ckpt(torch, obs, state, step_fn, tokens_at):
     if len(resumed) != RESUME_STEPS or max(diffs) > RESUME_RTOL:
         raise AssertionError(f"9b: resumed losses {resumed} vs "
                              f"uninterrupted {uninterrupted}")
-    log("ckpt", state_bytes=n_bytes,
+    log("ckpt", layers=CKPT_LAYERS, state_bytes=n_bytes,
         file_bytes=obs.counter("ckpt_bytes_written_total").value() - written,
         leaves=checked["leaves"], **{f"{k}_s": v for k, v in
                                       mgr.seconds.items()},
@@ -3162,14 +3262,17 @@ def phase_small_train(torch, devs=("cpu", "cuda"), arch="opt-tiny",
 ZOO_ARCH = "qwen3-4b"
 ZOO_ARCHS = ("qwen3-4b", "yi-6b", "internlm2-1.8b", "command-r-35b")
 # phase 10's fp32 run (the configs' own dtype is bf16, which phase 14 runs
-# at full depth): 12 of Qwen3-4B's 36 layers, to pay for phase 14
+# at full depth): 4 of Qwen3-4B's 36 layers (a cut: at 12 layers 10a took
+# 16.1 s and 10b-c 42.4 s on an H100 80GB HBM3 at 700 W)
 ZOO_DTYPE = dict(param_dtype="float32", compute_dtype="float32")
-ZOO_FP32_LAYERS = 12
+ZOO_FP32_LAYERS = 4
 ZOO_METHODS = ("rtn", "awq")     # each alone, then + STEPS fused steps
 ZOO_SERVE = (("off", False, 1), ("on", True, 1), ("on-mp2", True, 2))
-# 10b profiles the first request of each tenant (a third of the trace's
-# profiler events); 10c takes no profile (6c's covers the same kernels)
-ZOO_PROFILE_REQUESTS = 8
+# 5c, 10b and 14d profile the first request of 4 of the 8 tenants (a cut:
+# the profiler's events cost ≈ 0.2 ms each to read, and 8 requests took
+# 31.6-43.4 s in 5c alone on an H100 80GB HBM3 at 700 W); 10c takes no
+# profile (6c's covers the same kernels)
+ZOO_PROFILE_REQUESTS = 4
 SMALL_ZOO_STEPS = 4
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)      # tests/test_torch_model.py
 DECODE_TOL = dict(rtol=1e-4, atol=1e-4)   # tests/test_torch_legacy_serve.py
@@ -3498,7 +3601,7 @@ MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b")
 # experts of every layer at each decode step, ≈ 35 s of the script at 3)
 MOE_LAYERS = 3
 MOE_SERVE = (("off", False, 1), ("on", True, 1), ("on-mp2", True, 2))
-MOE_PROFILE_REQUESTS = 8
+MOE_PROFILE_REQUESTS = 4     # a cut (8 requests took 12.3-14.3 s)
 # 11d runs Moonlight at its own fine-grained routing (reduced() keeps the
 # reference's E 4 / top-2)
 MOON_MOE = dict(num_experts=64, top_k=6)
@@ -3721,6 +3824,10 @@ SSM_ARCHS = (SSM_ARCH, HYBRID_ARCH)
 # comparison; the full 81 blocks with the search's three Mamba stacks of
 # 21 GB each in fp32 would not fit one card)
 HYBRID_LAYERS = 13
+# 12a-12b's cut: 32 of Mamba2-2.7B's 64 blocks for the search, its server
+# and its accept comparison (12b took 47.3-59.0 s at 64 on an H100 80GB
+# HBM3 at 700 W); group_quant is checked at the full-depth stacks first
+MAMBA_LAYERS = 32
 SSM_SERVE_REQUESTS = 8        # 12b / 12c: one batch of the trace's first 8
 MAMBA_KEYS = ("w_z", "w_x", "out_proj")
 SCAN_RANGE, DEQUANT_RANGE = "ssm.scan", "model.dequant"
@@ -3910,7 +4017,9 @@ def phase_ssm_main(torch, ops, cfg, qcfg):
     n_m, n_a, di, H, N, _ = ssm_dims(cfg)
     hybrid = cfg.block_pattern == "hybrid"
     elem = torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
-    cuts = [f"depth: {cfg.n_layers} of 81 blocks"] if hybrid else []
+    full = 81 if hybrid else 64
+    cuts = [f"depth: {cfg.n_layers} of {full} blocks"] \
+        if cfg.n_layers < full else []
     log("ssm_setup", arch=cfg.name, n_layers=cfg.n_layers,
         mamba_blocks=n_m, shared_applications=n_a, d_model=cfg.d_model,
         d_inner=di, ssd_heads=H, d_state=N, chunk=cfg.ssm.chunk,
@@ -4337,9 +4446,10 @@ def phase_small_ssm(torch, ops, arch, devs=("cpu", "cuda")):
 
 
 def phase_ssm(torch, ops, ref, get_config, qcfg):
-    """Phase 12 (12a-12d) in the configs' own bf16: 12a Mamba2-2.7B RTN ±
-    STEPS steps after ``group_quant`` at its shapes, 12b its
-    BatchedServer; 12c Zamba2-7B (HYBRID_LAYERS blocks) after
+    """Phase 12 (12a-12d) in the configs' own bf16: 12a Mamba2-2.7B
+    (MAMBA_LAYERS of its 64 blocks) RTN ± STEPS steps after ``group_quant``
+    at its full-depth shapes, 12b its BatchedServer; 12c Zamba2-7B
+    (HYBRID_LAYERS blocks) after
     ``group_quant`` at its shapes, ``transform_quant`` at the shared FFN
     and ``flash_decode`` at Dh 112 on a bf16 cache: the two-phase search
     and BatchedServer flag off / on; the bf16-vs-fp32 accept decisions of
@@ -4351,6 +4461,7 @@ def phase_ssm(torch, ops, ref, get_config, qcfg):
     gq_check = gq_shapes_check(torch, ops, ref, cfg, ssm_gq_shapes(cfg),
                                "w_z/w_x stack", 4322,
                                **own_dtype_kw(torch, cfg))
+    cfg = dataclasses.replace(cfg, n_layers=MAMBA_LAYERS)
     params_q, pack_s, mamba = phase_ssm_main(torch, ops, cfg, qcfg)
     t1 = time.perf_counter()
     phase_ssm_serving(torch, ops, cfg, params_q)
@@ -4400,6 +4511,10 @@ ENCDEC_SERVE = dict(batch=8, steps=16)  # 13b / 13c: B 8, 16 greedy tokens
 # 22.6-24.6 s: the profiler's events cost ≈ 0.2 ms each to read; 1 since
 # phase 15)
 VLM_PROFILE_REQUESTS = 1
+# 13c's cut: 12 of InternVL2-1B's 24 layers for its search, its servers
+# and its accept comparison (13c took 57.5-75.9 s at 24 on an H100 80GB
+# HBM3 at 700 W); group_quant is checked at the full-depth stacks first
+VLM_LAYERS = 12
 TRAIN13 = dict(batch=2, seq=512, frames=512, steps=4)    # 13d
 
 
@@ -4776,12 +4891,12 @@ def phase_encdec_serving(torch, ops, cfg, params_q):
 
 
 def phase_vlm(torch, ops, ref, cfg, qcfg, pd_rows):
-    """13c: InternVL2 at full width and depth in its own dtype (bf16; 14/2
-    heads: GQA rep 7; qkv biases; tied embeddings). RTN and AWQ, each alone
-    and with STEPS
-    fused steps, on text (``phase_zoo_main``); the packed model through the
-    steps with 8 x 256 stub patches (``frontend_serving``: decode from
-    P+S, flash_decode at rep 7), PagedServer over the trace with sharing
+    """13c: InternVL2 at full width, VLM_LAYERS of its 24 layers, in its own
+    dtype (bf16; 14/2 heads: GQA rep 7; qkv biases; tied embeddings). RTN
+    and AWQ, each alone and with STEPS fused steps, on text
+    (``phase_zoo_main``); the packed model through the steps with 8 x 256
+    stub patches (``frontend_serving``: decode from P+S, flash_decode at
+    rep 7), PagedServer over the trace with sharing
     off, on and MP 2 (``phase_serving``, profiled over
     VLM_PROFILE_REQUESTS requests), and BatchedServer flag off / on
     (``phase_legacy_serving``); the rep-7 kernels (``attn_kernels_at``: f32,
@@ -4978,11 +5093,12 @@ def phase_encdec(torch, ops, ref, get_config, qcfg, pd_rows):
     del params_q
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
-    vlm = phase_vlm(torch, ops, ref, vcfg, qcfg, pd_rows)
+    vcut = dataclasses.replace(vcfg, n_layers=VLM_LAYERS)
+    vlm = phase_vlm(torch, ops, ref, vcut, qcfg, pd_rows)
     t3 = time.perf_counter()
     differing = {cfg.name: family_accepts(
         torch, ops, cfg, qcfg, kw=frontend_kw(torch, cfg, 4, seed=1)),
-        vcfg.name: family_accepts(torch, ops, vcfg, qcfg)}
+        vcfg.name: family_accepts(torch, ops, vcut, qcfg)}
     t4 = time.perf_counter()
     for c in (cfg, vcfg):
         phase_encdec_train(torch, c)
@@ -5837,7 +5953,7 @@ BF16_ARCH = "qwen3-4b"
 # 14d serves the first 6 of the 36 layers 14b packed (a cut since phase 15:
 # at full depth the five serving runs, their oracles and the profiled run
 # took 112 s of the script, 36.6 s at 12 layers; cut from 12 to 6 to pay
-# for phase 16; 10b-c serve 12 layers in fp32)
+# for phase 16; 10b-c serve ZOO_FP32_LAYERS layers in fp32)
 BF16_SERVE_LAYERS = 6
 
 
@@ -6303,6 +6419,10 @@ MM_REPS = 20                  # 16a: median of this many
 COPY_BYTES = 4 << 30          # 16a: one device-to-device copy of 4 GiB
 REMAT_POLICIES = ("off", "full", "dots_all")
 REMAT_TIMED = 3               # 16b: timed steps a policy
+# 16b's depth (a cut): 12 of opt-1.3b's 24 layers (three policies, each
+# traced on fake tensors and run: phase 16 took 26.1-33.1 s at 24 on an
+# H100 80GB HBM3 at 700 W)
+REMAT_LAYERS = 12
 PEAK_BAND = (0.9, 1.1)        # 16b: fake trace's peak over the card's
 # 16c: shapes the checker refuses (as its fixture does) beside the zoo's
 LAUNCH_PROBES = (
@@ -6561,10 +6681,12 @@ def phase_launch_budget(torch, ops, ref, rows, device="cuda"):
 
 
 def phase_tooling(torch, ops, ref, cfg):
-    """16: 16a, 16b on ``cfg`` at phase 9a's TRAIN shape, 16c."""
+    """16: 16a, 16b on ``cfg`` cut to REMAT_LAYERS layers at phase 9a's
+    TRAIN shape, 16c."""
     t0 = time.perf_counter()
     achieved = phase_achieved(torch)
-    remat = remat_runs(torch, cfg, TRAIN["batch"], TRAIN["seq"])
+    remat = remat_runs(torch, dataclasses.replace(cfg, n_layers=REMAT_LAYERS),
+                       TRAIN["batch"], TRAIN["seq"])
     rows = launch_rows()
     budget = phase_launch_budget(torch, ops, ref, rows)
     log("phase16", seconds=time.perf_counter() - t0)
@@ -6798,7 +6920,7 @@ def main() -> int:
     from repro_torch import obs
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    phase_ckpt(torch, obs, *phase_train(torch, cfg))
+    phase_ckpt(torch, obs, cfg, *phase_train(torch, cfg))
     torch.cuda.empty_cache()
     table1_launches = phase_table1(torch, ops)
     phase_small_train(torch)
@@ -6884,8 +7006,8 @@ def main() -> int:
                 "launches": zoo_launches[name],
                 "launches_on": "phase 10a: quantize_model rtn / awq, alone "
                                "and with 16 fused steps, on Qwen3-4B (fp32, "
-                               "full width, 12 of 36 layers), each counted "
-                               "from 0"},
+                               f"full width, {ZOO_FP32_LAYERS} of 36 layers), "
+                               "each counted from 0"},
             "bf16": {
                 "launches": bf16["main"][name],
                 "launches_on": "phase 14b: quantize_model rtn / awq, alone "
@@ -6909,9 +7031,10 @@ def main() -> int:
                                "and with 16 steps (the fused flag asked "
                                "for: the Mamba phase runs unfused, the "
                                "hybrid's shared-FFN phase fused), on "
-                               "Mamba2-2.7B (its own bf16, full width and "
-                               "depth) and Zamba2-7B (bf16, full width, 13 "
-                               "blocks), each counted from 0",
+                               "Mamba2-2.7B (its own bf16, full width, "
+                               f"{MAMBA_LAYERS} of 64 blocks) and Zamba2-7B "
+                               "(bf16, full width, 13 blocks), each counted "
+                               "from 0",
                 **({"max_abs_err": ssm["gq_check"][0],
                     "mamba_stack_time": ssm["gq_check"][1]}
                    if name == "group_quant" else {"kernel": ssm["tq"]})},
@@ -6923,8 +7046,9 @@ def main() -> int:
                                "(its own bf16, full width and depth, 4 x "
                                "4096 stub frames through forward_kwargs), "
                                "rtn / awq alone and with 16 fused steps on "
-                               "InternVL2-1B (bf16, full width and depth, "
-                               "text), each counted from 0",
+                               "InternVL2-1B (bf16, full width, "
+                               f"{VLM_LAYERS} of 24 layers, text), each "
+                               "counted from 0",
                 **({"max_abs_err": encdec["gq_check"][0],
                     "largest_stack_time": encdec["gq_check"][1]}
                    if name == "group_quant" else
@@ -6953,7 +7077,8 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": None,
             "library_note": "no PyTorch call computes group fake-quant with "
                             "these closed-form scale/zero",
-            **{k: row[k] for k in ("device_ms", "per", "shapes", "plans",
+            **{k: row[k] for k in ("device_ms", "share_of_bound", "per",
+                                   "shapes", "layer_shapes", "plans",
                                    "per_pi", "dtype") if k in row}})
     for route in PD_ROUTES:
         main_row, long_row = pd_rows[route]["decode"], pd_rows[route]["long"]
@@ -6972,7 +7097,7 @@ def main() -> int:
                {"launches": zoo_paged["on" if route == "paged_decode_gqa"
                                       else "on-mp2"][route],
                 "launches_on": "phase 10b: PagedServer on 2-bit Qwen3-4B "
-                               "(fp32, 12 layers), sharing on"
+                               f"(fp32, {ZOO_FP32_LAYERS} layers), sharing on"
                                + (", 2 pages per block" if
                                   route.endswith("_mp") else ""),
                 "bf16": {
@@ -7046,8 +7171,8 @@ def main() -> int:
         "launches": fd_launches,
         "launches_on": "opt-1.3b BatchedServer, use_flash_decode on",
         "zoo": {"launches": zoo_flash,
-                "launches_on": "phase 10c: Qwen3-4B (fp32, 12 layers) "
-                               "BatchedServer, use_flash_decode on"},
+                "launches_on": f"phase 10c: Qwen3-4B (fp32, {ZOO_FP32_LAYERS} "
+                               "layers) BatchedServer, use_flash_decode on"},
         "bf16": {"launches": bf16["flash"],
                  "launches_on": "phase 14d: Qwen3-4B (bf16 cache, 6 of "
                                 "36 layers) BatchedServer, use_flash_decode "

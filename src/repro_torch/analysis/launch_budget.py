@@ -14,8 +14,10 @@ in the middle of a search:
   parameter dtype — the (arch, proj, K, N, mode) set of the reference's
   ``pallas-budget`` checker (:func:`zoo_units`);
 - ``group_quant`` (``kernels/ops.py::_check_quant_args``: K a multiple of
-  the group, N within ``_MAX_GRID_Y`` columns): every quantizable leaf of
-  the config, as ``fake_quant`` flattens it, (L·K, N);
+  the group, N within ``_MAX_GRID_Y`` columns; then
+  ``kernels/group_quant.py::plan`` at f32 and bf16, which refuses the same
+  shapes): every quantizable leaf of the config, as ``fake_quant``
+  flattens it, (L·K, N);
 - the decode kernels (``kernels/ops.py::_check_head_dim``): the head dim a
   multiple of 4, for every config with attention (:func:`zoo_kernels`).
 
@@ -75,8 +77,17 @@ def _tq_check(K: int, N: int, group: int, mode: str, dtype: str):
 
 
 def _gq_check(K: int, N: int, group: int):
+    """Replay ``ops.group_quant``'s argument checks and the planner."""
+    import torch
+
     from repro_torch.kernels import ops
-    return _refusal(lambda: ops._check_quant_args(K, N, _BITS, group))
+    gq = importlib.import_module("repro_torch.kernels.group_quant")
+
+    def run():
+        ops._check_quant_args(K, N, _BITS, group)
+        for dtype in (torch.float32, torch.bfloat16):
+            gq.plan(K, N, group, dtype)
+    return _refusal(run)
 
 
 def _decode_check(head_dim: int):
@@ -89,7 +100,8 @@ def _refusing_files() -> set:
     from repro_torch.core import quant
     from repro_torch.kernels import ops
     tq = importlib.import_module("repro_torch.kernels.transform_quant")
-    return {pathlib.Path(m.__file__).resolve() for m in (ops, tq, quant)}
+    gq = importlib.import_module("repro_torch.kernels.group_quant")
+    return {pathlib.Path(m.__file__).resolve() for m in (ops, tq, gq, quant)}
 
 
 def _archs() -> List[str]:

@@ -35,7 +35,9 @@ LAUNCHES = {"group_quant": 0, "transform_quant": 0, "paged_decode": 0,
             "paged_decode_gqa": 0, "paged_decode_gqa_mp": 0,
             "flash_decode": 0, "quant_matmul": 0}
 
-_MAX_GRID_Y = 65535 * 256   # columns: gridDim.y blocks of 256 threads
+# columns: the first group_quant kernel's limit (gridDim.y blocks of 256
+# threads), kept as the wrappers' check; the kernels walk 1-D grids
+_MAX_GRID_Y = 65535 * 256
 
 
 def reset_launch_counts() -> None:

@@ -1079,7 +1079,7 @@ def test_qwen3_4b_bf16_reckoning():
         + 2 * 2880 * 9728 * 4
     assert CS.zoo_config(get_config).n_layers == 36
     assert CS.zoo_config(get_config, n_layers=CS.ZOO_FP32_LAYERS).n_layers \
-        == 12
+        == 4
 
 
 def test_qwen3_4b_bf16_launch_formulas():
@@ -1682,3 +1682,65 @@ def test_phase_launch_budget_checks_and_refuses_on_the_cpu():
     bad = dict(rows[0], reason="refused")
     with pytest.raises(AssertionError, match="launched it"):
         CS.phase_launch_budget(torch, ops, ref, [bad], device="cpu")
+
+
+def test_gq_check_cases_cover_every_body_and_width():
+    """Phase 1's group_quant checks: the main path's stacks (f32), AWQ's
+    per-layer matrices, a per-column group, the 1-D path and a ragged N
+    (f32 and bf16), each at every group of GROUPS where it has one; across
+    them the kernel's plans reach every body, a narrowed vector and a
+    halved hold."""
+    import importlib as il
+    from repro_torch.configs import get_config
+    gq = il.import_module("repro_torch.kernels.group_quant")
+    main = CS.main_path_gq_shapes(get_config("opt-1.3b"))
+    cases = CS.gq_check_cases(main)
+    assert [c[:2] for c in cases[:3]] == [(leaf, s) for leaf, s, _ in main]
+    both = ("float32", "bfloat16")
+    got = {(label, shape): (dtypes, groups)
+           for label, shape, dtypes, groups in cases}
+    for shape in CS.GQ_LAYER:
+        assert got[("awq layer", shape)] == (both, CS.GROUPS)
+    assert got[("per-column", (2048, 2048))] == (both, (2048,))
+    assert got[("vector", (2048, 1))] == (both, CS.GROUPS + (2048,))
+    assert got[("ragged", (2048, 4868))] == (both, CS.GROUPS)
+    assert 4868 % 8 and (2048, 2048) in CS.GQ_LAYER
+    plans = [gq.plan(*shape, g, getattr(torch, dt))
+             for _, shape, dtypes, groups in cases
+             for dt in dtypes for g in groups]
+    assert {p.body for p in plans} == set(gq.BODIES)
+    assert any(p.vec == 4 and p.body == "general" for p in plans)  # bf16
+    assert {p.passes for p in plans} == {1, 2}
+    assert any(p.hold < gq.hold_rows(4) and p.body == "fixed"
+               for p in plans)
+
+
+def test_first_layers_state_cuts_params_m_and_v():
+    """9b's cut: every leaf under ``blocks`` of params, m and v sliced to
+    the first n layers and copied, the step and the other leaves kept; the
+    cut state takes the cut model's train step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_leaves
+
+    cfg = get_config("opt-tiny").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    state = (params, adamw_init(params))
+    p, o = CS.first_layers_state(state, 1)
+    assert p["blocks"].keys() == params["blocks"].keys()
+    for got, full in zip(tree_leaves(p["blocks"]),
+                         tree_leaves(params["blocks"])):
+        assert got.shape[0] == 1 and torch.equal(got, full[:1])
+        assert got.data_ptr() != full.data_ptr()
+    assert p["lm_head"] is params["lm_head"] and o["step"] is state[1]["step"]
+    for k in ("m", "v"):
+        assert [x.shape[0] for x in tree_leaves(o[k]["blocks"])] == \
+            [1] * len(tree_leaves(o[k]["blocks"]))
+    step = make_train_step(dataclasses.replace(cfg, n_layers=1),
+                           AdamWConfig())
+    toks = torch.randint(0, cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(1))
+    _, _, m = step(p, o, {"tokens": toks})
+    assert np.isfinite(float(m["loss"]))

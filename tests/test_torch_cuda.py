@@ -58,6 +58,50 @@ def test_group_quant_cuda_round_range_matches_plain(dtype, bits, group):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+# (K, N, group) for the kernel's other bodies, widths and plans
+GQ_EDGE_CUDA = [
+    (512, 384, 512), (4096, 64, 4096),         # per-column: held (bf16
+    (8192, 16, 8192),                          # read twice), read twice
+    (512, 1, 32), (512, 1, 512), (24, 1, 3),   # the 1-D path, N = 1
+    (512, 100, 32), (256, 37, 64), (64, 6, 32),   # N not a multiple of 8
+    (192, 256, 96), (64, 40, 8), (2048, 2048, 64),  # other groups
+    (896, 4864, 32),     # between one and two waves: the halved hold
+]
+
+
+@pytest.mark.parametrize("round_range", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N,group", GQ_EDGE_CUDA)
+def test_group_quant_cuda_edges_match_plain(K, N, group, dtype, round_range):
+    """The kernel plans as ``kernels/group_quant.py::plan`` does and equals
+    the plain version at every body (fixed, general, vector), vector width
+    and hold."""
+    dev = needs_cuda()
+    gq = importlib.import_module("repro_torch.kernels.group_quant")
+    assert gq.kernel_plan(K, N, group, dtype) == gq.plan(K, N, group, dtype)
+    w = (torch.randn((K, N), generator=torch.Generator().manual_seed(K + N))
+         * 2.5).to(dev, dtype)
+    for bits in (2, 3, 8):
+        got = tk.group_quant(w, bits=bits, group=group,
+                             round_range=round_range)
+        for g, want in zip(got, tref.group_quant_ref(
+                w, bits, group, round_range=round_range)):
+            torch.testing.assert_close(g, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_quant_cuda_misaligned_view_matches_plain(dtype):
+    """A contiguous view that starts off a 16-byte boundary: the kernel
+    narrows its accesses."""
+    dev = needs_cuda()
+    base = (torch.randn(256 * 512 + 1, generator=torch.Generator()
+                        .manual_seed(3)) * 2.5).to(dev, dtype)
+    w = base[1:].view(256, 512)
+    for got, want in zip(tk.group_quant(w, bits=2, group=32),
+                         tref.group_quant_ref(w, 2, 32)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def _pi(kind, f, seed):
     """A gather index of width f: identity, a partial shuffle (an eighth of
     the positions permuted among themselves), a random permutation, or

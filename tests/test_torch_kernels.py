@@ -24,6 +24,11 @@ SHAPES_GQ = [(128, 128), (256, 256), (512, 128), (384, 256)]
 GQ_CASES = [(bits, group, K, N)
             for bits, group in [(2, 32), (2, 128), (4, 64), (8, 64)]
             for K, N in SHAPES_GQ if K % group == 0]
+# the CUDA kernel's other bodies and widths: per-column groups (group = K),
+# the 1-D path's (K, 1), N not a multiple of 4 or 8 (the JAX wrapper takes
+# these through its jnp oracle)
+GQ_EDGE_CASES = [(2, 256, 256, 128), (3, 384, 384, 256), (2, 32, 256, 1),
+                 (4, 256, 256, 1), (2, 32, 128, 100), (3, 64, 192, 37)]
 TQ_CASES = [(mode, bits, group, D, F)
             for mode in ("up", "down") for bits in (2, 3, 4)
             for group in (16, 32) for D, F in [(64, 128), (128, 64), (96, 96)]]
@@ -46,7 +51,7 @@ def _jq_args(pi, s, phi):
     return jnp.asarray(pi.astype(np.int32)), jnp.asarray(s), jnp.asarray(phi)
 
 
-@pytest.mark.parametrize("bits,group,K,N", GQ_CASES)
+@pytest.mark.parametrize("bits,group,K,N", GQ_CASES + GQ_EDGE_CASES)
 def test_group_quant_plain_matches_jax(bits, group, K, N):
     rng = np.random.default_rng(K + N + bits)
     w = (rng.standard_normal((K, N)) * 2.5).astype(np.float32)
