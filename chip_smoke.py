@@ -22,12 +22,25 @@ source, started together, into ``build/kernels/``), then:
    CUDA events and (device ms) under ``torch.profiler`` beside its bound
    (``group_quant`` also at AWQ's per-layer shapes and the per-column one,
    f32 and bf16), ``transform_quant`` for an identity, a partially
-   shuffled and a random π; then the main path at a small size (opt-tiny)
-   on the card against the same path on the CPU, where the wrappers run
-   their plain versions;
+   shuffled and a random π; Table 3's settings, 1 and 2 bits at group 16
+   (``TABLE3``): ``group_quant`` at the stacked and AWQ's shapes (f32, and
+   bf16 with and without ``round_range``; the kernel's plan, the "general"
+   body, equal to ``gq.plan``'s), ``transform_quant`` up and down at every
+   zoo FFN shape (f32) and Qwen3-4B's (bf16) with an identity and a random
+   π, each bit for bit, then times beside the bounds (``group_quant`` at
+   the stacks, ``transform_quant`` at opt-1.3b's FFN); then the main path
+   at a small size (opt-tiny) on the card against the same path on the
+   CPU, where the wrappers run their plain versions;
 2. the main path: ``quantize_model`` RTN and RTN + 16 fused InvarExplore
    steps on random-init opt-1.3b at full width and depth, with held-out
    perplexity for fp32 / RTN / RTN+search and the kernels' launch counts;
+   (2b, after phase 3) the same at each of Table 3's pairs, with
+   ``bits_per_param``, launches held to ``table3_main_path_launches``, the
+   fused lane against the unfused one over 6 steps; the model packed at 1
+   bit / group 16 (32 codes a word), dequantised bit for bit to RTN's
+   weights and served greedily through ``PagedServer`` over the trace's
+   first 8 requests, held to the oracle; then opt-tiny card against CPU at
+   both pairs, and its 1-bit model served on both;
 3. fused lane vs unfused lane for 6 steps from the same seed;
 4. where one search step's time goes (candidate build vs forward, and the
    ``transform_quant`` kernels' device time in the fused build), and
@@ -60,7 +73,23 @@ source, started together, into ``build/kernels/``), then:
    decode step split into per-layer dequant, the paged-decode kernel, the
    other device work and device idle time; (d) the serving CLI's small configs
    (GQA 4/2, GQA with 2 pages per block, MHA) on the card and on the CPU:
-   identical greedy tokens and stats, all three routes launched;
+   identical greedy tokens and stats, all three routes launched; (e) the
+   trace with every other request sampled (temperature 0.8 / top-k 50 and
+   1.0 / unrestricted in turn, each with its own seed) through 5c's
+   ``PagedServer`` with sharing off, on, on again and on a starved pool
+   (18 pages: preemptions > 0): 0 leaked pages, paged-decode launches 24 x
+   decode steps, every sampled token the argmax of its perturbed scores
+   (logit / T + the Gumbel noise of its stream) and in its served row's
+   top-k, greedy rows held to the oracle, sharing off equal to on and the
+   starved pool to the roomy one (a parting only where both runs'
+   perturbed scores nearly tie), the rerun identical (it serves without
+   the hooks that record the sampled rows, so its tokens/s is the sampled
+   rate set beside 5c's greedy runs); the batch-wide sampled step
+   (``make_paged_decode_step(cfg, temperature=, top_k=)``) after admitting
+   8 prompts (its greedy form equal to the greedy step, the same keys
+   the same tokens, each in the step logits' top-50); both samplers on
+   CUDA generators against softmax(logits / T) by chi-square, and the
+   Gumbel noise of 64 streams finite at 50272 entries;
 6. contiguous-cache serving and the dequant-matmul: (a) ``flash_decode`` vs
    its plain version at rtol = atol = 2e-4, the reference's bar
    (``tests/test_kernels.py``), at opt-1.3b's head layout, a full-width GQA
@@ -81,7 +110,9 @@ source, started together, into ``build/kernels/``), then:
    and MHA 4/4, compute and int8 KV, flag on) on the card and on the CPU:
    identical greedy tokens; (e) ``quant_matmul`` vs its plain version at
    5e-4 (the reference's bar) at kernel_bench's three shapes, opt-1.3b's
-   projections at M 8 and a 3-bit case with K padding, x in f32 and bf16,
+   projections at M 8 (2 bits / group 32; 1 bit / group 16 at all three,
+   2 bits / group 16 at up and down) and a 3-bit case with K padding, x in
+   f32 and bf16,
    with times (one call, and the kernels' device time under the profiler)
    beside the bound, the plain version and ``torch.matmul`` on the
    dequantised weights, then the public op once per case;
@@ -325,7 +356,14 @@ source, started together, into ``build/kernels/``), then:
    shape the launch-budget checker (``repro_torch.analysis``) passes —
    each zoo arch's up (gate is the same shape) and down, f32 and its own
    dtype — through ``ops.transform_quant`` equal to its plain version, and
-   every shape it refuses raising ``ValueError`` in the wrapper.
+   every shape it refuses raising ``ValueError`` in the wrapper;
+17. the reference's examples as the port's entry points
+   (``repro_torch.examples``): quickstart, serve_quantized and
+   multiarch_smoke at their defaults, train_then_quantize at 100 training
+   and 50 search steps, on the card, their last lines logged and held
+   (``check_example``): the search ends no higher than it started, every
+   request gets its tokens, the loss falls and the ppls are finite, every
+   architecture is OK.
 
 Prints the ``nvidia-smi`` name/power-limit line, a ``{"kernels": [...]}``
 line (all seven ported kernels), and last ``{"ok": true, "device":
@@ -359,6 +397,9 @@ TQ_OPS = 13
 
 BITS = (2, 3, 4)
 GROUPS = (32, 128)
+# Table 3's (bits, group) settings that no other phase runs: 1 and 2 bits
+# at group 16 (group_quant then takes its "general" body, G at run time)
+TABLE3 = ((1, 16), (2, 16))
 # every distinct dense FFN shape (d_model, d_ff) of the config zoo: opt-1.3b
 # and internlm2 share the first
 ZOO_FFN = ((2048, 8192), (896, 4864), (2560, 9728), (4096, 6400),
@@ -767,9 +808,173 @@ def phase_kernels(torch, ops, ref, gq, tq, cfg):
         plans={mode: tq.plan(*w.shape, group, mode)._asdict()
                for mode, w in w_tq.items()},
         per_pi=per_pi, dtype="float32")
+    t3_errs, t3_rows = phase_table3_kernels(torch, ops, ref, gq, tq, cfg)
     for name in rows:
-        rows[name]["max_abs_err"] = errs[name]
+        rows[name]["max_abs_err"] = max(errs[name], t3_errs[name])
+        rows[name]["table3"] = t3_rows[name]
     return rows
+
+
+def table3_gq_cases(main_shapes):
+    """(label, (K, N), dtypes) of the Table 3 ``group_quant`` checks: the
+    main path's stacked leaves (f32) and AWQ's per-layer matrices (f32 and
+    bf16), each at every pair of TABLE3."""
+    cases = [(leaf, shape, ("float32",)) for leaf, shape, _ in main_shapes]
+    return cases + [("awq layer", shape, ("float32", "bfloat16"))
+                    for shape in GQ_LAYER]
+
+
+def table3_tq_cases():
+    """(mode, (d, f), dtype, pi kind) of the Table 3 ``transform_quant``
+    checks: up and down at every zoo FFN shape (opt-1.3b's first) in f32,
+    and at Qwen3-4B's in bf16, each with an identity and a random pi."""
+    cases = [(mode, shape, "float32", kind) for shape in ZOO_FFN
+             for mode in ("up", "down") for kind in ("identity", "random")]
+    return cases + [(mode, (2560, 9728), "bfloat16", kind)
+                    for mode in ("up", "down")
+                    for kind in ("identity", "random")]
+
+
+def phase_table3_kernels(torch, ops, ref, gq, tq, cfg):
+    """Table 3's pairs (TABLE3) on phase 1's kernels, each held bit for
+    bit to the plain version: ``group_quant`` at ``table3_gq_cases`` (bf16
+    with and without ``round_range``; the plan the kernel made equal to
+    ``gq.plan``'s, whose body must be "general"), ``transform_quant`` at
+    ``table3_tq_cases``; then times: ``group_quant`` at the stacked shapes
+    (f32) and ``transform_quant`` up and down at opt-1.3b's FFN (random
+    pi), each pair, beside the bound (scale and zero once per 16 rows).
+    Returns ({kernel: max abs err}, {kernel: the kernels line's row})."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(316)
+    errs = {"group_quant": 0.0, "transform_quant": 0.0}
+    main_shapes = main_path_gq_shapes(cfg)
+    for label, shape, dtypes in table3_gq_cases(main_shapes):
+        for dt in map(lambda d: getattr(torch, d), dtypes):
+            w = (torch.randn(shape, generator=gen, device=dev) * 2.5).to(dt)
+            for bits, group in TABLE3:
+                plan = gq.plan(*shape, group, dt)
+                kplan = gq.kernel_plan(*shape, group, dt)
+                if kplan != plan or plan.body != "general":
+                    raise AssertionError(
+                        f"group_quant {shape} {dt} g{group}: the kernel "
+                        f"plans {kplan}, gq.plan {plan} (body 'general' "
+                        f"expected)")
+                for rr in (False, True) if dt == torch.bfloat16 else (False,):
+                    err = exact(torch, ops.group_quant(
+                        w, bits=bits, group=group, round_range=rr),
+                        ref.group_quant_ref(w, bits, group, round_range=rr),
+                        f"group_quant {label} {shape} {dt} b{bits} g{group} "
+                        f"round_range {rr}")
+                    errs["group_quant"] = max(errs["group_quant"], err)
+                    log("kernel_check", kernel="group_quant", table3=True,
+                        case=label, shape=list(shape), dtype=str(dt),
+                        bits=bits, group=group, round_range=rr,
+                        plan=kplan._asdict(), plan_equals_gq_plan=True,
+                        max_abs_err=err)
+            del w
+    for mode, (d, f), dt, kind in table3_tq_cases():
+        w = torch.randn((d, f) if mode == "up" else (f, d), generator=gen,
+                        device=dev).to(getattr(torch, dt))
+        pi = make_pi(torch, kind, f, gen, dev)
+        sv = 1.0 + 0.05 * torch.randn(f, generator=gen, device=dev)
+        phi = 1e-2 * torch.randn(f // 2, generator=gen, device=dev)
+        for bits, group in TABLE3:
+            err = exact(torch, ops.transform_quant(
+                w, pi, sv, phi, bits=bits, group=group, mode=mode),
+                ref.transform_quant_ref(w, pi, sv, phi, bits=bits,
+                                        group=group, mode=mode),
+                f"transform_quant {mode} {tuple(w.shape)} {dt} pi {kind} "
+                f"b{bits} g{group}")
+            errs["transform_quant"] = max(errs["transform_quant"], err)
+            log("kernel_check", kernel="transform_quant", table3=True,
+                mode=mode, shape=list(w.shape), dtype=dt, pi=kind, bits=bits,
+                group=group, plan=tq.plan(*w.shape, group, mode)._asdict(),
+                max_abs_err=err)
+        del w
+    torch.cuda.empty_cache()
+
+    gq_rows = []
+    for leaf, (K, N), n in main_shapes:
+        w = torch.randn((K, N), generator=gen, device=dev)
+        for bits, group in TABLE3:
+            r = gq_time(torch, ref, gq, w, group, False, bits=bits)
+            gq_rows.append(dict(leaf=leaf, per_pass=n, bits=bits, **r))
+            log("kernel_time", kernel="group_quant", table3=True, leaf=leaf,
+                bits=bits, **r)
+        del w
+    D, F = ZOO_FFN[0]
+    tq_rows = []
+    for mode in ("up", "down"):
+        w = torch.randn((D, F) if mode == "up" else (F, D), generator=gen,
+                        device=dev)
+        K, N = w.shape
+        pi = make_pi(torch, "random", F, gen, dev)
+        sv = 1.0 + 0.05 * torch.randn(F, generator=gen, device=dev)
+        phi = 1e-2 * torch.randn(F // 2, generator=gen, device=dev)
+        cos, sin = torch.cos(phi), torch.sin(phi)
+        svec = sv if mode == "up" else 1.0 / sv
+        for bits, group in TABLE3:
+            plan = tq.plan(K, N, group, mode)
+            fq = torch.empty_like(w)
+            s, z = (torch.empty((K // group, N), device=dev)
+                    for _ in range(2))
+
+            def run():
+                tq.launch(w, pi, svec, cos, sin, fq, s, z, bits=bits,
+                          group=group, mode=mode, plan=plan)
+            t, spread = time_stats(torch, run)
+            dm = device_ms(torch, run, ("transform_quant",))
+            p = time_ms(torch, lambda: ref.transform_quant_ref(
+                w, pi, sv, phi, bits=bits, group=group, mode=mode))
+            b, by = bound_ms(tq_bytes(K, N, group, F), TQ_OPS * K * N)
+            r = dict(mode=mode, shape=[K, N], bits=bits, group=group,
+                     pi="random", plan=plan._asdict(), ms=t, ms_range=spread,
+                     device_ms=dm, plain_ms=p, bound_ms=b, bound_by=by,
+                     share_of_bound=b / dm)
+            tq_rows.append(r)
+            log("kernel_time", kernel="transform_quant", table3=True, **r)
+        del w
+    return errs, {
+        "group_quant": dict(
+            pairs=[list(p) for p in TABLE3], shapes=gq_rows,
+            per="each stacked leaf of opt-1.3b, f32, one launch",
+            rtn_pass_device_ms={f"b{b}g{g}": sum(
+                r["device_ms"] * r["per_pass"] for r in gq_rows
+                if r["bits"] == b) for b, g in TABLE3},
+            rtn_pass_bound_ms={f"b{b}g{g}": sum(
+                r["bound_ms"] * r["per_pass"] for r in gq_rows
+                if r["bits"] == b) for b, g in TABLE3}),
+        "transform_quant": dict(
+            pairs=[list(p) for p in TABLE3], shapes=tq_rows,
+            per="up (2048, 8192) and down (8192, 2048), f32, random pi")}
+
+
+def lanes_agree(ops, params, cfg, qcfg, calib, tag=""):
+    """RTN + LANE_STEPS search steps from one seed, fused lane and unfused
+    lane, held to each other (``histories_agree``); the unfused lane
+    launches no ``transform_quant`` and a ``group_quant`` a candidate.
+    Returns the log's fields."""
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.search import SearchConfig
+
+    lanes = {}
+    for fused in (True, False):
+        ops.reset_launch_counts()
+        r = quantize_model(params, cfg, qcfg, "rtn", calib,
+                           SearchConfig(steps=LANE_STEPS, fused_kernel=fused,
+                                        log_every=0), device="cuda")
+        lanes[fused] = (r.search.history, dict(ops.LAUNCHES))
+        del r
+    compared, parted = histories_agree(lanes[True][0], lanes[False][0],
+                                       f"{tag}fused vs unfused")
+    if lanes[False][1]["transform_quant"] != 0 or \
+            lanes[False][1]["group_quant"] < 2 * LANE_STEPS:
+        raise AssertionError(f"{tag}unfused lane launches {lanes[False][1]}")
+    return dict(steps=LANE_STEPS, compared=compared, parted_at=parted,
+                fused_losses=[h[1] for h in lanes[True][0]],
+                unfused_losses=[h[1] for h in lanes[False][0]],
+                fused_launches=lanes[True][1],
+                unfused_launches=lanes[False][1])
 
 
 def histories_agree(ha, hb, what, rtol=1e-5):
@@ -794,10 +999,11 @@ def histories_agree(ha, hb, what, rtol=1e-5):
     return compared, None
 
 
-def phase_small_reference(torch):
+def phase_small_reference(torch, bits=2, group=32):
     """The main path on the card against the same path on the CPU, where
     every kernel wrapper runs its plain version: opt-tiny, same weights,
-    same tokens, same proposals (drawn on the CPU, then moved)."""
+    same tokens, same proposals (drawn on the CPU, then moved), at
+    ``bits`` / ``group``."""
     from repro_torch.configs import get_config
     from repro_torch.core import invariance as inv
     from repro_torch.core import rtn
@@ -809,7 +1015,7 @@ def phase_small_reference(torch):
     from repro_torch.search import run
 
     cfg = get_config("opt-tiny").reduced(n_kv_heads=4)
-    qcfg = QuantConfig(bits=2, group_size=32)
+    qcfg = QuantConfig(bits=bits, group_size=group)
     cpu_params = init_params(cfg, torch.Generator().manual_seed(7),
                              device="cpu")
     cpu_calib = calibration_tensor(cfg.vocab_size, n_seqs=2, seq_len=64,
@@ -840,9 +1046,9 @@ def phase_small_reference(torch):
         rtn_err = max(rtn_err, float((card - cpu).abs().max()))
     compared, parted = histories_agree(runs["cuda"][1], runs["cpu"][1],
                                        "card vs CPU")
-    log("small_reference", arch="opt-tiny (reduced)", steps=LANE_STEPS,
-        rtn_max_abs_err=rtn_err, compared=compared, parted_at=parted,
-        card_losses=[h[1] for h in runs["cuda"][1]],
+    log("small_reference", arch="opt-tiny (reduced)", bits=bits, group=group,
+        steps=LANE_STEPS, rtn_max_abs_err=rtn_err, compared=compared,
+        parted_at=parted, card_losses=[h[1] for h in runs["cuda"][1]],
         cpu_losses=[h[1] for h in runs["cpu"][1]])
 
 
@@ -889,6 +1095,137 @@ def profile_search(torch, params, cfg, qcfg, calib):
                 device_busy_share=device_ms / wall_ms,
                 by_family_ms=dict(sorted(by_family.items(),
                                          key=lambda kv: -kv[1])))
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: Table 3's quantiser settings on the main path
+# ---------------------------------------------------------------------------
+
+TABLE3_SERVE_REQUESTS = 8     # 2b: the 1-bit model serves the trace's first 8
+
+
+def table3_main_path_launches(cfg, scfg):
+    """Kernel launches of 2b's pair of calls on a dense ``cfg``:
+    ``quantize_model`` RTN alone, then RTN with the fused search ``scfg``
+    (``base_method_gq_launches`` each; 2 ``transform_quant`` a candidate).
+    """
+    return {"group_quant": 2 * base_method_gq_launches("rtn", cfg),
+            "transform_quant": 2 * scfg.steps * scfg.population}
+
+
+def phase_table3(torch, ops, cfg, params, calib, ppl):
+    """2b: Table 3's pairs (TABLE3) on opt-1.3b at full width and depth:
+    RTN, then RTN + STEPS fused steps (final loss <= initial, held-out ppl,
+    launches held to ``table3_main_path_launches``, ``bits_per_param``),
+    the fused against the unfused lane over LANE_STEPS steps from one seed
+    (``histories_agree``, as phase 3); then the model packed at 1 bit /
+    group 16 (32 codes a word), its dequantised weights equal to the RTN
+    ones bit for bit, served greedily through ``PagedServer`` over the
+    trace's first TABLE3_SERVE_REQUESTS requests and held to the oracle
+    over those weights (``check_greedy``); then the same on opt-tiny, card
+    against CPU (``phase_small_reference`` and 1-bit serving). Returns {"b<bits>g<group>": main-path launches, "serving":
+    the paged-decode launches of the 1-bit run}."""
+    from repro_torch.core import rtn as rtn_mod
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.quant import QuantConfig, bits_per_param
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.launch.serve import PagedServer, Request
+    from repro_torch.models.model import forward, quantizable_paths
+    from repro_torch.quantized.qmodel import pack_model
+    from repro_torch.serving import build_trace
+
+    out = {}
+    rtn_1bit = None
+    for bits, group in TABLE3:
+        qcfg = QuantConfig(bits=bits, group_size=group)
+        tag = f"b{bits}g{group}"
+        scfg = SearchConfig(steps=STEPS, fused_kernel=True, log_every=0)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rtn = quantize_model(params, cfg, qcfg, "rtn", device="cuda")
+        res = quantize_model(params, cfg, qcfg, "rtn", calib, scfg,
+                             device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        sr = res.search
+        ppl_rtn, ppl_search = ppl(rtn.params_q), ppl(res.params_q)
+        want = table3_main_path_launches(cfg, scfg)
+        log("table3_main_path", bits=bits, group=group,
+            bits_per_param=bits_per_param(qcfg), ppl_rtn=ppl_rtn,
+            ppl_rtn_search=ppl_search, initial_loss=sr.initial_loss,
+            final_loss=sr.final_loss, accept_rate=sr.accept_rate,
+            proposals_per_sec=sr.stats["proposals_per_sec"], steps=STEPS,
+            wall_s=wall, launches=counts, launches_expected=want)
+        nums = [ppl_rtn, ppl_search, sr.initial_loss, sr.final_loss]
+        if not all(math.isfinite(x) for x in nums):
+            raise AssertionError(f"{tag}: non-finite numbers {nums}")
+        if not sr.final_loss <= sr.initial_loss:
+            raise AssertionError(f"{tag}: search final loss above its "
+                                 f"initial loss")
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"{tag}: launches {counts} != {want}")
+        out[tag] = counts
+        if (bits, group) == TABLE3[0]:
+            rtn_1bit = rtn.params_q
+        del rtn, res, sr
+
+        log("table3_lanes", bits=bits, group=group, **lanes_agree(
+            ops, params, cfg, qcfg, calib, f"{tag} "))
+    bits, group = TABLE3[0]
+    t0 = time.perf_counter()
+    params_q = pack_model(params, QuantConfig(bits=bits, group_size=group))
+    dense = oracle_weights(params_q, cfg)
+    for path in quantizable_paths(params):
+        got = rtn_mod.get_by_path(dense, path)
+        want = rtn_mod.get_by_path(rtn_1bit, path)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"b{bits}g{group} {path}: the packed weights dequantise off "
+                f"RTN's (max abs {float((got - want).abs().max())})")
+    del rtn_1bit
+    reqs = [Request(**t) for t in build_trace(cfg.vocab_size, **TRACE)
+            [:TABLE3_SERVE_REQUESTS]]
+    server = PagedServer(params_q, cfg, prefix_cache=True, device="cuda",
+                         **SERVE)
+    outs, wall, counts, st, route = serve_checked(
+        torch, ops, cfg, server, reqs, f"b{bits}g{group} serving")
+    ties = check_greedy(torch, forward, dense, cfg, reqs, outs,
+                        f"b{bits}g{group} served vs oracle")
+    tokens = sum(len(o) for o in outs)
+    log("table3_serving", arch=cfg.name, bits=bits, group=group,
+        words=list(params_q["blocks"]["mlp"]["up"].packed.shape),
+        dequant_equals_rtn=True, requests=len(reqs), tokens=tokens,
+        wall_s=wall, tokens_per_s=tokens / wall, stats=st, launches=counts,
+        near_ties=ties, seconds=time.perf_counter() - t0)
+    out["serving"] = counts[route]
+    del server, params_q, dense
+    for bits, group in TABLE3:
+        phase_small_reference(torch, bits, group)
+    phase_small_table3_serving(torch, ops)
+    return out
+
+
+def phase_small_table3_serving(torch, ops):
+    """opt-tiny reduced packed at 1 bit / group 16 through 5d's
+    ``PagedServer`` on the CPU and on the card: identical greedy tokens
+    and stats."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.quantized.qmodel import pack_model
+
+    bits, group = TABLE3[0]
+    cfg = get_config("opt-tiny").reduced(n_kv_heads=4)
+    params_q = pack_model(init_params(
+        cfg, torch.Generator().manual_seed(3), device="cpu"),
+        QuantConfig(bits=bits, group_size=group))
+    (want, want_st, _), (got, got_st, counts) = serve_on_devices(
+        torch, ops, cfg, params_q, 1, ("cpu", "cuda"))
+    if got != want or got_st != want_st:
+        raise AssertionError(f"b{bits}g{group} small serving: the card "
+                             f"differs from the CPU")
+    log("small_table3_serving", bits=bits, group=group, stats=got_st, launches=counts, tokens_identical=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1458,6 +1795,34 @@ def packed_opt(torch, cfg):
 SERVE_VARIANTS = (("off", False, 1), ("on", True, 1))   # 5c: label, sharing, MP
 
 
+def serve_checked(torch, ops, cfg, server, reqs, what, mp=1, serve=None):
+    """Serve ``reqs`` on ``server`` (a fresh PagedServer on the card with
+    ``mp`` pages per block) through ``serve(server, reqs)``
+    (``server.generate`` by default), the launch counts reset just before
+    and the wall time taken between synchronisations, and hold its
+    accounting: no page leaked, the paged-decode route of the model's heads
+    and ``mp`` launched n_layers x decode steps times and no other route.
+    Returns (what ``serve`` returned, wall seconds, launch counts, the
+    batcher's stats, the route)."""
+    route = ops.paged_decode_route(cfg.n_heads, cfg.n_kv_heads,
+                                   gqa_pages_per_block=mp)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = serve(server, reqs) if serve else server.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, st = dict(ops.LAUNCHES), dict(server.batcher.stats)
+    alloc = server.cache.allocator
+    if alloc.num_free != alloc.n_pages - alloc.reserved:
+        raise AssertionError(f"{what}: leaked pages")
+    if counts[route] != cfg.n_layers * st["steps"] or \
+            any(counts[r] for r in PD_ROUTES if r != route):
+        raise AssertionError(f"{what}: paged-decode launches {counts} != "
+                             f"{route} {cfg.n_layers} x {st['steps']} steps")
+    return got, wall, counts, st, route
+
+
 def phase_serving(torch, ops, kernel_rows, cfg, params_q, setup_s,
                   variants=SERVE_VARIANTS, tag="", profile_requests=None,
                   oracle=None):
@@ -1488,29 +1853,14 @@ def phase_serving(torch, ops, kernel_rows, cfg, params_q, setup_s,
     reg = obs.get_registry()
     runs = {}
     for label, sharing, mp in variants:
-        route = ops.paged_decode_route(cfg.n_heads, cfg.n_kv_heads,
-                                       gqa_pages_per_block=mp)
         server = PagedServer(params_q, cfg, prefix_cache=sharing,
                              gqa_pages_per_block=mp, device="cuda", **SERVE)
         reg.reset()
         torch.cuda.synchronize()
         live_before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        outs = server.generate(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = dict(ops.LAUNCHES)
-        st = dict(server.batcher.stats)
-        alloc = server.cache.allocator
-        if alloc.num_free != alloc.n_pages - alloc.reserved:
-            raise AssertionError(f"{label}: leaked pages")
-        if counts[route] != cfg.n_layers * st["steps"] or \
-                any(counts[r] for r in PD_ROUTES if r != route):
-            raise AssertionError(f"{label}: paged-decode launches {counts} != "
-                                 f"{route} {cfg.n_layers} x {st['steps']} "
-                                 f"steps")
+        outs, wall, counts, st, route = serve_checked(
+            torch, ops, cfg, server, reqs, label, mp)
         snap = reg.snapshot()
 
         def total(name):
@@ -1581,7 +1931,8 @@ def phase_serving(torch, ops, kernel_rows, cfg, params_q, setup_s,
         device_idle_ms=on["step_ms"] - dev_ms,
         device_busy_share=dev_ms / on["step_ms"],
         by_family_ms={k: v / n for k, v in dec["by_family_ms"].items()},
-        steps=n, kernel_5b_ms=kernel_rows[on["route"]]["decode"]["ms"])
+        steps=n, kernel_5b_ms=kernel_rows[on["route"]]["decode"]["ms"],
+        tokens_per_s={k: r["tokens"] / r["wall"] for k, r in runs.items()})
     log(tag + "serving_profile", **prof)
     for k, r in runs.items():
         log(tag + "serving", arch=cfg.name, run=k, prefix_cache=r["sharing"],
@@ -1657,6 +2008,345 @@ def phase_small_serving(torch, ops):
             pages_per_block=mp, stats=card[1], launches=counts,
             tokens_identical=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: sampled serving on the card
+# ---------------------------------------------------------------------------
+
+# every other request of 5c's trace is sampled, in turn at these
+# (temperature, top_k); the rest stay greedy
+SAMPLED = ((0.8, 50), (1.0, 0))
+# a sharing-on pool small enough that the trace preempts (the page counts
+# depend on the trace's lengths only: 6 preemptions in 25 steps)
+STARVED_PAGES = 18
+# (label, prefix sharing, pages): "on-again" runs without
+# ``serve_recording``'s hooks, so its rate is the one held against 5c's
+# greedy runs; its tokens are held to "on"'s
+SAMPLED_RUNS = (("off", False, SERVE["n_pages"]),
+                ("on", True, SERVE["n_pages"]),
+                ("on-again", True, SERVE["n_pages"]),
+                ("starved", True, STARVED_PAGES))
+UNRECORDED = "on-again"
+# tests/test_torch_sampling.py's chi-square cases, (temperature, top_k),
+# drawn here from CUDA generators
+CHI2_CASES = ((1.0, 0), (0.6, 0), (1.7, 5), (1.0, 3))
+CHI2_DRAWS, CHI2_V, CHI2_P = 6000, 12, 1e-3
+GUMBEL_STREAMS = 64           # streams whose noise must be finite at full V
+STEP_KEYS_SEED = 100          # 5e's batch-wide step: fixed keys
+
+
+def sampled_trace(Request, trace):
+    """Requests of ``trace`` (``build_trace``'s kwargs) with every other one
+    sampled at SAMPLED's settings in turn, each with its trace seed."""
+    reqs = []
+    for i, t in enumerate(trace):
+        kw = {}
+        if i % 2:
+            kw = dict(zip(("temperature", "top_k"), SAMPLED[(i // 2) % 2]))
+        reqs.append(Request(**t, **kw))
+    return reqs
+
+
+def perturbed_scores(torch, dec, row, req, j):
+    """The scores the sampled step draws request ``req``'s token ``j``
+    from, given the served logits ``row`` (V,): the top-k-restricted row
+    over its temperature plus the Gumbel noise of its (seed, j) stream, as
+    ``sample_logits_per_seq`` computes them; the token is their argmax."""
+    eff = dec.top_k_restrict(row[None].float(), [req.top_k])
+    t = torch.tensor([req.temperature], dtype=torch.float32,
+                     device=row.device)
+    noise = dec._gumbel([dec.request_key(req.seed, j, row.device)],
+                        row.shape[-1], row.device)
+    return (eff / t[:, None] + noise)[0]
+
+
+def sampled_parting_gap(sa, sb, a, b) -> float:
+    """Where two runs draw tokens ``a`` and ``b`` from perturbed scores
+    ``sa`` and ``sb``: the larger of each run's gap from its own token's
+    score to the other token's, relative to its own (the top-2 gap of the
+    two runs' scores when they part). A parting from rounding alone has
+    both gaps near 0."""
+    ga = (float(sa[a]) - float(sa[b])) / abs(float(sa[a]))
+    gb = (float(sb[b]) - float(sb[a])) / abs(float(sb[b]))
+    return max(ga, gb)
+
+
+def serve_recording(torch, dec, server, reqs):
+    """``server.generate(reqs)`` (a PagedServer) keeping the logits row
+    every sampled token was drawn from: (outs, {(request, token index): (V,)
+    f32 row}). The server runs its own steps; the decode step's
+    ``paged_decode_logits`` and the batcher's ``_first_token`` are only
+    observed (a copy of each sampled row), and restored after."""
+    b = server.batcher
+    index, rows = {}, {}
+    real_logits, real_first, real_run = (dec.paged_decode_logits,
+                                         b._first_token, b.run)
+
+    def run(paged):
+        index.update({id(p): i for i, p in enumerate(paged)})
+        return real_run(paged)
+
+    def first(req, row):
+        if req.temperature > 0.0:
+            rows[(index[id(req)], len(req.out))] = row.float().clone()
+        return real_first(req, row)
+
+    def logits_step(*a, **k):
+        logits, pools = real_logits(*a, **k)
+        for i, slot in enumerate(b.slots):
+            if slot is not None and slot.req.temperature > 0.0:
+                rows[(index[id(slot.req)], len(slot.req.out))] = \
+                    logits[i, -1].float().clone()
+        return logits, pools
+
+    b.run, b._first_token, dec.paged_decode_logits = run, first, logits_step
+    try:
+        outs = server.generate(reqs)
+    finally:
+        dec.paged_decode_logits = real_logits
+        del b.run, b._first_token
+    return outs, rows
+
+
+def check_reach(torch, dec, cfg, reqs, outs, rows, what):
+    """Every sampled token is the argmax of its perturbed scores over the
+    row it was served from, and lies in that row's top-k set (any real
+    vocabulary id for top_k 0). Returns the sampled tokens held."""
+    n = 0
+    for i, (r, out) in enumerate(zip(reqs, outs)):
+        if r.temperature <= 0.0:
+            continue
+        for j, tok in enumerate(out):
+            row = rows.get((i, j))
+            if row is None:
+                raise AssertionError(f"{what}: request {i} token {j} was "
+                                     f"served from no recorded row")
+            got = int(torch.argmax(perturbed_scores(torch, dec, row, r, j)))
+            if got != tok:
+                raise AssertionError(f"{what}: request {i} token {j} is "
+                                     f"{tok}, its scores' argmax {got}")
+            rank = int((row > row[tok]).sum())
+            if tok >= cfg.vocab_size or (r.top_k and rank >= r.top_k):
+                raise AssertionError(f"{what}: request {i} token {j} "
+                                     f"({tok}) ranks {rank}, top_k "
+                                     f"{r.top_k}")
+            n += 1
+    return n
+
+
+def compare_sampled(torch, dec, reqs, run_a, run_b, greedy_ties, bar, what):
+    """Two runs' streams equal, or each request parting first at a near
+    tie: a greedy one at a near tie of the oracle (``greedy_ties``, as
+    ``compare_runs``), a sampled one where ``sampled_parting_gap`` of the
+    two runs' perturbed scores is under ``bar``. Returns the partings as
+    (request, token, gap or None)."""
+    parts = []
+    for i, (r, a, b) in enumerate(zip(reqs, run_a["outs"], run_b["outs"])):
+        if a == b:
+            continue
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            raise AssertionError(f"{what}: request {i} lengths {len(a)} / "
+                                 f"{len(b)}")
+        if r.temperature <= 0.0:
+            if (i, j) not in greedy_ties:
+                raise AssertionError(f"{what}: greedy request {i} parts at "
+                                     f"token {j} without a near tie")
+            parts.append((i, j, None))
+            continue
+        gap = sampled_parting_gap(
+            perturbed_scores(torch, dec, run_a["rows"][(i, j)], r, j),
+            perturbed_scores(torch, dec, run_b["rows"][(i, j)], r, j),
+            a[j], b[j])
+        if not gap < bar:
+            raise AssertionError(f"{what}: sampled request {i} parts at "
+                                 f"token {j}, perturbed top-2 gap {gap:.3g}")
+        parts.append((i, j, gap))
+    return parts
+
+
+def phase_sampled_serving(torch, ops, cfg, params_q, greedy_tps):
+    """5e: 5c's packed opt-1.3b through ``PagedServer`` over the trace with
+    every other request sampled (``sampled_trace``): runs with sharing off,
+    on, on again and on a starved pool (SAMPLED_RUNS). Each run: 0 leaked
+    pages and paged-decode launches n_layers x steps (``serve_checked``),
+    the greedy rows held to the oracle (``check_greedy``); each recorded
+    run: every sampled token in its served row's top-k (``check_reach``).
+    Sharing off equals on and the starved pool (preemptions > 0) equals the
+    roomy one (``compare_sampled``), the unrecorded rerun equals the first
+    run exactly. Then ``phase_sampled_step`` and ``sampler_checks``.
+    ``greedy_tps``: 5c's greedy runs' tokens/s, logged beside. Returns the
+    paged-decode launches of the sharing-on run and of the batch-wide
+    step."""
+    from repro_torch.launch.serve import PagedServer, Request
+    from repro_torch.models.model import forward
+    from repro_torch.serving import build_trace
+    from repro_torch.serving import decode as dec
+
+    trace = build_trace(cfg.vocab_size, **TRACE)
+    runs = {}
+    for label, sharing, n_pages in SAMPLED_RUNS:
+        server = PagedServer(params_q, cfg, prefix_cache=sharing,
+                             device="cuda", **{**SERVE, "n_pages": n_pages})
+        reqs = sampled_trace(Request, trace)
+        record = label != UNRECORDED
+        got, wall, counts, st, route = serve_checked(
+            torch, ops, cfg, server, reqs, f"5e {label}", serve=(
+                lambda s, r: serve_recording(torch, dec, s, r))
+            if record else None)
+        outs, rows = got if record else (got, None)
+        held = check_reach(torch, dec, cfg, reqs, outs, rows,
+                           f"5e {label}") if record else None
+        runs[label] = dict(outs=outs, rows=rows, wall=wall, counts=counts,
+                           stats=st, n_pages=n_pages, sharing=sharing,
+                           sampled_held=held,
+                           tokens=sum(len(o) for o in outs))
+        del server
+    if runs["starved"]["stats"]["evictions"] <= 0:
+        raise AssertionError("5e: the starved pool never preempted")
+    if runs["on-again"]["outs"] != runs["on"]["outs"]:
+        raise AssertionError("5e: a rerun with sharing on changed tokens")
+    gidx = [i for i, r in enumerate(reqs) if r.temperature <= 0.0]
+    dense = oracle_weights(params_q, cfg)
+    ties = {}
+    for label, r in runs.items():
+        t = check_greedy(torch, forward, dense, cfg, [reqs[i] for i in gidx],
+                         [r["outs"][i] for i in gidx],
+                         f"5e {label} greedy rows vs oracle")
+        ties[label] = [(gidx[a], b, g) for a, b, g in t]
+    del dense
+    greedy_ties = {(i, j) for t in ties.values() for i, j, _ in t}
+    bar = near_tie(cfg)
+    parts = {f"{a} vs {b}": compare_sampled(
+        torch, dec, reqs, runs[a], runs[b], greedy_ties, bar,
+        f"5e {a} vs {b}") for a, b in (("off", "on"), ("on", "starved"))}
+    for label, r in runs.items():
+        log("sampled_serving", arch=cfg.name, run=label,
+            prefix_cache=r["sharing"], n_pages=r["n_pages"],
+            requests=len(reqs), sampled_requests=len(reqs) - len(gidx),
+            settings=[list(x) for x in SAMPLED], tokens=r["tokens"],
+            wall_s=r["wall"], tokens_per_s=r["tokens"] / r["wall"],
+            greedy_5c_tokens_per_s=greedy_tps, recorded=label != UNRECORDED,
+            stats=r["stats"], preemptions=r["stats"]["evictions"],
+            launches=r["counts"],
+            sampled_tokens_in_top_k=r["sampled_held"],
+            greedy_near_ties=ties[label])
+    log("sampled_serving_check", near_tie=bar, partings=parts,
+        rerun_identical=True, parted=any(parts.values()),
+        preemptions=runs["starved"]["stats"]["evictions"])
+    step_launches = phase_sampled_step(torch, ops, cfg, params_q, trace)
+    sampler_checks(torch, dec)
+    return {"launches": runs["on"]["counts"][route],
+            "step_launches": step_launches}
+
+
+def phase_sampled_step(torch, ops, cfg, params_q, trace, device="cuda"):
+    """5e's batch-wide step (``make_paged_decode_step(cfg, temperature=,
+    top_k=)``) after admitting max_batch of the trace's prompts: its greedy
+    form (temperature 0, top_k 5) equal to the greedy step token for token;
+    at temperature 0.8, top_k 50 two calls with the same keys equal, each
+    token in its row's top-50 of the step's logits. Each call on a copy of
+    the pools. Returns the paged-decode launches of the four calls."""
+    from repro_torch.launch.serve import PagedServer
+    from repro_torch.serving import PagedRequest
+    from repro_torch.serving.decode import (make_paged_decode_step,
+                                            paged_decode_logits, request_key)
+
+    server = PagedServer(params_q, cfg, prefix_cache=False, device=device,
+                         **SERVE)
+    b = server.batcher
+    for t in trace[:b.B]:
+        b.submit(PagedRequest(prompt=t["prompt"], max_new=t["max_new"]))
+    b._admit()
+    if any(slot is None for slot in b.slots):
+        raise AssertionError("5e step: fewer than max_batch admitted")
+    toks, bt, lens = b._batch_arrays()
+
+    def call(step, *extra):
+        pools = {k: v.clone() for k, v in b.cache.pools.items()}
+        return step(params_q, toks, pools, bt, lens, *extra)[0][:, 0]
+
+    def keys():
+        return [request_key(STEP_KEYS_SEED + i, 0, device)
+                for i in range(b.B)]
+
+    ops.reset_launch_counts()
+    greedy = call(make_paged_decode_step(cfg))
+    greedy_k = call(make_paged_decode_step(cfg, temperature=0.0, top_k=5))
+    sampled = make_paged_decode_step(cfg, temperature=0.8, top_k=50)
+    first, second = call(sampled, keys()), call(sampled, keys())
+    launches = ops.LAUNCHES[ops.paged_decode_route(cfg.n_heads,
+                                                   cfg.n_kv_heads)]
+    if not torch.equal(greedy, greedy_k):
+        raise AssertionError("5e step: the greedy form (temperature 0, top_k "
+                             "5) differs from the greedy step")
+    if not torch.equal(first, second):
+        raise AssertionError("5e step: the same keys drew other tokens")
+    pools = {k: v.clone() for k, v in b.cache.pools.items()}
+    logits = paged_decode_logits(params_q, cfg, toks, pools, bt,
+                                 lens)[0][:, -1].float()
+    rank = (logits > logits.gather(1, first[:, None])).sum(-1)
+    if bool((rank >= 50).any()):
+        raise AssertionError(f"5e step: tokens outside the top-50 (ranks "
+                             f"{rank.tolist()})")
+    if launches != 4 * cfg.n_layers:
+        raise AssertionError(f"5e step: {launches} paged-decode launches "
+                             f"for 4 calls")
+    log("sampled_step", batch=b.B, greedy=greedy.tolist(),
+        greedy_top_k5_equal=True, sampled=first.tolist(),
+        sampled_ranks=rank.tolist(), same_keys_equal=True,
+        launches=launches)
+    return launches
+
+
+def sampler_checks(torch, dec):
+    """Both samplers on the card's generators: CHI2_CASES as
+    ``tests/test_torch_sampling.py`` runs them (CHI2_DRAWS rows of the same
+    CHI2_V logits, one (seed, index) stream a row; the counts against
+    softmax(logits / T) over the top-k kept set, nothing drawn outside it,
+    chi-square p >= CHI2_P), and the Gumbel noise of GUMBEL_STREAMS streams
+    finite at opt-1.3b's 50272 entries. Returns the p-values."""
+    import numpy as np
+    from scipy import stats
+
+    draws = CHI2_DRAWS
+    logits = np.random.default_rng(3).normal(size=CHI2_V).astype(np.float32)
+    rows = torch.from_numpy(np.tile(logits, (draws, 1))).to("cuda")
+    out = {}
+    for temperature, top_k in CHI2_CASES:
+        z = logits.astype(np.float64) / temperature
+        if top_k:
+            z = np.where(z >= np.sort(z)[::-1][top_k - 1], z, -np.inf)
+        p = np.exp(z - z.max())
+        p /= p.sum()
+        kept = p > 0
+        for sampler in ("sample_logits", "sample_logits_per_seq"):
+            keys = [dec.request_key(11, i, "cuda") for i in range(draws)]
+            if sampler == "sample_logits":
+                toks = dec.sample_logits(rows, keys, temperature=temperature,
+                                         top_k=top_k)
+            else:
+                toks = dec.sample_logits_per_seq(rows, keys,
+                                                 [temperature] * draws,
+                                                 [top_k] * draws)
+            counts = np.bincount(toks.cpu().numpy(), minlength=CHI2_V)
+            pv = float(stats.chisquare(counts[kept],
+                                       draws * p[kept]).pvalue)
+            out[f"{sampler} T{temperature} k{top_k}"] = pv
+            if counts[~kept].sum() or pv < CHI2_P:
+                raise AssertionError(f"{sampler} T {temperature} top_k "
+                                     f"{top_k}: counts {counts.tolist()}, "
+                                     f"p {pv:.3g}")
+    streams = [dec.request_key(s, i, "cuda") for s in range(8)
+               for i in range(GUMBEL_STREAMS // 8)]
+    noise = dec._gumbel(streams, 50272, "cuda")
+    if not bool(torch.isfinite(noise).all()):
+        raise AssertionError("Gumbel noise not finite")
+    log("sampler_chi2", draws=draws, p_values=out,
+        p_floor=CHI2_P, gumbel_streams=len(streams), gumbel_finite=True,
+        gumbel_min=float(noise.min()), gumbel_max=float(noise.max()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2030,6 +2720,13 @@ QM_SHAPES = (
     ("opt-1.3b up 2048->8192 b2 g32", 8, 2048, 8192, 2, 32),
     ("opt-1.3b down 8192->2048 b2 g32", 8, 8192, 2048, 2, 32),
     ("3-bit, K padded 2048->2080, b3 g32", 8, 2048, 2048, 3, 32),
+    # Table 3's settings at opt-1.3b's projections: 32 codes a word at 1 bit
+    # (a word spans two groups of 16)
+    ("opt-1.3b attn 2048->2048 b1 g16", 8, 2048, 2048, 1, 16),
+    ("opt-1.3b up 2048->8192 b1 g16", 8, 2048, 8192, 1, 16),
+    ("opt-1.3b down 8192->2048 b1 g16", 8, 8192, 2048, 1, 16),
+    ("opt-1.3b up 2048->8192 b2 g16", 8, 2048, 8192, 2, 16),
+    ("opt-1.3b down 8192->2048 b2 g16", 8, 8192, 2048, 2, 16),
 )
 QM_MAIN = "opt-1.3b up 2048->8192 b2 g32"
 # what the kernels line carries of every 6e case
@@ -6694,6 +7391,74 @@ def phase_tooling(torch, ops, ref, cfg):
             "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the reference's examples as the port's entry points
+# ---------------------------------------------------------------------------
+
+# (module, argv): the defaults, train_then_quantize cut to 100 + 50 steps
+EXAMPLES = (("quickstart", []), ("serve_quantized", []),
+            ("train_then_quantize", ["--steps", "100", "--search-steps", "50"]),
+            ("multiarch_smoke", []))
+EXAMPLE_LINES = 16     # the last lines of each example's output logged
+
+
+def check_example(name, result, text):
+    """What the example printed, held as the reference's would be: the
+    search ends no higher than it started; every request gets ``max_new``
+    tokens; training lowers the loss and the ppls are finite; every
+    architecture is OK. Returns a summary for the log."""
+    if name == "quickstart":
+        s = result.search
+        if not s.final_loss <= s.initial_loss or "calib CE: fp32=" not in text:
+            raise AssertionError(f"quickstart: search {s.initial_loss} -> "
+                                 f"{s.final_loss}")
+        return dict(initial_loss=s.initial_loss, final_loss=s.final_loss,
+                    accept_rate=s.accept_rate)
+    if name == "serve_quantized":
+        if not result or any(len(o) != 16 for o in result) or \
+                "[serve] batcher stats:" not in text:
+            raise AssertionError(f"serve_quantized: outputs "
+                                 f"{[len(o) for o in result]}")
+        return dict(requests=len(result), tokens=sum(map(len, result)))
+    if name == "train_then_quantize":
+        losses, ppl = result["losses"], result["ppl"]
+        if not losses[-1] < losses[0] or \
+                not all(math.isfinite(v) for v in ppl.values()):
+            raise AssertionError(f"train_then_quantize: loss {losses[0]} -> "
+                                 f"{losses[-1]}, ppl {ppl}")
+        return dict(loss_first=losses[0], loss_last=losses[-1], ppl=ppl,
+                    accept_rate=result["accept_rate"])
+    if not result or not all(math.isfinite(r[1]) for r in result) or \
+            not text.rstrip().endswith("all architectures OK"):
+        raise AssertionError("multiarch_smoke: an architecture failed")
+    return dict(archs={r[0]: [r[2], r[3]] for r in result})
+
+
+def phase_examples(torch, ops):
+    """Each of ``repro_torch.examples`` (EXAMPLES) through its ``main`` on
+    the card, its output captured and its last lines logged, held by
+    ``check_example``; the port's kernels each launched, counted from 0."""
+    import contextlib
+    import io
+
+    out = {}
+    for name, argv in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        buf = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = mod.main(argv)
+        torch.cuda.synchronize()
+        text = buf.getvalue()
+        summary = check_example(name, result, text)
+        out[name] = dict(ops.LAUNCHES)
+        log("example", name=name, argv=argv, seconds=time.perf_counter() - t0,
+            launches=out[name], lines=text.strip().splitlines()[
+                -EXAMPLE_LINES:], **summary)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6820,25 +7585,15 @@ def main() -> int:
     lap("phase2")
 
     # ---- phase 3: fused lane vs unfused lane -----------------------------
-    lanes = {}
-    for fused in (True, False):
-        ops.reset_launch_counts()
-        r = quantize_model(params, cfg, qcfg, "rtn", calib,
-                           SearchConfig(steps=LANE_STEPS, fused_kernel=fused,
-                                        log_every=0), device="cuda")
-        lanes[fused] = (r.search.history, dict(ops.LAUNCHES))
-        del r
-    compared, parted = histories_agree(lanes[True][0], lanes[False][0],
-                                       "fused vs unfused")
-    if lanes[False][1]["transform_quant"] != 0 or \
-            lanes[False][1]["group_quant"] < 2 * LANE_STEPS:
-        raise AssertionError(f"unfused lane launches {lanes[False][1]}")
-    log("lanes", steps=LANE_STEPS, compared=compared, parted_at=parted,
-        fused_losses=[h[1] for h in lanes[True][0]],
-        unfused_losses=[h[1] for h in lanes[False][0]],
-        fused_launches=lanes[True][1], unfused_launches=lanes[False][1])
+    log("lanes", **lanes_agree(ops, params, cfg, qcfg, calib))
 
     lap("phase3")
+
+    # ---- phase 2b: Table 3's quantiser settings on the main path ---------
+    table3 = phase_table3(torch, ops, cfg, params, calib, ppl)
+    torch.cuda.empty_cache()
+
+    lap("phase2b")
 
     # ---- phase 4: where one search step's time goes ----------------------
     adapter = DenseFFNAdapter(cfg)
@@ -6886,6 +7641,12 @@ def main() -> int:
     small_counts = phase_small_serving(torch, ops)
 
     lap("phase5")
+
+    # ---- phase 5e: sampled serving ---------------------------------------
+    sampled = phase_sampled_serving(torch, ops, cfg, params_q,
+                                    split["tokens_per_s"])
+
+    lap("phase5e")
 
     # ---- phase 6: contiguous-cache serving, quant_matmul -----------------
     fd = importlib.import_module("repro_torch.kernels.flash_decode")
@@ -6971,6 +7732,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     tooling = phase_tooling(torch, ops, ref, cfg)
     lap("phase16")
+
+    # ---- phase 17: the examples as the port's entry points ---------------
+    torch.cuda.empty_cache()
+    examples = phase_examples(torch, ops)
+    lap("phase17")
     log("script_seconds", total=marks[-1] - marks[0], **seconds)
 
     kernels = []
@@ -7072,6 +7838,18 @@ def main() -> int:
                              "probes), at full shape against the plain "
                              "version; checks, not the main path"}}
                if name == "transform_quant" else {}),
+            "table3": {
+                "launches": {tag: table3[tag][name] for tag in table3
+                             if tag != "serving"},
+                "launches_on": "phase 2b: quantize_model rtn, then rtn + 16 "
+                               "fused steps, on opt-1.3b (full width and "
+                               "depth) at 1 bit / group 16 and 2 bits / "
+                               "group 16, each pair counted from 0",
+                **row["table3"]},
+            "examples": {
+                "launches": {ex: c[name] for ex, c in examples.items()},
+                "launches_on": "phase 17: repro_torch.examples.* main() "
+                               "on the card, each counted from 0"},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
@@ -7145,6 +7923,18 @@ def main() -> int:
                                   else "32/8 x 128") + " (15a the whole "
                                "cache on one rank, 15b half of every "
                                "sequence a rank), each rank counted from 0"},
+            **({"sampled": {
+                "launches": sampled["launches"],
+                "launches_on": "phase 5e: PagedServer on 2-bit opt-1.3b, "
+                               "every other request of the trace sampled, "
+                               "sharing on",
+                "batch_wide_step_launches": sampled["step_launches"],
+                "table3_launches": table3["serving"],
+                "table3_launches_on": "phase 2b: PagedServer on opt-1.3b "
+                                      "packed at 1 bit / group 16, the "
+                                      "trace's first 8 requests",
+                "examples": {ex: c[route] for ex, c in examples.items()}}}
+               if route == "paged_decode" else {}),
             "max_abs_err": pd_errs[route],
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import obs
+from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import activation_fn, rmsnorm
 
@@ -249,10 +250,11 @@ def ssm_forward(p, cfg: ModelConfig, x, return_state: bool = False):
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
-                   device="cpu", lead=()):
+                   device="cuda", lead=()):
     """Zero decode state of one block (leading stack dims ``lead``): the
     f32 SSD state (B, H, P, N) and the conv windows (B, conv_width - 1, C)
-    in ``dtype``."""
+    in ``dtype``, on ``device`` (the card unless the CPU is asked for)."""
+    device = resolve_device(device)
     s = cfg.ssm
     di, h, g, n = _dims(cfg)
     w = s.conv_width - 1

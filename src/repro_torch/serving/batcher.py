@@ -388,6 +388,10 @@ class ContinuousBatcher:
         self._release(vi)
         return True
 
+    # the reference's legacy name: under the default FIFOScheduler the
+    # victim is the newest admission
+    _evict_newest = _evict_one
+
     def _ensure_page_capacity(self) -> None:
         """Every live slot must own the page its next token writes into."""
         for i, slot in enumerate(self.slots):

@@ -19,7 +19,8 @@ Positions are PER-SEQUENCE (``seq_lens`` (B,)). Idle slots carry
 ``seq_len == 0`` and a null-page block table: their write lands in the
 reserved page and their output is discarded.
 
-Token selection is greedy by default. Sampling draws Gumbel noise from a
+Token selection is greedy by default. Sampling (one temperature and
+top-k for the batch, or per request) draws Gumbel noise from a
 ``torch.Generator`` per sampled row on the logits' device, seeded by
 ``request_key(seed, token_index, device)`` from (seed, token index) ALONE,
 so a preempted request resumes its own stream, and adds it to the
@@ -190,18 +191,27 @@ def paged_decode_logits(params_q, cfg: ModelConfig, tokens, pools,
     return lm_head_logits(params_q, cfg, h, mask_vocab=True), pools
 
 
-def make_paged_decode_step(cfg: ModelConfig, *, per_request: bool = False,
+def make_paged_decode_step(cfg: ModelConfig, *, temperature: float = 0.0,
+                           top_k: int = 0, per_request: bool = False,
                            gqa_pages_per_block: int = 1):
     """(params_q, tokens (B,1), pools, block_tables (B,P), seq_lens (B,))
     -> (next_token (B,1) int64, pools), greedy.
 
     ``pools`` leaves carry a leading n_layers axis; layer ``i`` reads and
-    writes its views ``leaf[i]``. ``per_request=True`` appends ``seeds``,
-    ``token_indices``, ``temperatures`` and ``top_ks`` (host arrays, (B,)):
-    keys come from ``request_key`` per sampled slot and selection routes
-    through ``sample_logits_per_seq``. SSM and hybrid stacks raise
-    ``ValueError``, as in the reference: they keep O(1) state per block,
-    not pages.
+    writes its views ``leaf[i]``.
+
+    With ``temperature > 0`` the step takes one more trailing argument,
+    ``sample_keys``: a list of B generators (``request_key``'s kind) on the
+    logits' device, one a row, and samples every row through
+    ``sample_logits`` at this ``temperature`` and ``top_k``. With
+    ``temperature <= 0`` it is the greedy step and ``top_k`` is ignored,
+    as in the reference.
+
+    ``per_request=True`` instead appends ``seeds``, ``token_indices``,
+    ``temperatures`` and ``top_ks`` (host arrays, (B,)): keys come from
+    ``request_key`` per sampled slot and selection routes through
+    ``sample_logits_per_seq``. SSM and hybrid stacks raise ``ValueError``,
+    as in the reference: they keep O(1) state per block, not pages.
     """
     check_supported(cfg)
     if cfg.block_pattern not in ("dense", "moe"):
@@ -226,6 +236,16 @@ def make_paged_decode_step(cfg: ModelConfig, *, per_request: bool = False,
                                              temperatures, top_ks)
             return next_tok[:, None], pools
         return per_request_step
+
+    if temperature > 0.0:
+        def sampled_step(params_q, tokens, pools, block_tables, seq_lens,
+                         sample_keys):
+            logits, pools = logits_step(params_q, tokens, pools,
+                                        block_tables, seq_lens)
+            next_tok = sample_logits(logits[:, -1], sample_keys,
+                                     temperature=temperature, top_k=top_k)
+            return next_tok[:, None], pools
+        return sampled_step
 
     def step(params_q, tokens, pools, block_tables, seq_lens):
         logits, pools = logits_step(params_q, tokens, pools, block_tables,

@@ -120,6 +120,10 @@ class PageAllocator:
                 self._ref[i] = n - 1
         return freed
 
+    # the reference's historical name: single-owner callers treat "free" as
+    # "drop my reference", which is exactly what release does
+    free = release
+
 
 def chain_keys(tokens: np.ndarray, page_size: int) -> List[bytes]:
     """Content-addressed keys for every FULL page of ``tokens``.

@@ -140,6 +140,47 @@ def test_eviction_under_page_pressure_matches_reference(models):
     assert tb.stats["evictions"] >= 1
 
 
+@pytest.mark.parametrize("mod", [js, ts], ids=["reference", "port"])
+def test_free_is_release_alias(mod):
+    """``tests/test_prefix_cache.py::test_free_is_release_alias``'s calls
+    on each allocator: ``free`` drops one reference and raises on an id
+    freed twice."""
+    a = mod.PageAllocator(n_pages=4)
+    ids = a.alloc(2)
+    a.retain(ids[:1])
+    a.free(ids)
+    assert (a.refcount(ids[0]), a.refcount(ids[1])) == (1, 0)
+    with pytest.raises(ValueError):
+        a.free(ids[1:])
+    assert mod.PageAllocator.free is mod.PageAllocator.release
+
+
+def test_evict_newest_is_evict_one_and_evicts_as_the_reference(models):
+    """The legacy name is the same function in both packages, and driving
+    it by hand after the admits preempts the same request in both (the
+    eviction test's prompts and pool, whose shapes the reference has
+    compiled)."""
+    for mod in (js, ts):
+        assert mod.ContinuousBatcher._evict_newest is \
+            mod.ContinuousBatcher._evict_one
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 256, size=n).astype(np.int32)
+               for n in (6, 8, 11)]
+    batchers = _both_batchers(models[4], n_pages=7, page_size=4,
+                              max_pages=6, max_batch=3)
+    queues = []
+    for mod, b in zip((js, ts), batchers):
+        reqs = _requests(mod, prompts, max_new=3)
+        for r in reqs:
+            b.submit(r)
+        b._admit()
+        assert b._evict_newest() is True
+        queues.append([_idx(reqs, r) for r in b.queue])
+        assert b.stats["evictions"] == 1
+    assert queues[1] == queues[0]
+    assert batchers[1].stats == batchers[0].stats
+
+
 def test_int8_pages_match_reference(models):
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, 256, size=6).astype(np.int32)

@@ -48,6 +48,18 @@
   ``peak_ratio``'s band; 16c's rows (``launch_rows``) as the checker's
   verdicts, and ``phase_launch_budget`` refusing a wrapper that takes a
   shape the checker flags.
+- 2b's launch formula (``table3_main_path_launches``) at Table 3's 1-bit
+  and 2-bit group-16 settings, held to the wrapper calls of its pair of
+  ``quantize_model`` calls on the CPU.
+- 5e's helpers: the batch-wide sampled step's checks and its launch count
+  (4 calls of n_layers) on the CPU, the alternating sampled trace, the
+  perturbed scores whose argmax is the sampled token, and the near-tie
+  rule a parting between two sampled runs is held to
+  (``sampled_parting_gap``, ``compare_sampled``), and the recorded run
+  (``serve_recording``) whose rows ``check_reach`` holds each sampled
+  token to, with its paged-decode calls counted.
+- 17's ``check_example`` refusing what the reference's examples would not
+  print.
 """
 import importlib.util
 import json
@@ -1744,3 +1756,211 @@ def test_first_layers_state_cuts_params_m_and_v():
                          generator=torch.Generator().manual_seed(1))
     _, _, m = step(p, o, {"tokens": toks})
     assert np.isfinite(float(m["loss"]))
+
+
+@pytest.mark.parametrize("bits,group", CS.TABLE3)
+def test_table3_launch_formula_counts_the_kernel_calls(tiny_models,
+                                                       monkeypatch, bits,
+                                                       group):
+    """2b's ``table3_main_path_launches`` against the ``group_quant`` and
+    ``transform_quant`` wrapper calls of its pair of ``quantize_model``
+    calls (RTN, then RTN + the fused search) at Table 3's settings."""
+    import repro_torch.kernels as kernels
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.core.search import SearchConfig
+
+    models, calib = tiny_models
+    cfg, params = models["opt"]
+    calls = {"group_quant": 0, "transform_quant": 0}
+    for name in calls:
+        real = getattr(kernels, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(kernels, name, counted)
+    qcfg = QuantConfig(bits, group)
+    scfg = SearchConfig(steps=3, fused_kernel=True, log_every=0)
+    quantize_model(params, cfg, qcfg, "rtn", device="cpu")
+    res = quantize_model(params, cfg, qcfg, "rtn", calib, scfg, device="cpu")
+    assert calls == CS.table3_main_path_launches(cfg, scfg)
+    assert res.search.final_loss <= res.search.initial_loss
+
+
+@pytest.fixture(scope="module")
+def tiny_packed():
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.quantized.qmodel import pack_model
+
+    cfg = get_config("opt-tiny").reduced(n_kv_heads=4)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    return cfg, pack_model(params, QuantConfig(2, 32))
+
+
+def test_sampled_step_launch_formula_and_its_checks_on_the_cpu(
+        tiny_packed, monkeypatch):
+    """5e's batch-wide step checks on the CPU, each paged-decode call
+    counted as the card counts its launches: 4 calls of n_layers each."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import build_trace
+    from repro_torch.serving import decode as dec
+
+    cfg, params_q = tiny_packed
+    real = dec.paged_decode
+
+    def counted(q, k_pages, *a, **k):
+        ops.LAUNCHES[ops.paged_decode_route(q.shape[1], k_pages.shape[2])] \
+            += 1
+        return real(q, k_pages, *a, **k)
+
+    monkeypatch.setattr(dec, "paged_decode", counted)
+    trace = build_trace(cfg.vocab_size, **CS.TRACE)
+    assert CS.phase_sampled_step(torch, ops, cfg, params_q, trace,
+                                 "cpu") == 4 * cfg.n_layers
+
+
+def test_sampled_trace_alternates_the_settings():
+    from repro_torch.launch.serve import Request
+    from repro_torch.serving import build_trace
+
+    reqs = CS.sampled_trace(Request, build_trace(512, **CS.TRACE))
+    assert [(r.temperature, r.top_k) for r in reqs[:5]] == [
+        (0.0, 0), CS.SAMPLED[0], (0.0, 0), CS.SAMPLED[1], (0.0, 0)]
+    assert len({r.seed for r in reqs}) == len(reqs)
+
+
+@pytest.mark.parametrize("temperature,top_k", [(0.8, 50), (1.0, 0),
+                                               (0.5, 3)])
+def test_perturbed_scores_give_the_sampled_token(temperature, top_k):
+    """The scores 5e rebuilds from a served row and the request's stream
+    have the token ``sample_logits_per_seq`` drew as their argmax, and the
+    top-k restriction leaves -inf outside the kept set."""
+    from repro_torch.launch.serve import Request
+    from repro_torch.serving import decode as dec
+
+    row = torch.randn(300, generator=torch.Generator().manual_seed(2)) * 3
+    req = Request(prompt=np.zeros(4, np.int32), temperature=temperature,
+                  top_k=top_k, seed=17)
+    for j in range(6):
+        tok = dec.sample_logits_per_seq(
+            row[None], [dec.request_key(17, j, "cpu")], [temperature],
+            [top_k])
+        s = CS.perturbed_scores(torch, dec, row, req, j)
+        assert int(torch.argmax(s)) == int(tok[0])
+        if top_k:
+            assert int(torch.isfinite(s).sum()) == top_k
+
+
+def test_sampled_parting_gap_excuses_only_near_ties():
+    """Two runs drawing tokens 1 and 2 part by rounding alone when each
+    run's scores hold the other's token within the bar of its own; a
+    clear winner in either run refuses the parting."""
+    bar = CS.NEAR_TIE
+    sa = torch.tensor([0.0, 10.0, 10.0 - 1e-5, 3.0])
+    sb = torch.tensor([0.0, 10.0 - 2e-5, 10.0, 3.0])
+    assert CS.sampled_parting_gap(sa, sb, 1, 2) < bar
+    far_a = torch.tensor([0.0, 10.0, 9.0, 3.0])      # run a: 1 by far
+    far_b = torch.tensor([0.0, 9.0, 10.0, 3.0])      # run b: 2 by far
+    assert CS.sampled_parting_gap(far_a, sb, 1, 2) > bar
+    assert CS.sampled_parting_gap(sa, far_b, 1, 2) > bar
+
+
+def test_compare_sampled_holds_partings_to_their_rule():
+    """Greedy requests may part only at an oracle near tie; sampled ones
+    only where the two runs' perturbed scores nearly tie."""
+    from repro_torch.launch.serve import Request
+    from repro_torch.serving import decode as dec
+
+    row = torch.randn(64, generator=torch.Generator().manual_seed(5))
+    g = Request(prompt=np.zeros(4, np.int32))
+    s = Request(prompt=np.zeros(4, np.int32), temperature=1.0, seed=3)
+    top = int(torch.argmax(CS.perturbed_scores(torch, dec, row, s, 0)))
+    other = (top + 1) % 64
+    a = {"outs": [[5, 6], [top]], "rows": {(1, 0): row}}
+    b = {"outs": [[5, 7], [other]], "rows": {(1, 0): row}}
+    with pytest.raises(AssertionError, match="greedy request 0"):
+        CS.compare_sampled(torch, dec, [g, s], a, b, set(), 1e-4, "t")
+    with pytest.raises(AssertionError, match="sampled request 1"):
+        CS.compare_sampled(torch, dec, [g, s], a, b, {(0, 1)}, 1e-4, "t")
+    tied = row.clone()
+    sc = CS.perturbed_scores(torch, dec, row, s, 0)
+    tied[other] += float(sc[top] - sc[other])      # the two now tie
+    a["rows"] = b["rows"] = {(1, 0): tied}
+    parts = CS.compare_sampled(torch, dec, [g, s], a, b, {(0, 1)}, 1e-4, "t")
+    assert [p[:2] for p in parts] == [(0, 1), (1, 0)]
+
+
+def test_serve_recording_keeps_every_sampled_row_for_check_reach(
+        tiny_packed, monkeypatch):
+    """5e's recorded run on the CPU over the trace's first 8 requests: it
+    serves the tokens an unrecorded run serves, keeps the row of every
+    sampled token (``check_reach`` holds each one), puts the hooks back,
+    and calls paged decode n_layers times a step, counted as the card
+    counts its launches. A token off its row's draw, or one with no row,
+    is refused."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import PagedServer, Request
+    from repro_torch.serving import build_trace
+    from repro_torch.serving import decode as dec
+
+    cfg, params_q = tiny_packed
+    real = dec.paged_decode
+
+    def counted(q, k_pages, *a, **k):
+        ops.LAUNCHES[ops.paged_decode_route(q.shape[1], k_pages.shape[2])] \
+            += 1
+        return real(q, k_pages, *a, **k)
+
+    monkeypatch.setattr(dec, "paged_decode", counted)
+    trace = build_trace(cfg.vocab_size, **CS.TRACE)[:8]
+
+    def server():
+        return PagedServer(params_q, cfg, prefix_cache=True, device="cpu",
+                           **CS.SERVE)
+
+    want = server().generate(CS.sampled_trace(Request, trace))
+    srv, reqs = server(), CS.sampled_trace(Request, trace)
+    logits_step = dec.paged_decode_logits
+    ops.reset_launch_counts()
+    outs, rows = CS.serve_recording(torch, dec, srv, reqs)
+    assert outs == want
+    assert dec.paged_decode_logits is logits_step
+    assert not {"run", "_first_token"} & set(vars(srv.batcher))
+    route = ops.paged_decode_route(cfg.n_heads, cfg.n_kv_heads)
+    assert ops.LAUNCHES[route] == cfg.n_layers * srv.batcher.stats["steps"]
+    n = sum(len(o) for r, o in zip(reqs, outs) if r.temperature > 0.0)
+    assert n > 0 and len(rows) == n
+    assert CS.check_reach(torch, dec, cfg, reqs, outs, rows, "t") == n
+    i = next(i for i, r in enumerate(reqs) if r.temperature > 0.0)
+    bad = [list(o) for o in outs]
+    bad[i][0] = int(torch.argmin(rows[(i, 0)]))
+    with pytest.raises(AssertionError, match=f"request {i} token 0 is"):
+        CS.check_reach(torch, dec, cfg, reqs, bad, rows, "t")
+    del rows[(i, 0)]
+    with pytest.raises(AssertionError, match="no recorded row"):
+        CS.check_reach(torch, dec, cfg, reqs, outs, rows, "t")
+
+
+def test_check_example_refuses_what_the_reference_would_not_print():
+    res = SimpleNamespace(search=SimpleNamespace(
+        initial_loss=2.0, final_loss=2.5, accept_rate=0.1))
+    with pytest.raises(AssertionError, match="quickstart"):
+        CS.check_example("quickstart", res, "calib CE: fp32=1")
+    with pytest.raises(AssertionError, match="train_then_quantize"):
+        CS.check_example("train_then_quantize", {
+            "losses": [6.0, 6.5], "ppl": {"rtn": 1.0},
+            "accept_rate": 0.0}, "")
+    with pytest.raises(AssertionError, match="serve_quantized"):
+        CS.check_example("serve_quantized", [[1] * 15], "[serve] batcher "
+                         "stats:")
+    with pytest.raises(AssertionError, match="multiarch"):
+        CS.check_example("multiarch_smoke", [("a", float("nan"), "X", 1,
+                                              None)],
+                         "all architectures OK")
+    assert CS.check_example("multiarch_smoke", [("a", 1.0, "X", 2, None)],
+                            "a  ...\n\nall architectures OK\n") == {
+        "archs": {"a": ["X", 2]}}

@@ -30,7 +30,8 @@ def _tq_args(f, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bits,group", [(2, 32), (3, 128), (8, 64)])
+@pytest.mark.parametrize("bits,group", [(2, 32), (3, 128), (8, 64), (1, 16),
+                                        (2, 16)])
 def test_group_quant_cuda_matches_plain(dtype, bits, group):
     dev = needs_cuda()
     w = (torch.randn((512, 384), generator=torch.Generator().manual_seed(1))
@@ -44,7 +45,7 @@ def test_group_quant_cuda_matches_plain(dtype, bits, group):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bits,group", [(2, 32), (3, 128)])
+@pytest.mark.parametrize("bits,group", [(2, 32), (3, 128), (1, 16), (2, 16)])
 def test_group_quant_cuda_round_range_matches_plain(dtype, bits, group):
     """``round_range`` (``core.quant.fake_quant``'s qparams in w's dtype)."""
     dev = needs_cuda()
@@ -124,7 +125,8 @@ def _pi(kind, f, seed):
 # F = 22528 over a few bands (slices of 2816 columns), groups 64 and 128
 # ("up" in two passes, at F 8192 in two sub-bands), every pi kind, the gated
 # FFN's call (s = 1, phi = 0), D = 90 ("down" in 4-byte units) at group
-# 30, and 8 bits (codes up to 255)
+# 30, 8 bits (codes up to 255), and Table 3's 1-bit and 2-bit group-16
+# settings at opt-1.3b's FFN (2048, 8192)
 TQ_CUDA_CASES = [
     (96, 256, 2, 32, "random", False), (96, 256, 4, 16, "random", False),
     (1408, 4864, 2, 32, "random", False), (128, 1408, 2, 64, "dup", False),
@@ -134,6 +136,8 @@ TQ_CUDA_CASES = [
     (512, 1024, 2, 32, "partial", False), (512, 1024, 2, 32, "dup", False),
     (256, 2048, 2, 32, "random", True), (90, 120, 2, 30, "random", False),
     (512, 1024, 8, 64, "random", False),
+    (2048, 8192, 1, 16, "random", False), (2048, 8192, 2, 16, "identity",
+                                           False),
 ]
 
 
@@ -161,7 +165,9 @@ def test_transform_quant_cuda_matches_plain(mode, D, F, bits, group, kind,
 # copies of 8 values, or one value at a time at D 90), and Qwen3-4B's FFN
 TQ_BF16_CASES = [c for c in TQ_CUDA_CASES if c[:2] in (
     (96, 256), (1408, 4864), (256, 8192), (90, 120))] + [
-    (2560, 9728, 2, 32, "random", False), (2560, 9728, 2, 32, "random", True)]
+    (2560, 9728, 2, 32, "random", False), (2560, 9728, 2, 32, "random", True),
+    (2560, 9728, 1, 16, "random", False), (2560, 9728, 2, 16, "identity",
+                                           False)]
 
 
 @pytest.mark.parametrize("mode", ["up", "down"])
@@ -529,10 +535,12 @@ def test_flash_decode_split_cuda_never_reads_past_kv_len(H, Hkv):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bits,group,M,K,N", [
     (2, 32, 8, 256, 160), (3, 32, 5, 96, 128), (4, 64, 16, 512, 96),
-    (8, 32, 9, 160, 64)])
+    (8, 32, 9, 160, 64), (1, 16, 8, 2048, 8192), (2, 16, 8, 8192, 2048)])
 def test_quant_matmul_cuda_matches_plain(dtype, bits, group, M, K, N):
     """The kernel against the plain version at the reference's 5e-4;
-    3-bit pads K (10 codes per word), M and N are off any tiling."""
+    3-bit pads K (10 codes per word), M and N are off any tiling; 1 bit
+    packs 32 codes a word (Table 3's 1-bit and 2-bit g16 at opt-1.3b's
+    up and down)."""
     dev = needs_cuda()
     from repro_torch.core.quant import QuantConfig, quantize_tensor
     g = torch.Generator().manual_seed(bits * 100 + M)

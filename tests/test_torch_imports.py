@@ -88,6 +88,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(no_gpu):
     from repro_torch.core.quant import QuantConfig
     from repro_torch.data.calib import calibration_tensor
     from repro_torch.models.model import init_params
+    from repro_torch.models.ssm import init_ssm_state
 
     cfg = get_config("opt-tiny").reduced()
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -106,6 +107,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(no_gpu):
     assert quantize_model(params, cfg, QuantConfig(bits=2, group_size=32),
                           device="cpu").method == "rtn"
     assert calibration_tensor(cfg.vocab_size, 1, 8, device="cpu").shape == (1, 8)
+    scfg = get_config("mamba2-2.7b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_ssm_state(scfg, 2)
+    assert init_ssm_state(scfg, 2, device="cpu")["state"].device.type == "cpu"
 
 
 def test_serving_entry_points_default_to_cuda_and_raise_without_a_gpu(no_gpu):

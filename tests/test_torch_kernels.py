@@ -21,17 +21,21 @@ from repro_torch.core import quant as tq
 from repro_torch.kernels import ref as tref
 
 SHAPES_GQ = [(128, 128), (256, 256), (512, 128), (384, 256)]
+# the last two pairs are Table 3's 1-bit and 2-bit settings at group 16
 GQ_CASES = [(bits, group, K, N)
-            for bits, group in [(2, 32), (2, 128), (4, 64), (8, 64)]
+            for bits, group in [(2, 32), (2, 128), (4, 64), (8, 64), (1, 16),
+                                (2, 16)]
             for K, N in SHAPES_GQ if K % group == 0]
 # the CUDA kernel's other bodies and widths: per-column groups (group = K),
 # the 1-D path's (K, 1), N not a multiple of 4 or 8 (the JAX wrapper takes
 # these through its jnp oracle)
 GQ_EDGE_CASES = [(2, 256, 256, 128), (3, 384, 384, 256), (2, 32, 256, 1),
                  (4, 256, 256, 1), (2, 32, 128, 100), (3, 64, 192, 37)]
+# bits 1 only at group 16, Table 3's 1-bit setting
 TQ_CASES = [(mode, bits, group, D, F)
-            for mode in ("up", "down") for bits in (2, 3, 4)
-            for group in (16, 32) for D, F in [(64, 128), (128, 64), (96, 96)]]
+            for mode in ("up", "down") for bits in (1, 2, 3, 4)
+            for group in (16, 32) if (bits, group) != (1, 32)
+            for D, F in [(64, 128), (128, 64), (96, 96)]]
 
 
 def _transform(f, seed):

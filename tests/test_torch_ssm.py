@@ -153,7 +153,7 @@ def test_decode_from_zero_state_matches_reference():
     jo, jst = jssm.ssm_decode_step(jp, jcfg, jnp.asarray(x),
                                    jssm.init_ssm_state(jcfg, 3))
     to, tst = tssm.ssm_decode_step(tp, tcfg, _t(x),
-                                   tssm.init_ssm_state(tcfg, 3))
+                                   tssm.init_ssm_state(tcfg, 3, device="cpu"))
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
     np.testing.assert_allclose(tst["state"].numpy(), np.asarray(jst["state"]),
                                **TOL)
@@ -164,7 +164,7 @@ def test_init_state_shapes_match_reference(dtype):
     jcfg = jget_config("mamba2-2.7b").reduced()
     tcfg = tget_config("mamba2-2.7b").reduced()
     jst = jssm.init_ssm_state(jcfg, 3, jnp.dtype(str(dtype).split(".")[1]))
-    tst = tssm.init_ssm_state(tcfg, 3, dtype, lead=(2,))
+    tst = tssm.init_ssm_state(tcfg, 3, dtype, device="cpu", lead=(2,))
     assert tuple(tst["state"].shape) == (2,) + jst["state"].shape
     assert tst["state"].dtype == torch.float32
     for k in ("x", "B", "C"):
