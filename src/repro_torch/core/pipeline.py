@@ -11,6 +11,8 @@ Contract between stages (as in the reference):
   * InvarExplore then hill-climbs fq(T(θ_base)) per unit (Algorithm 1);
   * without the search, the FFN weights are simply fake-quantized.
 
+The base method and the freezing run under the span ``quantize.base``.
+
 Every leaf of the result has the dtype ``params_fp`` gives it. Where a
 base method returns a leaf in a wider dtype (AWQ on a bf16 model returns
 f32 weights, as the reference's does: jnp promotes them by its f32 scales
@@ -27,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.awq import awq_process_dense
 from repro_torch.core.gptq import gptq_process_dense
 from repro_torch.core.omniquant import omniquant_process_dense
@@ -109,29 +112,30 @@ def quantize_model(
     if forward_kwargs:
         check_on_device(forward_kwargs, dev, "forward_kwargs")
 
-    # 1) base-method processing (continuous-domain FFN weights)
-    base = None
-    if method == "rtn":
-        params_base = params_fp
-    elif method == "awq":
-        params_base, choices = awq_process_dense(params_fp, cfg, tokens,
-                                                 qcfg)
-        base = {"choices": choices}
-    elif method == "gptq":
-        params_base = gptq_process_dense(params_fp, cfg, tokens, qcfg)
-    elif method == "omniquant":
-        params_base, losses = omniquant_process_dense(
-            params_fp, cfg, tokens, qcfg, steps=omniquant_steps)
-        base = {"losses": losses}
-    else:
-        raise ValueError(f"unknown method {method!r}")
+    with obs.trace_span("quantize.base"):
+        # 1) base-method processing (continuous-domain FFN weights)
+        base = None
+        if method == "rtn":
+            params_base = params_fp
+        elif method == "awq":
+            params_base, choices = awq_process_dense(params_fp, cfg, tokens,
+                                                     qcfg)
+            base = {"choices": choices}
+        elif method == "gptq":
+            params_base = gptq_process_dense(params_fp, cfg, tokens, qcfg)
+        elif method == "omniquant":
+            params_base, losses = omniquant_process_dense(
+                params_fp, cfg, tokens, qcfg, steps=omniquant_steps)
+            base = {"losses": losses}
+        else:
+            raise ValueError(f"unknown method {method!r}")
 
-    # 2) freeze non-FFN quantizable weights at their fake-quant values, each
-    #    in the dtype params_fp gives it (module docstring)
-    params_base = map_quantizable(
-        params_base,
-        lambda w, p: fake_quant(w, qcfg).to(get_by_path(params_fp, p).dtype),
-        only=lambda p: not _is_ffn(p))
+        # 2) freeze non-FFN quantizable weights at their fake-quant values, each
+        #    in the dtype params_fp gives it (module docstring)
+        params_base = map_quantizable(
+            params_base,
+            lambda w, p: fake_quant(w, qcfg).to(get_by_path(params_fp, p).dtype),
+            only=lambda p: not _is_ffn(p))
 
     # 3) InvarExplore search or plain FFN fake-quant
     if search is not None:

@@ -185,19 +185,24 @@ def _dense_body(pl, cfg: ModelConfig, h, positions, cache=None,
     between its self-attention and its FFN: over ``cross``, the (k, v)
     ``prefill`` cached, or over K/V computed here from the encoder's output
     ``enc_h`` (the full forward); with neither it skips cross-attention, as
-    the reference's does."""
+    the reference's does. The self-attention and the FFN are the profiler
+    ranges ``model.attention`` and ``model.ffn`` when
+    ``obs.enable_profiler()`` is on."""
     pl = _dequant_block(pl, cfg)
     a_in = L.apply_norm(h, pl["ln1"], cfg.norm)
-    a, cache = L.self_attention(pl["attn"], cfg, a_in, positions,
-                                causal=causal, cache=cache,
-                                cache_index=cache_index)
+    with obs.profile_range("model.attention"):
+        a, cache = L.self_attention(pl["attn"], cfg, a_in, positions,
+                                    causal=causal, cache=cache,
+                                    cache_index=cache_index)
     if "xattn" in pl and (cross is not None or enc_h is not None):
         h, x_in = L.add_norm(h, a, pl["ln_x"], cfg.norm)
         kv = cross if cross is not None else L.cross_kv(pl["xattn"], cfg,
                                                         enc_h)
         a = L.cross_attention(pl["xattn"], cfg, x_in, kv)
     h, m_in = L.add_norm(h, a, pl["ln2"], cfg.norm)
-    return h + ffn_sublayer(pl, cfg, m_in), cache
+    with obs.profile_range("model.ffn"):
+        m = ffn_sublayer(pl, cfg, m_in)
+    return h + m, cache
 
 
 def ffn_sublayer(pl, cfg: ModelConfig, m_in):
@@ -399,7 +404,8 @@ def forward(params, cfg: ModelConfig, tokens, *, enc_embeds=None,
     per-block outputs (n, B, P+S, D) when ``collect_hidden``: one per block
     of a dense, MoE or SSM stack (an encoder-decoder's decoder blocks), one
     per application of the shared block in a hybrid stack (the reference's
-    taps).
+    taps). ``lm_head_logits`` is the profiler range ``model.head`` when
+    ``obs.enable_profiler()`` is on.
 
     ``vision_embeds`` (B, P, D) are prepended to the token embeddings (P =
     0 without them); ``enc_embeds`` (B, T, D) feed the encoder of an
@@ -437,7 +443,8 @@ def forward(params, cfg: ModelConfig, tokens, *, enc_embeds=None,
         if collect_hidden and (seg[-1][0] == "shared"
                                or cfg.block_pattern != "hybrid"):
             hidden.append(h)
-    logits = lm_head_logits(params, cfg, h)
+    with obs.profile_range("model.head"):
+        logits = lm_head_logits(params, cfg, h)
     if collect_hidden:
         return logits, (torch.stack(hidden) if hidden
                         else h.new_zeros((0,) + tuple(h.shape)))

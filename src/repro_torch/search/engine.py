@@ -36,7 +36,16 @@ state that a later step changes.
 
 Observability: the reference's nine ``search_*`` metrics, spans
 ``search.run`` / ``search.step`` / ``search.eval``, and a ``[search]``
-line through ``obs.emit`` every ``log_every`` steps. ``measure_memory``
+line through ``obs.emit`` every ``log_every`` steps. Spans with no
+histogram split a run into its phases: ``search.setup`` (the base
+stack, its fake-quant, the FP reference forward, the baseline scores and
+α) and ``search.finish`` (after the step loop), once a run; inside
+``search.eval``, ``search.build`` (the K candidates), ``search.score``
+(the K forwards and the objective dispatched) and ``search.sync`` (the
+host's wait for the K losses), none of them on a tabu replay; and
+``search.accept`` around each accepted move's install. With
+``obs.enable_profiler()`` on, each is a ``torch.profiler`` range too, and
+the scoring forward adds ``objective.evaluate``. ``measure_memory``
 reads the CUDA caching allocator (see ``_run_engine``).
 
 Mapped islands (``SearchConfig(mapped=True)``): one island per rank of the
@@ -207,20 +216,6 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
             "measure_memory reads the CUDA caching allocator's statistics; "
             f"the calibration tokens are on {dev}")
 
-    base = adapter.base_stack(params_base)
-    # the model's dtypes, which the stack and every candidate take (a base
-    # method may hand over a wider base: core.pipeline's docstring)
-    like = adapter.base_stack(params_fp)
-    transforms0 = stack_unit_batch(
-        [inv.identity_transform(adapter.f_dim, dev)] * adapter.n_units)
-    fq0 = cast_unit(adapter.quant_stack(base, qcfg), like)
-
-    # FP reference forward on the FULL batch; per-island slices are views
-    # into these (batch axis 0 for tokens/logits, axis 1 for the taps)
-    logits_fp, hidden_fp = forward(params_fp, cfg, calib_tokens,
-                                   collect_hidden=True, **fwd_kw)
-    hidden_fp = hidden_fp[:n_match].clone() if n_match else None
-
     def make_env(tokens, lfp, hfp):
         return obj.ObjectiveEnv(calib=tokens, logits_fp=lfp, hidden_fp=hfp,
                                 vocab_size=cfg.vocab_size, n_match=n_match,
@@ -233,37 +228,55 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
             logits, hidden = forward(adapter.install(params_base, fq_stack),
                                      cfg, env.calib, collect_hidden=True,
                                      layer_override=override, **fwd_kw)
-            return objv.evaluate(logits, hidden, state, env)
+            with obs.profile_range("objective.evaluate"):
+                return objv.evaluate(logits, hidden, state, env)
 
         return evaluate
 
-    env_global = make_env(calib_tokens, logits_fp, hidden_fp)
-    eval_global = make_eval(env_global)
-    p0, a0 = (float(x) for x in eval_global(fq0))
-    alpha = float(objv.resolve_mix(p0, a0, env_global))
-    loss0 = p0 + alpha * a0
-    # the islands this process steps: all of them, or its own when mapped
-    own = [rank] if mapped else list(range(n_islands))
-    if shard_calib:
-        slices = shard_calibration(calib_tokens, n_islands)
-        bounds = np.cumsum([0] + [int(s.shape[0]) for s in slices])
-        eval_fns = {i: make_eval(make_env(
-            slices[i], logits_fp[bounds[i]:bounds[i + 1]],
-            hidden_fp[:, bounds[i]:bounds[i + 1]] if n_match else None))
-            for i in own}
-        # per-island step-0 baselines on each island's OWN slice (1 island
-        # == the full batch == the replicated baseline)
-        base0 = {i: tuple(float(x) for x in eval_fns[i](fq0)) for i in own}
-        if mapped:   # every rank needs every island's baseline
-            row = torch.tensor(base0[rank], dtype=torch.float64,
-                               device=runtime.collective_device())
-            base0 = [tuple(r.tolist()) for r in all_gather(row)]
+    # set-up: the base stack, its fake-quant, the FP reference forward,
+    # the baseline score(s) and alpha
+    with obs.trace_span("search.setup"):
+        base = adapter.base_stack(params_base)
+        # the model's dtypes, which the stack and every candidate take (a base
+        # method may hand over a wider base: core.pipeline's docstring)
+        like = adapter.base_stack(params_fp)
+        transforms0 = stack_unit_batch(
+            [inv.identity_transform(adapter.f_dim, dev)] * adapter.n_units)
+        fq0 = cast_unit(adapter.quant_stack(base, qcfg), like)
+
+        # FP reference forward on the FULL batch; per-island slices are views
+        # into these (batch axis 0 for tokens/logits, axis 1 for the taps)
+        logits_fp, hidden_fp = forward(params_fp, cfg, calib_tokens,
+                                       collect_hidden=True, **fwd_kw)
+        hidden_fp = hidden_fp[:n_match].clone() if n_match else None
+
+        env_global = make_env(calib_tokens, logits_fp, hidden_fp)
+        eval_global = make_eval(env_global)
+        p0, a0 = (float(x) for x in eval_global(fq0))
+        alpha = float(objv.resolve_mix(p0, a0, env_global))
+        loss0 = p0 + alpha * a0
+        # the islands this process steps: all of them, or its own when mapped
+        own = [rank] if mapped else list(range(n_islands))
+        if shard_calib:
+            slices = shard_calibration(calib_tokens, n_islands)
+            bounds = np.cumsum([0] + [int(s.shape[0]) for s in slices])
+            eval_fns = {i: make_eval(make_env(
+                slices[i], logits_fp[bounds[i]:bounds[i + 1]],
+                hidden_fp[:, bounds[i]:bounds[i + 1]] if n_match else None))
+                for i in own}
+            # per-island step-0 baselines on each island's OWN slice (1 island
+            # == the full batch == the replicated baseline)
+            base0 = {i: tuple(float(x) for x in eval_fns[i](fq0)) for i in own}
+            if mapped:   # every rank needs every island's baseline
+                row = torch.tensor(base0[rank], dtype=torch.float64,
+                                   device=runtime.collective_device())
+                base0 = [tuple(r.tolist()) for r in all_gather(row)]
+            else:
+                base0 = [base0[i] for i in range(n_islands)]
         else:
-            base0 = [base0[i] for i in range(n_islands)]
-    else:
-        eval_fns = {i: eval_global for i in own}
-        base0 = [(p0, a0)] * n_islands
-    loss0s = [p + alpha * a for p, a in base0]
+            eval_fns = {i: eval_global for i in own}
+            base0 = [(p0, a0)] * n_islands
+        loss0s = [p + alpha * a for p, a in base0]
 
     def quant_candidate(t_new, u):
         """The candidate unit in the stack's dtypes: both lanes compute the
@@ -279,22 +292,28 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
 
     def build(cands, fq_stack, u):
         """The K candidates' batch: built units, or stacks holding them."""
-        if install_mode == "unit":
-            return [quant_candidate(c, u) for c in cands]
-        return [adapter.install_unit(fq_stack, u, quant_candidate(c, u))
-                for c in cands]
+        with obs.trace_span("search.build"):
+            if install_mode == "unit":
+                return [quant_candidate(c, u) for c in cands]
+            return [adapter.install_unit(fq_stack, u, quant_candidate(c, u))
+                    for c in cands]
 
     def score(evaluate, batch, fq_stack, u):
-        """Host lists (loss, primary, aux) over the K candidates; one sync."""
-        if install_mode == "unit":
-            outs = [evaluate(fq_stack, adapter.unit_override(u, unit))
-                    for unit in batch]
-        else:
-            outs = [evaluate(stack) for stack in batch]
-        p_vec = torch.stack([o[0] for o in outs]).float()
-        a_vec = torch.stack([o[1] for o in outs]).float()
-        loss_vec = p_vec + alpha * a_vec         # fp32, as on the reference
-        return torch.stack([loss_vec, p_vec, a_vec]).tolist()
+        """Host lists (loss, primary, aux) over the K candidates: the K
+        forwards and the objective dispatched (``search.score``), then the
+        one read-back (``search.sync``)."""
+        with obs.trace_span("search.score"):
+            if install_mode == "unit":
+                outs = [evaluate(fq_stack, adapter.unit_override(u, unit))
+                        for unit in batch]
+            else:
+                outs = [evaluate(stack) for stack in batch]
+            p_vec = torch.stack([o[0] for o in outs]).float()
+            a_vec = torch.stack([o[1] for o in outs]).float()
+            loss_vec = p_vec + alpha * a_vec     # fp32, as on the reference
+            rows = torch.stack([loss_vec, p_vec, a_vec])
+        with obs.trace_span("search.sync"):
+            return rows.tolist()
 
     schedule = anneal.temperature_schedule(scfg.anneal,
                                            float(scfg.temperature), scfg.steps)
@@ -376,28 +395,29 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
         uniform = isl.rng.random() if T > 0.0 else None
         accepted = anneal.accept(delta, T, uniform)
         if accepted:
-            if skipped:
-                stats["tabu_rebuilds"] += 1
-                fq_new = adapter.install_unit(isl.fq_stack, u,
-                                              quant_candidate(cands[i], u))
-            elif install_mode == "unit":
-                fq_new = adapter.install_unit(isl.fq_stack, u, chosen)
-            else:
-                fq_new = chosen
-            if delta > 0.0:              # strictly-worse moves only
-                stats["uphill_accepts"] += 1
-                metrics["uphill"].inc()
-            metrics["accepts"].inc()
-            isl.current_loss = loss
-            isl.fq_stack = fq_new
-            isl.transforms = tree_install_unit(isl.transforms, u, cands[i])
-            isl.n_accept += 1
-            if mem is not None:
-                mem.advance(cand_bytes[i])
-            if loss < isl.best_loss:
-                isl.best_loss = loss
-                isl.best_transforms = isl.transforms
-                isl.best_fq = isl.fq_stack
+            with obs.trace_span("search.accept"):
+                if skipped:
+                    stats["tabu_rebuilds"] += 1
+                    fq_new = adapter.install_unit(isl.fq_stack, u,
+                                                  quant_candidate(cands[i], u))
+                elif install_mode == "unit":
+                    fq_new = adapter.install_unit(isl.fq_stack, u, chosen)
+                else:
+                    fq_new = chosen
+                if delta > 0.0:              # strictly-worse moves only
+                    stats["uphill_accepts"] += 1
+                    metrics["uphill"].inc()
+                metrics["accepts"].inc()
+                isl.current_loss = loss
+                isl.fq_stack = fq_new
+                isl.transforms = tree_install_unit(isl.transforms, u, cands[i])
+                isl.n_accept += 1
+                if mem is not None:
+                    mem.advance(cand_bytes[i])
+                if loss < isl.best_loss:
+                    isl.best_loss = loss
+                    isl.best_transforms = isl.transforms
+                    isl.best_fq = isl.fq_stack
         isl.history.append((step, loss, float(p), float(a), accepted))
 
     with obs.trace_span("search.run", mode="sequential", islands=n_islands,
@@ -429,25 +449,26 @@ def _run_engine(params_fp, params_base, cfg, qcfg, calib_tokens, scfg,
                          accept=f"{rate:.2%}", T=f"{T:.4g}",
                          elapsed_s=f"{run_span.elapsed():.1f}")
 
-    elite = min(islands, key=lambda s: s.best_loss)
-    # monotonic clock (run_span.dur): wall time steps backwards under NTP
-    stats["proposals_per_sec"] = stats["proposals"] / max(run_span.dur, 1e-9)
-    if measure:
-        torch.cuda.synchronize(dev)
-        stats["peak_live_bytes"] = max(
-            torch.cuda.max_memory_allocated(dev) - baseline, 0)
-        stats["stack_bytes"] = tree_bytes(fq0)
-        stats["candidate_batch_bytes"] = batch_bytes
-    return SearchResult(
-        params_q=adapter.install(params_base, elite.best_fq),
-        transforms=elite.best_transforms,
-        history=elite.history,
-        accept_rate=elite.n_accept / max(scfg.steps, 1),
-        final_loss=elite.best_loss,
-        initial_loss=loss0s[elite.index],
-        island_histories=[s.history for s in islands],
-        stats=stats,
-    )
+    with obs.trace_span("search.finish"):
+        elite = min(islands, key=lambda s: s.best_loss)
+        # monotonic clock (run_span.dur): wall time steps backwards under NTP
+        stats["proposals_per_sec"] = stats["proposals"] / max(run_span.dur, 1e-9)
+        if measure:
+            torch.cuda.synchronize(dev)
+            stats["peak_live_bytes"] = max(
+                torch.cuda.max_memory_allocated(dev) - baseline, 0)
+            stats["stack_bytes"] = tree_bytes(fq0)
+            stats["candidate_batch_bytes"] = batch_bytes
+        return SearchResult(
+            params_q=adapter.install(params_base, elite.best_fq),
+            transforms=elite.best_transforms,
+            history=elite.history,
+            accept_rate=elite.n_accept / max(scfg.steps, 1),
+            final_loss=elite.best_loss,
+            initial_loss=loss0s[elite.index],
+            island_histories=[s.history for s in islands],
+            stats=stats,
+        )
 
 
 def _run_mapped(SearchResult, adapter, params_base, scfg, schedule, stats,
@@ -515,24 +536,25 @@ def _run_mapped(SearchResult, adapter, params_base, scfg, schedule, stats,
                     uniform = isl.rng.random() if T > 0.0 else None
                     accepted = anneal.accept(delta, T, uniform)
                     if accepted:
-                        if delta > 0.0:
-                            stats["uphill_accepts"] += 1
+                        with obs.trace_span("search.accept"):
+                            if delta > 0.0:
+                                stats["uphill_accepts"] += 1
+                                if isl is me:
+                                    metrics["uphill"].inc()
+                            isl.current_loss = loss
+                            isl.n_accept += 1
                             if isl is me:
-                                metrics["uphill"].inc()
-                        isl.current_loss = loss
-                        isl.n_accept += 1
-                        if isl is me:
-                            metrics["accepts"].inc()
-                            me.fq_stack = (adapter.install_unit(
-                                me.fq_stack, u, chosen)
-                                if install_mode == "unit" else chosen)
-                            me.transforms = tree_install_unit(
-                                me.transforms, u, cands[i])
-                        if loss < isl.best_loss:
-                            isl.best_loss = loss
-                            if isl is me:
-                                me.best_transforms = me.transforms
-                                me.best_fq = me.fq_stack
+                                metrics["accepts"].inc()
+                                me.fq_stack = (adapter.install_unit(
+                                    me.fq_stack, u, chosen)
+                                    if install_mode == "unit" else chosen)
+                                me.transforms = tree_install_unit(
+                                    me.transforms, u, cands[i])
+                            if loss < isl.best_loss:
+                                isl.best_loss = loss
+                                if isl is me:
+                                    me.best_transforms = me.transforms
+                                    me.best_fq = me.fq_stack
                     isl.history.append((step, loss, float(p), float(a),
                                         accepted))
                 del chosen
@@ -561,17 +583,18 @@ def _run_mapped(SearchResult, adapter, params_base, scfg, schedule, stats,
                          accept=f"{rate:.2%}", T=f"{T:.4g}",
                          elapsed_s=f"{run_span.elapsed():.1f}", mode="mapped")
 
-    elite = min(islands, key=lambda s: s.best_loss)
-    best_t = elite_broadcast(me.best_transforms, elite.index)
-    best_fq = elite_broadcast(me.best_fq, elite.index)
-    stats["proposals_per_sec"] = stats["proposals"] / max(run_span.dur, 1e-9)
-    return SearchResult(
-        params_q=adapter.install(params_base, best_fq),
-        transforms=best_t,
-        history=elite.history,
-        accept_rate=elite.n_accept / max(scfg.steps, 1),
-        final_loss=elite.best_loss,
-        initial_loss=loss0s[elite.index],
-        island_histories=[s.history for s in islands],
-        stats=stats,
-    )
+    with obs.trace_span("search.finish"):
+        elite = min(islands, key=lambda s: s.best_loss)
+        best_t = elite_broadcast(me.best_transforms, elite.index)
+        best_fq = elite_broadcast(me.best_fq, elite.index)
+        stats["proposals_per_sec"] = stats["proposals"] / max(run_span.dur, 1e-9)
+        return SearchResult(
+            params_q=adapter.install(params_base, best_fq),
+            transforms=best_t,
+            history=elite.history,
+            accept_rate=elite.n_accept / max(scfg.steps, 1),
+            final_loss=elite.best_loss,
+            initial_loss=loss0s[elite.index],
+            island_histories=[s.history for s in islands],
+            stats=stats,
+        )

@@ -125,6 +125,27 @@ def test_forward_layer_override_reads_the_override(tiny):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("ranges", [True, False], ids=["on", "off"])
+def test_forward_profiler_ranges(tiny, ranges):
+    """Under ``torch.profiler`` (CPU activity) with ``obs.enable_profiler``
+    on, a forward shows ``model.attention`` and ``model.ffn`` once per layer
+    and ``model.head`` once; with it off, none of them."""
+    from repro_torch import obs
+    _, tcfg, _, tparams, tokens = tiny
+    toks = torch.from_numpy(tokens.astype(np.int64))
+    obs.enable_profiler(ranges)
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            tmodel.forward(tparams, tcfg, toks)
+    finally:
+        obs.enable_profiler(False)
+    names = [e.name for e in prof.events()]
+    n = tcfg.n_layers if ranges else 0
+    assert names.count("model.attention") == names.count("model.ffn") == n
+    assert names.count("model.head") == (1 if ranges else 0)
+
+
 def test_quantizable_paths_match_reference(tiny):
     jcfg, _, jparams, tparams, _ = tiny
     assert tmodel.quantizable_paths(tparams) == jmodel.quantizable_paths(jparams)

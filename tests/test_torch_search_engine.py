@@ -571,6 +571,136 @@ def test_registry_deltas_equal_stats(opt_pair, tmp_path):
                             "T", "elapsed_s"}
 
 
+class _EventSink:
+    """An in-memory trace sink: every event the program writes, parsed."""
+
+    def __init__(self):
+        self.events = []
+
+    def write(self, line):
+        self.events += [json.loads(t) for t in line.splitlines() if t.strip()]
+
+    def flush(self):
+        pass
+
+
+def _span_parents(events):
+    """(name, enclosing span names outermost first) of each span begun."""
+    stack, out = [], []
+    for e in events:
+        if e["ph"] == "B":
+            out.append((e["name"], tuple(stack)))
+            stack.append(e["name"])
+        elif e["ph"] == "E":
+            assert stack.pop() == e["name"]
+    assert not stack
+    return out
+
+
+JOB_LANES = {
+    # tabu replays, accepted cached moves and migration
+    "sequential": dict(steps=12, seed=0, population=2, islands=2,
+                       migrate_every=3, n_match_layers=0, tabu=64,
+                       temperature=1e-3, anneal="constant"),
+    # one island, one process: the mapped loop without a process group
+    "mapped": dict(steps=4, seed=1, population=2, mapped=True,
+                   temperature=5.0, anneal="constant"),
+}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _job(op, lane, traced):
+    """The lane's run, with the sink and the profiler ranges on
+    (``traced``) or off: the result and the spans begun, each with its
+    enclosing spans. The sequential lane replays ``ConstReplay`` sources
+    through ``search.run``; the mapped one runs the native sources through
+    ``quantize_model`` (RTN, then the search)."""
+    from repro_torch.core.pipeline import quantize_model
+    scfg = tcs.SearchConfig(log_every=0, **JOB_LANES[lane])
+
+    def go():
+        if lane == "sequential":
+            return tsearch.run(op["tparams"], op["tbase"], op["tcfg"],
+                               op["tqc"], op["tcalib"], scfg,
+                               proposals=[ConstReplay(), ConstReplay()])
+        return quantize_model(op["tparams"], op["tcfg"], op["tqc"],
+                              method="rtn", calib_tokens=op["tcalib"],
+                              search=scfg, device="cpu").search
+
+    if not traced:
+        return go(), []
+    sink = _EventSink()
+    tobs.set_trace_sink(sink)
+    tobs.enable_profiler(True)
+    try:
+        res = go()
+    finally:
+        tobs.enable_profiler(False)
+        tobs.set_trace_sink(None)
+    return res, _span_parents([e for e in sink.events if e["ph"] in "BE"])
+
+
+@pytest.mark.parametrize("lane", sorted(JOB_LANES))
+def test_job_spans_count_and_nest(opt_pair, lane):
+    """Each phase of a job opens its span as often as it runs, inside the
+    span it belongs to; a tabu replay opens no build, score or sync span;
+    and tracing leaves the result bit for bit."""
+    res, spans = _job(opt_pair, lane, traced=True)
+    plain, _ = _job(opt_pair, lane, traced=False)
+    names = [n for n, _ in spans]
+    parents = {}
+    for n, p in spans:
+        parents.setdefault(n, set()).add(p[-1] if p else None)
+    # each rank scores its own island: one here
+    evals = JOB_LANES[lane]["steps"] * (2 if lane == "sequential" else 1)
+    skips = res.stats["tabu_skips"]
+    accepts = sum(h[4] for hist in res.island_histories for h in hist[1:])
+    assert accepts > 0
+    if lane == "sequential":
+        assert skips > 0 and res.stats["tabu_rebuilds"] > 0
+    top = ["search.setup", "search.run", "search.finish"]
+    if lane == "mapped":
+        top = ["quantize.base"] + top
+    assert [n for n in names if n in top + ["quantize.base"]] == top
+    assert names.count("search.eval") == evals
+    for n in ("search.build", "search.score", "search.sync"):
+        assert names.count(n) == evals - skips, n
+        assert parents[n] == {"search.eval"}, n
+    assert names.count("search.accept") == accepts
+    assert parents["search.accept"] == {"search.step"}
+    assert parents["search.eval"] == {"search.step"}
+    assert parents["search.step"] == {"search.run"}
+    for n in top:
+        assert parents[n] == {None}, n
+    # the same result, bit for bit, with the sink and the ranges on
+    assert res.history == plain.history
+    assert res.island_histories == plain.island_histories
+    for a, b in zip(res.transforms, plain.transforms):
+        assert torch.equal(a, b)
+    got, want = _leaves(res.params_q), _leaves(plain.params_q)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_quantize_base_span_once_per_call(opt_pair):
+    """Without the search, ``quantize_model`` opens ``quantize.base`` once
+    and no search span."""
+    from repro_torch.core.pipeline import quantize_model
+    op, sink = opt_pair, _EventSink()
+    with tobs.trace_to(sink):
+        quantize_model(op["tparams"], op["tcfg"], op["tqc"], method="rtn",
+                       device="cpu")
+    names = [n for n, _ in _span_parents(
+        [e for e in sink.events if e["ph"] in "BE"])]
+    assert names == ["quantize.base"]
+
+
 def test_search_metric_names_and_help_match_reference():
     from repro.search.engine import _search_metrics as jmetrics
     from repro_torch.search.engine import _search_metrics as tmetrics
