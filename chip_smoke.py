@@ -31,6 +31,15 @@ source, started together, into ``build/kernels/``), then:
    the stacks, ``transform_quant`` at opt-1.3b's FFN); then the main path
    at a small size (opt-tiny) on the card against the same path on the
    CPU, where the wrappers run their plain versions;
+1b. ``causal_attention`` (the bf16 forward's fused attention, no TPU
+   kernel) against its plain version ``blocked_attention`` and float64 at
+   Qwen3-4B's search shape (8 x 512, 32 / 8 x 128), MHA at Dh 64, a ragged
+   S and S 1, through the wrapper: at most one bf16 ulp of the output
+   further from float64 than the plain path, bit for bit on 99 % of the
+   elements; timed at the first two beside its bound, the plain version
+   and ``scaled_dot_product_attention`` (the yardstick); in the bf16 main
+   paths (11a, 13a, 13c, 14b) one launch a decoder block a search forward
+   (``attention_launches``);
 2. the main path: ``quantize_model`` RTN and RTN + 16 fused InvarExplore
    steps on random-init opt-1.3b at full width and depth, with held-out
    perplexity for fp32 / RTN / RTN+search and the kernels' launch counts;
@@ -366,8 +375,8 @@ source, started together, into ``build/kernels/``), then:
    architecture is OK.
 
 Prints the ``nvidia-smi`` name/power-limit line, a ``{"kernels": [...]}``
-line (all seven ported kernels), and last ``{"ok": true, "device":
-{...}}``. Any failed check raises, so the script exits non-zero without
+line (all seven ported kernels and ``causal_attention``), and last
+``{"ok": true, "device": {...}}``. Any failed check raises, so the script exits non-zero without
 that last line; it also exits non-zero when no CUDA card is present or the
 port's sources are missing.
 """
@@ -997,6 +1006,142 @@ def histories_agree(ha, hb, what, rtol=1e-5):
             cur = lb
         compared += 1
     return compared, None
+
+
+# ---------------------------------------------------------------------------
+# phase 1b: causal_attention, the bf16 forward's fused attention
+# ---------------------------------------------------------------------------
+
+# (label, B, S, Hq, Hkv, Dh): Qwen3-4B's search forward (8 x 512, 32 / 8 x
+# 128) first, then MHA at Dh 64, ragged S (no multiple of a tile) and S 1
+CA_CASES = (("qwen3-4b", 8, 512, 32, 8, 128), ("mha-dh64", 8, 512, 32, 32, 64),
+            ("ragged", 2, 300, 8, 2, 128), ("ragged-dh64", 3, 300, 4, 4, 64),
+            ("s1", 4, 1, 8, 2, 128), ("s1-dh64", 2, 1, 4, 4, 64))
+CA_TIMED = ("qwen3-4b", "mha-dh64")
+CA_KERNEL_NAMES = ("causal_attention::attention_kernel",)
+# what the kernels line carries of each timed case
+CA_ROW_KEYS = ("ms", "ms_range", "device_ms", "plain_ms",
+               "plain_device_ms", "library_ms",
+               "library_device_ms", "bound_ms", "bound_by",
+               "device_share_of_bound", "max_abs_err", "plain_max_abs_err",
+               "same_as_plain")
+
+
+def ca_ops(B, S, Hq, Dh) -> int:
+    """Tensor-core operations of one call: Q K^T and P V with P in three
+    bf16 terms, over the S(S+1)/2 causal pairs of each head."""
+    return 2 * B * Hq * (S * (S + 1) // 2) * Dh * (1 + 3)
+
+
+def ca_bytes(B, S, Hq, Hkv, Dh) -> int:
+    """bf16 q, k, v read once and the output written once."""
+    return 2 * B * S * Dh * (2 * Hq + 2 * Hkv)
+
+
+def ca_bound_ms(B, S, Hq, Hkv, Dh):
+    t_ops = ca_ops(B, S, Hq, Dh) / BF16_OPS_PER_S * 1e3
+    t_bytes = ca_bytes(B, S, Hq, Hkv, Dh) / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def ca_case(torch, B, S, Hq, Hkv, Dh, seed):
+    """bf16 q, k, v on the card from a CPU seed; q doubled, so softmaxes
+    are peaked as well as flat."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, S, Hq, Dh), generator=g) * 2.0
+    k = torch.randn((B, S, Hkv, Dh), generator=g)
+    v = torch.randn((B, S, Hkv, Dh), generator=g)
+    return tuple(t.to("cuda", torch.bfloat16) for t in (q, k, v))
+
+
+def ca_f64(torch, q, k, v):
+    """Causal attention in float64 on the same bf16 values."""
+    B, S, Hq, Dh = q.shape
+    rep = Hq // k.shape[2]
+    kd = k.double().repeat_interleave(rep, dim=2)
+    vd = v.double().repeat_interleave(rep, dim=2)
+    s = torch.einsum("bihd,bjhd->bhij", q.double(), kd) * Dh ** -0.5
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bhij,bjhd->bihd", p, vd)
+
+
+def ca_hold(torch, got, plain, want64, what):
+    """The kernel's bar (``tests/test_torch_cuda.py``): its largest error
+    against float64 at most one bf16 ulp of the output past the plain
+    path's, and equal to the plain path bit for bit on >= 99 % of the
+    elements. Returns the numbers."""
+    top = float(want64.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    err = float((got.double() - want64).abs().max())
+    plain_err = float((plain.double() - want64).abs().max())
+    same = float((got == plain).double().mean())
+    if not (err <= plain_err + ulp and same >= 0.99):
+        raise AssertionError(f"causal_attention {what}: max err {err} vs "
+                             f"plain {plain_err} + ulp {ulp}, {same:.4f} "
+                             f"equal to plain")
+    return dict(max_abs_err=err, plain_max_abs_err=plain_err, ulp=ulp,
+                same_as_plain=same)
+
+
+def phase_causal_attention(torch, ops, ref):
+    """1b: ``causal_attention`` against its plain version
+    (``blocked_attention``) and float64 at every ``CA_CASES`` shape, through
+    the wrapper (one launch counted a call); at ``CA_TIMED`` its time (one
+    call, and device time under the profiler) beside the bound, the plain
+    version (one call, and device time) and, as the yardstick only,
+    ``scaled_dot_product_attention`` with ``is_causal`` (bf16 P; the port
+    never calls it). Returns the rows by case."""
+    import torch.nn.functional as F
+    ca = importlib.import_module("repro_torch.kernels.causal_attention")
+    rows = {}
+    for label, B, S, Hq, Hkv, Dh in CA_CASES:
+        q, k, v = ca_case(torch, B, S, Hq, Hkv, Dh, seed=S + Dh)
+        before = ops.LAUNCHES["causal_attention"]
+        got = ops.causal_attention(q, k, v)
+        torch.cuda.synchronize()
+        if ops.LAUNCHES["causal_attention"] != before + 1:
+            raise AssertionError("causal_attention: one call, not one launch")
+        plain = ref.causal_attention_ref(q, k, v)
+        want64 = ca_f64(torch, q, k, v)
+        row = ca_hold(torch, got, plain, want64, label)
+        row.update(shape=[B, S, Hq, Hkv, Dh])
+        del plain, want64
+        if label in CA_TIMED:
+            out = torch.empty_like(q)
+            dev = device_ms(torch, lambda: ca.launch(q, k, v, out),
+                            CA_KERNEL_NAMES)
+            t, spread = time_stats(
+                torch, lambda: ops.causal_attention(q, k, v), reps=50)
+            plain_fn = lambda: ref.causal_attention_ref(q, k, v)  # noqa: E731
+            p = time_ms(torch, plain_fn, reps=10)
+            p_dev = device_ms(torch, plain_fn, ("",), calls=5)
+            gqa = Hq != Hkv
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            kw = {}
+            if gqa and sdpa_takes_gqa(torch):
+                kw = {"enable_gqa": True}
+            elif gqa:
+                kt = kt.repeat_interleave(Hq // Hkv, dim=1)
+                vt = vt.repeat_interleave(Hq // Hkv, dim=1)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True, **kw)
+            lib = time_ms(torch, sdpa, reps=50)
+            lib_dev = device_ms(torch, sdpa, ("",))
+            b, by = ca_bound_ms(B, S, Hq, Hkv, Dh)
+            row.update(ms=t, ms_range=spread, device_ms=dev, plain_ms=p,
+                       plain_device_ms=p_dev, library_ms=lib,
+                       library_device_ms=lib_dev, bound_ms=b, bound_by=by,
+                       device_share_of_bound=b / dev,
+                       ops=ca_ops(B, S, Hq, Dh), bytes=ca_bytes(B, S, Hq,
+                                                               Hkv, Dh))
+        rows[label] = row
+        log("kernel_time" if label in CA_TIMED else "kernel_check",
+            kernel="causal_attention", case=label, **row)
+    return rows
 
 
 def phase_small_reference(torch, bits=2, group=32):
@@ -3262,6 +3407,31 @@ def search_launches(cfg, scfg, stats):
             "transform_quant": n_w * units if fused else 0}
 
 
+def search_forwards(scfg, stats) -> int:
+    """Full forwards of one ``repro_torch.search.run`` call (one process):
+    the FP reference and the baseline score, one more baseline an island
+    on its own calibration slice, then one a candidate of every island
+    step the tabu memory did not skip."""
+    K = max(int(scfg.population), 1)
+    islands = max(int(scfg.islands), 1)
+    built = scfg.steps * islands - stats["tabu_skips"]
+    return 2 + K * built + (islands if stats["shard_calib"] else 0)
+
+
+def attention_launches(cfg, forwards: int) -> int:
+    """``causal_attention`` launches of ``forwards`` cache-free forwards of
+    ``cfg``: one a causal self-attention block (the decoder's, not an
+    encoder's) where the model's attention is bf16 with f32 scores and a
+    head dim of 64 or 128, which the kernel takes; none otherwise (f32
+    models, bf16 scores, Dh 112)."""
+    from repro_torch.models.model import block_order
+    takes = (cfg.compute_dtype == "bfloat16"
+             and cfg.attn_softmax_dtype == "float32"
+             and cfg.resolved_head_dim in (64, 128))
+    blocks = sum(1 for kind, _ in block_order(cfg) if kind != "ssm")
+    return forwards * blocks if takes else 0
+
+
 class StateProposals:
     """A state-deterministic proposal source: the K candidates depend only
     on (t_u, k), drawn on the CPU from a generator re-seeded with ``seed``
@@ -4099,7 +4269,8 @@ def phase_zoo_main(torch, ops, cfg, qcfg, methods=ZOO_METHODS, tag="zoo"):
     n_units = cfg.n_layers * (cfg.moe.num_experts if moe else 1)
     clone = expert_stack_bytes(cfg, elem) if moe else ffn_stack_bytes(cfg,
                                                                       elem)
-    launches = {"group_quant": {}, "transform_quant": {}}
+    launches = {"group_quant": {}, "transform_quant": {},
+                "causal_attention": {}}
     step_ms = None
     for method in methods:
         for search in (None, scfg):
@@ -4115,16 +4286,15 @@ def phase_zoo_main(torch, ops, cfg, qcfg, methods=ZOO_METHODS, tag="zoo"):
             ppl_q = ppl(res.params_q)
             sr, label = res.search, res.method
             del res
-            want_gq = base_method_gq_launches(method, cfg)
-            want_tq = search_launches(cfg, scfg, sr.stats)["transform_quant"] \
-                if sr else 0
-            if counts["group_quant"] != want_gq or \
-                    counts["transform_quant"] != want_tq or \
-                    any(v for k, v in counts.items()
-                        if k not in ("group_quant", "transform_quant")):
+            want = {"group_quant": base_method_gq_launches(method, cfg)}
+            if sr:
+                want["transform_quant"] = search_launches(
+                    cfg, scfg, sr.stats)["transform_quant"]
+                want["causal_attention"] = attention_launches(
+                    cfg, search_forwards(scfg, sr.stats))
+            if any(counts[k] != want.get(k, 0) for k in counts):
                 raise AssertionError(f"{label}: launches {counts}, expected "
-                                     f"group_quant {want_gq}, "
-                                     f"transform_quant {want_tq}")
+                                     f"{want}")
             nums = [ppl_q] + ([sr.initial_loss, sr.final_loss]
                               + [h[1] for h in sr.history] if sr else [])
             if not all(math.isfinite(x) for x in nums):
@@ -4147,8 +4317,7 @@ def phase_zoo_main(torch, ops, cfg, qcfg, methods=ZOO_METHODS, tag="zoo"):
                              cloned_bytes=accepts * clone)
             log(tag + "_quantize", arch=cfg.name, method=label,
                 ppl_fp32=ppl_fp, ppl=ppl_q, wall_s=wall, peak_bytes=peak,
-                launches=counts, group_quant_expected=want_gq,
-                transform_quant_expected=want_tq, **extra)
+                launches=counts, expected=want, **extra)
             for kernel in launches:
                 launches[kernel][label] = counts[kernel]
             del sr
@@ -5480,6 +5649,9 @@ def phase_encdec_main(torch, ops, cfg, qcfg):
         counts, peak = dict(ops.LAUNCHES), torch.cuda.max_memory_allocated()
         sr, label = res.search, res.method
         want = encdec_quantize_launches(cfg, search, sr.stats if sr else None)
+        if sr:
+            want["causal_attention"] = attention_launches(
+                cfg, search_forwards(search, sr.stats))
         if any(counts[k] != want.get(k, 0) for k in counts):
             raise AssertionError(f"{label}: launches {counts}, expected "
                                  f"{want}")
@@ -7522,6 +7694,11 @@ def main() -> int:
 
     lap("phase1")
 
+    # ---- phase 1b: causal_attention vs its plain version -----------------
+    ca_rows = phase_causal_attention(torch, ops, ref)
+
+    lap("phase1b")
+
     # ---- phase 2: main path on opt-1.3b ----------------------------------
     dev = torch.device("cuda")
     qcfg = QuantConfig(bits=2, group_size=32)
@@ -8024,6 +8201,32 @@ def main() -> int:
         "cases": {n: {k: r[k] for k in QM_CASE_KEYS}
                   for n, r in qm_rows.items()},
         "dtype": "float32"})
+    crow = ca_rows[CA_TIMED[0]]
+    kernels.append({
+        "name": "causal_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/causal_attention.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the reference's blocked_attention "
+                         "is jnp (src/repro/models/layers.py:189); the "
+                         "port's plain version is that function",
+        "launches": bf16["main"]["causal_attention"],
+        "launches_on": "phase 14b: quantize_model rtn / awq, alone and with "
+                       "16 fused steps, on Qwen3-4B in its own bf16 (full "
+                       "width and depth): 36 a search forward, none alone",
+        "moe": {"launches": moe["main"]["causal_attention"],
+                "launches_on": "phase 11a: Phi-3.5-MoE in bf16, rtn alone "
+                               "and with 16 fused steps"},
+        "zoo_fp32": {"launches": zoo_launches["causal_attention"],
+                     "launches_on": "phase 10a: Qwen3-4B in fp32 (none: "
+                                    "its attention stays blocked)"},
+        **{k: crow[k] for k in CA_ROW_KEYS},
+        "library_note": "torch scaled_dot_product_attention(is_causal=True) "
+                        "on the same bf16 q, k, v (transposed views; bf16 "
+                        "P): a yardstick the port never calls",
+        "shape": crow["shape"],
+        "cases": {label: {k: r[k] for k in r if k in CA_ROW_KEYS}
+                  for label, r in ca_rows.items()},
+        "dtype": "bfloat16"})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,16 +15,19 @@
 - ``quant_matmul``: x @ dequant(packed W) (the TPU kernel
   ``repro/kernels/quant_matmul.py``); a public op, on no serving path (as
   in the reference, which dequantises each layer instead).
+- ``causal_attention``: fused causal self-attention over bf16 q, k, v
+  (no TPU kernel: the reference's ``blocked_attention`` is jnp); the bf16
+  forward's attention without a cache (``models.layers.self_attention``).
 
 CUDA C++ sources live in ``repro_torch/csrc/`` and are built with nvcc for
 ``sm_90a`` on first use (``build.py``); ``ops.py`` holds the wrappers and
 their launch counts, ``ref.py`` the plain PyTorch versions.
 """
-from repro_torch.kernels.ops import (LAUNCHES, flash_decode, group_quant,
-                                     paged_decode, paged_decode_route,
-                                     quant_matmul, reset_launch_counts,
-                                     transform_quant)
+from repro_torch.kernels.ops import (LAUNCHES, causal_attention, flash_decode,
+                                     group_quant, paged_decode,
+                                     paged_decode_route, quant_matmul,
+                                     reset_launch_counts, transform_quant)
 
 __all__ = ["group_quant", "transform_quant", "paged_decode",
-           "paged_decode_route", "flash_decode", "quant_matmul", "LAUNCHES",
-           "reset_launch_counts"]
+           "paged_decode_route", "flash_decode", "quant_matmul",
+           "causal_attention", "LAUNCHES", "reset_launch_counts"]

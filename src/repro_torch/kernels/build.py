@@ -21,7 +21,7 @@ __all__ = ["KERNELS", "build_dir", "build_all", "load", "build_log"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("group_quant", "transform_quant", "paged_decode", "flash_decode",
-           "quant_matmul")
+           "quant_matmul", "causal_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Every source is built with -fmad=false (the quant kernels must round

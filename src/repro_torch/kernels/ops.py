@@ -24,16 +24,17 @@ _tq = importlib.import_module("repro_torch.kernels.transform_quant")
 _pd = importlib.import_module("repro_torch.kernels.paged_decode")
 _fd = importlib.import_module("repro_torch.kernels.flash_decode")
 _qm = importlib.import_module("repro_torch.kernels.quant_matmul")
+_ca = importlib.import_module("repro_torch.kernels.causal_attention")
 
 __all__ = ["group_quant", "transform_quant", "paged_decode",
-           "paged_decode_route", "flash_decode", "quant_matmul", "LAUNCHES",
-           "reset_launch_counts"]
+           "paged_decode_route", "flash_decode", "quant_matmul",
+           "causal_attention", "LAUNCHES", "reset_launch_counts"]
 
 # kernel launches per wrapper (per route for paged_decode) since the last
 # reset (plain integers)
 LAUNCHES = {"group_quant": 0, "transform_quant": 0, "paged_decode": 0,
             "paged_decode_gqa": 0, "paged_decode_gqa_mp": 0,
-            "flash_decode": 0, "quant_matmul": 0}
+            "flash_decode": 0, "quant_matmul": 0, "causal_attention": 0}
 
 # columns: the first group_quant kernel's limit (gridDim.y blocks of 256
 # threads), kept as the wrappers' check; the kernels walk 1-D grids
@@ -304,4 +305,40 @@ def quant_matmul(x, packed, scale, zero, *, bits: int, group: int):
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     _qm.launch(x, packed, scale, zero, out, bits=bits, group=group)
     LAUNCHES["quant_matmul"] += 1
+    return out
+
+
+def causal_attention(q, k, v):
+    """Causal self-attention of q (B, S, Hq, Dh) over k / v (B, S, Hkv,
+    Dh), bf16, without a cache -> (B, S, Hq, Dh) bf16: the function of
+    ``blocked_attention(q, k, v, causal=True)`` with f32 scores; query head
+    h reads KV head h // (Hq // Hkv), nothing repeated. A CPU call runs
+    ``ref.causal_attention_ref``; a CUDA call launches the kernel (Dh 64 or
+    128, contiguous tensors on 16-byte boundaries, no input that requires
+    grad: the kernel has no backward) or raises.
+    """
+    if q.device.type == "cpu":
+        return ref.causal_attention_ref(q, k, v)
+    _require_card("causal_attention", q)
+    _require(q.ndim == 4 and k.ndim == 4,
+             f"q must be (B, S, Hq, Dh) and k/v (B, S, Hkv, Dh), got "
+             f"{tuple(q.shape)} and {tuple(k.shape)}")
+    B, S, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    _require(S > 0 and Hkv > 0 and Hq % Hkv == 0,
+             f"Hq={Hq} not a multiple of Hkv={Hkv}, or an empty sequence")
+    _require(Dh in _ca.HEAD_DIMS, f"head dim {Dh} not compiled in (the "
+             f"kernel takes {_ca.HEAD_DIMS})")
+    dev = q.device
+    _check_cuda("q", q, dev, (torch.bfloat16,), (B, S, Hq, Dh))
+    _check_cuda("k", k, dev, (torch.bfloat16,), (B, S, Hkv, Dh))
+    _check_cuda("v", v, dev, (torch.bfloat16,), (B, S, Hkv, Dh))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _require(t.data_ptr() % 16 == 0, f"{name} must start on a 16-byte "
+                 f"boundary (the kernel copies 16 bytes at a time)")
+        _require(not t.requires_grad, f"{name} requires grad: the kernel "
+                 f"has no backward")
+    out = torch.empty_like(q)
+    _ca.launch(q, k, v, out)
+    LAUNCHES["causal_attention"] += 1
     return out

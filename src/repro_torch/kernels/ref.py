@@ -13,7 +13,7 @@ from repro_torch.core.quant import (QuantConfig, compute_qparams,
 
 __all__ = ["group_quant_ref", "transform_quant_ref", "paged_decode_ref",
            "merge_partials", "flash_decode_ref", "dequant_ref",
-           "quant_matmul_ref"]
+           "quant_matmul_ref", "causal_attention_ref"]
 
 NEG = -1e30
 
@@ -155,3 +155,11 @@ def quant_matmul_ref(x, packed, scale, zero, bits: int, group_size: int):
     ``quant_matmul`` kernel."""
     w = dequant_ref(packed, scale, zero, bits, group_size, x.shape[1])
     return x.float() @ w
+
+
+def causal_attention_ref(q, k, v):
+    """The plain version of the ``causal_attention`` kernel: the forward's
+    own ``blocked_attention(q, k, v, causal=True)`` (f32 scores, chunks of
+    1024 keys), of which the kernel is a fused form."""
+    from repro_torch.models.layers import blocked_attention
+    return blocked_attention(q, k, v, causal=True)

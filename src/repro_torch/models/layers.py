@@ -9,7 +9,10 @@ Pallas kernel), except one-token decode over a contiguous cache with
 ``cfg.use_flash_decode``, which takes the ``flash_decode`` kernel (f32
 whatever ``cfg.attn_softmax_dtype`` says, as the reference's kernel route;
 the reference falls back to ``blocked_attention`` only at a traced cache
-index, which the port's host-integer index never is).
+index, which the port's host-integer index never is), and cache-free
+causal self-attention over bf16 q, k, v on the card with f32 scores and
+Dh 64 or 128, which takes the ``causal_attention`` kernel (the same
+function, fused; :func:`takes_causal_kernel`).
 
 In a bf16 model each operation rounds to bf16 where the reference's does
 (its jnp ops on bf16 arrays, as XLA compiles them on the CPU): the norms
@@ -30,13 +33,15 @@ import functools
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["NEG_INF", "rmsnorm", "layernorm", "apply_norm", "add_norm",
            "init_norm",
            "activation_fn", "rope_cos_sin", "apply_rope", "attn_qkv",
-           "attn_out", "blocked_attention", "self_attention",
+           "attn_out", "blocked_attention", "takes_causal_kernel",
+           "self_attention",
            "cross_attention", "cross_kv", "mlp",
            "quantize_kv", "init_moe", "moe_top_k", "moe_route", "moe_ffn",
            "moe_aux_loss", "EXPERT_OVERRIDE"]
@@ -262,6 +267,25 @@ def blocked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dh).to(q.dtype)
 
 
+def _real_cuda(t) -> bool:
+    """A CUDA tensor with storage (not a dry run's fake one)."""
+    return t.device.type == "cuda" and not is_fake(t)
+
+
+def takes_causal_kernel(q, k, v, *, causal: bool, softmax_dtype) -> bool:
+    """Whether cache-free self-attention of q over k / v takes the fused
+    ``causal_attention`` kernel in place of ``blocked_attention``: causal,
+    f32 scores, q / k / v all bf16, real CUDA tensors, a head dim the
+    kernel compiles in and no input that requires grad (the kernel has no
+    backward). Read from the inputs alone; f32 models, the CPU, training,
+    the encoder and every other case keep ``blocked_attention``."""
+    if not (causal and softmax_dtype == torch.float32 and _real_cuda(q)):
+        return False
+    from repro_torch.kernels.causal_attention import HEAD_DIMS
+    return q.shape[-1] in HEAD_DIMS and all(
+        t.dtype == torch.bfloat16 and not t.requires_grad for t in (q, k, v))
+
+
 def self_attention(p, cfg: ModelConfig, x, positions, *, causal: bool = True,
                    cache=None, cache_index: int = 0):
     """Self-attention block body (no norm / residual). Returns (out, cache).
@@ -273,14 +297,21 @@ def self_attention(p, cfg: ModelConfig, x, positions, *, causal: bool = True,
     ``cfg.kv_cache_dtype == "int8"``; the reference returns a new cache) and
     the queries attend over the first ``cache_index + S`` positions. A
     one-token call with ``cfg.use_flash_decode`` takes the ``flash_decode``
-    kernel; every other call ``blocked_attention``.
+    kernel; without a cache, a call :func:`takes_causal_kernel` admits
+    takes the ``causal_attention`` kernel; every other call
+    ``blocked_attention``.
     """
     q, k, v = attn_qkv(p, cfg, x, positions)
     kw = dict(chunk=cfg.attn_chunk,
               softmax_dtype=getattr(torch, cfg.attn_softmax_dtype),
               repeat_kv=cfg.gqa_repeat_kv)
     if cache is None:
-        out = blocked_attention(q, k, v, causal=causal, **kw)
+        if takes_causal_kernel(q, k, v, causal=causal,
+                               softmax_dtype=kw["softmax_dtype"]):
+            from repro_torch.kernels import causal_attention
+            out = causal_attention(q, k, v)
+        else:
+            out = blocked_attention(q, k, v, causal=causal, **kw)
         return attn_out(p, out), None
     S = x.shape[1]
     rows = slice(cache_index, cache_index + S)

@@ -322,6 +322,62 @@ def test_search_launch_formula_counts_the_kernel_calls(
         assert res.stats["tabu_rebuilds"] > 0
 
 
+@pytest.mark.parametrize("kw,source", [
+    (dict(population=2, fused_kernel=True), None),
+    (dict(population=2, islands=2, migrate_every=2, fused_kernel=True,
+          shard_calib=True), None),
+    (dict(population=2, fused_kernel=True, tabu=16), "state"),
+], ids=["fused", "islands", "tabu"])
+def test_search_forwards_counts_the_forwards(tiny_search, monkeypatch, kw,
+                                             source):
+    """``search_forwards`` against the forwards ``search.run`` makes on the
+    CPU: set-up, island baselines on sharded calibration, tabu skips."""
+    from repro_torch.core import invariance as inv
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.search import engine, run
+
+    cfg, qcfg, params, base, calib = tiny_search
+    calls = []
+    real = engine.forward
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(engine, "forward", counted)
+    scfg = SearchConfig(log_every=0, seed=0, **{"steps": 8, **kw})
+    src = None if source is None else [
+        CS.StateProposals(torch, inv, torch.device("cpu"))]
+    res = run(params, base, cfg, qcfg, calib, scfg, proposals=src)
+    assert len(calls) == CS.search_forwards(scfg, res.stats)
+    if source:
+        assert res.stats["tabu_skips"] > 0
+
+
+def test_attention_launches_follow_the_kernels_route():
+    """One ``causal_attention`` launch a decoder self-attention block a
+    forward where the model is bf16 with f32 scores and Dh 64 or 128: the
+    bf16 Qwen3-4B, Phi-3.5-MoE, SeamlessM4T (its decoder only) and
+    InternVL2; none for an f32 model, bf16 scores or Dh 112 (Zamba2), and
+    none for Mamba2, which has no attention."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    qwen = get_config("qwen3-4b")
+    assert CS.attention_launches(qwen, 34) == 34 * 36
+    assert CS.attention_launches(dataclasses.replace(
+        qwen, param_dtype="float32", compute_dtype="float32"), 34) == 0
+    assert CS.attention_launches(dataclasses.replace(
+        qwen, attn_softmax_dtype="bfloat16"), 34) == 0
+    assert CS.attention_launches(get_config("opt-1.3b"), 34) == 0
+    for arch, blocks in (("phi3.5-moe-42b-a6.6b", 32),
+                         ("seamless-m4t-medium", 12), ("internvl2-1b", 24),
+                         ("zamba2-7b", 0), ("mamba2-2.7b", 0)):
+        cfg = get_config(arch)
+        assert CS.attention_launches(cfg, 2) == 2 * blocks, arch
+
+
 def test_state_proposals_depend_only_on_the_state():
     from repro_torch.core import invariance as inv
 

@@ -1,8 +1,11 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test calls ``needs_cuda()`` and skips without a card: the CUDA
-kernels have no interpret mode. The kernels run the plain versions' fp32
-arithmetic operation for operation, so they are held to them exactly.
+kernels have no interpret mode. The quant kernels run the plain versions'
+fp32 arithmetic operation for operation, so they are held to them exactly;
+``causal_attention`` sums on the tensor cores, so it is held to float64
+beside its plain version (at most one bf16 ulp of the output further off,
+bit for bit on 99 % of the elements).
 This file imports neither JAX nor ``repro``, so it also runs where only
 the port is installed:
 
@@ -631,3 +634,118 @@ def test_search_measure_memory_unit_below_stack_on_the_card():
         4 * stats["unit"]["stack_bytes"]
     assert 0 < stats["unit"]["peak_live_bytes"] < \
         stats["stack"]["peak_live_bytes"]
+
+
+# ---- causal_attention: the bf16 forward's fused attention ----------------
+
+def _causal_case(dev, *, B, S, Hq, Hkv, Dh, seed):
+    """bf16 q, k, v on the card, made on the CPU from a seed; q doubled so
+    the softmax is peaked as well as flat."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, S, Hq, Dh), generator=g) * 2.0
+    k = torch.randn((B, S, Hkv, Dh), generator=g)
+    v = torch.randn((B, S, Hkv, Dh), generator=g)
+    return tuple(t.to(dev, torch.bfloat16) for t in (q, k, v))
+
+
+def _causal_f64(q, k, v):
+    """Causal attention in float64 on the same bf16 values."""
+    B, S, Hq, Dh = q.shape
+    rep = Hq // k.shape[2]
+    qd = q.double()
+    kd = k.double().repeat_interleave(rep, dim=2)
+    vd = v.double().repeat_interleave(rep, dim=2)
+    s = torch.einsum("bihd,bjhd->bhij", qd, kd) * Dh ** -0.5
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bhij,bjhd->bihd", p, vd)
+
+
+def _hold_causal(got, plain, want64):
+    """The kernel's largest error against float64 exceeds the plain
+    path's by at most one bf16 ulp of the output, and the two agree bit for
+    bit on at least 99 % of the elements."""
+    top = float(want64.abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+    err_k = float((got.double() - want64).abs().max())
+    err_p = float((plain.double() - want64).abs().max())
+    same = float((got == plain).double().mean())
+    assert err_k <= err_p + ulp, (err_k, err_p, ulp)
+    assert same >= 0.99, same
+
+
+CAUSAL_CASES = [(8, 512, 32, 8, 128), (2, 256, 8, 8, 64),
+                (2, 300, 8, 2, 128), (3, 300, 4, 4, 64),
+                (4, 1, 8, 2, 128), (2, 1, 4, 4, 64)]
+CAUSAL_IDS = ["qwen3-4b", "mha-dh64", "ragged-gqa", "ragged-dh64", "s1-gqa",
+              "s1-dh64"]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,Dh", CAUSAL_CASES, ids=CAUSAL_IDS)
+def test_causal_attention_cuda_matches_plain(B, S, Hq, Hkv, Dh):
+    dev = needs_cuda()
+    q, k, v = _causal_case(dev, B=B, S=S, Hq=Hq, Hkv=Hkv, Dh=Dh, seed=S + Dh)
+    before = tk.LAUNCHES["causal_attention"]
+    got = tk.causal_attention(q, k, v)
+    assert tk.LAUNCHES["causal_attention"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _hold_causal(got, tref.causal_attention_ref(q, k, v),
+                 _causal_f64(q, k, v))
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,Dh", [(2, 333, 14, 2, 64),
+                                           (1, 1024, 8, 8, 128)],
+                         ids=["rep7", "long"])
+def test_causal_attention_cuda_other_layouts_match_plain(B, S, Hq, Hkv, Dh):
+    """InternVL2's GQA at 7 query heads a KV head, and one long sequence
+    (the grid's heaviest blocks first)."""
+    dev = needs_cuda()
+    q, k, v = _causal_case(dev, B=B, S=S, Hq=Hq, Hkv=Hkv, Dh=Dh, seed=7)
+    _hold_causal(tk.causal_attention(q, k, v),
+                 tref.causal_attention_ref(q, k, v), _causal_f64(q, k, v))
+
+
+def test_causal_attention_refuses_bad_inputs_before_any_launch():
+    dev = needs_cuda()
+    q, k, v = _causal_case(dev, B=2, S=16, Hq=4, Hkv=2, Dh=64, seed=1)
+    q112, k112, _ = _causal_case(dev, B=2, S=16, Hq=4, Hkv=2, Dh=112, seed=1)
+    shifted = torch.zeros(q.numel() + 1, device=dev,
+                          dtype=torch.bfloat16)[1:].view(q.shape)
+    before = tk.LAUNCHES["causal_attention"]
+    bad = [((q112, k112, k112), "head dim"),
+           ((q.float(), k, v), "dtype"),
+           ((q, k, v.float()), "dtype"),
+           ((q.transpose(1, 2).contiguous().transpose(1, 2), k, v),
+            "contiguous"),
+           ((q[:, :, :3], k, v), "multiple"),
+           ((q, k[:, :8], v), "shape"),
+           ((shifted, k, v), "16-byte"),
+           ((q, k, v.clone().requires_grad_()), "grad")]
+    for args, match in bad:
+        with pytest.raises(ValueError, match=match):
+            tk.causal_attention(*args)
+    assert tk.LAUNCHES["causal_attention"] == before
+
+
+def test_causal_attention_counts_a_launch_a_layer_in_a_bf16_forward():
+    """The engagement count: one launch a layer in a bf16 forward of a
+    Qwen3-like model at Dh 128, none in its f32 twin."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import forward, init_params
+
+    dev = needs_cuda()
+    base = dataclasses.replace(get_config("qwen3-4b").reduced(),
+                               head_dim=128)
+    toks = torch.randint(0, base.vocab_size, (2, 96),
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+    for dtype, want in (("bfloat16", base.n_layers), ("float32", 0)):
+        cfg = dataclasses.replace(base, param_dtype=dtype,
+                                  compute_dtype=dtype)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        tk.reset_launch_counts()
+        logits = forward(params, cfg, toks)
+        assert tk.LAUNCHES["causal_attention"] == want
+        assert bool(torch.isfinite(logits.float()).all())

@@ -136,10 +136,15 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     torch.testing.assert_close(tk.flash_decode(q, k, k, kv_len=3),
                                tref.flash_decode_ref(q, k, k, kv_len=3),
                                rtol=0, atol=0)
+    qs = torch.randn(2, 6, 4, 64).bfloat16()
+    ks = torch.randn(2, 6, 2, 64).bfloat16()
+    torch.testing.assert_close(tk.causal_attention(qs, ks, ks),
+                               tref.causal_attention_ref(qs, ks, ks),
+                               rtol=0, atol=0)
     assert tk.LAUNCHES == {"group_quant": 0, "transform_quant": 0,
                            "paged_decode": 0, "paged_decode_gqa": 0,
                            "paged_decode_gqa_mp": 0, "flash_decode": 0,
-                           "quant_matmul": 0}
+                           "quant_matmul": 0, "causal_attention": 0}
 
 
 def test_wrappers_refuse_other_devices():
